@@ -1,0 +1,26 @@
+"""jittor_mlp_tpu_torch — the PyTorch / CUDA port of jittor_mlp_tpu.
+
+The JAX package ``jittor_mlp_tpu`` is the reference; this package mirrors its
+module paths, factory signatures and torch ``state_dict`` names in PyTorch
+for one NVIDIA H100. Every kernel the JAX package wrote in Pallas becomes a
+kernel written by hand for Hopper (``csrc/``, bound in ``ops/kernels/``);
+on a CPU tensor each kernel's wrapper runs its plain PyTorch twin.
+
+This package imports neither JAX nor ``jittor_mlp_tpu``, and builds no kernel
+at import time.
+"""
+
+from . import config
+from .core.model import Model
+from .models.mlp_mixer import MLPMixerForImageClassification
+from .serving import MicroBatcher, Predictor
+
+__all__ = [
+    "Model",
+    "MicroBatcher",
+    "Predictor",
+    "config",
+    "MLPMixerForImageClassification",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,93 @@
+"""Functional NN primitives on torch tensors (subset of ``jittor_mlp_tpu/core/nnf.py``).
+
+Each function takes the activation first and the torch-layout weights as
+tensors, in the style of ``torch.nn.functional``:
+
+- Linear:    weight (out, in)        — applied as x @ W^T (+ b)
+- Conv1d k1: weight (out, in, 1)     — token mixing over axis -2
+- Conv2d:    weight (O, I, kh, kw)   — patch embedding of NHWC activations
+- Norms:     weight/bias (C,)        — channel-last
+
+The rounding points are those of the JAX package, so the two agree on the
+same weights: bf16 GELU is the tanh form computed in float32 and cast back,
+and LayerNorm takes its statistics in float32 and casts to the input dtype
+before the affine.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+_SQRT_HALF = 1.0 / math.sqrt(2.0)
+_TANH_C = math.sqrt(2.0 / math.pi)
+
+
+def gelu_erf(x):
+    """Exact-erf GELU (torch nn.GELU())."""
+    return 0.5 * x * (1.0 + torch.erf(x * _SQRT_HALF))
+
+
+def gelu_tanh(x):
+    """Hendrycks tanh-form GELU, in the dtype it is given."""
+    return 0.5 * x * (1.0 + torch.tanh(_TANH_C * (x + 0.044715 * x * x * x)))
+
+
+def gelu(x):
+    """Exact erf for float32; for bf16 the tanh form in float32, cast back
+    (|error vs exact| < 5e-4, under bf16 resolution)."""
+    if x.dtype == torch.bfloat16:
+        return gelu_tanh(x.float()).to(x.dtype)
+    return gelu_erf(x)
+
+
+def linear(x, weight, bias=None):
+    """torch nn.Linear: x[..., in] @ weight(out, in)^T + bias."""
+    y = torch.matmul(x, weight.t())
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def conv1d_token(x, weight, bias=None):
+    """torch nn.Conv1d(N_in, N_out, kernel_size=1) applied over the token
+    axis. x: (..., N_in, D); weight: (N_out, N_in, 1)."""
+    y = torch.matmul(weight[:, :, 0], x)
+    if bias is not None:
+        y = y + bias[:, None]
+    return y
+
+
+def patch_embed(x, weight, bias, patch_size):
+    """Non-overlapping Conv2d(k=s=patch) as reshape + one matmul.
+    x NHWC → (B, H/p, W/p, O)."""
+    ph, pw = (patch_size, patch_size) if isinstance(patch_size, int) else patch_size
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // ph, ph, W // pw, pw, C)
+    x = x.permute(0, 1, 3, 5, 2, 4)  # B, H/p, W/p, C, ph, pw
+    x = x.reshape(B, H // ph, W // pw, C * ph * pw)
+    w = weight.reshape(weight.shape[0], -1)  # (O, C*ph*pw)
+    y = torch.matmul(x, w.t().to(x.dtype))
+    if bias is not None:
+        y = y + bias
+    return y
+
+
+def layer_norm(x, weight=None, bias=None, eps=1e-5):
+    """torch nn.LayerNorm over the last axis; stats in float32, the
+    normalized value cast to the input dtype before the affine."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    if weight is not None:
+        y = y * weight.to(x.dtype)
+        if bias is not None:
+            y = y + bias.to(x.dtype)
+    return y
+
+
+def global_avg_pool_tokens(x):
+    """Mean over the token axis: (B, N, D) → (B, D)."""
+    return x.mean(-2)

@@ -1,0 +1,140 @@
+"""Mixer block forward: the hand-written CUDA kernel, its plain twin, the wrapper.
+
+Replaces ``jittor_mlp_tpu/ops/pallas/mixer_block.py::fused_mixer_block``. The
+kernel source is ``csrc/mixer_block.cu`` (its header says what bounds it on
+an H100 and what the design does about that). For x (B, N, D) the block is
+
+    xn  = bf16(LN1(x))                          f32 stats and affine
+    t   = bf16(gelu_tanh(Wt1 · xn + bt1))       per image, f32 accumulation
+    h   = bf16(x + Wt2 · t + bt2)
+    c   = bf16(gelu_tanh(bf16(LN2(h)) · Wc1ᵀ + bc1))
+    out = bf16(h + c · Wc2ᵀ + bc2)
+
+with the weights in their torch layouts: wt1 (TD, N), wt2 (N, TD),
+wc1 (CD, D), wc2 (D, CD).
+
+- ``mixer_block_ref``: plain PyTorch with the same rounding points (bf16
+  operands upcast to f32, f32 matmuls, casts where the kernel casts). For
+  float32 inputs it uses the exact-erf GELU, as the TPU kernel does.
+- ``fused_mixer_block``: a CPU tensor goes to ``mixer_block_ref``; a CUDA
+  bf16 contiguous tensor launches the kernel; anything else raises.
+- ``LAUNCHES``: how many times the wrapper launched the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from ...core.nnf import gelu_erf, gelu_tanh
+
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()  # first use may come from several serving threads
+_lib = None
+
+
+def _ln(x, w, b, eps=1e-5):
+    """LayerNorm with f32 stats and f32 affine, returned in f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()
+
+
+def mixer_block_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                    wc1, bc1, wc2, bc2):
+    """Plain PyTorch twin of the kernel, rounding where the kernel rounds.
+    On CUDA the float32 matmuls need TF32 off (PyTorch's default for
+    matmuls) to match."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    xn = _ln(x, ln1w, ln1b).to(dt)
+    t = torch.matmul(wt1.float(), xn.float()) + bt1.float()[:, None]
+    t = act(t).to(dt)
+    h = x.float() + torch.matmul(wt2.float(), t.float()) + bt2.float()[:, None]
+    h = h.to(dt)
+    hn = _ln(h, ln2w, ln2b).to(dt)
+    c = act(torch.matmul(hn.float(), wc1.float().t()) + bc1.float()).to(dt)
+    c2 = torch.matmul(c.float(), wc2.float().t()) + bc2.float()
+    return (h.float() + c2).to(dt)
+
+
+def _load():
+    global _lib
+    with _LOAD_LOCK:
+        if _lib is None:
+            from ._build import build
+
+            lib = ctypes.CDLL(build("mixer_block", ["mixer_block.cu"]))
+            lib.mixer_block_bf16.argtypes = (
+                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+            lib.mixer_block_bf16.restype = ctypes.c_int
+            lib.mixer_error_string.argtypes = [ctypes.c_int]
+            lib.mixer_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def build():
+    """Compile (if needed) and load the kernel library."""
+    _load()
+
+
+def _check(x, weights):
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, D), got shape {tuple(x.shape)}")
+    B, N, D = x.shape
+    TD = weights[2].shape[0]
+    CD = weights[8].shape[0]
+    want = [(D,), (D,), (TD, N), (TD,), (N, TD), (N,), (D,), (D,),
+            (CD, D), (CD,), (D, CD), (D,)]
+    names = ["ln1w", "ln1b", "wt1", "bt1", "wt2", "bt2", "ln2w", "ln2b",
+             "wc1", "bc1", "wc2", "bc2"]
+    for name, w, shape in zip(names, weights, want):
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(w.shape)} != {shape}")
+        if w.device != x.device:
+            raise ValueError(f"{name} is on {w.device}, x on {x.device}")
+    return B, N, D, TD, CD
+
+
+def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                      wc1, bc1, wc2, bc2):
+    """One Mixer block. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    global LAUNCHES
+    weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
+    if not x.is_floating_point():
+        raise TypeError(f"x must be floating point, got {x.dtype}")
+    B, N, D, TD, CD = _check(x, weights)
+    if x.device.type == "cpu":
+        return mixer_block_ref(x, *weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"no mixer-block kernel for device {x.device}")
+    for t in (x, *weights):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+    lib = _load()
+    xn = torch.empty_like(x)
+    t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(x)
+    c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.mixer_block_bf16(
+            *(a.data_ptr() for a in (x, *weights, xn, t, h, c, out)),
+            B, N, D, TD, CD, stream)
+    if err:
+        raise RuntimeError(
+            f"mixer_block kernel launch failed: "
+            f"{lib.mixer_error_string(err).decode()} (cudaError {err})")
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return out

@@ -1,0 +1,26 @@
+"""The port imports without JAX, nvcc or triton, and builds nothing on import."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_import_pulls_in_no_jax_and_needs_no_toolchain():
+    code = (
+        "import sys\n"
+        "import jittor_mlp_tpu_torch as jt\n"
+        "import jittor_mlp_tpu_torch.ops.kernels.mixer_block as mb\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'jittor_mlp_tpu' not in sys.modules, 'JAX package imported'\n"
+        "assert 'triton' not in sys.modules, 'triton imported'\n"
+        "assert mb._lib is None, 'kernel library loaded at import'\n"
+        "print('ok')\n"
+    )
+    # an empty PATH: no nvcc can be found, and the import must not need one
+    env = {**os.environ, "PATH": "", "PYTHONPATH": REPO}
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"

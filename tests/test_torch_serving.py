@@ -1,0 +1,117 @@
+"""The port's Predictor and MicroBatcher against jittor_mlp_tpu's, on the CPU."""
+
+import threading
+
+import numpy as np
+import pytest
+
+import jittor_mlp_tpu as jm
+import jittor_mlp_tpu_torch as jt
+
+KW = dict(d_model=16, depth=1, patch_size=8, image_size=32, num_classes=10,
+          use_pallas=False)
+
+
+def _predictors(batch_size=4):
+    j = jm.Predictor(jm.MLPMixerForImageClassification(**KW),
+                     batch_size=batch_size, image_size=32, top_k=3, bf16=False)
+    t = jt.Predictor(jt.MLPMixerForImageClassification(**KW),
+                     batch_size=batch_size, image_size=32, top_k=3, bf16=False)
+    return j, t
+
+
+def _images(n, size=32, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (n, size, size, 3),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.parametrize("n,size", [(4, 32), (3, 32), (2, 48)],
+                         ids=["full", "padded", "resized"])
+def test_predict_matches_jax(n, size):
+    jp, tp = _predictors()
+    imgs = _images(n, size)
+    jl, jprob = jp.predict(imgs)
+    tl, tprob = tp.predict(imgs)
+    assert tl.shape == tprob.shape == (n, 3)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+
+
+def test_padding_is_invisible_and_oversize_raises():
+    _, tp = _predictors()
+    imgs = _images(4)
+    l_all, p_all = tp.predict(imgs)
+    l_one, p_one = tp.predict(imgs[1:2])
+    np.testing.assert_array_equal(l_one[0], l_all[1])
+    np.testing.assert_array_equal(p_one[0], p_all[1])
+    with pytest.raises(ValueError):
+        tp.predict(_images(5))
+
+
+def test_options_and_default_dtype():
+    model = jt.MLPMixerForImageClassification(**KW)
+    with pytest.raises(ValueError):
+        jt.Predictor(model, weights="int4")
+    with pytest.raises(ValueError):
+        jt.Predictor(model, compute="fp8")
+    # the port's tuned.SERVE is empty: every model serves in bf16
+    p = jt.Predictor(model, batch_size=2, image_size=32, top_k=3)
+    assert p.dtype == "bf16"
+    assert next(p.model.parameters()).dtype.is_floating_point
+    labels, probs = p.predict(_images(2))
+    assert labels.shape == probs.shape == (2, 3)
+    assert np.isfinite(probs).all()
+
+
+def test_tuned_tables_resolve_by_key_or_factory(monkeypatch):
+    from jittor_mlp_tpu_torch import tuned
+
+    for name in ("mlp_mixer", "MLPMixerForImageClassification"):
+        assert tuned.serve_settings(name) is None
+        assert tuned.train_settings(name) is None
+    serve = {"factory": "MLPMixerForImageClassification", "dtype": "f32"}
+    train = {"factory": "MLPMixerForImageClassification", "remat": False, "batch": 8}
+    monkeypatch.setitem(tuned.SERVE, "mlp_mixer", serve)
+    monkeypatch.setitem(tuned.TRAIN, "mlp_mixer", train)
+    for name in ("mlp_mixer", "MLPMixerForImageClassification"):
+        assert tuned.serve_settings(name) is serve
+        assert tuned.train_settings(name) is train
+    # a SERVE row sets Predictor's default dtype
+    p = jt.Predictor(jt.MLPMixerForImageClassification(**KW), batch_size=2)
+    assert p.dtype == "f32"
+
+
+def test_latency_stats_keys():
+    _, tp = _predictors()
+    assert tp.latency_stats() == {}
+    tp.warmup()
+    tp.predict(_images(2))
+    s = tp.latency_stats()
+    assert set(s) == {"count", "mean_ms", "p50_ms", "p95_ms", "p99_ms", "max_ms"}
+    assert s["count"] == 2 and s["max_ms"] >= s["p50_ms"] > 0
+
+
+def test_microbatcher_bit_identical_to_predict():
+    _, tp = _predictors(batch_size=4)
+    imgs = _images(8, seed=1)
+    want = [tp.predict(imgs[i:i + 1]) for i in range(8)]
+    results = [None] * 8
+    with jt.MicroBatcher(tp, max_delay_ms=20.0) as mb:
+        def worker(i):
+            results[i] = mb.submit(imgs[i])
+
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        stats = mb.stats()
+        with pytest.raises(ValueError):
+            mb.submit(_images(1, size=16)[0])
+    for (labels, probs), (wl, wp) in zip(results, want):
+        np.testing.assert_array_equal(labels, wl[0])
+        np.testing.assert_array_equal(probs, wp[0])
+    assert stats["requests"] == 8 and stats["batches"] >= 2
+    with pytest.raises(RuntimeError):
+        mb.submit(imgs[0])
