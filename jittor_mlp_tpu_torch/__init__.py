@@ -13,6 +13,7 @@ at import time.
 from . import config
 from .core.model import Model
 from .models.mlp_mixer import MLPMixerForImageClassification
+from .models.res_mlp import ResMLPForImageClassification
 from .serving import MicroBatcher, Predictor
 
 __all__ = [
@@ -21,6 +22,7 @@ __all__ = [
     "Predictor",
     "config",
     "MLPMixerForImageClassification",
+    "ResMLPForImageClassification",
 ]
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

@@ -11,13 +11,42 @@ Counterpart of ``jittor_mlp_tpu/config.py``:
   TF32 off for both matmuls and cuDNN and restores the previous settings on
   exit.
 - ``bf16_mode()``: bfloat16 activations.
+- ``int8_mode()``: dynamic W8A8 int8 inference for the calling thread. The
+  JAX package reads its global ``int8_matmul`` flag once, at trace time; an
+  eager forward reads it at every dense op, so a process-global flag would
+  let one serving thread switch int8 off while another thread's forward is
+  half done. The flag is therefore thread-local: ``int8_enabled()`` reads
+  it, ``int8_mode()`` sets it for the calling thread only.
 """
 
+import threading
 from contextlib import contextmanager
 
 import torch
 
 compute_dtype = torch.float32
+_local = threading.local()
+
+
+def int8_enabled():
+    """True inside ``int8_mode()`` on the calling thread."""
+    return getattr(_local, "int8", False)
+
+
+@contextmanager
+def int8_mode():
+    """Dynamic W8A8 int8 inference on every dense op, for this thread.
+
+    Inside the context, ``nnf.linear`` / ``conv1d_token`` / ``patch_embed``
+    quantize activations per token and weights per output channel and
+    contract int8 values exactly (``quant.dynamic_int8_matmul``), and in
+    bf16 eval the Mixer / ResMLP blocks run their W8A8 kernels. Eval only."""
+    old = int8_enabled()
+    _local.int8 = True
+    try:
+        yield
+    finally:
+        _local.int8 = old
 
 
 @contextmanager

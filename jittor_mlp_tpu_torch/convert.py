@@ -21,7 +21,21 @@ _LAYOUT = {
         "active": ("active", False),
         "head": ("mlp_head.0", False),
     },
+    "res_mlp": {
+        "patcher": ("patcher.0", False),
+        "blocks": ("model", True),
+        "affine": ("affine", False),
+        "head": ("mlp_head.0", False),
+    },
 }
+
+
+def stacked_prefixes(name):
+    """Torch prefixes whose numbered children the JAX package stacks into
+    one leaf per parameter (e.g. {"model"} for ``model.{i}.…``)."""
+    if name not in _LAYOUT:
+        raise ValueError(f"no JAX→torch layout for model {name!r}")
+    return {prefix for prefix, stacked in _LAYOUT[name].values() if stacked}
 
 
 def _flatten(tree, prefix):

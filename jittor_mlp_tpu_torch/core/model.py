@@ -1,7 +1,8 @@
 """Base module with the surface of ``jittor_mlp_tpu.core.model.Model``.
 
 A zoo model is an ``nn.Module`` whose ``state_dict`` names are the torch
-reference's. ``Model`` adds what the JAX facade offers on top: torch
+reference's; the factories build it on the card by default (``place``).
+``Model`` adds what the JAX facade offers on top: torch
 state-dict import/export by those names, ``to_bf16``, ``param_count`` and a
 ``__call__`` that also takes a numpy NCHW batch and casts it to
 ``config.compute_dtype`` (as the JAX ``Model.__call__`` does).
@@ -32,6 +33,18 @@ class Model(nn.Module):
             {k: torch.from_numpy(v.copy()) for k, v in sd.items()},
             strict=True, assign=True,
         )
+
+    def place(self, device):
+        """Move the model to ``device``. The factories call this with their
+        ``device`` argument ("cuda" unless the caller asks for the CPU); a
+        CUDA device with no card raises instead of falling back."""
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{type(self).__name__}: device {str(device)!r} asked for, but "
+                f"torch.cuda.is_available() is false; pass device='cpu' to "
+                f"build the model on the CPU")
+        return self.to(device)
 
     @property
     def device(self):

@@ -12,6 +12,10 @@ The rounding points are those of the JAX package, so the two agree on the
 same weights: bf16 GELU is the tanh form computed in float32 and cast back,
 and LayerNorm takes its statistics in float32 and casts to the input dtype
 before the affine.
+
+Under ``config.int8_mode()`` (this thread), ``linear``, ``conv1d_token`` and
+``patch_embed`` run their contraction through
+``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense`` does.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from .. import config
 
 _SQRT_HALF = 1.0 / math.sqrt(2.0)
 _TANH_C = math.sqrt(2.0 / math.pi)
@@ -42,9 +48,18 @@ def gelu(x):
     return gelu_erf(x)
 
 
+def _dense(x, wt):
+    """x @ wt: a plain matmul, or dynamic W8A8 int8 under int8_mode()."""
+    if config.int8_enabled():
+        from ..quant import dynamic_int8_matmul
+
+        return dynamic_int8_matmul(x, wt)
+    return torch.matmul(x, wt)
+
+
 def linear(x, weight, bias=None):
     """torch nn.Linear: x[..., in] @ weight(out, in)^T + bias."""
-    y = torch.matmul(x, weight.t())
+    y = _dense(x, weight.t())
     if bias is not None:
         y = y + bias
     return y
@@ -53,7 +68,13 @@ def linear(x, weight, bias=None):
 def conv1d_token(x, weight, bias=None):
     """torch nn.Conv1d(N_in, N_out, kernel_size=1) applied over the token
     axis. x: (..., N_in, D); weight: (N_out, N_in, 1)."""
-    y = torch.matmul(weight[:, :, 0], x)
+    w = weight[:, :, 0]
+    if config.int8_enabled():
+        # the contraction runs over the token axis: move it last, so the
+        # per-token activation scales cover the contracted slice
+        y = _dense(x.transpose(-1, -2), w.t()).transpose(-1, -2)
+    else:
+        y = torch.matmul(w, x)
     if bias is not None:
         y = y + bias[:, None]
     return y
@@ -68,7 +89,7 @@ def patch_embed(x, weight, bias, patch_size):
     x = x.permute(0, 1, 3, 5, 2, 4)  # B, H/p, W/p, C, ph, pw
     x = x.reshape(B, H // ph, W // pw, C * ph * pw)
     w = weight.reshape(weight.shape[0], -1)  # (O, C*ph*pw)
-    y = torch.matmul(x, w.t().to(x.dtype))
+    y = _dense(x, w.t().to(x.dtype))
     if bias is not None:
         y = y + bias
     return y
@@ -86,6 +107,12 @@ def layer_norm(x, weight=None, bias=None, eps=1e-5):
         if bias is not None:
             y = y + bias.to(x.dtype)
     return y
+
+
+def affine(x, alpha, beta):
+    """ResMLP's Aff layer: x * alpha + beta, broadcast on the last axis
+    (alpha, beta of shape (1, 1, C) or (C,))."""
+    return x * alpha.reshape(-1) + beta.reshape(-1)
 
 
 def global_avg_pool_tokens(x):

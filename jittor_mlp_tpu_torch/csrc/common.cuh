@@ -1,0 +1,75 @@
+// Device helpers shared by the port's kernels (sm_90a, plain C interface).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace jmt {
+
+typedef __nv_bfloat16 bf16;
+
+// The Hendrycks tanh form of GELU, in f32 (the bf16 paths' activation).
+__device__ __forceinline__ float gelu_tanh(float x) {
+  return 0.5f * x * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 16-byte global → shared copy; src_bytes 0 zero-fills the destination.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Whether a buffer allows 16-byte access of rows ld elements apart, batch
+// entries stride elements apart (elem bytes each).
+inline bool vec_ok(const void* p, long long ld, long long stride, int elem = 2) {
+  const long long per16 = 16 / elem;
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % per16 == 0 && stride % per16 == 0;
+}
+
+// Carves a workspace into 256-byte-aligned buffers. With base nullptr it
+// only counts: `bytes` is then the size to allocate.
+struct Carver {
+  char* base;
+  size_t bytes = 0;
+
+  template <class T>
+  T* take(size_t n) {
+    bytes = (bytes + 255) & ~size_t(255);
+    T* p = base ? reinterpret_cast<T*>(base + bytes) : nullptr;
+    bytes += n * sizeof(T);
+    return p;
+  }
+};
+
+inline int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
+}  // namespace jmt
+
+#define JMT_CHECK(call)                    \
+  do {                                     \
+    cudaError_t e_ = (call);               \
+    if (e_ != cudaSuccess) return (int)e_; \
+  } while (0)

@@ -1,0 +1,176 @@
+// W8A8 Mixer block forward for Hopper (sm_90a), with a plain C interface.
+//
+// Replaces the Pallas TPU kernel jittor_mlp_tpu/ops/pallas/
+// mixer_block_int8.py::fused_mixer_block_int8 (body `_kernel_int8`). Every
+// product is int8 × int8 → int32 on the tensor cores (gemm_s8.cuh); weights
+// arrive quantized per output channel (the wrapper quantizes them, as the
+// JAX wrapper does outside its kernel); activations are quantized here,
+// dynamically (quant_s8.cuh). For x (B, N, D) bf16, per image:
+//   xn  = LN1(x)                                       f32, not rounded
+//   qxn, sxn = quant over the tokens, per column d      (K of the product)
+//   t   = gelu_tanh((acc(qWt1 · qxn) · swt1) · sxn + bt1)          f32
+//   qt, st = quant over TD, per column d
+//   h   = bf16((x + (acc(qWt2 · qt) · swt2) · st) + bt2)
+// then over all B·N rows:
+//   qhn, shn = quant of LN2(h) (f32) per row, over D
+//   c   = gelu_tanh((acc(qhn · qWc1ᵀ) · shn) · swc1 + bc1)           f32
+//   qc, sc = quant per (row, chunk of ck columns); ck = CD/4 when CD % 4 = 0
+//            and CD ≥ 2048, else CD
+//   acc2 = Σ_chunks (acc_chunk(qc · qWc2ᵀ) · sc) · swc2, in chunk order
+//   out = bf16(h + (acc2 + bc2))
+//
+// What bounds it on this card, and what the design does about it:
+// - 2·B·N·D·(2·TD + 2·CD) integer operations: 532.7 G at b256 for
+//   Mixer-B/16, 0.269 ms at the data sheet's 1,979 dense int8 TOPS.
+// - Each activation scale is a reduction over the K axis of the product
+//   that consumes the codes, so no GEMM epilogue can quantize its own tile
+//   for the next product. Every quantization is a pass of its own between
+//   the GEMMs, and the f32 intermediates t (B, TD, D) and c (B·N, CD) go
+//   through device memory unrounded, as the reference keeps them in f32:
+//   rounding them to bf16 would change the int8 codes. That traffic (t is
+//   302 MB each way at b256, c 617 MB) is this design's cost; ten launches
+//   per block.
+// - mma.sync's s8 shapes take both operands K-contiguous, so the token
+//   products' B operands are written transposed, (B, D, Np) and (B, D, TDp),
+//   by the quantize passes; the token axis N = 196 is padded with zero codes
+//   to Np = 224 (a multiple of the MMA's K, 32), which is exact and makes the
+//   rows 16-byte aligned.
+// - The second channel product keeps one f32 sum per output in registers
+//   and flushes its int32 sum into it at each chunk boundary (gemm_s8.cuh).
+
+#include "gemm_s8.cuh"
+#include "quant_s8.cuh"
+
+using namespace jmt;
+
+namespace {
+
+// C = bf16(R + (v + bias)) (bias_first) or bf16((R + v) + bias); bias per
+// row or per column; R and C bf16 with the same layout.
+struct ResidBias {
+  const bf16* R;
+  const bf16* bias;
+  int per_row;
+  int bias_first;
+  bf16* C;
+  int ldc;
+  long long sC;
+
+  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
+    const long long o = z * sC + (long long)m * ldc + n;
+    for (int e = 0; e < cnt; ++e) {
+      const float r = __bfloat162float(R[o + e]);
+      const float b = __bfloat162float(bias[per_row ? m : n + e]);
+      C[o + e] = __float2bfloat16(bias_first ? __fadd_rn(r, __fadd_rn(v[e], b))
+                                             : __fadd_rn(__fadd_rn(r, v[e]), b));
+    }
+  }
+};
+
+struct Dims {
+  int B, N, D, TD, CD, Np, TDp, Dp, ck, ckp, nch, M;
+
+  Dims(int B_, int N_, int D_, int TD_, int CD_) : B(B_), N(N_), D(D_), TD(TD_), CD(CD_) {
+    Np = round_up(N, 32);
+    TDp = round_up(TD, 32);
+    Dp = round_up(D, 32);
+    ck = (CD % 4 == 0 && CD >= 2048) ? CD / 4 : CD;
+    ckp = round_up(ck, 32);
+    nch = CD / ck;
+    M = B * N;
+  }
+};
+
+struct Work {
+  float2* stats;
+  int8_t* qxn;
+  float* sxn;
+  float* t;
+  int8_t* qt;
+  float* st;
+  bf16* h;
+  int8_t* qhn;
+  float* shn;
+  float* c;
+  int8_t* qc;
+  float* sc;
+
+  Work(Carver& w, const Dims& d) {
+    const size_t bd = (size_t)d.B * d.D;
+    stats = w.take<float2>(d.M);
+    qxn = w.take<int8_t>(bd * d.Np);
+    sxn = w.take<float>(bd);
+    t = w.take<float>(bd * d.TD);
+    qt = w.take<int8_t>(bd * d.TDp);
+    st = w.take<float>(bd);
+    h = w.take<bf16>((size_t)d.M * d.D);
+    qhn = w.take<int8_t>((size_t)d.M * d.Dp);
+    shn = w.take<float>(d.M);
+    c = w.take<float>((size_t)d.M * d.CD);
+    qc = w.take<int8_t>((size_t)d.M * d.nch * d.ckp);
+    sc = w.take<float>((size_t)d.M * d.nch);
+  }
+};
+
+}  // namespace
+
+// Bytes of device workspace mixer_block_int8 needs.
+extern "C" size_t mixer_block_int8_workspace(int B, int N, int D, int TD, int CD) {
+  Carver counter{nullptr};
+  const Work work(counter, Dims(B, N, D, TD, CD));
+  (void)work;
+  return counter.bytes;
+}
+
+// x, ln*, bt*, bc*, out: bf16. qwt1 (TD, Np), qwt2 (N, TDp), qwc1 (CD, Dp),
+// qwc2 (D, nch·ckp): int8 weights quantized per output channel (row), zero
+// in the padding; swt1 (TD), swt2 (N), swc1 (CD), swc2 (D): their f32
+// scales. ws: mixer_block_int8_workspace bytes. Returns a cudaError_t code
+// (0 on success) from the first launch that failed.
+extern "C" int mixer_block_int8(const void* x, const void* ln1w, const void* ln1b,
+                                const void* qwt1, const void* swt1, const void* bt1,
+                                const void* qwt2, const void* swt2, const void* bt2,
+                                const void* ln2w, const void* ln2b, const void* qwc1,
+                                const void* swc1, const void* bc1, const void* qwc2,
+                                const void* swc2, const void* bc2, void* ws, void* out, int B,
+                                int N, int D, int TD, int CD, void* stream_ptr) {
+  using s8gemm::gemm;
+  using s8gemm::Scales;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  const Dims d(B, N, D, TD, CD);
+  Carver carver{static_cast<char*>(ws)};
+  const Work w(carver, d);
+  auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
+  auto f32 = [](const void* p) { return static_cast<const float*>(p); };
+
+  // token mix, per image
+  JMT_CHECK(quant::row_stats(s, x, w.stats, d.M, D));
+  JMT_CHECK(quant::quant_cols(s, quant::LnSrc{bf(x), w.stats, bf(ln1w), bf(ln1b), N, D}, B, N,
+                              d.Np, D, w.qxn, w.sxn));
+  JMT_CHECK(gemm(s, B, TD, D, d.Np, d.Np, qwt1, d.Np, 0, w.qxn, d.Np, (long long)D * d.Np,
+                 Scales{f32(swt1), 0, 1, w.sxn, D},
+                 s8gemm::BiasGeluF32{bf(bt1), 1, w.t, D, (long long)TD * D}));
+  JMT_CHECK(quant::quant_cols(s, quant::F32Src{w.t, (long long)TD * D, D}, B, TD, d.TDp, D,
+                              w.qt, w.st));
+  JMT_CHECK(gemm(s, B, N, D, d.TDp, d.TDp, qwt2, d.TDp, 0, w.qt, d.TDp, (long long)D * d.TDp,
+                 Scales{f32(swt2), 0, 1, w.st, D},
+                 ResidBias{bf(x), bf(bt2), 1, 0, w.h, D, (long long)N * D}));
+  // channel mix over all B·N rows, the hidden axis in chunks
+  JMT_CHECK(quant::row_stats(s, w.h, w.stats, d.M, D));
+  JMT_CHECK(quant::quant_rows(s, quant::LnSrc{w.h, w.stats, bf(ln2w), bf(ln2b), d.M, D}, d.M,
+                              1, D, d.Dp, w.qhn, w.shn));
+  JMT_CHECK(gemm(s, 1, d.M, CD, d.Dp, d.Dp, w.qhn, d.Dp, 0, qwc1, d.Dp, 0,
+                 Scales{w.shn, 0, 1, f32(swc1), 0},
+                 s8gemm::BiasGeluF32{bf(bc1), 0, w.c, CD, 0}));
+  JMT_CHECK(quant::quant_rows(s, quant::F32Src{w.c, 0, CD}, d.M, d.nch, d.ck, d.ckp, w.qc,
+                              w.sc));
+  const int K2 = d.nch * d.ckp;
+  JMT_CHECK(gemm(s, 1, d.M, D, K2, d.ckp, w.qc, K2, 0, qwc2, K2, 0,
+                 Scales{w.sc, 0, d.nch, f32(swc2), 0},
+                 ResidBias{w.h, bf(bc2), 0, 1, static_cast<bf16*>(out), D, 0}));
+  return 0;
+}
+
+extern "C" const char* mixer_int8_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

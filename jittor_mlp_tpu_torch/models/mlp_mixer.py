@@ -8,8 +8,12 @@ reference's (``patcher.0``, ``model.{i}.0.norm``, ``model.{i}.0.fn.net.{0,3}``,
 ``model.{i}.1.…``, ``active``, ``mlp_head.0``).
 
 In bf16 eval, every block runs through ``ops.kernels.mixer_block``'s
-``fused_mixer_block`` (the CUDA kernel on a CUDA tensor, its plain twin on
-the CPU). float32 and training take the plain ``nnf`` block.
+``fused_mixer_block``, or under ``config.int8_mode()`` through
+``ops.kernels.mixer_block_int8``'s W8A8 ``fused_mixer_block_int8`` (each the
+CUDA kernel on a CUDA tensor, its plain twin on the CPU). float32 and
+training take the plain ``nnf`` block, whose dense ops go int8 under
+``int8_mode()`` as in the JAX package. The JAX gate's ``B % 2 == 0`` and
+TPU-backend conditions belong to its TPU kernels and are dropped.
 """
 
 from __future__ import annotations
@@ -17,10 +21,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .. import config
 from ..core import nnf
 from ..core.init import SDBuilder
 from ..core.model import Model
 from ..ops.kernels.mixer_block import fused_mixer_block
+from ..ops.kernels.mixer_block_int8 import fused_mixer_block_int8
 from ..utils import check_sizes, pair
 
 
@@ -130,9 +136,10 @@ class MLPMixer(Model):
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
         x = x.reshape(x.shape[0], self.num_patches, self.d_model)
         if self.uses_kernel(x):
+            block = fused_mixer_block_int8 if config.int8_enabled() else fused_mixer_block
             for tok, chan in self.model:
                 w = tuple(a.to(x.dtype) for a in (*tok.fused_args(), *chan.fused_args()))
-                x = fused_mixer_block(x, *w)
+                x = block(x, *w)
         else:
             for tok, chan in self.model:
                 x = chan(tok(x))
@@ -154,13 +161,16 @@ def MLPMixerForImageClassification(
     use_pallas=True,
     block_runner=None,
     seed=0,
+    device="cuda",
 ):
     """token_dim: hidden width of the token-mixing FF. Defaults to
     num_patches*expansion_factor; the paper's Mixer-B/16 uses 384.
 
     use_pallas: keeps the JAX factory's name; True runs bf16 eval blocks
-    through the hand-written mixer-block kernel. block_runner must be None:
-    the parallel runners are not ported yet."""
+    through the hand-written mixer-block kernels (W8A8 under int8_mode).
+    block_runner must be None: the parallel runners are not ported yet.
+    device: where the model is built, the card unless the caller asks for
+    the CPU; with no card, "cuda" raises."""
     if block_runner is not None:
         raise NotImplementedError("block_runner is not supported by the port yet")
     return MLPMixer(
@@ -168,4 +178,4 @@ def MLPMixerForImageClassification(
         patch_size=patch_size, image_size=image_size, depth=depth,
         expansion_factor=expansion_factor, token_dim=token_dim,
         use_pallas=use_pallas, seed=seed,
-    )
+    ).place(device)

@@ -6,18 +6,21 @@ Each library is compiled at first use, from the sources in this checkout, into
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so <sources>
 
-The file name carries a hash of the sources and flags, so an edited ``.cu``
-is rebuilt. The sources have a plain C interface and include no PyTorch
+The file name carries a hash of the sources, the shared headers (``*.cuh``)
+and the flags, so an edited ``.cu`` or ``.cuh`` is rebuilt. Libraries are
+independent, so several may build at once (one nvcc each). The sources have a plain C interface and include no PyTorch
 header, which keeps a build to seconds. Nothing here runs at import time:
 the CPU-only test environment has no nvcc.
 """
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -38,8 +41,9 @@ def build(name, sources):
     """Compile ``sources`` (file names under csrc/) into a shared library
     and return its path. Raises RuntimeError with nvcc's stderr on failure."""
     paths = [os.path.join(_CSRC, s) for s in sources]
+    headers = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     out = os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
@@ -55,3 +59,62 @@ def build(name, sources):
             f"{' '.join(cmd)}\n{res.stderr}")
     os.replace(tmp, out)
     return out
+
+
+class Library:
+    """One kernel library: built and loaded with ctypes at first use, then
+    launched on PyTorch's current stream.
+
+    ``functions`` maps each C entry to (number of pointer arguments, number
+    of int arguments); every entry takes the stream last and returns a
+    cudaError_t code. ``workspace`` is (entry, number of int arguments)
+    of an entry that returns the bytes of scratch the kernel needs.
+    ``error`` names the entry that turns a code into its message."""
+
+    def __init__(self, name, sources, functions, error, workspace=None):
+        self.name = name
+        self.sources = sources
+        self.functions = functions
+        self.error = error
+        self.workspace_fn = workspace
+        self._lib = None
+        self._lock = threading.Lock()  # first use may come from several threads
+
+    @property
+    def loaded(self):
+        return self._lib is not None
+
+    def load(self):
+        with self._lock:
+            if self._lib is None:
+                lib = ctypes.CDLL(build(self.name, self.sources))
+                for fn, (n_ptr, n_int) in self.functions.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                                  + [ctypes.c_void_p])
+                    f.restype = ctypes.c_int
+                getattr(lib, self.error).argtypes = [ctypes.c_int]
+                getattr(lib, self.error).restype = ctypes.c_char_p
+                if self.workspace_fn:
+                    fn, n_int = self.workspace_fn
+                    getattr(lib, fn).argtypes = [ctypes.c_int] * n_int
+                    getattr(lib, fn).restype = ctypes.c_size_t
+                self._lib = lib
+        return self._lib
+
+    def workspace(self, *dims):
+        """Bytes of device scratch for these dimensions."""
+        return getattr(self.load(), self.workspace_fn[0])(*dims)
+
+    def launch(self, fn, device, tensors, ints):
+        """Call entry ``fn`` with the tensors' device pointers, the ints and
+        ``device``'s current stream; raise on a nonzero cudaError_t."""
+        import torch
+
+        lib = self.load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, fn)(*(t.data_ptr() for t in tensors), *ints, stream)
+        if err:
+            msg = getattr(lib, self.error)(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: {msg} (cudaError {err})")

@@ -23,20 +23,20 @@ wc1 (CD, D), wc2 (D, CD).
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
+from ._build import Library
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_LOAD_LOCK = threading.Lock()  # first use may come from several serving threads
-_lib = None
+_LIB = Library("mixer_block", ["mixer_block.cu"], {"mixer_block_bf16": (18, 5)},
+               error="mixer_error_string")
 
 
-def _ln(x, w, b, eps=1e-5):
+def layer_norm_f32(x, w, b, eps=1e-5):
     """LayerNorm with f32 stats and f32 affine, returned in f32."""
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
@@ -51,39 +51,35 @@ def mixer_block_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     matmuls) to match."""
     dt = x.dtype
     act = gelu_erf if dt == torch.float32 else gelu_tanh
-    xn = _ln(x, ln1w, ln1b).to(dt)
+    xn = layer_norm_f32(x, ln1w, ln1b).to(dt)
     t = torch.matmul(wt1.float(), xn.float()) + bt1.float()[:, None]
     t = act(t).to(dt)
     h = x.float() + torch.matmul(wt2.float(), t.float()) + bt2.float()[:, None]
     h = h.to(dt)
-    hn = _ln(h, ln2w, ln2b).to(dt)
+    hn = layer_norm_f32(h, ln2w, ln2b).to(dt)
     c = act(torch.matmul(hn.float(), wc1.float().t()) + bc1.float()).to(dt)
     c2 = torch.matmul(c.float(), wc2.float().t()) + bc2.float()
     return (h.float() + c2).to(dt)
 
 
-def _load():
-    global _lib
-    with _LOAD_LOCK:
-        if _lib is None:
-            from ._build import build
-
-            lib = ctypes.CDLL(build("mixer_block", ["mixer_block.cu"]))
-            lib.mixer_block_bf16.argtypes = (
-                [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-            lib.mixer_block_bf16.restype = ctypes.c_int
-            lib.mixer_error_string.argtypes = [ctypes.c_int]
-            lib.mixer_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
-
-
 def build():
     """Compile (if needed) and load the kernel library."""
-    _load()
+    _LIB.load()
 
 
-def _check(x, weights):
+def require_bf16_contiguous(tensors):
+    """Raise unless every tensor is bf16 and contiguous (what the CUDA
+    kernels take)."""
+    for t in tensors:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the CUDA kernel takes bf16 only, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors only")
+
+
+def block_dims(x, weights):
+    """Check the block's 12 weights against x (B, N, D) in shape and device;
+    return (B, N, D, TD, CD)."""
     if x.dim() != 3:
         raise ValueError(f"x must be (B, N, D), got shape {tuple(x.shape)}")
     B, N, D = x.shape
@@ -110,31 +106,19 @@ def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
     if not x.is_floating_point():
         raise TypeError(f"x must be floating point, got {x.dtype}")
-    B, N, D, TD, CD = _check(x, weights)
+    B, N, D, TD, CD = block_dims(x, weights)
     if x.device.type == "cpu":
         return mixer_block_ref(x, *weights)
     if x.device.type != "cuda":
         raise ValueError(f"no mixer-block kernel for device {x.device}")
-    for t in (x, *weights):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the CUDA kernel takes bf16 only, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError("the CUDA kernel takes contiguous tensors only")
-    lib = _load()
+    require_bf16_contiguous((x, *weights))
     xn = torch.empty_like(x)
     t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
     h = torch.empty_like(x)
     c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.mixer_block_bf16(
-            *(a.data_ptr() for a in (x, *weights, xn, t, h, c, out)),
-            B, N, D, TD, CD, stream)
-    if err:
-        raise RuntimeError(
-            f"mixer_block kernel launch failed: "
-            f"{lib.mixer_error_string(err).decode()} (cudaError {err})")
+    _LIB.launch("mixer_block_bf16", x.device, (x, *weights, xn, t, h, c, out),
+                (B, N, D, TD, CD))
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out

@@ -1,0 +1,97 @@
+"""ResMLP block forward: the hand-written CUDA kernel, its plain twin, the wrapper.
+
+Replaces ``jittor_mlp_tpu/ops/pallas/resmlp_block.py::fused_resmlp_block``.
+The kernel source is ``csrc/resmlp_block.cu`` (its header says what bounds
+it on an H100 and what the design does about that). For x (B, N, D):
+
+    h   = dt(x·α1 + β1)                              f32 affine, rounded
+    h2  = (h + γ1·(Wt·h + bt))·α2 + β2               f32, per image
+    c   = dt(act(dt(h2)·W1ᵀ + c1))
+    out = dt(h2 + γ2·(c·W2ᵀ + c2))                   h2 in f32
+
+with dt the input dtype, act the tanh-form GELU for bf16 and the exact one
+for float32, and the weights in their torch layouts: wt (N, N) (the token
+mix's Conv1d squeezed), w1 (F, D), w2 (D, F); affines and gammas (D,).
+This follows the TPU *kernel*, which keeps h2 in f32 for the last residual;
+the reference's plain block rounds it first.
+
+- ``resmlp_block_ref``: plain PyTorch with the kernel's rounding points.
+- ``fused_resmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
+  contiguous tensor launches the kernel; anything else raises.
+- ``LAUNCHES``: how many times the wrapper launched the kernel.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+from ...core.nnf import gelu_erf, gelu_tanh
+from ._build import Library
+from .mixer_block import require_bf16_contiguous
+
+LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
+_LIB = Library("resmlp_block", ["resmlp_block.cu"], {"resmlp_block_bf16": (15, 4)},
+               error="resmlp_error_string", workspace=("resmlp_block_bf16_workspace", 4))
+
+
+def block_dims(x, weights):
+    """Check the block's 12 weights against x (B, N, D) in shape and device;
+    return (B, N, D, F)."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, D), got shape {tuple(x.shape)}")
+    B, N, D = x.shape
+    F = weights[8].shape[0]
+    want = [(D,), (D,), (D,), (N, N), (N,), (D,), (D,), (D,), (F, D), (F,), (D, F), (D,)]
+    names = ["alpha1", "beta1", "gamma1", "wt", "bt", "alpha2", "beta2", "gamma2",
+             "w1", "c1", "w2", "c2"]
+    for name, w, shape in zip(names, weights, want):
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(w.shape)} != {shape}")
+        if w.device != x.device:
+            raise ValueError(f"{name} is on {w.device}, x on {x.device}")
+    return B, N, D, F
+
+
+def resmlp_block_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """Plain PyTorch twin of the kernel, rounding where the kernel rounds.
+    On CUDA the float32 matmuls need TF32 off (PyTorch's default for
+    matmuls) to match."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    h = (x.float() * a1.float() + b1.float()).to(dt)
+    t = torch.matmul(wt.float(), h.float()) + bt.float()[:, None]
+    h2 = h.float() + g1.float() * t
+    h2 = h2 * a2.float() + b2.float()
+    c = act(torch.matmul(h2.to(dt).float(), w1.float().t()) + c1.float()).to(dt)
+    f = torch.matmul(c.float(), w2.float().t()) + c2.float()
+    return (h2 + g2.float() * f).to(dt)
+
+
+def build():
+    """Compile (if needed) and load the kernel library."""
+    _LIB.load()
+
+
+def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """One ResMLP block. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    global LAUNCHES
+    weights = (a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2)
+    if not x.is_floating_point():
+        raise TypeError(f"x must be floating point, got {x.dtype}")
+    B, N, D, F = block_dims(x, weights)
+    if x.device.type == "cpu":
+        return resmlp_block_ref(x, *weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ResMLP-block kernel for device {x.device}")
+    require_bf16_contiguous((x, *weights))
+    ws = torch.empty(_LIB.workspace(B, N, D, F), dtype=torch.uint8, device=x.device)
+    out = torch.empty_like(x)
+    _LIB.launch("resmlp_block_bf16", x.device, (x, *weights, ws, out), (B, N, D, F))
+    with _COUNT_LOCK:
+        LAUNCHES += 1
+    return out

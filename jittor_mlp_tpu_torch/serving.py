@@ -8,22 +8,26 @@ with the serving plumbing:
 - uint8 NHWC upload with on-device /255, normalize and (only when the size
   differs) resize;
 - bf16 weights and activations with a float32 softmax, top-k taken on the
-  device, so only (N, k) values come back to the host.
+  device, so only (N, k) values come back to the host;
+- the JAX Predictor's int8 options: ``weights="int8"`` (weight-only int8,
+  dequantized once at build) and ``compute="int8"`` (dynamic W8A8 serving).
 
-The device is the model's: move the model first (``model.to("cuda")``).
+The device is the model's; the factories build on the card by default.
 
-    p = Predictor(MLPMixerForImageClassification().to("cuda"), batch_size=8)
+    p = Predictor(MLPMixerForImageClassification(), batch_size=8)
     labels, probs = p.predict(images_u8)   # (N, k) each, N ≤ batch_size
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import numpy as np
 import torch
 
+from . import config
 from .data.preprocess import IMAGENET_MEAN, IMAGENET_STD, resize_bilinear
 
 
@@ -33,20 +37,40 @@ class Predictor:
                  preprocess=True, weights=None, compute=None):
         """bf16=None (default): resolve the serving dtype from
         ``tuned.serve_settings`` (bf16 for every model while the port's
-        table is empty). Pass bf16=True / bf16=False to override.
-        ``self.dtype`` records the resolved choice. The int8 options of the
-        JAX Predictor (weights="int8", compute="int8") are not ported yet."""
-        if weights is not None:
+        table is empty; a row with dtype "int8" selects compute="int8").
+        Pass bf16=True / bf16=False (or compute=) to override.
+        ``self.dtype`` records the resolved choice: "int8", "bf16" or "f32".
+
+        weights="int8": quantize the weights to per-channel int8 with the
+        JAX package's rule (``quant.quantize_state_dict``) and dequantize
+        them once, here, to the compute dtype.
+
+        compute="int8": run every forward under ``config.int8_mode()`` for
+        the thread that runs it: dense ops as dynamic W8A8 int8, and in
+        bf16 eval the W8A8 block kernels. The choice travels with the call,
+        so Predictors of both kinds can serve side by side from
+        MicroBatcher's threads."""
+        if weights not in (None, "int8"):
             raise ValueError(f"unknown weights option {weights!r}")
-        if compute is not None:
+        if compute not in (None, "int8"):
             raise ValueError(f"unknown compute option {compute!r}")
         self.model = model.eval()
         if bf16 is None:
             from .tuned import serve_settings
 
             rec = serve_settings(getattr(model, "name", None))
-            bf16 = (rec["dtype"] if rec else "bf16") != "f32"
-        self.dtype = "bf16" if bf16 else "f32"
+            choice = rec["dtype"] if rec else "bf16"
+            bf16 = choice != "f32"
+            if choice == "int8" and compute is None and weights is None:
+                compute = "int8"
+        self.dtype = "int8" if compute == "int8" else "bf16" if bf16 else "f32"
+        self._int8 = compute == "int8"
+        if weights == "int8":
+            from .quant import dequantize_state_dict, quantize_state_dict
+
+            q = quantize_state_dict(self.model.name, self.model.state_dict())
+            self.model.load_state_dict(
+                dequantize_state_dict(q, torch.bfloat16 if bf16 else torch.float32))
         if bf16:
             self.model.to_bf16()
         self._compute_dtype = torch.bfloat16 if bf16 else torch.float32
@@ -73,7 +97,8 @@ class Predictor:
             x = x.permute(0, 3, 1, 2)
         else:
             x = images
-        logits = self.model.forward(x.to(self._compute_dtype)).float()
+        with config.int8_mode() if self._int8 else contextlib.nullcontext():
+            logits = self.model.forward(x.to(self._compute_dtype)).float()
         probs = torch.softmax(logits, dim=-1)
         top = torch.topk(probs, self.top_k, dim=-1)
         return top.indices, top.values

@@ -1,0 +1,80 @@
+"""Does chip_smoke.py's kernel phase catch a wrong kernel? Run phase 2
+against deliberately broken copies of the kernels.
+
+    python -m jittor_mlp_tpu_torch.tools.mutation_check
+
+Run from the repository root on a machine with the card. Each mutant is a
+copy of the port and chip_smoke.py under ``build/mutants/`` (listed in
+.gitignore) with one line of a CUDA source changed; the checkout itself is
+not touched.
+For each copy it builds the kernels and prints phase 2's
+max|Δ|/max(1, max|ref|) per shape, and "would FAIL" where the check would
+stop the run. The first copy is unchanged and must pass.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+
+MUTANTS = {
+    "correct": (None, None, None, None),
+    "M1 chunked flush applies chunk 0's row scales": (
+        "fused_mixer_block_int8", "csrc/gemm_s8.cuh",
+        "if (kend % chunk == 0) flush(kend / chunk - 1);", "if (kend % chunk == 0) flush(0);"),
+    "M2 second token mix takes image 0's column scales": (
+        "fused_mixer_block_int8", "csrc/mixer_block_int8.cu",
+        "Scales{f32(swt2), 0, 1, w.st, D}", "Scales{f32(swt2), 0, 1, w.st, 0}"),
+    "M3 bf16 ResMLP output reads gamma2 of the first of 8 columns": (
+        "fused_resmlp_block", "csrc/resmlp_block.cu",
+        "__fmul_rn(__bfloat162float(g2[n + e]), f)", "__fmul_rn(__bfloat162float(g2[n]), f)"),
+    "M4 W8A8 ResMLP token epilogue reads h1 one column off": (
+        "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
+        "__fadd_rn(h1(z, m, c),", "__fadd_rn(h1(z, m, n),"),
+}
+
+RUN = """
+import importlib, sys, torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke as cs
+names = sys.argv[1].split(",")
+mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
+        for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8")}
+cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush=True)
+cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
+"""
+
+
+def main():
+    repo = os.getcwd()
+    if not os.path.exists(os.path.join(repo, "chip_smoke.py")):
+        raise SystemExit("run from the repository root")
+    root = os.path.join(repo, "build", "mutants")
+    shutil.rmtree(root, ignore_errors=True)
+    for i, (label, (kernel, path, old, new)) in enumerate(MUTANTS.items()):
+        dst = os.path.join(root, str(i))
+        # the port and the smoke test are all a copy needs
+        shutil.copytree(os.path.join(repo, "jittor_mlp_tpu_torch"),
+                        os.path.join(dst, "jittor_mlp_tpu_torch"),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+        shutil.copy(os.path.join(repo, "chip_smoke.py"), dst)
+        if path:
+            src = os.path.join(dst, "jittor_mlp_tpu_torch", path)
+            with open(src) as f:
+                text = f.read()
+            if text.count(old) != 1:
+                raise SystemExit(f"{label}: the line to break is not in {path} once")
+            with open(src, "w") as f:
+                f.write(text.replace(old, new))
+        kernels = kernel or "fused_mixer_block_int8,fused_resmlp_block,fused_resmlp_block_int8"
+        print(f"=== {label} ({kernels})", flush=True)
+        res = subprocess.run([sys.executable, "-c", RUN, kernels], cwd=dst,
+                             capture_output=True, text=True, timeout=900)
+        print(res.stdout, res.stderr[-3000:], flush=True)
+    shutil.rmtree(root, ignore_errors=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -33,7 +33,7 @@ def _x(shape, seed=0):
 @pytest.mark.parametrize("kw", [SMALL, NON_SQUARE], ids=["small", "non_square"])
 def test_same_seed_same_weights(kw):
     jmodel = jm.MLPMixerForImageClassification(**kw)
-    tmodel = jt.MLPMixerForImageClassification(**kw)
+    tmodel = jt.MLPMixerForImageClassification(**kw, device="cpu")
     want = jmodel._init_sd
     got = tmodel.export_torch_state_dict(tensors=False)
     assert list(got) == list(want)
@@ -49,7 +49,7 @@ def test_state_dict_from_jax_equals_export():
     for k in want:
         np.testing.assert_array_equal(sd[k].numpy(), want[k], err_msg=k)
     # and it loads strictly into the port
-    tmodel = jt.MLPMixerForImageClassification(**{**SMALL, "seed": 9})
+    tmodel = jt.MLPMixerForImageClassification(**{**SMALL, "seed": 9}, device="cpu")
     tmodel.load_torch_state_dict(sd)
     for k, v in tmodel.export_torch_state_dict(tensors=False).items():
         np.testing.assert_array_equal(v, want[k], err_msg=k)
@@ -60,7 +60,7 @@ def test_state_dict_from_jax_equals_export():
                          ids=["small", "non_square"])
 def test_f32_logits_match_jax(kw, shape):
     jmodel = jm.MLPMixerForImageClassification(**kw)
-    tmodel = jt.MLPMixerForImageClassification(**{**kw, "seed": 5})
+    tmodel = jt.MLPMixerForImageClassification(**{**kw, "seed": 5}, device="cpu")
     # through the exporter/importer pair, not the shared seed
     tmodel.load_torch_state_dict(jmodel.export_torch_state_dict())
     x = _x(shape)
@@ -74,7 +74,7 @@ def test_f32_logits_match_jax(kw, shape):
 
 def test_bf16_logits_match_jax_plain_path():
     jmodel = jm.MLPMixerForImageClassification(**SMALL).to_bf16()
-    tmodel = jt.MLPMixerForImageClassification(**SMALL).to_bf16().eval()
+    tmodel = jt.MLPMixerForImageClassification(**SMALL, device="cpu").to_bf16().eval()
     x = _x((4, 3, 32, 32), seed=1)
     with jconfig.bf16_mode():
         want = np.asarray(jmodel(x)).astype(np.float32)
@@ -89,15 +89,52 @@ def test_bf16_logits_match_jax_plain_path():
 
 
 def test_kernel_gate():
-    m = jt.MLPMixerForImageClassification(**SMALL)
+    m = jt.MLPMixerForImageClassification(**SMALL, device="cpu")
     bf = torch.zeros(1, dtype=torch.bfloat16)
     assert m.eval().uses_kernel(bf)
     assert not m.uses_kernel(bf.float())
     assert not m.train().uses_kernel(bf)
     assert not jt.MLPMixerForImageClassification(
-        **SMALL, use_pallas=False).eval().uses_kernel(bf)
+        **SMALL, use_pallas=False, device="cpu").eval().uses_kernel(bf)
 
 
 def test_block_runner_refused():
     with pytest.raises(NotImplementedError):
         jt.MLPMixerForImageClassification(**SMALL, block_runner=lambda *a: None)
+
+
+@pytest.mark.parametrize("path", ["f32_plain", "bf16_kernel"])
+def test_int8_logits_match_jax_int8_mode(path):
+    """The port under int8_mode against the JAX int8_mode forward (which on
+    the CPU runs its nnf W8A8 path): the plain float32 path quantizes the
+    same dense ops; the bf16 path runs the W8A8 block kernel's twin."""
+    from jittor_mlp_tpu_torch.ops.kernels import mixer_block_int8 as tq
+
+    jmodel = jm.MLPMixerForImageClassification(**SMALL)
+    tmodel = jt.MLPMixerForImageClassification(**SMALL, device="cpu").eval()
+    x = _x((4, 3, 32, 32), seed=2)
+    with jconfig.int8_mode():
+        want = np.asarray(jmodel(x))
+    dtype = torch.bfloat16 if path == "bf16_kernel" else torch.float32
+    tmodel.to(dtype)
+    before = tq.LAUNCHES
+    with jt.config.int8_mode(), torch.inference_mode():
+        assert tmodel.uses_kernel(torch.zeros(1, dtype=dtype)) == (path == "bf16_kernel")
+        got = tmodel.forward(torch.from_numpy(x).to(dtype)).float().numpy()
+    assert tq.LAUNCHES == before  # CPU tensors run the twin, no launch
+    err = np.abs(got - want).max()
+    assert err <= 5e-2 * np.abs(want).max(), err
+    with jt.config.parity_mode(), torch.inference_mode():
+        exact = tmodel.float()(x).numpy()
+    assert np.abs(exact - got).max() > 0  # the int8 path really ran
+
+
+def test_factory_builds_on_the_card_by_default():
+    """device defaults to "cuda": with no card the factory raises instead
+    of building on the CPU."""
+    if torch.cuda.is_available():
+        assert jt.MLPMixerForImageClassification(**SMALL).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            jt.MLPMixerForImageClassification(**SMALL)
+    assert jt.MLPMixerForImageClassification(**SMALL, device="cpu").device.type == "cpu"

@@ -4,6 +4,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 import jittor_mlp_tpu as jm
 import jittor_mlp_tpu_torch as jt
@@ -15,7 +16,7 @@ KW = dict(d_model=16, depth=1, patch_size=8, image_size=32, num_classes=10,
 def _predictors(batch_size=4):
     j = jm.Predictor(jm.MLPMixerForImageClassification(**KW),
                      batch_size=batch_size, image_size=32, top_k=3, bf16=False)
-    t = jt.Predictor(jt.MLPMixerForImageClassification(**KW),
+    t = jt.Predictor(jt.MLPMixerForImageClassification(**KW, device="cpu"),
                      batch_size=batch_size, image_size=32, top_k=3, bf16=False)
     return j, t
 
@@ -49,7 +50,7 @@ def test_padding_is_invisible_and_oversize_raises():
 
 
 def test_options_and_default_dtype():
-    model = jt.MLPMixerForImageClassification(**KW)
+    model = jt.MLPMixerForImageClassification(**KW, device="cpu")
     with pytest.raises(ValueError):
         jt.Predictor(model, weights="int4")
     with pytest.raises(ValueError):
@@ -77,7 +78,7 @@ def test_tuned_tables_resolve_by_key_or_factory(monkeypatch):
         assert tuned.serve_settings(name) is serve
         assert tuned.train_settings(name) is train
     # a SERVE row sets Predictor's default dtype
-    p = jt.Predictor(jt.MLPMixerForImageClassification(**KW), batch_size=2)
+    p = jt.Predictor(jt.MLPMixerForImageClassification(**KW, device="cpu"), batch_size=2)
     assert p.dtype == "f32"
 
 
@@ -115,3 +116,94 @@ def test_microbatcher_bit_identical_to_predict():
     assert stats["requests"] == 8 and stats["batches"] >= 2
     with pytest.raises(RuntimeError):
         mb.submit(imgs[0])
+
+
+# a Mixer whose blocks run the W8A8 kernel's twin on the CPU (bf16, eval)
+KW8 = dict(d_model=64, depth=2, patch_size=8, image_size=32, num_classes=10)
+
+
+def test_int8_predictor_matches_jax_int8_predictor():
+    """compute="int8": the JAX Predictor runs its nnf W8A8 path on the CPU,
+    the port its W8A8 block kernel's twin, so the bar is a band: top-1
+    agreement ≥ 90% and top-k probabilities within 5e-2."""
+    jp = jm.Predictor(jm.MLPMixerForImageClassification(**KW8), batch_size=8,
+                      image_size=32, top_k=3, compute="int8")
+    tp = jt.Predictor(jt.MLPMixerForImageClassification(**KW8, device="cpu"), batch_size=8,
+                      image_size=32, top_k=3, compute="int8")
+    assert jp.dtype == tp.dtype == "int8"
+    imgs = _images(32, seed=2)
+    jl, jprob = zip(*(jp.predict(imgs[i:i + 8]) for i in range(0, 32, 8)))
+    tl, tprob = zip(*(tp.predict(imgs[i:i + 8]) for i in range(0, 32, 8)))
+    jl, jprob, tl, tprob = map(np.concatenate, (jl, jprob, tl, tprob))
+    assert (jl[:, 0] == tl[:, 0]).mean() >= 0.9
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=5e-2)
+
+
+def test_weights_int8_predictor_matches_jax():
+    """weights="int8": the same dequantized weights as the JAX Predictor
+    (float32 serving here, so the two agree as the f32 Predictors do)."""
+    jp = jm.Predictor(jm.MLPMixerForImageClassification(**KW), batch_size=4,
+                      image_size=32, top_k=3, bf16=False, weights="int8")
+    tp = jt.Predictor(jt.MLPMixerForImageClassification(**KW, device="cpu"), batch_size=4,
+                      image_size=32, top_k=3, bf16=False, weights="int8")
+    assert tp.dtype == "f32"
+    imgs = _images(4, seed=3)
+    jl, jprob = jp.predict(imgs)
+    tl, tprob = tp.predict(imgs)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+    # the patch conv (16, 3, 8, 8) is large enough to be quantized
+    plain = jt.MLPMixerForImageClassification(**KW, device="cpu")
+    assert not torch.equal(tp.model.patcher[0].weight, plain.patcher[0].weight)
+
+
+def test_int8_and_bf16_predictors_side_by_side():
+    """An int8 and a bf16 Predictor on one model, driven from two threads at
+    once, give what each gives alone: the int8 choice travels with the call
+    and is not a flag one thread can switch under the other."""
+    model = jt.MLPMixerForImageClassification(**KW8, device="cpu")
+    p8 = jt.Predictor(model, batch_size=4, image_size=32, top_k=3, compute="int8")
+    p16 = jt.Predictor(model, batch_size=4, image_size=32, top_k=3)
+    assert (p8.dtype, p16.dtype) == ("int8", "bf16")
+    imgs = _images(4, seed=4)
+    want = {"int8": p8.predict(imgs), "bf16": p16.predict(imgs)}
+    assert not np.array_equal(want["int8"][1], want["bf16"][1])
+    got = {"int8": [], "bf16": []}
+
+    def run(p):
+        for _ in range(12):
+            got[p.dtype].append(p.predict(imgs))
+
+    threads = [threading.Thread(target=run, args=(p,)) for p in (p8, p16)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    for dtype, runs in got.items():
+        assert len(runs) == 12
+        for labels, probs in runs:
+            np.testing.assert_array_equal(labels, want[dtype][0])
+            np.testing.assert_array_equal(probs, want[dtype][1])
+
+
+def test_serve_row_int8_selects_compute_int8(monkeypatch):
+    from jittor_mlp_tpu_torch import tuned
+
+    monkeypatch.setitem(tuned.SERVE, "mlp_mixer",
+                        {"factory": "MLPMixerForImageClassification", "dtype": "int8"})
+    p = jt.Predictor(jt.MLPMixerForImageClassification(**KW, device="cpu"), batch_size=2)
+    assert p.dtype == "int8"
+    p = jt.Predictor(jt.MLPMixerForImageClassification(**KW, device="cpu"), batch_size=2,
+                     weights="int8")
+    assert p.dtype == "bf16"  # weights= given: the row does not add compute="int8"
+
+
+def test_factory_without_card_or_cpu_device_raises():
+    if torch.cuda.is_available():
+        assert jt.MLPMixerForImageClassification(**KW).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError):
+        jt.Predictor(jt.MLPMixerForImageClassification(**KW))
+    with pytest.raises(RuntimeError):
+        jt.ResMLPForImageClassification(d_model=16, depth=1, patch_size=8, image_size=32)
