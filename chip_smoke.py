@@ -1,37 +1,43 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100 (sm_90a).
 
-Builds the port's four CUDA kernels from this checkout (one nvcc each, all
+Builds the port's six CUDA kernels from this checkout (one nvcc each, all
 at once), checks each against its plain PyTorch twin, then drives the
 port's serving paths through ``Predictor`` and ``MicroBatcher`` and times
 kernels against plain versions. Models: Mixer-B/16 @224 (d_model 768,
-depth 12, token_dim 384; bench.py's config) and ResMLP-S24 @224 (d_model
-384, depth 24, expansion 4; compare.py's), full width, random weights from
-seed 0. Run from the repository root, with no arguments:
+depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model
+384, depth 24, expansion 4; compare.py's) and gMLP-S @224 (d_model 256,
+d_ffn 1536, depth 30; compare.py's), full width and depth, random weights
+from seed 0. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
 Phases (each one fails loudly; there is no CPU fallback):
   1. the card and the kernels' build time;
   2. every kernel vs its twin at the full block shape (B=8), two ragged
-     small shapes and, for the W8A8 kernels, a chunked shape (CD ≥ 2048,
-     ragged chunk and tokens), within 1.6e-2 of max(1, max|ref|);
+     small shapes and, for the W8A8 Mixer and ResMLP kernels, a chunked
+     shape (CD ≥ 2048, ragged chunk and tokens), within 1.6e-2 of
+     max(1, max|ref|);
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
-     bf16 kernel path vs plain bf16 and f32, int8 vs f32. Bands: bf16
-     5e-2 of max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by
-     depth per forward;
+     bf16 kernel path vs plain bf16 and f32, int8 vs f32; gMLP-S the same,
+     and its blocks must move the logits (vs channel_proj2 zeroed) by at
+     least 10x the kernel path's deviation from f32. Bands: bf16 5e-2 of
+     max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
+     per forward;
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
-     (c) ResMLP-S24 int8 and bf16 Predictors on one model, each pair served
-     at the same time from 8 threads, so that an int8 flag shared between
-     threads would show; every batched answer equals predict() alone;
-     launches equal depth × forwards per kernel; (d) a weights="int8"
-     ResMLP-S24 Predictor agrees with the bf16 one;
+     (c) ResMLP-S24 and (e) gMLP-S int8 and bf16 Predictors on one model,
+     each pair served at the same time from 8 threads, so that an int8
+     flag shared between threads would show; every batched answer equals
+     predict() alone; launches equal depth × forwards per kernel;
+     (d) ResMLP-S24 and (f) gMLP-S weights="int8" Predictors agree with
+     the bf16 ones;
   5. CUDA-event timings at b256: each kernel vs its twin; the forwards
-     kernel vs plain (Mixer-B/16 bf16) and int8 vs bf16 (both models).
+     kernel vs plain (Mixer-B/16 and gMLP-S bf16) and int8 vs bf16 (all
+     three models).
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -51,8 +57,10 @@ import torch
 TOL = 1.6e-2  # two bf16 ulps of the output scale
 MIXER_B16 = dict(d_model=768, depth=12, token_dim=384)
 RESMLP_S24 = dict(d_model=384, depth=24, expansion_factor=4)
+GMLP_S = dict(image_size=224, patch_size=16, d_model=256, d_ffn=1536, depth=30)
 DEPTH = MIXER_B16["depth"]  # one kernel launch per block
 RES_DEPTH = RESMLP_S24["depth"]
+GMLP_DEPTH = GMLP_S["depth"]
 # H100 SXM data sheet: dense tensor-core peaks and HBM rate
 PEAK = {"bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_S = 3.35e12
@@ -137,10 +145,29 @@ def resmlp_inputs(B, N, D, F, seed):
     return x, (a1, b1, g1, wt, bt, a2, b2, g2, *lin(F, D), *lin(D, F))
 
 
+def gmlp_inputs(B, N, D, F, seed):
+    """bf16 gMLP-block inputs on the card: weights and biases as in
+    block_inputs, LayerNorm affines near 1, the spatial bias with mean 1.0
+    (the model's init value) and std 0.5."""
+    rn, lin = _draw(seed)
+
+    def ln(n):
+        return rn(n, scale=0.1, mean=1.0), rn(n, scale=0.1)
+
+    x = rn(B, N, D)
+    ln1w, ln1b = ln(D)
+    w1, b1 = lin(2 * F, D)
+    sgu_w, sgu_b = ln(F)
+    wsp = lin(N, N)[0]
+    bs = rn(N, scale=0.5, mean=1.0)
+    return x, (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, *lin(D, F))
+
+
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
+    gmlp_shapes = [(8, 196, 256, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     return {
         "fused_mixer_block": (
             mods["mixer_block"], "fused_mixer_block", "mixer_block_ref", block_inputs,
@@ -156,6 +183,13 @@ def kernel_table(mods):
             mods["resmlp_block_int8"], "fused_resmlp_block_int8", "resmlp_block_int8_ref",
             resmlp_inputs, res_shapes + [(2, 33, 136, 2056)],
             "resmlp_block_int8.cu", "resmlp_block_int8.py:69", RES_DEPTH),
+        "fused_gmlp_block": (
+            mods["gmlp_block"], "fused_gmlp_block", "gmlp_block_ref", gmlp_inputs,
+            gmlp_shapes, "gmlp_block.cu", "gmlp_block.py:57", GMLP_DEPTH),
+        "fused_gmlp_block_int8": (
+            mods["gmlp_block_int8"], "fused_gmlp_block_int8", "gmlp_block_int8_ref",
+            gmlp_inputs, gmlp_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
+            GMLP_DEPTH),
     }
 
 
@@ -188,8 +222,12 @@ def images(n, seed):
         np.random.default_rng(seed).standard_normal((n, 3, 224, 224), np.float32)).to("cuda")
 
 
+def rel_dev(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
 def compare_logits(tag, got, ref, lim_rel, lim_top1):
-    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    rel = rel_dev(got, ref)
     top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
     print(f"[3] {tag}: max|dlogit|/max|logit|={rel:.6g} top1 agreement={top1:.4f} "
           f"(64 images; limits {lim_rel}, {lim_top1})", flush=True)
@@ -208,8 +246,8 @@ def forward_counted(model, x, mod, want):
 
 
 def phase_logits(jt, mods):
-    """Mixer-B/16 and ResMLP-S24 logits, kernel paths against plain paths.
-    Returns the bf16 kernel-path Mixer and ResMLP models (on the card)."""
+    """Mixer-B/16, ResMLP-S24 and gMLP-S logits, kernel paths against plain
+    paths. Returns the bf16 kernel-path models (on the card)."""
     from jittor_mlp_tpu_torch import config
 
     mb, mbq = mods["mixer_block"], mods["mixer_block_int8"]
@@ -248,7 +286,34 @@ def phase_logits(jt, mods):
     compare_logits("ResMLP-S24 kernel path vs plain bf16", rk, rp, 5e-2, 0.9)
     compare_logits("ResMLP-S24 kernel path vs f32 plain (TF32 off)", rk, rf, 5e-2, 0.9)
     compare_logits("ResMLP-S24 int8 kernel path vs f32 plain (TF32 off)", rq, rf, 0.1, 0.9)
-    return kernel, res
+    del res_plain, res_f32
+
+    gb, gbq = mods["gmlp_block"], mods["gmlp_block_int8"]
+    gmlp = jt.gMLPForImageClassification(**GMLP_S).to_bf16().eval()
+    g_plain = jt.gMLPForImageClassification(**GMLP_S, use_pallas=False).to_bf16().eval()
+    g_f32 = jt.gMLPForImageClassification(**GMLP_S).eval()
+    # every channel_proj2 zeroed: each block is then the identity
+    g_ident = jt.gMLPForImageClassification(**GMLP_S).to_bf16().eval()
+    with torch.no_grad():
+        for blk in g_ident.model:
+            blk.channel_proj2.weight.zero_()
+            blk.channel_proj2.bias.zero_()
+    with torch.inference_mode():
+        gk = forward_counted(gmlp, x.bfloat16(), gb, GMLP_DEPTH)
+        with config.int8_mode():
+            gq = forward_counted(gmlp, x.bfloat16(), gbq, GMLP_DEPTH)
+        gz = forward_counted(g_ident, x.bfloat16(), gb, GMLP_DEPTH)
+        gp = g_plain.forward(x.bfloat16()).float()
+        with config.parity_mode():
+            gf = g_f32.forward(x)
+    compare_logits("gMLP-S kernel path vs plain bf16", gk, gp, 5e-2, 0.9)
+    compare_logits("gMLP-S kernel path vs f32 plain (TF32 off)", gk, gf, 5e-2, 0.9)
+    compare_logits("gMLP-S int8 kernel path vs f32 plain (TF32 off)", gq, gf, 0.1, 0.9)
+    moved, dev = rel_dev(gk, gz), rel_dev(gk, gf)
+    print(f"[3] gMLP-S blocks move the logits: max|d|/max|logit| vs channel_proj2 zeroed "
+          f"{moved:.6g}, kernel path vs f32 {dev:.6g} (need >= 10x)", flush=True)
+    check(moved >= 10 * dev, f"gMLP-S blocks hardly move the logits: {moved} vs {dev}")
+    return kernel, res, gmlp
 
 
 def resmlp_state_dict(jt):
@@ -321,9 +386,9 @@ def check_launches(tag, mod, depth, pred):
     return mod.LAUNCHES
 
 
-def phase_serving(jt, mods, mixer, res):
-    """(a) the bf16 Mixer serving run; (b), (c) int8 and bf16 Predictors of
-    one model served at the same time; (d) weights="int8". Each path runs
+def phase_serving(jt, mods, mixer, res, gmlp):
+    """(a) the bf16 Mixer serving run; (b), (c), (e) int8 and bf16 Predictors
+    of one model served at the same time; (d), (f) weights="int8". Each path runs
     with every launch count set to 0 just before it and read just after.
     Returns name → launches on that kernel's path."""
     rng = np.random.default_rng(1)
@@ -351,7 +416,9 @@ def phase_serving(jt, mods, mixer, res):
             ("[4b] Mixer-B/16", mixer, "mixer_block", "mixer_block_int8", DEPTH,
              "fused_mixer_block", "fused_mixer_block_int8"),
             ("[4c] ResMLP-S24", res, "resmlp_block", "resmlp_block_int8", RES_DEPTH,
-             "fused_resmlp_block", "fused_resmlp_block_int8")):
+             "fused_resmlp_block", "fused_resmlp_block_int8"),
+            ("[4e] gMLP-S", gmlp, "gmlp_block", "gmlp_block_int8", GMLP_DEPTH,
+             "fused_gmlp_block", "fused_gmlp_block_int8")):
         reset_counts(mods)
         p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
         p16 = jt.Predictor(model, batch_size=32).warmup()
@@ -367,19 +434,23 @@ def phase_serving(jt, mods, mixer, res):
         if bf_name not in launches:
             launches[bf_name] = n16
 
-    # (d) weight-only int8: the dequantized weights serve close to bf16
+    # (d), (f) weight-only int8: the dequantized weights serve close to bf16
     sd = resmlp_state_dict(jt)
-    pw = jt.Predictor(jt.ResMLPForImageClassification(**RESMLP_S24).load_torch_state_dict(sd),
-                      batch_size=32, weights="int8")
-    p16 = jt.Predictor(res, batch_size=32)
-    lw, pw_probs = pw.predict(imgs[:32])
-    l16, p16_probs = p16.predict(imgs[:32])
-    top1 = float((lw[:, 0] == l16[:, 0]).mean())
-    dprob = float(np.abs(pw_probs[:, 0] - p16_probs[:, 0]).max())
-    print(f"[4d] ResMLP-S24 weights=int8 vs bf16 Predictor, 32 images: top-1 agreement "
-          f"{top1:.4f}, max |d top-1 prob| {dprob:.6g}", flush=True)
-    check(pw.dtype == "bf16" and top1 >= 0.9 and dprob <= 5e-2,
-          f"weights=int8 Predictor: top-1 {top1}, prob diff {dprob}")
+    for tag, build_model, bf16_model in (
+            ("[4d] ResMLP-S24", lambda: jt.ResMLPForImageClassification(
+                **RESMLP_S24).load_torch_state_dict(sd), res),
+            ("[4f] gMLP-S", lambda: jt.gMLPForImageClassification(**GMLP_S), gmlp)):
+        pw = jt.Predictor(build_model(), batch_size=32, weights="int8")
+        p16 = jt.Predictor(bf16_model, batch_size=32)
+        lw, pw_probs = pw.predict(imgs[:32])
+        l16, p16_probs = p16.predict(imgs[:32])
+        top1 = float((lw[:, 0] == l16[:, 0]).mean())
+        dprob = float(np.abs(pw_probs[:, 0] - p16_probs[:, 0]).max())
+        print(f"{tag} weights=int8 vs bf16 Predictor, 32 images: top-1 agreement "
+              f"{top1:.4f}, max |d top-1 prob| {dprob:.6g}", flush=True)
+        check(pw.dtype == "bf16" and top1 >= 0.9 and dprob <= 5e-2,
+              f"{tag} weights=int8 Predictor: top-1 {top1}, prob diff {dprob}")
+        del pw
     return launches
 
 
@@ -389,12 +460,17 @@ def block_bound(name, x, w):
     block's products at the dense tensor-core peak of its type."""
     nbytes = 2 * x.numel() * x.element_size() + sum(t.numel() * t.element_size() for t in w)
     B, N, D = x.shape
-    if "mixer" in name:
+    if name.startswith("fused_mixer_block"):
         TD, CD = w[2].shape[0], w[8].shape[0]
         ops = 2 * B * N * D * (2 * TD + 2 * CD)
-    else:
+    elif name.startswith("fused_resmlp_block"):
         F = w[8].shape[0]
         ops = 2 * B * N * (N * D + 2 * D * F)
+    elif name.startswith("fused_gmlp_block"):
+        F, Nw = w[2].shape[0] // 2, w[6].shape[1]  # W1 (2F, D), Wsp (N, N)
+        ops = 2 * B * N * (D * 2 * F + Nw * F + F * D)
+    else:
+        raise ValueError(f"block_bound: no operation count for kernel {name!r}")
     t_ops = ops / PEAK["int8" if name.endswith("int8") else "bf16"]
     t_bytes = nbytes / HBM_BYTES_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -441,6 +517,13 @@ def phase_timing(jt, table, name):
     res = jt.ResMLPForImageClassification(**RESMLP_S24).to_bf16().eval()
     forwards("ResMLP-S24", {"bf16 kernel path": (res, False),
                             "int8 kernel path": (res, True)})
+    del res
+    torch.cuda.empty_cache()
+    gmlp = jt.gMLPForImageClassification(**GMLP_S).to_bf16().eval()
+    g_plain = jt.gMLPForImageClassification(**GMLP_S, use_pallas=False).to_bf16().eval()
+    forwards("gMLP-S", {"bf16 plain path": (g_plain, False),
+                        "bf16 kernel path": (gmlp, False),
+                        "int8 kernel path": (gmlp, True)})
     return timings
 
 
@@ -459,7 +542,8 @@ def main():
     import jittor_mlp_tpu_torch as jt
 
     mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
-            for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8")}
+            for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
+                      "gmlp_block", "gmlp_block_int8")}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda m: m.build(), mods.values()))
@@ -468,9 +552,9 @@ def main():
 
     table = kernel_table(mods)
     errs = phase_kernels(table)
-    mixer, res = phase_logits(jt, mods)
-    launches = phase_serving(jt, mods, mixer, res)
-    del mixer, res
+    mixer, res, gmlp = phase_logits(jt, mods)
+    launches = phase_serving(jt, mods, mixer, res, gmlp)
+    del mixer, res, gmlp
     torch.cuda.empty_cache()
     timings = phase_timing(jt, table, name)
 

@@ -12,6 +12,7 @@ at import time.
 
 from . import config
 from .core.model import Model
+from .models.g_mlp import gMLPForImageClassification
 from .models.mlp_mixer import MLPMixerForImageClassification
 from .models.res_mlp import ResMLPForImageClassification
 from .serving import MicroBatcher, Predictor
@@ -23,6 +24,7 @@ __all__ = [
     "config",
     "MLPMixerForImageClassification",
     "ResMLPForImageClassification",
+    "gMLPForImageClassification",
 ]
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

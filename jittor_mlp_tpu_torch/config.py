@@ -40,7 +40,8 @@ def int8_mode():
     Inside the context, ``nnf.linear`` / ``conv1d_token`` / ``patch_embed``
     quantize activations per token and weights per output channel and
     contract int8 values exactly (``quant.dynamic_int8_matmul``), and in
-    bf16 eval the Mixer / ResMLP blocks run their W8A8 kernels. Eval only."""
+    bf16 eval the Mixer / ResMLP / gMLP blocks run their W8A8 kernels. Eval
+    only."""
     old = int8_enabled()
     _local.int8 = True
     try:

@@ -27,6 +27,11 @@ _LAYOUT = {
         "affine": ("affine", False),
         "head": ("mlp_head.0", False),
     },
+    "g_mlp": {
+        "patcher": ("patcher.0", False),
+        "blocks": ("model", True),
+        "head": ("mlp_head.0", False),
+    },
 }
 
 

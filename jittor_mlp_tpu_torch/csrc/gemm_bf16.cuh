@@ -186,6 +186,44 @@ inline GeluBias gelu_bias(const void* bias, int per_row, void* C, int ldc, long 
           vec_ok(C, ldc, sC)};
 }
 
+// C = bf16(R + (acc + bias)); R has C's layout. vec: C and R allow 16-byte
+// access.
+struct ResidualBias {
+  const bf16* bias;
+  int per_row;
+  const bf16* R;
+  bf16* C;
+  int ldc;
+  long long sC;
+  bool vec;
+
+  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
+    const size_t o = z * sC + (size_t)m * ldc + n;
+    const float brow = per_row ? __bfloat162float(bias[m]) : 0.0f;
+    if (vec && cnt == 8) {  // one 16-byte residual load, one 16-byte store
+      const uint4 res = *reinterpret_cast<const uint4*>(R + o);
+      const bf16* rv = reinterpret_cast<const bf16*>(&res);
+      uint4 out;
+      bf16* ov = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        ov[e] = __float2bfloat16(__bfloat162float(rv[e]) +
+                                 (v[e] + (per_row ? brow : __bfloat162float(bias[n + e]))));
+      *reinterpret_cast<uint4*>(C + o) = out;
+    } else {
+      for (int e = 0; e < cnt; ++e)
+        C[o + e] = __float2bfloat16(__bfloat162float(R[o + e]) +
+                                    (v[e] + (per_row ? brow : __bfloat162float(bias[n + e]))));
+    }
+  }
+};
+
+inline ResidualBias residual_bias(const void* bias, int per_row, const void* R, void* C,
+                                  int ldc, long long sC) {
+  return {static_cast<const bf16*>(bias), per_row, static_cast<const bf16*>(R),
+          static_cast<bf16*>(C), ldc, sC, vec_ok(C, ldc, sC) && vec_ok(R, ldc, sC)};
+}
+
 // Launch on `stream`; returns cudaGetLastError() of the launch.
 template <bool B_T, class Epi>
 cudaError_t gemm(cudaStream_t stream, int batch, int M, int N, int K,

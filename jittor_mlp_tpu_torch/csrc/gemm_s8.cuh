@@ -193,6 +193,28 @@ struct BiasGeluF32 {
   }
 };
 
+// C = bf16(R + (v + bias)) (bias_first) or bf16((R + v) + bias); bias per
+// row or per column; R and C bf16 with the same layout.
+struct ResidBias {
+  const bf16* R;
+  const bf16* bias;
+  int per_row;
+  int bias_first;
+  bf16* C;
+  int ldc;
+  long long sC;
+
+  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
+    const long long o = z * sC + (long long)m * ldc + n;
+    for (int e = 0; e < cnt; ++e) {
+      const float r = __bfloat162float(R[o + e]);
+      const float b = __bfloat162float(bias[per_row ? m : n + e]);
+      C[o + e] = __float2bfloat16(bias_first ? __fadd_rn(r, __fadd_rn(v[e], b))
+                                             : __fadd_rn(__fadd_rn(r, v[e]), b));
+    }
+  }
+};
+
 // Launch on `stream`; returns cudaErrorInvalidValue for operands the kernel
 // does not take, else cudaGetLastError() of the launch.
 template <class Epi>

@@ -45,28 +45,6 @@ using namespace jmt;
 
 namespace {
 
-// C = bf16(R + (v + bias)) (bias_first) or bf16((R + v) + bias); bias per
-// row or per column; R and C bf16 with the same layout.
-struct ResidBias {
-  const bf16* R;
-  const bf16* bias;
-  int per_row;
-  int bias_first;
-  bf16* C;
-  int ldc;
-  long long sC;
-
-  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
-    const long long o = z * sC + (long long)m * ldc + n;
-    for (int e = 0; e < cnt; ++e) {
-      const float r = __bfloat162float(R[o + e]);
-      const float b = __bfloat162float(bias[per_row ? m : n + e]);
-      C[o + e] = __float2bfloat16(bias_first ? __fadd_rn(r, __fadd_rn(v[e], b))
-                                             : __fadd_rn(__fadd_rn(r, v[e]), b));
-    }
-  }
-};
-
 struct Dims {
   int B, N, D, TD, CD, Np, TDp, Dp, ck, ckp, nch, M;
 
@@ -154,7 +132,7 @@ extern "C" int mixer_block_int8(const void* x, const void* ln1w, const void* ln1
                               w.qt, w.st));
   JMT_CHECK(gemm(s, B, N, D, d.TDp, d.TDp, qwt2, d.TDp, 0, w.qt, d.TDp, (long long)D * d.TDp,
                  Scales{f32(swt2), 0, 1, w.st, D},
-                 ResidBias{bf(x), bf(bt2), 1, 0, w.h, D, (long long)N * D}));
+                 s8gemm::ResidBias{bf(x), bf(bt2), 1, 0, w.h, D, (long long)N * D}));
   // channel mix over all B·N rows, the hidden axis in chunks
   JMT_CHECK(quant::row_stats(s, w.h, w.stats, d.M, D));
   JMT_CHECK(quant::quant_rows(s, quant::LnSrc{w.h, w.stats, bf(ln2w), bf(ln2b), d.M, D}, d.M,
@@ -167,7 +145,7 @@ extern "C" int mixer_block_int8(const void* x, const void* ln1w, const void* ln1
   const int K2 = d.nch * d.ckp;
   JMT_CHECK(gemm(s, 1, d.M, D, K2, d.ckp, w.qc, K2, 0, qwc2, K2, 0,
                  Scales{w.sc, 0, d.nch, f32(swc2), 0},
-                 ResidBias{w.h, bf(bc2), 0, 1, static_cast<bf16*>(out), D, 0}));
+                 s8gemm::ResidBias{w.h, bf(bc2), 0, 1, static_cast<bf16*>(out), D, 0}));
   return 0;
 }
 

@@ -15,7 +15,8 @@
 // - quant_rows: per row m and per chunk of ck columns. Writes q as
 //   (M, nch, ckp) with ckp a multiple of 32 and zeros past ck in each
 //   chunk, and scales (M, nch).
-// - row_stats: LayerNorm statistics (mean, 1/std) of bf16 rows.
+// - row_stats, row_stats_f32: LayerNorm statistics (mean, 1/std) of bf16
+//   rows, or of f32 rows at a row stride (the gMLP SGU's v half).
 #pragma once
 
 #include "common.cuh"
@@ -29,28 +30,41 @@ __device__ __forceinline__ int8_t quantize(float v, float rs) {
   return static_cast<int8_t>(__float2int_rn(__fmul_rn(v, rs)));
 }
 
-// One warp per row: f32 mean and 1/sqrt(var + eps), two passes.
-__global__ void row_stats_kernel(const bf16* __restrict__ x, float2* __restrict__ stats,
-                                 int rows, int cols, float eps) {
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+
+// One warp per row: f32 mean and 1/sqrt(var + eps), two passes. Row r of x
+// starts at x + r·ld.
+template <class T>
+__global__ void row_stats_kernel(const T* __restrict__ x, long long ld,
+                                 float2* __restrict__ stats, int rows, int cols, float eps) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (row >= rows) return;
-  const bf16* xr = x + (size_t)row * cols;
+  const T* xr = x + (size_t)row * ld;
   float s = 0.0f;
-  for (int c = lane; c < cols; c += 32) s += __bfloat162float(xr[c]);
+  for (int c = lane; c < cols; c += 32) s += to_f32(xr[c]);
   const float mu = warp_sum(s) / cols;
   float v = 0.0f;
   for (int c = lane; c < cols; c += 32) {
-    const float d = __bfloat162float(xr[c]) - mu;
+    const float d = to_f32(xr[c]) - mu;
     v += d * d;
   }
   const float rstd = rsqrtf(warp_sum(v) / cols + eps);  // every lane shuffles
   if (lane == 0) stats[row] = make_float2(mu, rstd);
 }
 
+// Statistics of contiguous bf16 rows.
 inline cudaError_t row_stats(cudaStream_t s, const void* x, float2* stats, int rows, int cols) {
-  row_stats_kernel<<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), stats, rows,
-                                                   cols, 1e-5f);
+  row_stats_kernel<bf16><<<(rows + 7) / 8, 256, 0, s>>>(static_cast<const bf16*>(x), cols,
+                                                         stats, rows, cols, 1e-5f);
+  return cudaGetLastError();
+}
+
+// Statistics of f32 rows of `cols`, ld elements apart.
+inline cudaError_t row_stats_f32(cudaStream_t s, const float* x, long long ld, float2* stats,
+                                 int rows, int cols) {
+  row_stats_kernel<float><<<(rows + 7) / 8, 256, 0, s>>>(x, ld, stats, rows, cols, 1e-5f);
   return cudaGetLastError();
 }
 
@@ -67,6 +81,24 @@ struct LnSrc {
     const long long row = z * R + r;
     const float2 st = stats[row];
     const float n = __fmul_rn(__fsub_rn(__bfloat162float(x[row * cols + c]), st.x), st.y);
+    return __fadd_rn(__fmul_rn(n, __bfloat162float(w[c])), __bfloat162float(b[c]));
+  }
+};
+
+// LayerNorm of f32 rows, in f32: ((x - mu) · rstd) · w + b. Row r of
+// image z is row z·R + r of x, ld elements apart; stats from row_stats_f32.
+struct LnF32Src {
+  const float* x;
+  long long ld;
+  const float2* stats;
+  const bf16* w;
+  const bf16* b;
+  int R;
+
+  __device__ float operator()(long long z, int r, int c) const {
+    const long long row = z * R + r;
+    const float2 st = stats[row];
+    const float n = __fmul_rn(__fsub_rn(x[row * ld + c], st.x), st.y);
     return __fadd_rn(__fmul_rn(n, __bfloat162float(w[c])), __bfloat162float(b[c]));
   }
 };

@@ -77,6 +77,16 @@ def require_bf16_contiguous(tensors):
             raise ValueError("the CUDA kernel takes contiguous tensors only")
 
 
+def check_weights(x, weights, names, shapes):
+    """Raise ValueError unless each weight has its shape and lies on x's
+    device."""
+    for name, w, shape in zip(names, weights, shapes):
+        if tuple(w.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(w.shape)} != {shape}")
+        if w.device != x.device:
+            raise ValueError(f"{name} is on {w.device}, x on {x.device}")
+
+
 def block_dims(x, weights):
     """Check the block's 12 weights against x (B, N, D) in shape and device;
     return (B, N, D, TD, CD)."""
@@ -89,11 +99,7 @@ def block_dims(x, weights):
             (CD, D), (CD,), (D, CD), (D,)]
     names = ["ln1w", "ln1b", "wt1", "bt1", "wt2", "bt2", "ln2w", "ln2b",
              "wc1", "bc1", "wc2", "bc2"]
-    for name, w, shape in zip(names, weights, want):
-        if tuple(w.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(w.shape)} != {shape}")
-        if w.device != x.device:
-            raise ValueError(f"{name} is on {w.device}, x on {x.device}")
+    check_weights(x, weights, names, want)
     return B, N, D, TD, CD
 
 

@@ -29,7 +29,7 @@ import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
 from ._build import Library
-from .mixer_block import require_bf16_contiguous
+from .mixer_block import check_weights, require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -47,11 +47,7 @@ def block_dims(x, weights):
     want = [(D,), (D,), (D,), (N, N), (N,), (D,), (D,), (D,), (F, D), (F,), (D, F), (D,)]
     names = ["alpha1", "beta1", "gamma1", "wt", "bt", "alpha2", "beta2", "gamma2",
              "w1", "c1", "w2", "c2"]
-    for name, w, shape in zip(names, weights, want):
-        if tuple(w.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(w.shape)} != {shape}")
-        if w.device != x.device:
-            raise ValueError(f"{name} is on {w.device}, x on {x.device}")
+    check_weights(x, weights, names, want)
     return B, N, D, F
 
 

@@ -33,6 +33,11 @@ MUTANTS = {
     "M4 W8A8 ResMLP token epilogue reads h1 one column off": (
         "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
         "__fadd_rn(h1(z, m, c),", "__fadd_rn(h1(z, m, n),"),
+    "M5 bf16 gMLP gate reads u at leading dimension F instead of 2F": (
+        "fused_gmlp_block", "csrc/gmlp_block.cu", "Gate{w.y, F2,", "Gate{w.y, F,"),
+    "M6 W8A8 gMLP token product takes image 0's column scales for every image": (
+        "fused_gmlp_block_int8", "csrc/gmlp_block_int8.cu",
+        "Scales{f32(swsp), 0, 1, w.sv, F}", "Scales{f32(swsp), 0, 1, w.sv, 0}"),
 }
 
 RUN = """
@@ -41,7 +46,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke as cs
 names = sys.argv[1].split(",")
 mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
-        for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8")}
+        for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
+                  "gmlp_block", "gmlp_block_int8")}
 cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush=True)
 cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
 """
@@ -68,7 +74,7 @@ def main():
                 raise SystemExit(f"{label}: the line to break is not in {path} once")
             with open(src, "w") as f:
                 f.write(text.replace(old, new))
-        kernels = kernel or "fused_mixer_block_int8,fused_resmlp_block,fused_resmlp_block_int8"
+        kernels = kernel or ",".join(dict.fromkeys(k for k, *_ in MUTANTS.values() if k))
         print(f"=== {label} ({kernels})", flush=True)
         res = subprocess.run([sys.executable, "-c", RUN, kernels], cwd=dst,
                              capture_output=True, text=True, timeout=900)

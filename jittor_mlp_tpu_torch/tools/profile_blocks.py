@@ -3,8 +3,9 @@ serving paths at batch 256.
 
     python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3]
 
-For Mixer-B/16 (d_model 768, depth 12, token_dim 384) and ResMLP-S24
-(d_model 384, depth 24) in bf16 and int8, it profiles ``iters`` forwards
+For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
+(d_model 384, depth 24) and gMLP-S @224 (d_model 256, d_ffn 1536,
+depth 30) in bf16 and int8, it profiles ``iters`` forwards
 after a warm-up and prints each CUDA kernel's device time per forward,
 its share of the device time, the device-busy share of the wall time,
 and the card's name and power limit. Needs a CUDA card.
@@ -25,6 +26,8 @@ from jittor_mlp_tpu_torch import config
 MODELS = {
     "Mixer-B/16": (jt.MLPMixerForImageClassification, dict(d_model=768, depth=12, token_dim=384)),
     "ResMLP-S24": (jt.ResMLPForImageClassification, dict(d_model=384, depth=24)),
+    "gMLP-S": (jt.gMLPForImageClassification,
+               dict(image_size=224, d_model=256, d_ffn=1536, depth=30)),
 }
 
 

@@ -136,12 +136,20 @@ def test_affine_matches_jax():
 # affines and LayerScale gammas (≥ 2048 elements once stacked over depth)
 MIXER = dict(d_model=192, depth=12, patch_size=8, image_size=32, num_classes=10)
 RESMLP = dict(d_model=96, depth=24, patch_size=8, image_size=32, num_classes=10)
+GMLP = dict(d_model=96, d_ffn=96, depth=24, patch_size=8, image_size=32, num_classes=10)
+# per model: (a stacked bias, a token-mix weight)
+_PROBE_KEYS = {
+    "mlp_mixer": ("model.1.1.fn.net.0.bias", "model.1.0.fn.net.0.weight"),
+    "res_mlp": ("model.1.ff.net.0.bias", "model.1.token_mix.weight"),
+    "g_mlp": ("model.1.channel_proj1.bias", "model.1.sgu.spatial_proj.weight"),
+}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name,factory,kw", [
     ("mlp_mixer", "MLPMixerForImageClassification", MIXER),
     ("res_mlp", "ResMLPForImageClassification", RESMLP),
+    ("g_mlp", "gMLPForImageClassification", GMLP),
 ])
 def test_int8_state_dict_equals_jax_dequantize_tree(name, factory, kw, dtype):
     jmodel = getattr(jm, factory)(**kw)
@@ -158,8 +166,7 @@ def test_int8_state_dict_equals_jax_dequantize_tree(name, factory, kw, dtype):
         np.testing.assert_array_equal(got[k].float().numpy(), want[k].numpy(), err_msg=k)
     # the stacked-leaf rule: per-layer scalar scales for stacked biases and
     # LayerNorm / affine weights; per-(layer, out) for token-mix weights
-    stacked_bias = "model.1.1.fn.net.0.bias" if name == "mlp_mixer" else "model.1.ff.net.0.bias"
+    stacked_bias, token_w = _PROBE_KEYS[name]
     assert isinstance(q[stacked_bias], dict) and q[stacked_bias]["scale"].numel() == 1
-    token_w = "model.1.0.fn.net.0.weight" if name == "mlp_mixer" else "model.1.token_mix.weight"
     assert q[token_w]["scale"].shape == (q[token_w]["q"].shape[0], 1, 1)
     assert not isinstance(q["mlp_head.0.bias"], dict)  # 1-D: passes through

@@ -157,11 +157,9 @@ def test_weights_int8_predictor_matches_jax():
     assert not torch.equal(tp.model.patcher[0].weight, plain.patcher[0].weight)
 
 
-def test_int8_and_bf16_predictors_side_by_side():
+def _serve_side_by_side(model):
     """An int8 and a bf16 Predictor on one model, driven from two threads at
-    once, give what each gives alone: the int8 choice travels with the call
-    and is not a flag one thread can switch under the other."""
-    model = jt.MLPMixerForImageClassification(**KW8, device="cpu")
+    once, give what each gives alone."""
     p8 = jt.Predictor(model, batch_size=4, image_size=32, top_k=3, compute="int8")
     p16 = jt.Predictor(model, batch_size=4, image_size=32, top_k=3)
     assert (p8.dtype, p16.dtype) == ("int8", "bf16")
@@ -185,6 +183,62 @@ def test_int8_and_bf16_predictors_side_by_side():
         for labels, probs in runs:
             np.testing.assert_array_equal(labels, want[dtype][0])
             np.testing.assert_array_equal(probs, want[dtype][1])
+
+
+def test_int8_and_bf16_predictors_side_by_side():
+    """An int8 and a bf16 Predictor on one model, driven from two threads at
+    once, give what each gives alone: the int8 choice travels with the call
+    and is not a flag one thread can switch under the other."""
+    _serve_side_by_side(jt.MLPMixerForImageClassification(**KW8, device="cpu"))
+
+
+# a gMLP whose blocks run the gMLP kernels' twins on the CPU (bf16, eval)
+GKW = dict(d_model=32, d_ffn=64, depth=2, patch_size=8, image_size=32, num_classes=10)
+
+
+def test_gmlp_int8_and_bf16_predictors_side_by_side():
+    """The same for gMLP: its int8 Predictor runs the W8A8 gMLP block's twin,
+    its bf16 Predictor the bf16 block's, from two threads at once."""
+    from jittor_mlp_tpu_torch.ops.kernels import gmlp_block, gmlp_block_int8
+
+    before = (gmlp_block.LAUNCHES, gmlp_block_int8.LAUNCHES)
+    _serve_side_by_side(jt.gMLPForImageClassification(**GKW, device="cpu"))
+    assert (gmlp_block.LAUNCHES, gmlp_block_int8.LAUNCHES) == before  # CPU: twins only
+
+
+def test_gmlp_int8_predictor_matches_jax_int8_predictor():
+    """compute="int8" on gMLP: the JAX Predictor runs its nnf W8A8 path on
+    the CPU, the port its W8A8 block kernel's twin; top-1 agreement ≥ 90%
+    and top-k probabilities within 5e-2."""
+    jp = jm.Predictor(jm.gMLPForImageClassification(**GKW), batch_size=8, image_size=32,
+                      top_k=3, compute="int8")
+    tp = jt.Predictor(jt.gMLPForImageClassification(**GKW, device="cpu"), batch_size=8,
+                      image_size=32, top_k=3, compute="int8")
+    assert jp.dtype == tp.dtype == "int8"
+    imgs = _images(16, seed=5)
+    jl, jprob = zip(*(jp.predict(imgs[i:i + 8]) for i in range(0, 16, 8)))
+    tl, tprob = zip(*(tp.predict(imgs[i:i + 8]) for i in range(0, 16, 8)))
+    jl, jprob, tl, tprob = map(np.concatenate, (jl, jprob, tl, tprob))
+    assert (jl[:, 0] == tl[:, 0]).mean() >= 0.9
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=5e-2)
+
+
+def test_gmlp_weights_int8_predictor_matches_jax():
+    """weights="int8" on gMLP (stacked spatial weights with two scale axes):
+    the same dequantized weights as the JAX Predictor, served in float32."""
+    kw = dict(GKW, use_pallas=False)
+    jp = jm.Predictor(jm.gMLPForImageClassification(**kw), batch_size=4, image_size=32,
+                      top_k=3, bf16=False, weights="int8")
+    tp = jt.Predictor(jt.gMLPForImageClassification(**kw, device="cpu"), batch_size=4,
+                      image_size=32, top_k=3, bf16=False, weights="int8")
+    imgs = _images(4, seed=6)
+    jl, jprob = jp.predict(imgs)
+    tl, tprob = tp.predict(imgs)
+    np.testing.assert_array_equal(tl, jl)
+    np.testing.assert_allclose(tprob, jprob, rtol=0, atol=1e-5)
+    plain = jt.gMLPForImageClassification(**kw, device="cpu")
+    key = "model.0.channel_proj1.weight"
+    assert not torch.equal(tp.model.state_dict()[key], plain.state_dict()[key])
 
 
 def test_serve_row_int8_selects_compute_int8(monkeypatch):
