@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA H100 (sm_90a).
 
-Builds the port's six CUDA kernels from this checkout (one nvcc each, all
-at once), checks each against its plain PyTorch twin, then drives the
-port's serving paths through ``Predictor`` and ``MicroBatcher`` and times
-kernels against plain versions. Models: Mixer-B/16 @224 (d_model 768,
+Builds the port's CUDA kernels from this checkout (one nvcc per source,
+all at once), checks each against its plain PyTorch twin, drives the
+port's serving paths through ``Predictor`` and ``MicroBatcher``, times
+kernels against plain versions, and trains: bf16 mixed-precision train
+steps through ``make_train_step`` on both Mixer routes (the forward kernel
+with the plain block's backward, and under ``config.pallas_bwd`` the
+backward kernels), and ResMLP-S24 and gMLP-S steps. Models: Mixer-B/16 @224 (d_model 768,
 depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model
 384, depth 24, expansion 4; compare.py's) and gMLP-S @224 (d_model 256,
 d_ffn 1536, depth 30; compare.py's), full width and depth, random weights
@@ -15,9 +18,13 @@ from seed 0. Run from the repository root, with no arguments:
 Phases (each one fails loudly; there is no CPU fallback):
   1. the card and the kernels' build time;
   2. every kernel vs its twin at the full block shape (B=8), two ragged
-     small shapes and, for the W8A8 Mixer and ResMLP kernels, a chunked
-     shape (CD ≥ 2048, ragged chunk and tokens), within 1.6e-2 of
-     max(1, max|ref|);
+     small shapes and, for the W8A8 Mixer and ResMLP kernels and the
+     Mixer training kernels, a chunked shape (CD ≥ 2048, ragged chunk and
+     tokens), every output within 1.6e-2 of max(1, max|ref|); two calls on
+     the same inputs agree bit for bit. The training kernels also run at the
+     train step's b128 and at b131, where each weight gradient's sum over
+     images has partials of several images and a short last one (printed,
+     and checked to occur);
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -37,7 +44,21 @@ Phases (each one fails loudly; there is no CPU fallback):
      the bf16 ones;
   5. CUDA-event timings at b256: each kernel vs its twin; the forwards
      kernel vs plain (Mixer-B/16 and gMLP-S bf16) and int8 vs bf16 (all
-     three models).
+     three models);
+  6. training, bf16 with f32 master weights: (a) all 13 gradients of one
+     full-shape Mixer block (B=8), kernel route vs autograd of the kernel
+     twin and vs the recompute route, per tensor; (b) Mixer-B/16 at b32:
+     every parameter's gradient on the kernel route, the recompute route
+     and the plain bf16 path against float32 (TF32 off), as one global
+     relative L2 error, ≤ 1.7e-2, and ≤ 1.1e-2 between the two kernel
+     routes and ≤ 1.5e-2 between either and the plain path (3x the values
+     read on an H100);
+     (c) 10 AdamW steps at b128 on one batch, each route with remat off
+     and on: the loss descends, and remat gives the same losses; (d) the
+     launches per step, depth × (1, or 2 for a forward kernel under
+     remat); (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
+     against their plain bf16 paths (≤ 3e-2, as (a)); (f) train img/s at
+     b128 on each path, in turns.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -55,6 +76,14 @@ import numpy as np
 import torch
 
 TOL = 1.6e-2  # two bf16 ulps of the output scale
+# Phase 6b, the global relative L2 error of Mixer-B/16's bf16 gradients:
+# 3x the values read on an H100 (PERF.md, Findings): each bf16 path vs float32
+# 5.2e-3 to 5.7e-3; the kernel route vs the recompute route 3.7e-3; either
+# vs the plain bf16 path 5.1e-3.
+GRAD_VS_F32 = 1.7e-2
+GRAD_ROUTES = 1.1e-2  # kernel route vs recompute route
+GRAD_PLAIN = 1.5e-2  # a kernel route vs the plain bf16 path
+GRAD_BLOCK = 3e-2  # phases 6a and 6e: each tensor, or one model's, between two bf16 paths
 MIXER_B16 = dict(d_model=768, depth=12, token_dim=384)
 RESMLP_S24 = dict(d_model=384, depth=24, expansion_factor=4)
 GMLP_S = dict(image_size=224, patch_size=16, d_model=256, d_ffn=1536, depth=30)
@@ -163,6 +192,36 @@ def gmlp_inputs(B, N, D, F, seed):
     return x, (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, *lin(D, F))
 
 
+def train_inputs(kernel):
+    """Inputs of a Mixer training kernel: block_inputs, and for the backward
+    kernels an O(1) upstream gradient (dh for the token kernel, g for the
+    channel kernels, where x stands in for h)."""
+
+    def make(B, N, D, TD, CD, seed):
+        x, w = block_inputs(B, N, D, TD, CD, seed)
+        if kernel == "fwd_with_h":
+            return x, w
+        g = _draw(seed + 1)[0](B, N, D)
+        ln1w, ln1b, wt1, bt1, wt2, _, ln2w, ln2b, wc1, bc1, wc2, _ = w
+        if kernel == "token_bwd":
+            return x, (g, ln1w, ln1b, wt1, bt1, wt2)
+        return x, (g, ln2w, ln2b, bc1, wc1, wc2)
+
+    return make
+
+
+TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_block_bwd.py:220",
+                 "chan_data_bwd": "mixer_block_bwd.py:306", "chan_wgt_bwd": "mixer_block_bwd.py:397"}
+# Beyond the shared shapes: chunked CD, the train step's b128, and b131, where
+# the last f32 partial of each weight-gradient sum takes fewer images
+# than the others (on an H100: dWt1/dWt2 in 66 partials of 2 images, the
+# last of 1; dWc1/dWc2 in 4 slabs of 33 images, the last of 32).
+TRAIN_SHAPES = [(2, 33, 136, 50, 2056), (128, 196, 768, 384, 3072), (131, 196, 768, 384, 3072)]
+# argument of the weight that gives the inner width (TD, CD) of a
+# weight-gradient kernel's grouped sums
+GROUPED = {"token_bwd": 3, "chan_wgt_bwd": 4}
+
+
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
@@ -190,30 +249,73 @@ def kernel_table(mods):
             mods["gmlp_block_int8"], "fused_gmlp_block_int8", "gmlp_block_int8_ref",
             gmlp_inputs, gmlp_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
             GMLP_DEPTH),
+        **{k: (mods["mixer_block_bwd"], k, f"{k}_ref", train_inputs(k),
+               mixer_shapes + TRAIN_SHAPES, "mixer_block_bwd.cu", replaced, DEPTH)
+           for k, replaced in TRAIN_KERNELS.items()},
     }
 
 
+def launches(mod, fn):
+    """The launch count of wrapper fn of a kernel module."""
+    return mod.LAUNCHES[fn] if isinstance(mod.LAUNCHES, dict) else mod.LAUNCHES
+
+
+def outputs(got):
+    return got if isinstance(got, tuple) else (got,)
+
+
+def grouping(mod, fn, x, w):
+    """(images per f32 partial, partials, images in the last) of a
+    weight-gradient kernel's sums over images, as the kernel groups them."""
+    per = mod.images_per_group(fn, x, w[GROUPED[fn]].shape[0])
+    n = -(-x.shape[0] // per)
+    return per, n, x.shape[0] - (n - 1) * per
+
+
 def phase_kernels(table):
-    """Each kernel vs its twin at its shapes; returns name → largest max|Δ|."""
+    """Each kernel vs its twin at its shapes, every output; two calls agree
+    bit for bit. The weight-gradient kernels must have summed several images
+    into one partial, and a short last partial, at some shape. Returns name →
+    largest max|Δ|."""
     errs = {}
     for name, (mod, fn, ref, inputs, shapes, *_rest) in table.items():
         errs[name] = 0.0
+        groups = []
         for shape in shapes:
             x, w = inputs(*shape, seed=sum(shape))
-            before = mod.LAUNCHES
-            got = getattr(mod, fn)(x, *w)
+            before = launches(mod, fn)
+            got = outputs(getattr(mod, fn)(x, *w))
             torch.cuda.synchronize()
-            check(mod.LAUNCHES == before + 1, f"{name}: LAUNCHES did not rise by 1 at {shape}")
-            want = getattr(mod, ref)(x, *w)
-            check(got.shape == want.shape and got.dtype == torch.bfloat16,
-                  f"{name}: output {tuple(got.shape)} {got.dtype} at {shape}")
-            check(bool(torch.isfinite(got).all()), f"{name}: non-finite output at {shape}")
-            err = (got.float() - want.float()).abs().max().item()
-            rel = err / max(1.0, want.float().abs().max().item())
-            print(f"[2] {name} vs twin {shape}: max|d|={err:.6g} "
-                  f"max|d|/max(1,max|ref|)={rel:.6g} (limit {TOL})", flush=True)
-            check(rel <= TOL, f"{name} disagrees with its twin at {shape}: {rel}")
-            errs[name] = max(errs[name], err)
+            check(launches(mod, fn) == before + 1, f"{name}: LAUNCHES did not rise by 1 at {shape}")
+            again = outputs(getattr(mod, fn)(x, *w))
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"{name}: two calls on the same inputs differ at {shape}")
+            want = outputs(getattr(mod, ref)(x, *w))
+            check(len(got) == len(want), f"{name}: {len(got)} outputs, twin {len(want)}")
+            rels = []
+            for i, (a, b) in enumerate(zip(got, want)):
+                check(a.shape == b.shape and a.dtype == b.dtype,
+                      f"{name}: output {i} {tuple(a.shape)} {a.dtype}, twin {tuple(b.shape)} "
+                      f"{b.dtype} at {shape}")
+                check(bool(torch.isfinite(a).all()), f"{name}: non-finite output {i} at {shape}")
+                err = (a.float() - b.float()).abs().max().item()
+                rels.append(err / max(1.0, b.float().abs().max().item()))
+                errs[name] = max(errs[name], err)
+            note = ""
+            if fn in GROUPED:
+                groups.append(grouping(mod, fn, x, w))
+                note = (f"; weight gradients in {groups[-1][1]} partials of {groups[-1][0]} "
+                        f"images (last {groups[-1][2]})")
+            print(f"[2] {name} vs twin {shape}: max|d|/max(1,max|ref|) per output "
+                  f"{' '.join(f'{r:.6g}' for r in rels)} (limit {TOL}); two calls bit-equal"
+                  f"{note}", flush=True)
+            check(max(rels) <= TOL, f"{name} disagrees with its twin at {shape}: {rels}")
+            del x, w, got, again, want
+        if fn in GROUPED:
+            check(any(per > 1 for per, _, _ in groups) and any(last < per for per, _, last in groups),
+                  f"{name}: no shape summed several images in a partial and left a short last "
+                  f"one: {groups}")
     return errs
 
 
@@ -335,7 +437,10 @@ def resmlp_state_dict(jt):
 
 def reset_counts(mods):
     for mod in mods.values():
-        mod.LAUNCHES = 0
+        if isinstance(mod.LAUNCHES, dict):
+            mod.LAUNCHES.update(dict.fromkeys(mod.LAUNCHES, 0))
+        else:
+            mod.LAUNCHES = 0
 
 
 def serve(jt, preds, imgs, threads=8, max_delay_ms=5.0):
@@ -454,15 +559,20 @@ def phase_serving(jt, mods, mixer, res, gmlp):
     return launches
 
 
-def block_bound(name, x, w):
-    """(bound_ms, bound_by) of one block call from its inputs: each input
-    read once and the output written once at the HBM rate, against the
-    block's products at the dense tensor-core peak of its type."""
-    nbytes = 2 * x.numel() * x.element_size() + sum(t.numel() * t.element_size() for t in w)
+def block_bound(name, x, w, outs):
+    """(bound_ms, bound_by) of one kernel call from its inputs and outputs:
+    each read once or written once at the HBM rate, against the call's
+    products at the dense tensor-core peak of its type."""
+    nbytes = sum(t.numel() * t.element_size() for t in (x, *w, *outs))
     B, N, D = x.shape
-    if name.startswith("fused_mixer_block"):
+    bnd = 2 * B * N * D
+    if name.startswith("fused_mixer_block") or name == "fwd_with_h":
         TD, CD = w[2].shape[0], w[8].shape[0]
-        ops = 2 * B * N * D * (2 * TD + 2 * CD)
+        ops = bnd * (2 * TD + 2 * CD)
+    elif name == "token_bwd":  # w = (dh, ln1w, ln1b, wt1, bt1, wt2); with the recompute
+        ops = bnd * 5 * w[3].shape[0]
+    elif name in ("chan_data_bwd", "chan_wgt_bwd"):  # w = (g, ln2w, ln2b, bc1, wc1, wc2)
+        ops = bnd * (3 if name == "chan_data_bwd" else 4) * w[4].shape[0]
     elif name.startswith("fused_resmlp_block"):
         F = w[8].shape[0]
         ops = 2 * B * N * (N * D + 2 * D * F)
@@ -483,13 +593,14 @@ def phase_timing(jt, table, name):
     for kname, (mod, fn, ref, inputs, shapes, *_rest) in table.items():
         shape = (256, *shapes[0][1:])
         x, w = inputs(*shape, seed=7)
+        outs = outputs(getattr(mod, fn)(x, *w))
         ms = cuda_ms(lambda: getattr(mod, fn)(x, *w), 10)
         plain_ms = cuda_ms(lambda: getattr(mod, ref)(x, *w), 5)
-        bound_ms, bound_by = block_bound(kname, x, w)
+        bound_ms, bound_by = block_bound(kname, x, w, outs)
         print(f"[5] {kname} b256 {shape}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})  [{name}]", flush=True)
         timings[kname] = (ms, plain_ms, bound_ms, bound_by)
-        del x, w
+        del x, w, outs
         torch.cuda.empty_cache()
 
     xb = torch.randn(256, 3, 224, 224, device="cuda").bfloat16()
@@ -527,6 +638,213 @@ def phase_timing(jt, table, name):
     return timings
 
 
+def grads_of(model, batch, dtype):
+    """(loss, {name: gradient}) of the train step's loss on batch, the
+    parameters and images cast to dtype (None: float32)."""
+    from jittor_mlp_tpu_torch.parallel import loss_fn
+
+    model.zero_grad(set_to_none=True)
+    loss = loss_fn(model, batch, dtype)
+    loss.backward()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(loss)), f"non-finite loss {loss.item()}")
+    return loss.item(), {k: p.grad.detach().clone() for k, p in model.named_parameters()
+                         if p.grad is not None}
+
+
+def rel_l2(got, want):
+    """Global relative L2 error of tensors (sequences or dicts by key)."""
+    keys = want.keys() if isinstance(want, dict) else range(len(want))
+    num = sum(((got[k].float() - want[k].float()) ** 2).sum().item() for k in keys)
+    return (num / sum((want[k].float() ** 2).sum().item() for k in keys)) ** 0.5
+
+
+def train_batch(n, seed):
+    labels = np.random.default_rng(seed).integers(0, 1000, n)
+    return {"image": images(n, seed), "label": torch.from_numpy(labels).to("cuda")}
+
+
+BLOCK_ARGS = ("x", "ln1w", "ln1b", "wt1", "bt1", "wt2", "bt2", "ln2w", "ln2b", "wc1", "bc1",
+              "wc2", "bc2")
+
+
+def train_block(mods):
+    """(a) All 13 gradients of one full-shape Mixer block at B = 8: the
+    kernel route against autograd of the kernel twin and against the
+    recompute route, per tensor."""
+    mb, bwd = mods["mixer_block"], mods["mixer_block_bwd"]
+    x, w = block_inputs(8, 196, 768, 384, 3072, seed=11)
+    g = _draw(12)[0](*x.shape)
+
+    def grads(block):
+        leaves = [t.detach().requires_grad_() for t in (x, *w)]
+        return torch.autograd.grad(block(*leaves), leaves, g)
+
+    kern = grads(bwd.fused_mixer_block_train)
+    for tag, other in (("autograd of the kernel twin", grads(mb.mixer_block_ref)),
+                       ("recompute route", grads(mb.fused_mixer_block_trainable))):
+        errs = {}
+        for name, a, b in zip(BLOCK_ARGS, kern, other):
+            check(a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16,
+                  f"block gradient {name}: {tuple(a.shape)} {a.dtype} vs {b.dtype}")
+            errs[name] = rel_l2([a], [b])
+        worst = max(errs, key=errs.get)
+        print(f"[6a] Mixer block {tuple(x.shape)} gradients, kernel route vs {tag}: relative L2 "
+              f"per tensor {' '.join(f'{k}={v:.4g}' for k, v in errs.items())}; worst {worst} "
+              f"(limit {GRAD_BLOCK})", flush=True)
+        check(errs[worst] <= GRAD_BLOCK, f"kernel-route block gradient {worst} vs {tag}: "
+              f"{errs[worst]}")
+
+
+def grad_bands(jt, batch_size=32):
+    """(b) Mixer-B/16 gradients of every parameter on the kernel route, the
+    recompute route and the plain bf16 path, against float32 (TF32 off)
+    and against each other, as global relative L2 errors."""
+    from jittor_mlp_tpu_torch import config
+
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    batch = train_batch(batch_size, 3)
+    with config.parity_mode():
+        _, ref = grads_of(model, batch, None)
+    paths = {}
+    for path, use_pallas, pallas_bwd in (("kernel route", True, True),
+                                         ("recompute route", True, False),
+                                         ("plain bf16 path", False, False)):
+        model.use_pallas, config.pallas_bwd = use_pallas, pallas_bwd
+        _, paths[path] = grads_of(model, batch, torch.bfloat16)
+    model.use_pallas, config.pallas_bwd = True, False
+    errs = {}
+    for path, grads in paths.items():
+        errs[f"{path} vs f32"] = (rel_l2(grads, ref), GRAD_VS_F32)
+    names = list(paths)
+    for i, a in enumerate(names):
+        for b in names[i + 1:]:
+            lim = GRAD_PLAIN if "plain" in a + b else GRAD_ROUTES
+            errs[f"{a} vs {b}"] = (rel_l2(paths[a], paths[b]), lim)
+    for tag, (err, lim) in errs.items():
+        print(f"[6b] Mixer-B/16 b{batch_size} gradients, {tag}: global relative L2 {err:.6g} "
+              f"(limit {lim})", flush=True)
+    for tag, (err, lim) in errs.items():
+        check(err <= lim, f"Mixer-B/16 gradients {tag}: {err} > {lim}")
+    return errs
+
+
+def loss_descends(jt, mods, steps=10, batch_size=128):
+    """(c) AdamW steps on one batch on each route, remat off and on; (d)
+    the launches per step. Returns the kernel route's launches (remat off):
+    the training path's run of the four training kernels."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(batch_size, 5)
+    mb, bwd = mods["mixer_block"], mods["mixer_block_bwd"]
+    runs, counted = {}, {}
+    for route in ("kernel", "recompute"):
+        for remat in (False, True):
+            model.load_state_dict(init)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8)
+            step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+            config.pallas_bwd = route == "kernel"
+            reset_counts(mods)  # the training path's run starts here
+            with config.remat_mode() if remat else contextlib.nullcontext():
+                losses = [step(batch).item() for _ in range(steps)]
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in bwd.LAUNCHES.items()}
+            counts["fused_mixer_block"] = mb.LAUNCHES
+            config.pallas_bwd = False
+            fwd = DEPTH * steps * (2 if remat else 1)
+            bwd_n = DEPTH * steps if route == "kernel" else 0
+            want = {"fwd_with_h": fwd if route == "kernel" else 0, "token_bwd": bwd_n,
+                    "chan_data_bwd": bwd_n, "chan_wgt_bwd": bwd_n,
+                    "fused_mixer_block": 0 if route == "kernel" else fwd}
+            tag = f"{route} route, remat {'on' if remat else 'off'}"
+            print(f"[6c] Mixer-B/16 b{batch_size} {steps} AdamW steps, {tag}: losses "
+                  f"{' '.join(f'{v:.6f}' for v in losses)}", flush=True)
+            print(f"[6d] launches, {tag}: {json.dumps(counts)} (want {json.dumps(want)})",
+                  flush=True)
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"{tag}: the loss did not descend: {losses}")
+            check(counts == want, f"{tag}: launches {counts}, want {want}")
+            runs[(route, remat)] = losses
+            if route == "kernel" and not remat:
+                counted = {k: counts[k] for k in TRAIN_KERNELS}
+        check(runs[(route, True)] == runs[(route, False)],
+              f"{route} route: remat changed the losses")
+        print(f"[6c] {route} route: remat on gives the same losses, bit for bit", flush=True)
+    return counted
+
+
+def other_families(jt, mods, batch_size=32):
+    """(e) One ResMLP-S24 and one gMLP-S bf16 train step; their gradients on
+    the kernel path against the plain bf16 path."""
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    batch = train_batch(batch_size, 6)
+    for tag, build, mod, depth in (
+            ("ResMLP-S24", lambda: jt.ResMLPForImageClassification(**RESMLP_S24)
+             .load_torch_state_dict(resmlp_state_dict(jt)), mods["resmlp_block"], RES_DEPTH),
+            ("gMLP-S", lambda: jt.gMLPForImageClassification(**GMLP_S), mods["gmlp_block"],
+             GMLP_DEPTH)):
+        model = build()
+        model.use_pallas = False
+        _, plain = grads_of(model, batch, torch.bfloat16)
+        model.use_pallas = True
+        before = mod.LAUNCHES
+        _, kern = grads_of(model, batch, torch.bfloat16)
+        check(mod.LAUNCHES == before + depth,
+              f"{tag}: {mod.LAUNCHES - before} forward-kernel launches in a step, want {depth}")
+        err = rel_l2(kern, plain)
+        step = make_train_step(model, torch.optim.AdamW(model.parameters(), lr=1e-3,
+                                                        weight_decay=1e-4, eps=1e-8),
+                               compute_dtype=torch.bfloat16)
+        loss = step(batch).item()
+        print(f"[6e] {tag} b{batch_size} bf16 train step: loss {loss:.6f}; gradients of the "
+              f"kernel path vs the plain bf16 path: global relative L2 {err:.6g} "
+              f"(limit {GRAD_BLOCK}); {depth} forward-kernel launches a step", flush=True)
+        check(np.isfinite(loss) and err <= GRAD_BLOCK, f"{tag}: loss {loss}, gradient error {err}")
+        del model
+
+
+def train_throughput(jt, name, batch_size=128):
+    """(f) Train img/s at b128 on each path, in turns, by CUDA events."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    batch = train_batch(batch_size, 7)
+    paths = {"kernel route": (True, True), "recompute route": (True, False),
+             "plain bf16 path": (False, False)}
+    times = {k: [] for k in paths}
+    peak = {}
+    for path in list(paths) + list(paths)[::-1]:
+        model.use_pallas, config.pallas_bwd = paths[path]
+        torch.cuda.reset_peak_memory_stats()
+        times[path].append(cuda_ms(lambda: step(batch), 5))
+        peak[path] = torch.cuda.max_memory_allocated() / 2**30
+    model.use_pallas, config.pallas_bwd = True, False
+    for path, runs in times.items():
+        ms = sum(runs) / len(runs)
+        print(f"[6f] Mixer-B/16 bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
+              f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
+              f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
+
+
+def phase_train(jt, mods, name):
+    """Phase 6; returns the training kernels' launches on the training path."""
+    train_block(mods)
+    grad_bands(jt)
+    counted = loss_descends(jt, mods)
+    torch.cuda.empty_cache()
+    other_families(jt, mods)
+    torch.cuda.empty_cache()
+    train_throughput(jt, name)
+    return counted
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -543,7 +861,7 @@ def main():
 
     mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
             for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                      "gmlp_block", "gmlp_block_int8")}
+                      "gmlp_block", "gmlp_block_int8", "mixer_block_bwd")}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda m: m.build(), mods.values()))
@@ -557,11 +875,13 @@ def main():
     del mixer, res, gmlp
     torch.cuda.empty_cache()
     timings = phase_timing(jt, table, name)
+    torch.cuda.empty_cache()
+    launches.update(phase_train(jt, mods, name))
 
     rows = []
     for kname, (mod, *_mid, source, replaced, _depth) in table.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
-        check(launches.get(kname, 0) > 0, f"{kname} was not launched on its serving path")
+        check(launches.get(kname, 0) > 0, f"{kname} was not launched on its path")
         rows.append({
             "name": kname,
             "route": "cuda",

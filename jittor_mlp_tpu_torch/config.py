@@ -17,6 +17,17 @@ Counterpart of ``jittor_mlp_tpu/config.py``:
   let one serving thread switch int8 off while another thread's forward is
   half done. The flag is therefore thread-local: ``int8_enabled()`` reads
   it, ``int8_mode()`` sets it for the calling thread only.
+- ``pallas_bwd``: in bf16 training, False (the default, as in the JAX
+  package) runs each Mixer block as the forward kernel with the autograd
+  of the plain block as its backward (the recompute route); True runs the
+  kernel route, ``ops.kernels.mixer_block_bwd.fused_mixer_block_train``,
+  whose backward is three kernels. The name is the JAX package's.
+- ``remat_mode()``: activation checkpointing of every block
+  (``torch.utils.checkpoint``, non-reentrant), the counterpart of the JAX
+  ``remat_mode`` and ``nnf.scan_blocks``'s ``jax.checkpoint``: the forward
+  keeps only each block's input, and the backward runs each block's
+  forward again. It is read at every forward, so it takes effect on the
+  next step.
 """
 
 import threading
@@ -25,6 +36,8 @@ from contextlib import contextmanager
 import torch
 
 compute_dtype = torch.float32
+pallas_bwd = False  # bf16 training: the Mixer block's kernel route
+remat = False  # checkpoint every block (set by remat_mode())
 _local = threading.local()
 
 
@@ -48,6 +61,19 @@ def int8_mode():
         yield
     finally:
         _local.int8 = old
+
+
+@contextmanager
+def remat_mode():
+    """Checkpoint every block of every model: activations are recomputed in
+    the backward instead of kept (training memory)."""
+    global remat
+    old = remat
+    remat = True
+    try:
+        yield
+    finally:
+        remat = old
 
 
 @contextmanager

@@ -16,6 +16,9 @@ before the affine.
 Under ``config.int8_mode()`` (this thread), ``linear``, ``conv1d_token`` and
 ``patch_embed`` run their contraction through
 ``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense`` does.
+
+``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
+activation checkpointing under ``config.remat_mode()``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from __future__ import annotations
 import math
 
 import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .. import config
 
@@ -118,3 +123,39 @@ def affine(x, alpha, beta):
 def global_avg_pool_tokens(x):
     """Mean over the token axis: (B, N, D) → (B, D)."""
     return x.mean(-2)
+
+
+class _BlockCall(nn.Module):
+    """``fn(block, x)`` as a module, so that ``functional_call`` can bind
+    the block's tensors for one call."""
+
+    def __init__(self, block, fn):
+        super().__init__()
+        self.block = block
+        self.fn = fn
+
+    def forward(self, x):
+        return self.fn(self.block, x)
+
+
+def run_blocks(blocks, x, fn):
+    """x through every block in turn: ``x = fn(block, x)``.
+
+    Under ``config.remat_mode()``, with gradients on, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant). The block's parameters and
+    buffers as they are now (under a train step's ``functional_call``, its
+    cast copies) go in as explicit inputs and are bound again when the
+    backward recomputes the block, so the recompute reads the tensors the
+    forward read."""
+    for blk in blocks:
+        if not (config.remat and torch.is_grad_enabled()):
+            x = fn(blk, x)
+            continue
+        call = _BlockCall(blk, fn)
+        named = {**dict(call.named_parameters()), **dict(call.named_buffers())}
+
+        def run(x, *tensors, call=call, names=tuple(named)):
+            return torch.func.functional_call(call, dict(zip(names, tensors)), (x,))
+
+        x = checkpoint(run, x, *named.values(), use_reentrant=False)
+    return x

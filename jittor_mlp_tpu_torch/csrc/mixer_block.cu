@@ -37,8 +37,7 @@
 //   tensor-core work of this one.
 // wgmma, TMA and keeping the intermediates on chip are later work.
 
-#include "gemm_bf16.cuh"
-#include "layer_norm.cuh"
+#include "mixer_forward.cuh"
 
 using namespace jmt;
 
@@ -52,22 +51,8 @@ extern "C" int mixer_block_bf16(const void* x, const void* ln1w, const void* ln1
                                 const void* bc2, void* xn, void* t, void* h, void* c,
                                 void* out, int B, int N, int D, int TD, int CD,
                                 void* stream_ptr) {
-  using bf16gemm::gelu_bias;
-  using bf16gemm::gemm;
-  using bf16gemm::residual_bias;
-  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  const long long nd = (long long)N * D, td = (long long)TD * D;
-  JMT_CHECK(layer_norm(s, x, D, ln1w, ln1b, xn, B * N, D));
-  // token mix, per image: t = gelu(Wt1 · xn + bt1); h = x + Wt2 · t + bt2
-  JMT_CHECK(gemm<false>(s, B, TD, D, N, wt1, N, 0, xn, D, nd, gelu_bias(bt1, 1, t, D, td)));
-  JMT_CHECK(gemm<false>(s, B, N, D, TD, wt2, TD, 0, t, D, td,
-                        residual_bias(bt2, 1, x, h, D, nd)));
-  JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
-  // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(gemm<true>(s, 1, B * N, CD, D, xn, D, 0, wc1, D, 0, gelu_bias(bc1, 0, c, CD, 0)));
-  JMT_CHECK(gemm<true>(s, 1, B * N, D, CD, c, CD, 0, wc2, CD, 0,
-                       residual_bias(bc2, 0, h, out, D, 0)));
-  return 0;
+  return mixer_forward(static_cast<cudaStream_t>(stream_ptr), x, ln1w, ln1b, wt1, bt1, wt2, bt2,
+                       ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, h, c, out, B, N, D, TD, CD);
 }
 
 extern "C" const char* mixer_error_string(int code) {

@@ -12,9 +12,12 @@ names are the torch reference's (``patcher.0``,
 In bf16 eval, every block runs through ``ops.kernels.gmlp_block``'s
 ``fused_gmlp_block``, or under ``config.int8_mode()`` through
 ``ops.kernels.gmlp_block_int8``'s W8A8 ``fused_gmlp_block_int8`` (each the
-CUDA kernel on a CUDA tensor, its plain twin on the CPU). float32 and
-training take the plain ``nnf`` block. The JAX gate's ``B % 2 == 0`` and
-TPU-backend conditions belong to its TPU kernels and are dropped.
+CUDA kernel on a CUDA tensor, its plain twin on the CPU). bf16 training
+runs ``fused_gmlp_block_trainable`` (the forward kernel, autograd of the
+plain block backward), or the plain block under ``int8_mode()``; float32
+takes the plain ``nnf`` block. The JAX gate's ``B % 2 == 0`` and
+TPU-backend conditions belong to its TPU kernels and are dropped. Blocks
+run through ``nnf.run_blocks`` (checkpointed under ``config.remat_mode()``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .. import config
 from ..core import nnf
 from ..core.init import SDBuilder
 from ..core.model import Model
-from ..ops.kernels.gmlp_block import fused_gmlp_block
+from ..ops.kernels.gmlp_block import fused_gmlp_block, fused_gmlp_block_trainable
 from ..ops.kernels.gmlp_block_int8 import fused_gmlp_block_int8
 from ..utils import check_sizes, pair
 
@@ -110,8 +113,20 @@ class gMLP(Model):
         ))
 
     def uses_kernel(self, x):
-        """The block-kernel gate: bf16 activations in eval."""
-        return self.use_pallas and x.dtype == torch.bfloat16 and not self.training
+        """The block-kernel gate: bf16 activations, except training under
+        int8_mode()."""
+        return (self.use_pallas and x.dtype == torch.bfloat16
+                and not (self.training and config.int8_enabled()))
+
+    def block_fn(self, x):
+        """fn(block, x) that each block runs for activations like x."""
+        if not self.uses_kernel(x):
+            return lambda blk, x: blk(x)
+        if self.training:
+            kernel = fused_gmlp_block_trainable
+        else:
+            kernel = fused_gmlp_block_int8 if config.int8_enabled() else fused_gmlp_block
+        return lambda blk, x: kernel(x, *(a.to(x.dtype) for a in blk.fused_args()))
 
     def forward(self, x):
         """x: (B, C, H, W) → logits (B, num_classes)."""
@@ -119,13 +134,7 @@ class gMLP(Model):
         conv = self.patcher[0]
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
         x = x.reshape(x.shape[0], self.num_patches, self.d_model)
-        if self.uses_kernel(x):
-            block = fused_gmlp_block_int8 if config.int8_enabled() else fused_gmlp_block
-            for blk in self.model:
-                x = block(x, *(a.to(x.dtype) for a in blk.fused_args()))
-        else:
-            for blk in self.model:
-                x = blk(x)
+        x = nnf.run_blocks(self.model, x, self.block_fn(x))
         x = nnf.global_avg_pool_tokens(x)
         head = self.mlp_head[0]
         return nnf.linear(x, head.weight, head.bias)
@@ -144,8 +153,9 @@ def gMLPForImageClassification(
     seed=0,
     device="cuda",
 ):
-    """use_pallas: keeps the JAX factory's name; True runs bf16 eval blocks
-    through the hand-written gMLP-block kernels (W8A8 under int8_mode).
+    """use_pallas: keeps the JAX factory's name; True runs bf16 blocks
+    through the hand-written gMLP-block kernels (W8A8 under int8_mode in
+    eval; in training the forward kernel with the plain block's backward).
     block_runner must be None: the parallel runners are not ported yet.
     device: where the model is built, the card unless the caller asks for
     the CPU; with no card, "cuda" raises."""

@@ -7,13 +7,20 @@ FF as Linear), final LayerNorm → token mean → Linear head. Layout is
 reference's (``patcher.0``, ``model.{i}.0.norm``, ``model.{i}.0.fn.net.{0,3}``,
 ``model.{i}.1.…``, ``active``, ``mlp_head.0``).
 
-In bf16 eval, every block runs through ``ops.kernels.mixer_block``'s
-``fused_mixer_block``, or under ``config.int8_mode()`` through
-``ops.kernels.mixer_block_int8``'s W8A8 ``fused_mixer_block_int8`` (each the
-CUDA kernel on a CUDA tensor, its plain twin on the CPU). float32 and
-training take the plain ``nnf`` block, whose dense ops go int8 under
+With bf16 activations every block runs in hand-written kernels (the CUDA
+kernel on a CUDA tensor, its plain twin on the CPU), as the JAX gate picks
+its Pallas kernels:
+- eval: ``ops.kernels.mixer_block``'s ``fused_mixer_block``, or under
+  ``config.int8_mode()`` the W8A8 ``fused_mixer_block_int8``;
+- training: ``fused_mixer_block_trainable`` (kernel forward, autograd of the
+  plain block backward), or under ``config.pallas_bwd``
+  ``ops.kernels.mixer_block_bwd.fused_mixer_block_train`` (kernel forward
+  and backward); under ``int8_mode()`` the plain block (a train step
+  refuses int8).
+float32 takes the plain ``nnf`` block, whose dense ops go int8 under
 ``int8_mode()`` as in the JAX package. The JAX gate's ``B % 2 == 0`` and
-TPU-backend conditions belong to its TPU kernels and are dropped.
+TPU-backend conditions belong to its TPU kernels and are dropped. Blocks
+run through ``nnf.run_blocks`` (checkpointed under ``config.remat_mode()``).
 """
 
 from __future__ import annotations
@@ -25,7 +32,8 @@ from .. import config
 from ..core import nnf
 from ..core.init import SDBuilder
 from ..core.model import Model
-from ..ops.kernels.mixer_block import fused_mixer_block
+from ..ops.kernels.mixer_block import fused_mixer_block, fused_mixer_block_trainable
+from ..ops.kernels.mixer_block_bwd import fused_mixer_block_train
 from ..ops.kernels.mixer_block_int8 import fused_mixer_block_int8
 from ..utils import check_sizes, pair
 
@@ -126,8 +134,27 @@ class MLPMixer(Model):
         ))
 
     def uses_kernel(self, x):
-        """The block-kernel gate: bf16 activations in eval."""
-        return self.use_pallas and x.dtype == torch.bfloat16 and not self.training
+        """The block-kernel gate: bf16 activations, except training under
+        int8_mode()."""
+        return (self.use_pallas and x.dtype == torch.bfloat16
+                and not (self.training and config.int8_enabled()))
+
+    def block_fn(self, x):
+        """fn(block, x) that each block runs for activations like x."""
+        if not self.uses_kernel(x):
+            return lambda blk, x: blk(x)
+        if not self.training:
+            kernel = fused_mixer_block_int8 if config.int8_enabled() else fused_mixer_block
+        elif config.pallas_bwd:
+            kernel = fused_mixer_block_train
+        else:
+            kernel = fused_mixer_block_trainable
+
+        def fn(blk, x):
+            tok, chan = blk
+            return kernel(x, *(a.to(x.dtype) for a in (*tok.fused_args(), *chan.fused_args())))
+
+        return fn
 
     def forward(self, x):
         """x: (B, C, H, W) → logits (B, num_classes)."""
@@ -135,14 +162,7 @@ class MLPMixer(Model):
         conv = self.patcher[0]
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
         x = x.reshape(x.shape[0], self.num_patches, self.d_model)
-        if self.uses_kernel(x):
-            block = fused_mixer_block_int8 if config.int8_enabled() else fused_mixer_block
-            for tok, chan in self.model:
-                w = tuple(a.to(x.dtype) for a in (*tok.fused_args(), *chan.fused_args()))
-                x = block(x, *w)
-        else:
-            for tok, chan in self.model:
-                x = chan(tok(x))
+        x = nnf.run_blocks(self.model, x, self.block_fn(x))
         x = nnf.layer_norm(x, self.active.weight, self.active.bias)
         x = nnf.global_avg_pool_tokens(x)
         head = self.mlp_head[0]
@@ -166,8 +186,10 @@ def MLPMixerForImageClassification(
     """token_dim: hidden width of the token-mixing FF. Defaults to
     num_patches*expansion_factor; the paper's Mixer-B/16 uses 384.
 
-    use_pallas: keeps the JAX factory's name; True runs bf16 eval blocks
-    through the hand-written mixer-block kernels (W8A8 under int8_mode).
+    use_pallas: keeps the JAX factory's name; True runs bf16 blocks
+    through the hand-written mixer-block kernels (W8A8 under int8_mode in
+    eval; in training the forward kernel, and under config.pallas_bwd the
+    backward kernels too).
     block_runner must be None: the parallel runners are not ported yet.
     device: where the model is built, the card unless the caller asks for
     the CPU; with no card, "cuda" raises."""

@@ -67,8 +67,9 @@ class Library:
 
     ``functions`` maps each C entry to (number of pointer arguments, number
     of int arguments); every entry takes the stream last and returns a
-    cudaError_t code. ``workspace`` is (entry, number of int arguments)
-    of an entry that returns the bytes of scratch the kernel needs.
+    cudaError_t code. ``workspace`` maps each entry that returns a size_t
+    (the bytes of scratch a kernel needs, or another size of its plan) to
+    its number of int arguments.
     ``error`` names the entry that turns a code into its message."""
 
     def __init__(self, name, sources, functions, error, workspace=None):
@@ -76,7 +77,7 @@ class Library:
         self.sources = sources
         self.functions = functions
         self.error = error
-        self.workspace_fn = workspace
+        self.workspace_fns = workspace or {}
         self._lib = None
         self._lock = threading.Lock()  # first use may come from several threads
 
@@ -95,16 +96,18 @@ class Library:
                     f.restype = ctypes.c_int
                 getattr(lib, self.error).argtypes = [ctypes.c_int]
                 getattr(lib, self.error).restype = ctypes.c_char_p
-                if self.workspace_fn:
-                    fn, n_int = self.workspace_fn
+                for fn, n_int in self.workspace_fns.items():
                     getattr(lib, fn).argtypes = [ctypes.c_int] * n_int
                     getattr(lib, fn).restype = ctypes.c_size_t
                 self._lib = lib
         return self._lib
 
-    def workspace(self, *dims):
-        """Bytes of device scratch for these dimensions."""
-        return getattr(self.load(), self.workspace_fn[0])(*dims)
+    def workspace(self, *dims, entry=None):
+        """Bytes of device scratch for these dimensions, from ``entry`` (by
+        default the library's only workspace entry)."""
+        if entry is None:
+            (entry,) = self.workspace_fns
+        return getattr(self.load(), entry)(*dims)
 
     def launch(self, fn, device, tensors, ints):
         """Call entry ``fn`` with the tensors' device pointers, the ints and

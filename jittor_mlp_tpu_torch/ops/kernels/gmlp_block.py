@@ -20,6 +20,10 @@ w2 (D, F) [channel_proj2].
 - ``fused_gmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``gmlp_block_plain``: the JAX ``_plain_gmlp_block`` (products and bias adds
+  in the input dtype), whose autograd is the training backward.
+- ``fused_gmlp_block_trainable``: forward ``fused_gmlp_block``, backward
+  autograd of ``gmlp_block_plain``.
 """
 
 from __future__ import annotations
@@ -30,12 +34,13 @@ import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
 from ._build import Library
-from .mixer_block import check_weights, layer_norm_f32, require_bf16_contiguous
+from .mixer_block import (KernelForwardPlainBackward, check_weights, layer_norm_f32,
+                          require_bf16_contiguous)
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gmlp_block", ["gmlp_block.cu"], {"gmlp_block_bf16": (13, 4)},
-               error="gmlp_error_string", workspace=("gmlp_block_bf16_workspace", 4))
+               error="gmlp_error_string", workspace={"gmlp_block_bf16_workspace": 4})
 
 
 def block_dims(x, weights):
@@ -67,6 +72,22 @@ def gmlp_block_ref(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     return (x.float() + (torch.matmul(g.float(), w2.float().t()) + b2.float())).to(dt)
 
 
+def gmlp_block_plain(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """The JAX ``_plain_gmlp_block``: f32 LayerNorms cast to the input
+    dtype, products and bias adds in the input dtype, the activation and
+    the gate in f32 cast back."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    F = w1.shape[0] // 2
+    y = torch.matmul(layer_norm_f32(x, ln1w, ln1b).to(dt), w1.t()) + b1
+    y = act(y.float()).to(dt)
+    u, v = y[..., :F], y[..., F:]
+    vn = layer_norm_f32(v, sgu_w, sgu_b).to(dt)
+    v2 = torch.matmul(wsp, vn) + bs[:, None]
+    g = (u.float() * v2.float()).to(dt)
+    return x + torch.matmul(g, w2.t()) + b2
+
+
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
@@ -92,3 +113,11 @@ def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+def fused_gmlp_block_trainable(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """Differentiable gMLP block: ``fused_gmlp_block`` forward (the kernel
+    on the card), autograd of ``gmlp_block_plain`` backward."""
+    return KernelForwardPlainBackward.apply(
+        fused_gmlp_block, gmlp_block_plain, x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs,
+        w2, b2)

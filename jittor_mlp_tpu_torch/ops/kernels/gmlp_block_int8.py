@@ -38,7 +38,7 @@ from .mixer_block_int8 import weight_operands
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gmlp_block_int8", ["gmlp_block_int8.cu"], {"gmlp_block_int8": (16, 4)},
-               error="gmlp_int8_error_string", workspace=("gmlp_block_int8_workspace", 4))
+               error="gmlp_int8_error_string", workspace={"gmlp_block_int8_workspace": 4})
 
 
 def gmlp_block_int8_ref(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

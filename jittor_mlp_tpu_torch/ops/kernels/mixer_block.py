@@ -19,6 +19,16 @@ wc1 (CD, D), wc2 (D, CD).
 - ``fused_mixer_block``: a CPU tensor goes to ``mixer_block_ref``; a CUDA
   bf16 contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel.
+
+Training (the recompute route; ``mixer_block_bwd`` holds the kernel route):
+
+- ``mixer_block_plain``: a literal port of the JAX ``_plain_block``, which
+  rounds to the input dtype after every product and bias add, as bf16
+  XLA products do. It is the function whose autograd is the backward, and
+  not the kernel twin.
+- ``fused_mixer_block_trainable``: forward ``fused_mixer_block``, backward
+  autograd of ``mixer_block_plain`` (``KernelForwardPlainBackward``), as the
+  JAX custom VJP ``fused_mixer_block_trainable``.
 """
 
 from __future__ import annotations
@@ -45,10 +55,11 @@ def layer_norm_f32(x, w, b, eps=1e-5):
 
 
 def mixer_block_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
-                    wc1, bc1, wc2, bc2):
-    """Plain PyTorch twin of the kernel, rounding where the kernel rounds.
-    On CUDA the float32 matmuls need TF32 off (PyTorch's default for
-    matmuls) to match."""
+                    wc1, bc1, wc2, bc2, with_h=False):
+    """Plain PyTorch twin of the kernel, rounding where the kernel rounds;
+    with ``with_h`` it returns (out, h), h the channel mix's input. On CUDA
+    the float32 matmuls need TF32 off (PyTorch's default for matmuls) to
+    match."""
     dt = x.dtype
     act = gelu_erf if dt == torch.float32 else gelu_tanh
     xn = layer_norm_f32(x, ln1w, ln1b).to(dt)
@@ -59,7 +70,49 @@ def mixer_block_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     hn = layer_norm_f32(h, ln2w, ln2b).to(dt)
     c = act(torch.matmul(hn.float(), wc1.float().t()) + bc1.float()).to(dt)
     c2 = torch.matmul(c.float(), wc2.float().t()) + bc2.float()
-    return (h.float() + c2).to(dt)
+    out = (h.float() + c2).to(dt)
+    return (out, h) if with_h else out
+
+
+def mixer_block_plain(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                      wc1, bc1, wc2, bc2):
+    """The JAX ``_plain_block``: f32 LayerNorm statistics and affine cast
+    to the input dtype, products and bias adds in the input dtype, the
+    activation in f32 cast back."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+
+    def ln(v, w, b):
+        return layer_norm_f32(v, w, b).to(dt)
+
+    y = torch.matmul(wt1, ln(x, ln1w, ln1b)) + bt1[:, None]
+    y = act(y.float()).to(dt)
+    h = x + torch.matmul(wt2, y) + bt2[:, None]
+    c = torch.matmul(ln(h, ln2w, ln2b), wc1.t()) + bc1
+    c = act(c.float()).to(dt)
+    return h + torch.matmul(c, wc2.t()) + bc2
+
+
+class KernelForwardPlainBackward(torch.autograd.Function):
+    """A block kernel in the forward, autograd of the plain block in the
+    backward (the JAX package's custom VJPs around its Pallas forwards).
+
+    ``apply(kernel, plain, x, *weights)``: the forward returns
+    ``kernel(x, *weights)`` and saves the inputs; the backward runs
+    ``plain`` on them again and returns its input gradients."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, x, *weights):
+        ctx.plain = plain
+        ctx.save_for_backward(x, *weights)
+        return kernel(x, *weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ctx.plain(*inputs)
+        return (None, None, *torch.autograd.grad(out, inputs, g))
 
 
 def build():
@@ -128,3 +181,12 @@ def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+def fused_mixer_block_trainable(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                                wc1, bc1, wc2, bc2):
+    """Differentiable Mixer block: ``fused_mixer_block`` forward (the
+    kernel on the card), autograd of ``mixer_block_plain`` backward."""
+    return KernelForwardPlainBackward.apply(
+        fused_mixer_block, mixer_block_plain, x, ln1w, ln1b, wt1, bt1, wt2, bt2,
+        ln2w, ln2b, wc1, bc1, wc2, bc2)

@@ -40,7 +40,7 @@ LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("mixer_block_int8", ["mixer_block_int8.cu"],
                {"mixer_block_int8": (19, 5)}, error="mixer_int8_error_string",
-               workspace=("mixer_block_int8_workspace", 5))
+               workspace={"mixer_block_int8_workspace": 5})
 
 
 def chunk_size(cd):

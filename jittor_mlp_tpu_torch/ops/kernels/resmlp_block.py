@@ -19,6 +19,10 @@ the reference's plain block rounds it first.
 - ``fused_resmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``resmlp_block_plain``: the JAX ``_plain_resmlp_block`` (products and bias
+  adds in the input dtype), whose autograd is the training backward.
+- ``fused_resmlp_block_trainable``: forward ``fused_resmlp_block``, backward
+  autograd of ``resmlp_block_plain``.
 """
 
 from __future__ import annotations
@@ -29,12 +33,12 @@ import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
 from ._build import Library
-from .mixer_block import check_weights, require_bf16_contiguous
+from .mixer_block import KernelForwardPlainBackward, check_weights, require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("resmlp_block", ["resmlp_block.cu"], {"resmlp_block_bf16": (15, 4)},
-               error="resmlp_error_string", workspace=("resmlp_block_bf16_workspace", 4))
+               error="resmlp_error_string", workspace={"resmlp_block_bf16_workspace": 4})
 
 
 def block_dims(x, weights):
@@ -66,6 +70,22 @@ def resmlp_block_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     return (h2 + g2.float() * f).to(dt)
 
 
+def resmlp_block_plain(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """The JAX ``_plain_resmlp_block``: affines and LayerScale residuals in
+    f32 rounded where it rounds, products and bias adds in the input dtype,
+    the activation in f32 cast back."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    h = (x.float() * a1 + b1).to(dt)
+    t = torch.matmul(wt, h) + bt[:, None]
+    h = h.float() + g1 * t.float()
+    h = (h * a2 + b2).to(dt)
+    c = torch.matmul(h, w1.t()) + c1
+    c = act(c.float()).to(dt)
+    f = torch.matmul(c, w2.t()) + c2
+    return (h.float() + g2 * f.float()).to(dt)
+
+
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
@@ -91,3 +111,11 @@ def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+def fused_resmlp_block_trainable(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """Differentiable ResMLP block: ``fused_resmlp_block`` forward (the
+    kernel on the card), autograd of ``resmlp_block_plain`` backward."""
+    return KernelForwardPlainBackward.apply(
+        fused_resmlp_block, resmlp_block_plain, x, a1, b1, g1, wt, bt, a2, b2, g2,
+        w1, c1, w2, c2)

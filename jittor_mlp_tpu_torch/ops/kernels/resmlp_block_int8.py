@@ -38,7 +38,7 @@ LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("resmlp_block_int8", ["resmlp_block_int8.cu"],
                {"resmlp_block_int8": (18, 4)}, error="resmlp_int8_error_string",
-               workspace=("resmlp_block_int8_workspace", 4))
+               workspace={"resmlp_block_int8_workspace": 4})
 
 
 def resmlp_block_int8_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

@@ -1,5 +1,6 @@
-"""Does chip_smoke.py's kernel phase catch a wrong kernel? Run phase 2
-against deliberately broken copies of the kernels.
+"""Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
+for the Mixer training kernels, its gradient bands (6b) against
+deliberately broken copies of the kernels.
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check
 
@@ -8,8 +9,9 @@ copy of the port and chip_smoke.py under ``build/mutants/`` (listed in
 .gitignore) with one line of a CUDA source changed; the checkout itself is
 not touched.
 For each copy it builds the kernels and prints phase 2's
-max|Δ|/max(1, max|ref|) per shape, and "would FAIL" where the check would
-stop the run. The first copy is unchanged and must pass.
+max|Δ|/max(1, max|ref|) per shape (and the 6b gradient errors where a
+training kernel is broken), and "would FAIL" where the check would stop
+the run. The first copy is unchanged and must pass.
 """
 
 from __future__ import annotations
@@ -38,18 +40,31 @@ MUTANTS = {
     "M6 W8A8 gMLP token product takes image 0's column scales for every image": (
         "fused_gmlp_block_int8", "csrc/gmlp_block_int8.cu",
         "Scales{f32(swsp), 0, 1, w.sv, F}", "Scales{f32(swsp), 0, 1, w.sv, 0}"),
+    "M7 act' dropped from the GELU-grad epilogue of the channel data grad (and the others)": (
+        "chan_data_bwd", "csrc/mixer_block_bwd.cu",
+        "d[e] = v[e] * gelu_tanh_grad(d[e]);", "d[e] = v[e];"),
+    "M8 the m2·x̂ term dropped from the LayerNorm backward": (
+        "chan_data_bwd", "csrc/mixer_block_bwd.cu",
+        "inv * (dy - m1 - xhat * m2)", "inv * (dy - m1)"),
+    "M9 each weight-gradient partial sums only the first image of its group": (
+        "token_bwd,chan_wgt_bwd", "csrc/gemm_bf16.cuh",
+        "steps = (nimg - 1) * KT + (int)((k_last + BK - 1) / BK);", "steps = KT;"),
 }
+TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
 RUN = """
 import importlib, sys, torch
 torch.backends.cuda.matmul.allow_tf32 = False
 import chip_smoke as cs
+import jittor_mlp_tpu_torch as jt
 names = sys.argv[1].split(",")
 mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
         for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                  "gmlp_block", "gmlp_block_int8")}
+                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd")}
 cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush=True)
 cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
+if sys.argv[2] == "bands":
+    cs.grad_bands(jt)
 """
 
 
@@ -76,7 +91,8 @@ def main():
                 f.write(text.replace(old, new))
         kernels = kernel or ",".join(dict.fromkeys(k for k, *_ in MUTANTS.values() if k))
         print(f"=== {label} ({kernels})", flush=True)
-        res = subprocess.run([sys.executable, "-c", RUN, kernels], cwd=dst,
+        bands = "bands" if TRAIN_KERNELS & set(kernels.split(",")) else "-"
+        res = subprocess.run([sys.executable, "-c", RUN, kernels, bands], cwd=dst,
                              capture_output=True, text=True, timeout=900)
         print(res.stdout, res.stderr[-3000:], flush=True)
     shutil.rmtree(root, ignore_errors=True)

@@ -1,14 +1,18 @@
-"""Where the forward's time goes on the card: torch.profiler over the
-serving paths at batch 256.
+"""Where the time goes on the card: torch.profiler over the serving paths
+at batch 256, or over a bf16 train step at batch 128.
 
     python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3]
+    python -m jittor_mlp_tpu_torch.tools.profile_blocks --train [--batch 128]
 
 For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
 (d_model 384, depth 24) and gMLP-S @224 (d_model 256, d_ffn 1536,
-depth 30) in bf16 and int8, it profiles ``iters`` forwards
-after a warm-up and prints each CUDA kernel's device time per forward,
-its share of the device time, the device-busy share of the wall time,
-and the card's name and power limit. Needs a CUDA card.
+depth 30) in bf16 and int8, it profiles ``iters`` forwards after a
+warm-up; with ``--train``, ``iters`` Mixer-B/16 bf16 mixed-precision
+train steps (AdamW) on each route: the kernel route
+(``config.pallas_bwd``) and the recompute route. It prints each CUDA
+kernel's device time per forward or step, its share of the device time,
+the device-busy share of the wall time, and the card's name and power
+limit. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -18,10 +22,12 @@ import contextlib
 import subprocess
 import time
 
+import numpy as np
 import torch
 
 import jittor_mlp_tpu_torch as jt
 from jittor_mlp_tpu_torch import config
+from jittor_mlp_tpu_torch.parallel import make_train_step
 
 MODELS = {
     "Mixer-B/16": (jt.MLPMixerForImageClassification, dict(d_model=768, depth=12, token_dim=384)),
@@ -38,18 +44,18 @@ def _device_us(e):
     return 0.0
 
 
-def profile(model, x, int8, iters):
-    ctx = config.int8_mode if int8 else contextlib.nullcontext
+def profile(run, iters):
+    """Profile ``iters`` calls of run() after one warm-up call; returns
+    ([(kernel, device ms per call, launches per call)], wall ms per call)."""
+    run()
+    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.inference_mode(), ctx():
-        model.forward(x)
+    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                model.forward(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: the CPU ops that launched them carry the
     # same time again
     rows = [(e.key, _device_us(e) / 1e3 / iters, e.count // iters)
@@ -58,9 +64,45 @@ def profile(model, x, int8, iters):
     return sorted(rows, key=lambda r: -r[1]), wall_ms / iters
 
 
+def report(title, rows, wall, top):
+    busy = sum(r[1] for r in rows)
+    print(f"\n{title}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    print(f"  {'ms':>9} {'share':>6} {'calls':>5}  kernel")
+    for key, ms, calls in rows[:top]:
+        print(f"  {ms:9.4f} {100 * ms / busy:5.1f}% {calls:5d}  {key[:110]}")
+
+
+def serving(batch, iters):
+    x = torch.randn(batch, 3, 224, 224, device="cuda").bfloat16()
+    for name, (factory, kw) in MODELS.items():
+        model = factory(**kw).to_bf16().eval()
+        for int8 in (False, True):
+            with torch.inference_mode(), config.int8_mode() if int8 else contextlib.nullcontext():
+                rows, wall = profile(lambda: model.forward(x), iters)
+            report(f"{name} b{batch} {'int8' if int8 else 'bf16'} forward", rows, wall, 14)
+        del model
+        torch.cuda.empty_cache()
+
+
+def training(batch, iters):
+    factory, kw = MODELS["Mixer-B/16"]
+    model = factory(**kw)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(0)
+    data = {"image": torch.from_numpy(rng.standard_normal((batch, 3, 224, 224), np.float32)).cuda(),
+            "label": torch.from_numpy(rng.integers(0, 1000, batch)).cuda()}
+    for route, pallas_bwd in (("kernel route", True), ("recompute route", False)):
+        config.pallas_bwd = pallas_bwd
+        rows, wall = profile(lambda: step(data), iters)
+        report(f"Mixer-B/16 b{batch} bf16 train step, {route}", rows, wall, 24)
+    config.pallas_bwd = False
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--train", action="store_true", help="profile train steps, not forwards")
+    ap.add_argument("--batch", type=int, default=None, help="256 (serving) or 128 (--train)")
     ap.add_argument("--iters", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -69,19 +111,10 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
-    x = torch.randn(args.batch, 3, 224, 224, device="cuda").bfloat16()
-    for name, (factory, kw) in MODELS.items():
-        model = factory(**kw).to_bf16().eval()
-        for int8 in (False, True):
-            rows, wall = profile(model, x, int8, args.iters)
-            busy = sum(r[1] for r in rows)
-            print(f"\n{name} b{args.batch} {'int8' if int8 else 'bf16'}: wall {wall:.3f} ms "
-                  f"per forward, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-            print(f"  {'ms/fwd':>9} {'share':>6} {'calls':>5}  kernel")
-            for key, ms, calls in rows[:14]:
-                print(f"  {ms:9.4f} {100 * ms / busy:5.1f}% {calls:5d}  {key[:110]}")
-        del model
-        torch.cuda.empty_cache()
+    if args.train:
+        training(args.batch or 128, args.iters)
+    else:
+        serving(args.batch or 256, args.iters)
 
 
 if __name__ == "__main__":

@@ -93,7 +93,9 @@ def test_kernel_gate():
     bf = torch.zeros(1, dtype=torch.bfloat16)
     assert m.eval().uses_kernel(bf)
     assert not m.uses_kernel(bf.float())
-    assert not m.train().uses_kernel(bf)
+    assert m.train().uses_kernel(bf)  # bf16 training runs the trainable kernels
+    with jt.config.int8_mode():  # ... but not under int8, which a train step refuses
+        assert m.eval().uses_kernel(bf) and not m.train().uses_kernel(bf)
     assert not jt.MLPMixerForImageClassification(
         **SMALL, use_pallas=False, device="cpu").eval().uses_kernel(bf)
 

@@ -134,7 +134,9 @@ def test_kernel_gate_and_options():
     bf = torch.zeros(1, dtype=torch.bfloat16)
     assert m.eval().uses_kernel(bf)
     assert not m.uses_kernel(bf.float())
-    assert not m.train().uses_kernel(bf)
+    assert m.train().uses_kernel(bf)  # bf16 training runs the trainable kernels
+    with jt.config.int8_mode():  # ... but not under int8, which a train step refuses
+        assert m.eval().uses_kernel(bf) and not m.train().uses_kernel(bf)
     assert not jt.ResMLPForImageClassification(
         **SMALL, use_pallas=False, **CPU).eval().uses_kernel(bf)
     with pytest.raises(NotImplementedError):
