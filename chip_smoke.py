@@ -7,11 +7,14 @@ port's serving paths through ``Predictor`` and ``MicroBatcher``, times
 kernels against plain versions, and trains: bf16 mixed-precision train
 steps through ``make_train_step`` on both Mixer routes (the forward kernel
 with the plain block's backward, and under ``config.pallas_bwd`` the
-backward kernels), and ResMLP-S24 and gMLP-S steps. Models: Mixer-B/16 @224 (d_model 768,
+backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
+drop-path. Models: Mixer-B/16 @224 (d_model 768,
 depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model
-384, depth 24, expansion 4; compare.py's) and gMLP-S @224 (d_model 256,
-d_ffn 1536, depth 30; compare.py's), full width and depth, random weights
-from seed 0. Run from the repository root, with no arguments:
+384, depth 24, expansion 4; compare.py's), gMLP-S @224 (d_model 256,
+d_ffn 1536, depth 30; compare.py's) and AS-MLP-T @224 (embed 96, depths
+[2, 2, 6, 2], shift 5: the factory's defaults, compare.py's), full width
+and depth, random weights from seed 0. Run from the repository root, with
+no arguments:
 
     python3 chip_smoke.py
 
@@ -24,15 +27,21 @@ Phases (each one fails loudly; there is no CPU fallback):
      the same inputs agree bit for bit. The training kernels also run at the
      train step's b128 and at b131, where each weight gradient's sum over
      images has partials of several images and a short last one (printed,
-     and checked to occur);
+     and checked to occur). The axial shift, a copy, equals its twin bit
+     for bit at every AS-MLP-T stage shape (B=8) and five ragged shapes,
+     both axes, both signs, bf16 and float32, and its autograd wrapper's
+     backward on a non-contiguous gradient equals the twin at sign -1;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
      bf16 kernel path vs plain bf16 and f32, int8 vs f32; gMLP-S the same,
      and its blocks must move the logits (vs channel_proj2 zeroed) by at
-     least 10x the kernel path's deviation from f32. Bands: bf16 5e-2 of
+     least 10x the kernel path's deviation from f32; AS-MLP-T bf16 kernel
+     path vs plain bf16 and f32, int8 vs f32, and its shift must move the
+     logits (vs shift_size 1, the identity shift) by at least 10x the
+     kernel path's deviation from f32. Bands: bf16 5e-2 of
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
-     per forward;
+     per forward (by 24, two shifts a block, for AS-MLP-T);
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
@@ -41,10 +50,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      flag shared between threads would show; every batched answer equals
      predict() alone; launches equal depth × forwards per kernel;
      (d) ResMLP-S24 and (f) gMLP-S weights="int8" Predictors agree with
-     the bf16 ones;
-  5. CUDA-event timings at b256: each kernel vs its twin; the forwards
-     kernel vs plain (Mixer-B/16 and gMLP-S bf16) and int8 vs bf16 (all
-     three models);
+     the bf16 ones; (g) AS-MLP-T int8 and bf16 Predictors on one model
+     served at once, shift launches 24 × the forwards of both, and (h) its
+     weights="int8" Predictor agrees with the bf16 one;
+  5. CUDA-event timings at b256: each kernel vs its twin (the shift at
+     AS-MLP-T's stage-1 shape, both axes); the forwards
+     kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
+     bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
      full-shape Mixer block (B=8), kernel route vs autograd of the kernel
      twin and vs the recompute route, per tensor; (b) Mixer-B/16 at b32:
@@ -58,7 +70,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      launches per step, depth × (1, or 2 for a forward kernel under
      remat); (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
      against their plain bf16 paths (≤ 3e-2, as (a)); (f) train img/s at
-     b128 on each path, in turns.
+     b128 on each path, in turns; AS-MLP-T: (g) b32 gradients of the kernel
+     path against the plain bf16 path (≤ 3e-2) and both against float32
+     (global relative L2), 48 shift launches a step; (h) 10 AdamW steps at
+     b128 with drop_path_rate 0.1 and a seeded generator, remat off and on:
+     the loss descends, remat gives the same losses, 480 (720 under remat)
+     shift launches; (i) train img/s at b128, kernel path and plain path
+     in turns, with peak memory.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -90,6 +108,17 @@ GMLP_S = dict(image_size=224, patch_size=16, d_model=256, d_ffn=1536, depth=30)
 DEPTH = MIXER_B16["depth"]  # one kernel launch per block
 RES_DEPTH = RESMLP_S24["depth"]
 GMLP_DEPTH = GMLP_S["depth"]
+AS_MLP_T = {}  # the AS_MLP factory's defaults: embed 96, depths [2, 2, 6, 2], shift 5
+SHIFTS = 2 * (2 + 2 + 6 + 2)  # shift launches per AS-MLP-T forward: two per block
+# Phase 6g: AS-MLP-T's bf16 gradients against float32, global relative L2:
+# 3x the value read on an H100 (1.23e-2 on either bf16 path, PERF.md)
+AS_GRAD_VS_F32 = 3.7e-2
+# the shift's phase-2 shapes (B, H, W, C) and shift sizes: every AS-MLP-T
+# stage at B=8, then ragged ones: C=10 at shift 3, four groups (C=16,
+# shift 5), groups of 7, 7, 6 (C=20, shift 3), H ≠ W, C < shift
+SHIFT_SHAPES = [((8, 56, 56, 96), 5), ((8, 28, 28, 192), 5), ((8, 14, 14, 384), 5),
+                ((8, 7, 7, 768), 5), ((2, 6, 7, 10), 3), ((2, 5, 6, 16), 5), ((2, 6, 5, 20), 3),
+                ((1, 4, 9, 12), 5), ((2, 5, 4, 3), 5)]
 # H100 SXM data sheet: dense tensor-core peaks and HBM rate
 PEAK = {"bf16": 989e12, "int8": 1979e12}
 HBM_BYTES_S = 3.35e12
@@ -210,6 +239,9 @@ def train_inputs(kernel):
     return make
 
 
+KERNEL_MODULES = ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
+                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd", "axial_shift")
+SHIFT_REPLACES = "jittor_mlp_tpu/ops/pallas/shift_kernel.py:50"
 TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_block_bwd.py:220",
                  "chan_data_bwd": "mixer_block_bwd.py:306", "chan_wgt_bwd": "mixer_block_bwd.py:397"}
 # Beyond the shared shapes: chunked CD, the train step's b128, and b131, where
@@ -319,6 +351,51 @@ def phase_kernels(table):
     return errs
 
 
+def shift_input(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+
+def phase_shift(mod):
+    """The axial shift against its twin at SHIFT_SHAPES, both axes, both
+    signs, bf16 and float32: bit-equal (it is a copy), two calls agree, and
+    each call launches the kernel once. Then the autograd wrapper: forward
+    at sign +1, and its backward on a non-contiguous gradient equals the
+    twin at sign -1. Returns the largest max|Δ| (0 when it passes)."""
+    worst = 0.0
+    for shape, shift in SHIFT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = shift_input(shape, dtype, seed=sum(shape))
+            for axis in (1, 2):
+                for sign in (1, -1):
+                    tag = f"axial_shift {shape} shift {shift} axis {axis} sign {sign} {dtype}"
+                    before = mod.LAUNCHES
+                    got = mod.shift(x, shift, axis, sign)
+                    torch.cuda.synchronize()
+                    check(mod.LAUNCHES == before + 1, f"{tag}: LAUNCHES did not rise by 1")
+                    again = mod.shift(x, shift, axis, sign)
+                    want = mod.axial_shift_ref(x, shift, axis, sign)
+                    torch.cuda.synchronize()
+                    check(got.shape == want.shape and got.dtype == want.dtype,
+                          f"{tag}: {tuple(got.shape)} {got.dtype}, twin {tuple(want.shape)}")
+                    check(torch.equal(got, again), f"{tag}: two calls differ")
+                    worst = max(worst, (got.float() - want.float()).abs().max().item())
+                    check(torch.equal(got, want), f"{tag}: differs from its twin")
+        print(f"[2] axial_shift vs twin {shape} shift {shift}: axes H and W, signs +1 and -1, "
+              f"bf16 and f32: bit-equal; two calls bit-equal", flush=True)
+    x = shift_input((8, 56, 56, 96), torch.bfloat16, seed=3).requires_grad_()
+    g = shift_input((8, 56, 56, 96), torch.bfloat16, seed=4).transpose(1, 2)
+    for axis in (1, 2):
+        y = mod.axial_shift(x, 5, axis)
+        (dx,) = torch.autograd.grad(y, x, g)
+        check(not g.is_contiguous() and torch.equal(y, mod.axial_shift_ref(x.detach(), 5, axis))
+              and torch.equal(dx, mod.axial_shift_ref(g.contiguous(), 5, axis, -1)),
+              f"axial_shift autograd wrapper, axis {axis}: forward or backward differs")
+    print("[2] axial_shift autograd wrapper (8, 56, 56, 96) bf16, both axes: forward = twin, "
+          "backward on a non-contiguous gradient = twin at sign -1, bit-equal", flush=True)
+    return worst
+
+
 def images(n, seed):
     return torch.from_numpy(
         np.random.default_rng(seed).standard_normal((n, 3, 224, 224), np.float32)).to("cuda")
@@ -415,7 +492,41 @@ def phase_logits(jt, mods):
     print(f"[3] gMLP-S blocks move the logits: max|d|/max|logit| vs channel_proj2 zeroed "
           f"{moved:.6g}, kernel path vs f32 {dev:.6g} (need >= 10x)", flush=True)
     check(moved >= 10 * dev, f"gMLP-S blocks hardly move the logits: {moved} vs {dev}")
-    return kernel, res, gmlp
+    del g_plain, g_f32, g_ident
+    return kernel, res, gmlp, as_mlp_logits(jt, mods, x)
+
+
+def as_mlp_logits(jt, mods, x):
+    """AS-MLP-T logits on the images x: the bf16 kernel path against the
+    plain bf16 path and float32 (TF32 off), int8 against float32, and the
+    shift must matter. Returns the bf16 kernel-path model."""
+    from jittor_mlp_tpu_torch import config
+
+    sk = mods["axial_shift"]
+    model = jt.AS_MLP(**AS_MLP_T).to_bf16().eval()
+    plain = jt.AS_MLP(**AS_MLP_T, use_pallas=False).to_bf16().eval()
+    f32 = jt.AS_MLP(**AS_MLP_T, use_pallas=False).eval()  # the reference: no kernel
+    ident = jt.AS_MLP(**AS_MLP_T, shift_size=1).to_bf16().eval()  # one group, s = 0
+    with torch.inference_mode():
+        ak = forward_counted(model, x.bfloat16(), sk, SHIFTS)
+        with config.int8_mode():
+            aq = forward_counted(model, x.bfloat16(), sk, SHIFTS)
+        az = forward_counted(ident, x.bfloat16(), sk, SHIFTS)
+        before = sk.LAUNCHES
+        ap = plain.forward(x.bfloat16()).float()
+        with config.parity_mode():
+            af = f32.forward(x)
+        check(sk.LAUNCHES == before, "a plain path launched the shift kernel")
+    check(ak.shape == (64, 1000), f"AS-MLP-T logits {tuple(ak.shape)}")
+    compare_logits("AS-MLP-T kernel path vs plain bf16", ak, ap, 5e-2, 0.9)
+    compare_logits("AS-MLP-T kernel path vs f32 plain (TF32 off)", ak, af, 5e-2, 0.9)
+    compare_logits("AS-MLP-T int8 kernel path vs f32 plain (TF32 off)", aq, af, 0.1, 0.9)
+    moved, dev = rel_dev(ak, az), rel_dev(ak, af)
+    print(f"[3] AS-MLP-T shift moves the logits: max|d|/max|logit| vs shift_size 1 (identity "
+          f"shift) {moved:.6g}, kernel path vs f32 {dev:.6g} (need >= 10x); {SHIFTS} shift "
+          f"launches a forward", flush=True)
+    check(moved >= 10 * dev, f"AS-MLP-T: the shift hardly moves the logits: {moved} vs {dev}")
+    return model
 
 
 def resmlp_state_dict(jt):
@@ -491,11 +602,12 @@ def check_launches(tag, mod, depth, pred):
     return mod.LAUNCHES
 
 
-def phase_serving(jt, mods, mixer, res, gmlp):
-    """(a) the bf16 Mixer serving run; (b), (c), (e) int8 and bf16 Predictors
-    of one model served at the same time; (d), (f) weights="int8". Each path runs
-    with every launch count set to 0 just before it and read just after.
-    Returns name → launches on that kernel's path."""
+def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
+    """(a) the bf16 Mixer serving run; (b), (c), (e), (g) int8 and bf16
+    Predictors of one model served at the same time; (d), (f), (h)
+    weights="int8". Each path runs with every launch count set to 0 just
+    before it and read just after. Returns name → launches on that
+    kernel's path."""
     rng = np.random.default_rng(1)
     imgs = rng.integers(0, 256, (64, 224, 224, 3), dtype=np.uint8)
     big = rng.integers(0, 256, (2, 256, 256, 3), dtype=np.uint8)
@@ -556,7 +668,40 @@ def phase_serving(jt, mods, mixer, res, gmlp):
         check(pw.dtype == "bf16" and top1 >= 0.9 and dprob <= 5e-2,
               f"{tag} weights=int8 Predictor: top-1 {top1}, prob diff {dprob}")
         del pw
+    launches["axial_shift"] = serve_as_mlp(jt, mods, as_mlp, imgs)
     return launches
+
+
+def serve_as_mlp(jt, mods, model, imgs):
+    """(g) AS-MLP-T int8 and bf16 Predictors on one model, served at the
+    same time: the shift launches 24 times a forward of either; (h) its
+    weights="int8" Predictor agrees with the bf16 one. Returns the shift's
+    launches on (g)."""
+    sk = mods["axial_shift"]
+    reset_counts(mods)  # the AS-MLP serving path's run starts here
+    p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
+    p16 = jt.Predictor(model, batch_size=32).warmup()
+    check(p8.dtype == "int8" and p16.dtype == "bf16", f"[4g] dtypes {p8.dtype}, {p16.dtype}")
+    stats = serve(jt, [p8, p16], imgs)
+    print("[4g] AS-MLP-T int8 + bf16 Predictors served at once: 64 requests each via "
+          "MicroBatcher (8 threads) + 64 predict each; batched == alone", flush=True)
+    for p, st in zip((p8, p16), stats):
+        print(f"[4g] AS-MLP-T {p.dtype} MicroBatcher.stats: {json.dumps(st)}; latency_stats: "
+              f"{json.dumps(p.latency_stats())}", flush=True)
+    forwards = p8.latency_stats()["count"] + p16.latency_stats()["count"]
+    n = sk.LAUNCHES
+    print(f"[4g] AS-MLP-T: {n} axial_shift launches ({forwards} forwards x {SHIFTS})", flush=True)
+    check(n == SHIFTS * forwards, f"[4g] {n} shift launches for {forwards} forwards")
+    pw = jt.Predictor(jt.AS_MLP(**AS_MLP_T), batch_size=32, weights="int8")
+    lw, pw_probs = pw.predict(imgs[:32])
+    l16, p16_probs = p16.predict(imgs[:32])
+    top1 = float((lw[:, 0] == l16[:, 0]).mean())
+    dprob = float(np.abs(pw_probs[:, 0] - p16_probs[:, 0]).max())
+    print(f"[4h] AS-MLP-T weights=int8 vs bf16 Predictor, 32 images: top-1 agreement "
+          f"{top1:.4f}, max |d top-1 prob| {dprob:.6g}", flush=True)
+    check(pw.dtype == "bf16" and top1 >= 0.9 and dprob <= 5e-2,
+          f"[4h] AS-MLP-T weights=int8 Predictor: top-1 {top1}, prob diff {dprob}")
+    return n
 
 
 def block_bound(name, x, w, outs):
@@ -635,7 +780,32 @@ def phase_timing(jt, table, name):
     forwards("gMLP-S", {"bf16 plain path": (g_plain, False),
                         "bf16 kernel path": (gmlp, False),
                         "int8 kernel path": (gmlp, True)})
+    del gmlp, g_plain
+    torch.cuda.empty_cache()
+    as_mlp = jt.AS_MLP(**AS_MLP_T).to_bf16().eval()
+    a_plain = jt.AS_MLP(**AS_MLP_T, use_pallas=False).to_bf16().eval()
+    forwards("AS-MLP-T", {"bf16 plain path": (a_plain, False),
+                          "bf16 kernel path": (as_mlp, False),
+                          "int8 kernel path": (as_mlp, True)})
     return timings
+
+
+def shift_timing(mod, name):
+    """The shift at AS-MLP-T's stage-1 shape at b256 in bf16, each axis,
+    kernel and twin, against its bound: a copy moves each element in and
+    out once. Returns (ms, twin ms, bound ms, "bytes"), the ms the mean of
+    the two axes, as the model launches both equally."""
+    x = shift_input((256, 56, 56, 96), torch.bfloat16, seed=7)
+    bound_ms = 2 * x.numel() * x.element_size() / HBM_BYTES_S * 1e3
+    ms, plain_ms = [], []
+    for axis in (1, 2):
+        ms.append(cuda_ms(lambda: mod.shift(x, 5, axis), 20))
+        plain_ms.append(cuda_ms(lambda: mod.axial_shift_ref(x, 5, axis), 5))
+        print(f"[5] axial_shift b256 {tuple(x.shape)} axis {axis}: kernel {ms[-1]:.4f} ms, twin "
+              f"{plain_ms[-1]:.4f} ms, bound {bound_ms:.4f} ms (bytes)  [{name}]", flush=True)
+    print("[5] axial_shift: no single PyTorch call computes the zero-fill grouped shift "
+          "(torch.roll wraps around): library_ms null", flush=True)
+    return sum(ms) / 2, sum(plain_ms) / 2, bound_ms, "bytes"
 
 
 def grads_of(model, batch, dtype):
@@ -833,6 +1003,96 @@ def train_throughput(jt, name, batch_size=128):
               f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
 
 
+def as_mlp_grads(jt, mods, batch_size=32):
+    """(g) AS-MLP-T gradients of every parameter at b32 (no drop-path): the
+    kernel path (the shift kernel forward and backward) against the plain
+    bf16 path, and each against the plain float32 path (TF32 off), as
+    global relative L2 errors; the kernel path launches the shift 48 times
+    a step."""
+    from jittor_mlp_tpu_torch import config
+
+    sk = mods["axial_shift"]
+    model = jt.AS_MLP(**AS_MLP_T, use_pallas=False)
+    batch = train_batch(batch_size, 8)
+    with config.parity_mode():
+        _, ref = grads_of(model, batch, None)
+    _, plain = grads_of(model, batch, torch.bfloat16)
+    model.use_pallas = True
+    before = sk.LAUNCHES
+    _, kern = grads_of(model, batch, torch.bfloat16)
+    n = sk.LAUNCHES - before
+    errs = {"kernel path vs plain bf16 path": (rel_l2(kern, plain), GRAD_BLOCK),
+            "kernel path vs f32": (rel_l2(kern, ref), AS_GRAD_VS_F32),
+            "plain bf16 path vs f32": (rel_l2(plain, ref), AS_GRAD_VS_F32)}
+    for tag, (err, lim) in errs.items():
+        print(f"[6g] AS-MLP-T b{batch_size} gradients, {tag}: global relative L2 {err:.6g} "
+              f"(limit {lim})", flush=True)
+    print(f"[6g] AS-MLP-T: {n} shift launches in a step (want {2 * SHIFTS})", flush=True)
+    check(n == 2 * SHIFTS, f"AS-MLP-T: {n} shift launches in a step, want {2 * SHIFTS}")
+    for tag, (err, lim) in errs.items():
+        check(err <= lim, f"AS-MLP-T gradients {tag}: {err} > {lim}")
+    return errs
+
+
+def as_mlp_train(jt, mods, steps=10, batch_size=128):
+    """(h) AdamW steps on one batch with drop-path (rate 0.1) drawn from a
+    seeded generator, remat off and on: the loss descends, remat gives the
+    same losses, and the shift launches 48 times a step (72 under remat)."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    sk = mods["axial_shift"]
+    model = jt.AS_MLP(**AS_MLP_T)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(batch_size, 9)
+    runs = {}
+    for remat in (False, True):
+        model.load_state_dict(init)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8)
+        step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        reset_counts(mods)  # the AS-MLP training path's run starts here
+        with config.remat_mode() if remat else contextlib.nullcontext():
+            losses = [step(batch, gen).item() for _ in range(steps)]
+        torch.cuda.synchronize()
+        n, want = sk.LAUNCHES, SHIFTS * steps * (3 if remat else 2)
+        tag = f"remat {'on' if remat else 'off'}"
+        print(f"[6h] AS-MLP-T b{batch_size} {steps} AdamW steps, drop_path_rate 0.1, {tag}: "
+              f"losses {' '.join(f'{v:.6f}' for v in losses)}; {n} shift launches (want {want})",
+              flush=True)
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"AS-MLP-T {tag}: the loss did not descend: {losses}")
+        check(n == want, f"AS-MLP-T {tag}: {n} shift launches, want {want}")
+        runs[remat] = losses
+    check(runs[True] == runs[False], "AS-MLP-T: remat changed the losses")
+    print("[6h] AS-MLP-T: remat on gives the same losses, bit for bit", flush=True)
+
+
+def as_mlp_throughput(jt, name, batch_size=128):
+    """(i) AS-MLP-T train img/s at b128, kernel path and plain path in
+    turns, drop-path on, by CUDA events, with peak memory."""
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    model = jt.AS_MLP(**AS_MLP_T)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    batch = train_batch(batch_size, 10)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    paths = {"kernel path": True, "plain bf16 path": False}
+    times, peak = {k: [] for k in paths}, {}
+    for path in list(paths) + list(paths)[::-1]:
+        model.use_pallas = paths[path]
+        torch.cuda.reset_peak_memory_stats()
+        times[path].append(cuda_ms(lambda: step(batch, gen), 5))
+        peak[path] = torch.cuda.max_memory_allocated() / 2**30
+    model.use_pallas = True
+    for path, runs in times.items():
+        ms = sum(runs) / len(runs)
+        print(f"[6i] AS-MLP-T bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
+              f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
+              f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
+
+
 def phase_train(jt, mods, name):
     """Phase 6; returns the training kernels' launches on the training path."""
     train_block(mods)
@@ -842,6 +1102,12 @@ def phase_train(jt, mods, name):
     other_families(jt, mods)
     torch.cuda.empty_cache()
     train_throughput(jt, name)
+    torch.cuda.empty_cache()
+    as_mlp_grads(jt, mods)
+    torch.cuda.empty_cache()
+    as_mlp_train(jt, mods)
+    torch.cuda.empty_cache()
+    as_mlp_throughput(jt, name)
     return counted
 
 
@@ -851,6 +1117,7 @@ def main():
     cap = torch.cuda.get_device_capability(0)
     if cap != (9, 0):
         fail(f"compute capability {cap}, the kernels are built for sm_90a only")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # the twins' f32 matmuls
     name = card()
     print(f"[1] card: {name}", flush=True)
@@ -860,8 +1127,7 @@ def main():
     import jittor_mlp_tpu_torch as jt
 
     mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
-            for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                      "gmlp_block", "gmlp_block_int8", "mixer_block_bwd")}
+            for m in KERNEL_MODULES}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, all at once
         list(pool.map(lambda m: m.build(), mods.values()))
@@ -870,31 +1136,39 @@ def main():
 
     table = kernel_table(mods)
     errs = phase_kernels(table)
-    mixer, res, gmlp = phase_logits(jt, mods)
-    launches = phase_serving(jt, mods, mixer, res, gmlp)
-    del mixer, res, gmlp
+    errs["axial_shift"] = phase_shift(mods["axial_shift"])
+    mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
+    launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
+    del mixer, res, gmlp, as_mlp
     torch.cuda.empty_cache()
     timings = phase_timing(jt, table, name)
+    timings["axial_shift"] = shift_timing(mods["axial_shift"], name)
     torch.cuda.empty_cache()
     launches.update(phase_train(jt, mods, name))
 
+    sources = {k: (source, f"jittor_mlp_tpu/ops/pallas/{replaced}")
+               for k, (*_mid, source, replaced, _depth) in table.items()}
+    sources["axial_shift"] = ("axial_shift.cu", SHIFT_REPLACES)
     rows = []
-    for kname, (mod, *_mid, source, replaced, _depth) in table.items():
+    for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
         check(launches.get(kname, 0) > 0, f"{kname} was not launched on its path")
         rows.append({
             "name": kname,
             "route": "cuda",
             "source": f"jittor_mlp_tpu_torch/csrc/{source}",
-            "replaces": f"jittor_mlp_tpu/ops/pallas/{replaced}",
+            "replaces": replaced,
             "launches": launches[kname],
             "max_abs_err": errs[kname],
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            "library_ms": None,  # no single PyTorch call computes a whole block
+            # no single PyTorch call computes a whole block, a block's backward
+            # or the zero-fill grouped shift (torch.roll wraps around)
+            "library_ms": None,
         })
+    print(f"[end] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,12 +12,14 @@ at import time.
 
 from . import config
 from .core.model import Model
+from .models.as_mlp import AS_MLP
 from .models.g_mlp import gMLPForImageClassification
 from .models.mlp_mixer import MLPMixerForImageClassification
 from .models.res_mlp import ResMLPForImageClassification
 from .serving import MicroBatcher, Predictor
 
 __all__ = [
+    "AS_MLP",
     "Model",
     "MicroBatcher",
     "Predictor",
@@ -27,4 +29,4 @@ __all__ = [
     "gMLPForImageClassification",
 ]
 
-__version__ = "0.3.0"
+__version__ = "0.4.0"

@@ -19,6 +19,7 @@ from .. import config
 
 class Model(nn.Module):
     name = None  # zoo key, e.g. "mlp_mixer" (tuned.serve_settings looks it up)
+    stochastic = False  # True: the train forward takes a drop-path `generator`
 
     def __init__(self):
         super().__init__()

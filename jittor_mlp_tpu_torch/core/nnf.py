@@ -13,9 +13,13 @@ same weights: bf16 GELU is the tanh form computed in float32 and cast back,
 and LayerNorm takes its statistics in float32 and casts to the input dtype
 before the affine.
 
-Under ``config.int8_mode()`` (this thread), ``linear``, ``conv1d_token`` and
-``patch_embed`` run their contraction through
+Under ``config.int8_mode()`` (this thread), ``linear``, ``conv1d_token``,
+``conv1x1`` and ``patch_embed`` run their contraction through
 ``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense`` does.
+
+``group_norm`` (NHWC) has the JAX package's hand-written backward for bf16
+activations (``GroupNormAffine``); ``drop_path`` draws its per-sample masks
+from an explicit ``torch.Generator``.
 
 ``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
 activation checkpointing under ``config.remat_mode()``.
@@ -25,6 +29,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -85,6 +90,15 @@ def conv1d_token(x, weight, bias=None):
     return y
 
 
+def conv1x1(x, weight, bias=None):
+    """torch nn.Conv2d(k=1) on channel-last x as a matmul: weight
+    (O, I, 1, 1) → x[..., I] @ W^T (+ bias)."""
+    y = _dense(x, weight[:, :, 0, 0].t())
+    if bias is not None:
+        y = y + bias
+    return y
+
+
 def patch_embed(x, weight, bias, patch_size):
     """Non-overlapping Conv2d(k=s=patch) as reshape + one matmul.
     x NHWC → (B, H/p, W/p, O)."""
@@ -114,6 +128,65 @@ def layer_norm(x, weight=None, bias=None, eps=1e-5):
     return y
 
 
+def _group_stats(x, num_groups, eps):
+    """(x̂ in float32, per-group rsqrt) of NHWC x, the statistics in float32
+    over (H, W, C/g) of each group; x̂ has shape (B, H, W, g, C/g)."""
+    B, H, W, C = x.shape
+    xf = x.float().reshape(B, H, W, num_groups, C // num_groups)
+    mu = xf.mean((1, 2, 4), keepdim=True)
+    var = (xf - mu).square().mean((1, 2, 4), keepdim=True)
+    r = torch.rsqrt(var + eps)
+    return (xf - mu) * r, r
+
+
+def group_norm(x, weight=None, bias=None, num_groups=1, eps=1e-5):
+    """torch nn.GroupNorm on NHWC x: statistics in float32 over (H, W, C/g)
+    per group, x̂ cast to x's dtype before the affine, which runs in x's
+    dtype. For bf16 x with weights this is ``GroupNormAffine``, whose
+    backward is the JAX package's analytic one; float32 differentiates the
+    composed form, as JAX does."""
+    if weight is not None and x.dtype == torch.bfloat16:
+        return GroupNormAffine.apply(x, weight, bias, num_groups, eps)
+    xhat, _ = _group_stats(x, num_groups, eps)
+    y = xhat.reshape(x.shape).to(x.dtype)
+    if weight is not None:
+        y = y * weight.to(x.dtype) + bias.to(x.dtype)
+    return y
+
+
+class GroupNormAffine(torch.autograd.Function):
+    """GroupNorm with an affine on bf16 NHWC activations (the JAX
+    ``_group_norm_affine`` custom VJP). It saves only x̂ (in x's dtype) and
+    the per-group rsqrt r; the backward reduces in float32:
+    dw = Σ dy·x̂, db = Σ dy, dx = r·(dy·w − mean(dy·w) − x̂·mean(dy·w·x̂))
+    with the means over (H, W, C/g) of each group."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps):
+        xhat, r = _group_stats(x, num_groups, eps)
+        xhat = xhat.reshape(x.shape).to(x.dtype)
+        ctx.num_groups = num_groups
+        ctx.save_for_backward(xhat, r, weight)
+        ctx.bias_dtype = bias.dtype
+        return xhat * weight.to(x.dtype) + bias.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, r, weight = ctx.saved_tensors
+        B, H, W, C = dy.shape
+        g = ctx.num_groups
+        dyf = dy.float()
+        xh = xhat.float()
+        dw = (dyf * xh).sum((0, 1, 2))
+        db = dyf.sum((0, 1, 2))
+        dxh = (dyf * weight.float()).reshape(B, H, W, g, C // g)
+        xh5 = xh.reshape(B, H, W, g, C // g)
+        m1 = dxh.mean((1, 2, 4), keepdim=True)
+        m2 = (dxh * xh5).mean((1, 2, 4), keepdim=True)
+        dx = (r * (dxh - m1 - xh5 * m2)).reshape(B, H, W, C).to(dy.dtype)
+        return dx, dw.to(weight.dtype), db.to(ctx.bias_dtype), None, None
+
+
 def affine(x, alpha, beta):
     """ResMLP's Aff layer: x * alpha + beta, broadcast on the last axis
     (alpha, beta of shape (1, 1, C) or (C,))."""
@@ -123,6 +196,31 @@ def affine(x, alpha, beta):
 def global_avg_pool_tokens(x):
     """Mean over the token axis: (B, N, D) → (B, D)."""
     return x.mean(-2)
+
+
+def _keep(rate):
+    """1 - rate in float32, as the JAX package computes it."""
+    return float(np.float32(1) - np.float32(rate))
+
+
+def drop_path_mask(batch, rate, generator, device):
+    """Per-sample keep mask (batch,) of stochastic depth at ``rate``:
+    Bernoulli(1 - rate) from ``generator`` (on ``device``)."""
+    return torch.rand(batch, generator=generator, device=device) < _keep(rate)
+
+
+def drop_path(x, rate, train, generator=None, mask=None):
+    """Stochastic depth per sample (the JAX ``nnf.drop_path``): where the
+    sample's mask is set x / keep (keep in x's dtype), else 0. The mask is
+    ``mask`` if given, else drawn from ``generator``. Identity in eval, at
+    rate 0, or with neither. JAX's threefry and torch's Philox draw
+    different masks from the same seed."""
+    if not train or rate == 0 or (generator is None and mask is None):
+        return x
+    if mask is None:
+        mask = drop_path_mask(x.shape[0], rate, generator, x.device)
+    keep = torch.tensor(_keep(rate), dtype=x.dtype).item()  # rounded to x's dtype
+    return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x / keep, 0.0)
 
 
 class _BlockCall(nn.Module):
@@ -138,17 +236,18 @@ class _BlockCall(nn.Module):
         return self.fn(self.block, x)
 
 
-def run_blocks(blocks, x, fn):
+def run_blocks(blocks, x, fn, remat=False):
     """x through every block in turn: ``x = fn(block, x)``.
 
-    Under ``config.remat_mode()``, with gradients on, each block runs under
+    Under ``config.remat_mode()`` or with ``remat`` (a factory's
+    ``use_checkpoint``), with gradients on, each block runs under
     ``torch.utils.checkpoint`` (non-reentrant). The block's parameters and
     buffers as they are now (under a train step's ``functional_call``, its
     cast copies) go in as explicit inputs and are bound again when the
     backward recomputes the block, so the recompute reads the tensors the
     forward read."""
     for blk in blocks:
-        if not (config.remat and torch.is_grad_enabled()):
+        if not ((remat or config.remat) and torch.is_grad_enabled()):
             x = fn(blk, x)
             continue
         call = _BlockCall(blk, fn)

@@ -10,7 +10,8 @@ labels plus 0.5·N(0, 1) noise, from numpy seeds (prototypes seed 0, step
 and eps 1e-8 (optax ``adamw``'s defaults). ``--mixed-precision`` trains
 in bf16 with f32 master weights; in bf16 the blocks run in the
 hand-written kernels (``config.pallas_bwd`` picks the Mixer's backward).
-Runs on the card unless ``--device cpu``.
+AS-MLP's drop-path draws from a generator seeded with 0 (the JAX example's
+``PRNGKey(0)``). Runs on the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from jittor_mlp_tpu_torch.parallel import make_train_step
 from jittor_mlp_tpu_torch.tuned import train_settings
 
 MODELS = ("MLPMixerForImageClassification", "ResMLPForImageClassification",
-          "gMLPForImageClassification")
+          "gMLPForImageClassification", "AS_MLP")
 
 
 def main(argv=None):
@@ -51,6 +52,8 @@ def main(argv=None):
     if args.model == "MLPMixerForImageClassification":
         kwargs = dict(image_size=args.image_size, patch_size=8, d_model=128, depth=6,
                       num_classes=args.classes)
+    elif args.model == "AS_MLP":
+        kwargs = dict(img_size=args.image_size, num_classes=args.classes)
     else:
         kwargs = dict(image_size=args.image_size, num_classes=args.classes)
     model = getattr(jt, args.model)(**kwargs, device=args.device)
@@ -80,10 +83,11 @@ def main(argv=None):
         return {"image": torch.from_numpy(imgs.astype(np.float32)).to(args.device),
                 "label": torch.from_numpy(labels).to(args.device)}
 
+    generator = torch.Generator(device=args.device).manual_seed(0)
     t0 = time.time()
     with config.remat_mode() if use_remat else contextlib.nullcontext():
         for s in range(args.steps):
-            loss = step(make_batch(s))
+            loss = step(make_batch(s), generator)
             if s % 10 == 0 or s == args.steps - 1:
                 print(f"step {s:4d}  loss {float(loss):.4f}")
     print(f"{args.steps} steps in {time.time() - t0:.1f}s on {model.device}")

@@ -4,7 +4,9 @@
 ``step(batch, generator=None) -> loss``: one forward and backward of the
 f32 cross-entropy on ``batch = {"image": (B, C, H, W), "label": (B,)}``,
 then ``optimizer.step()``; the model's parameters and the optimizer's
-state change in place.
+state change in place. ``generator`` (a ``torch.Generator`` on the model's
+device) is the random source of the model's drop-path sites, the JAX
+step's ``rng``; without one, drop-path is the identity.
 
 Mixed precision follows the JAX step: with ``compute_dtype=torch.bfloat16``
 the master parameters, their gradients and the optimizer stay f32, and
@@ -41,27 +43,32 @@ def cast_floating(tensors, dtype):
 class _Forward(nn.Module):
     """The model's ``forward`` as a module of its own: ``Model.__call__``
     casts its input to ``config.compute_dtype``, where the train step
-    hands the forward its images as they are (the JAX ``apply_fn``)."""
+    hands the forward its images as they are (the JAX ``apply_fn``). A
+    model with stochastic layers (``Model.stochastic``) also gets the
+    generator; the others draw no random numbers and get none."""
 
     def __init__(self, model):
         super().__init__()
         self.model = model
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
+        if self.model.stochastic:
+            return self.model.forward(x, generator=generator)
         return self.model.forward(x)
 
 
-def loss_fn(model, batch, compute_dtype=None):
+def loss_fn(model, batch, compute_dtype=None, generator=None):
     """The f32 cross-entropy of ``model`` in train mode on ``batch``,
     differentiable in the model's parameters; with ``compute_dtype`` the
-    parameters, buffers and images are cast to it at this boundary."""
+    parameters, buffers and images are cast to it at this boundary.
+    ``generator`` goes to the model's drop-path sites."""
     fwd = _Forward(model.train())
     x = batch["image"].to(model.device)
     tensors = {**dict(fwd.named_parameters()), **dict(fwd.named_buffers())}
     if compute_dtype is not None:
         tensors = cast_floating(tensors, compute_dtype)
         x = x.to(compute_dtype)
-    logits = torch.func.functional_call(fwd, tensors, (x,))
+    logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
     return cross_entropy_loss(logits, batch["label"].to(logits.device))
 
 
@@ -72,21 +79,20 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
 
     ``compute_dtype=torch.bfloat16`` gives mixed precision with f32 master
     weights (see the module docstring). ``generator`` is the random source
-    of stochastic layers (the JAX step's ``rng``); none of the ported
-    models has one yet. ``bn_momentum`` keeps the JAX signature: the
+    of the model's drop-path sites (the JAX step's ``rng``); models without
+    stochastic layers ignore it. ``bn_momentum`` keeps the JAX signature: the
     BatchNorm running-statistic update it sets waits for a model with
     BatchNorm. Raises RuntimeError under ``config.int8_mode()``."""
     del bn_momentum  # no ported model has BatchNorm
 
     def step(batch, generator=None):
-        del generator  # no ported model draws random numbers in training
         if config.int8_enabled():  # the W8A8 path's rounding has a zero gradient
             raise RuntimeError(
                 "config.int8_mode() is inference-only: the dynamic-int8 "
                 "dense path has zero gradient. Exit the context before "
                 "tracing a train step.")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch, compute_dtype)
+        loss = loss_fn(model, batch, compute_dtype, generator)
         loss.backward()
         optimizer.step()
         return loss.detach()

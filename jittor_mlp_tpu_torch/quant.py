@@ -5,12 +5,12 @@ Two schemes, both symmetric:
 - **Weight-only int8** (``Predictor(weights="int8")``): every eligible
   weight is stored as int8 with f32 per-channel scales and dequantized once,
   at build, to the compute dtype. ``quantize_state_dict`` applies the JAX
-  package's rule to the leaves as *it* holds them: the blocks of a model are
-  one stacked leaf of shape (depth, *shape) there, so eligibility
-  (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale axes are decided on the
-  stacked shape. A stacked bias (depth, O) is therefore quantized with one
-  scale per layer, a stacked token-mix weight (depth, O, I, 1) with one
-  scale per (layer, out-channel). The dequantized weights equal the JAX
+  package's rule to the leaves as *it* holds them: the blocks of a model
+  (of each stage, in AS-MLP) are one stacked leaf of shape (depth, *shape)
+  there, so eligibility (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale
+  axes are decided on the stacked shape. A stacked bias (depth, O) is
+  therefore quantized with one scale per layer, a stacked token-mix weight
+  (depth, O, I, 1) with one scale per (layer, out-channel). The dequantized weights equal the JAX
   package's ``dequantize_tree(quantize_tree(params))`` bit for bit.
 - **Dynamic W8A8** (``int8_mode()``, ``Predictor(compute="int8")``):
   ``dynamic_int8_matmul`` quantizes the live activation per token and the
@@ -95,21 +95,22 @@ def _eligible(x, min_size):
 
 
 def _leaves(name, sd):
-    """Group a torch state dict into the JAX package's leaves: for each
-    stacked block group (``convert._LAYOUT``), keys ``{prefix}.{i}.{rest}``
-    with the same ``rest`` form one leaf, layers in order. Yields
-    (list of torch keys, leaf tensor, stacked?)."""
-    from .convert import stacked_prefixes
+    """Group a torch state dict into the JAX package's leaves: keys
+    ``{prefix}.{i}.{rest}`` of the model's stacked group
+    (``convert.split_stacked``: ``model.{i}.…``, or AS-MLP's
+    ``layers.{s}.blocks.{i}.…``) with the same prefix and ``rest`` form one
+    leaf, layers in order. Yields (list of torch keys, leaf tensor,
+    stacked?)."""
+    from .convert import split_stacked
 
-    stacked = stacked_prefixes(name)
     groups = {}
     for key in sd:
-        head, _, tail = key.partition(".")
-        idx, _, rest = tail.partition(".")
-        if head in stacked and idx.isdigit():
-            groups.setdefault((head, rest), []).append((int(idx), key))
-        else:
+        split = split_stacked(name, key)
+        if split is None:
             yield [key], sd[key], False
+        else:
+            prefix, idx, rest = split
+            groups.setdefault((prefix, rest), []).append((idx, key))
     for keys in groups.values():
         keys = [k for _, k in sorted(keys)]
         yield keys, torch.stack([sd[k] for k in keys]), True

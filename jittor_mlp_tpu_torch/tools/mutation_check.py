@@ -1,21 +1,25 @@
 """Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
-for the Mixer training kernels, its gradient bands (6b) against
-deliberately broken copies of the kernels.
+for the Mixer training kernels, its gradient bands (6b), for the axial
+shift its AS-MLP-T gradient bands (6g), against deliberately broken copies
+of the kernels.
 
-    python -m jittor_mlp_tpu_torch.tools.mutation_check
+    python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
 Run from the repository root on a machine with the card. Each mutant is a
 copy of the port and chip_smoke.py under ``build/mutants/`` (listed in
 .gitignore) with one line of a CUDA source changed; the checkout itself is
 not touched.
 For each copy it builds the kernels and prints phase 2's
-max|Δ|/max(1, max|ref|) per shape (and the 6b gradient errors where a
-training kernel is broken), and "would FAIL" where the check would stop
-the run. The first copy is unchanged and must pass.
+max|Δ|/max(1, max|ref|) per shape (the shift: bit-equal or not, per
+shape, axis, sign and dtype), the 6b or 6g gradient errors where a
+training kernel or the shift is broken, and "would FAIL" where the check
+would stop the run. The first copy is unchanged and must pass. ``--only``
+runs the unchanged copy and the mutants named (by their "M<n>" tag).
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import shutil
 import subprocess
@@ -49,6 +53,12 @@ MUTANTS = {
     "M9 each weight-gradient partial sums only the first image of its group": (
         "token_bwd,chan_wgt_bwd", "csrc/gemm_bf16.cuh",
         "steps = (nimg - 1) * KT + (int)((k_last + BK - 1) / BK);", "steps = KT;"),
+    "M10 the shift's sign is not flipped: the backward shifts like the forward": (
+        "axial_shift", "csrc/axial_shift.cu",
+        "return sign * (half - c / group);", "return half - c / group;"),
+    "M11 the channel group is C / shift floored, not ceil (differs at C = 20, shift 3)": (
+        "axial_shift", "csrc/axial_shift.cu",
+        "const int group = (C + shift - 1) / shift;", "const int group = C / shift;"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
@@ -59,22 +69,31 @@ import chip_smoke as cs
 import jittor_mlp_tpu_torch as jt
 names = sys.argv[1].split(",")
 mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
-        for m in ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd")}
+        for m in cs.KERNEL_MODULES}
 cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush=True)
 cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
-if sys.argv[2] == "bands":
+if "axial_shift" in names:
+    cs.phase_shift(mods["axial_shift"])
+if "bands" in sys.argv[2].split(","):
     cs.grad_bands(jt)
+if "shift_bands" in sys.argv[2].split(","):
+    cs.as_mlp_grads(jt, mods)
 """
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=None, help="comma-separated mutant tags, e.g. M10,M11")
+    args = ap.parse_args()
+    only = set(args.only.split(",")) if args.only else None
     repo = os.getcwd()
     if not os.path.exists(os.path.join(repo, "chip_smoke.py")):
         raise SystemExit("run from the repository root")
     root = os.path.join(repo, "build", "mutants")
     shutil.rmtree(root, ignore_errors=True)
     for i, (label, (kernel, path, old, new)) in enumerate(MUTANTS.items()):
+        if only is not None and path and label.split()[0] not in only:
+            continue
         dst = os.path.join(root, str(i))
         # the port and the smoke test are all a copy needs
         shutil.copytree(os.path.join(repo, "jittor_mlp_tpu_torch"),
@@ -91,7 +110,9 @@ def main():
                 f.write(text.replace(old, new))
         kernels = kernel or ",".join(dict.fromkeys(k for k, *_ in MUTANTS.values() if k))
         print(f"=== {label} ({kernels})", flush=True)
-        bands = "bands" if TRAIN_KERNELS & set(kernels.split(",")) else "-"
+        names = set(kernels.split(","))
+        bands = ",".join(["-"] + ["bands"] * bool(TRAIN_KERNELS & names)
+                         + ["shift_bands"] * ("axial_shift" in names))
         res = subprocess.run([sys.executable, "-c", RUN, kernels, bands], cwd=dst,
                              capture_output=True, text=True, timeout=900)
         print(res.stdout, res.stderr[-3000:], flush=True)

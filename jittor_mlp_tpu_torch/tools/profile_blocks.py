@@ -1,18 +1,23 @@
 """Where the time goes on the card: torch.profiler over the serving paths
 at batch 256, or over a bf16 train step at batch 128.
 
-    python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3]
-    python -m jittor_mlp_tpu_torch.tools.profile_blocks --train [--batch 128]
+    python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3] [--model M]
+    python -m jittor_mlp_tpu_torch.tools.profile_blocks --train [--batch 128] [--model M]
 
 For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
-(d_model 384, depth 24) and gMLP-S @224 (d_model 256, d_ffn 1536,
-depth 30) in bf16 and int8, it profiles ``iters`` forwards after a
-warm-up; with ``--train``, ``iters`` Mixer-B/16 bf16 mixed-precision
-train steps (AdamW) on each route: the kernel route
-(``config.pallas_bwd``) and the recompute route. It prints each CUDA
-kernel's device time per forward or step, its share of the device time,
-the device-busy share of the wall time, and the card's name and power
-limit. Needs a CUDA card.
+(d_model 384, depth 24), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30)
+and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5) in bf16 and
+int8, it profiles ``iters`` forwards after a warm-up; with ``--train``,
+``iters`` bf16 mixed-precision train steps (AdamW): Mixer-B/16 on each
+route, the kernel route (``config.pallas_bwd``) and the recompute route,
+and AS-MLP-T (drop-path 0.1 from a seeded generator) on the kernel path
+and the plain path. ``--model`` picks one model (mixer, res_mlp, g_mlp,
+as_mlp; by default all of them, and for ``--train`` the Mixer and AS-MLP-T).
+It prints the device time per forward or step by kind of kernel (the
+port's kernels, library products, reductions, elementwise passes), each
+CUDA kernel's device time and share of the device time, the device-busy
+share of the wall time, and the card's name and power limit. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -29,11 +34,13 @@ import jittor_mlp_tpu_torch as jt
 from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch.parallel import make_train_step
 
-MODELS = {
-    "Mixer-B/16": (jt.MLPMixerForImageClassification, dict(d_model=768, depth=12, token_dim=384)),
-    "ResMLP-S24": (jt.ResMLPForImageClassification, dict(d_model=384, depth=24)),
-    "gMLP-S": (jt.gMLPForImageClassification,
-               dict(image_size=224, d_model=256, d_ffn=1536, depth=30)),
+MODELS = {  # --model key: (title, factory, arguments)
+    "mixer": ("Mixer-B/16", jt.MLPMixerForImageClassification,
+              dict(d_model=768, depth=12, token_dim=384)),
+    "res_mlp": ("ResMLP-S24", jt.ResMLPForImageClassification, dict(d_model=384, depth=24)),
+    "g_mlp": ("gMLP-S", jt.gMLPForImageClassification,
+              dict(image_size=224, d_model=256, d_ffn=1536, depth=30)),
+    "as_mlp": ("AS-MLP-T", jt.AS_MLP, {}),
 }
 
 
@@ -64,17 +71,37 @@ def profile(run, iters):
     return sorted(rows, key=lambda r: -r[1]), wall_ms / iters
 
 
+KINDS = (  # (kind, substrings of the kernel names), first match wins
+    ("axial shift", ("axial_shift",)),
+    ("port kernels", ("jmt::", "layer_norm_kernel", "affine_kernel", "quant_rows", "row_stats",
+                      "row_sum", "col_sum", "sum_groups", "ln_bwd", "ln_grad")),
+    ("library products", ("gemm", "nvjet", "xmma", "cutlass", "gemv", "dot_kernel")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "copy")),
+)
+
+
+def kind(key):
+    return next((k for k, marks in KINDS if any(m in key for m in marks)), "other")
+
+
 def report(title, rows, wall, top):
     busy = sum(r[1] for r in rows)
     print(f"\n{title}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
+    by_kind = {}
+    for key, ms, _ in rows:
+        by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + ms
+    print("  by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
+                                    sorted(by_kind.items(), key=lambda kv: -kv[1])))
     print(f"  {'ms':>9} {'share':>6} {'calls':>5}  kernel")
     for key, ms, calls in rows[:top]:
         print(f"  {ms:9.4f} {100 * ms / busy:5.1f}% {calls:5d}  {key[:110]}")
 
 
-def serving(batch, iters):
+def serving(batch, iters, keys):
     x = torch.randn(batch, 3, 224, 224, device="cuda").bfloat16()
-    for name, (factory, kw) in MODELS.items():
+    for key in keys:
+        name, factory, kw = MODELS[key]
         model = factory(**kw).to_bf16().eval()
         for int8 in (False, True):
             with torch.inference_mode(), config.int8_mode() if int8 else contextlib.nullcontext():
@@ -84,19 +111,32 @@ def serving(batch, iters):
         torch.cuda.empty_cache()
 
 
-def training(batch, iters):
-    factory, kw = MODELS["Mixer-B/16"]
-    model = factory(**kw)
-    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
-    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+def training(batch, iters, keys):
     rng = np.random.default_rng(0)
     data = {"image": torch.from_numpy(rng.standard_normal((batch, 3, 224, 224), np.float32)).cuda(),
             "label": torch.from_numpy(rng.integers(0, 1000, batch)).cuda()}
-    for route, pallas_bwd in (("kernel route", True), ("recompute route", False)):
-        config.pallas_bwd = pallas_bwd
-        rows, wall = profile(lambda: step(data), iters)
-        report(f"Mixer-B/16 b{batch} bf16 train step, {route}", rows, wall, 24)
-    config.pallas_bwd = False
+    for key in keys:
+        name, factory, kw = MODELS[key]
+        model = factory(**kw)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+        step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+        if key == "mixer":
+            for route, pallas_bwd in (("kernel route", True), ("recompute route", False)):
+                config.pallas_bwd = pallas_bwd
+                rows, wall = profile(lambda: step(data), iters)
+                report(f"{name} b{batch} bf16 train step, {route}", rows, wall, 24)
+            config.pallas_bwd = False
+        elif key == "as_mlp":
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            for path, use_pallas in (("kernel path", True), ("plain path", False)):
+                model.use_pallas = use_pallas
+                rows, wall = profile(lambda: step(data, gen), iters)
+                report(f"{name} b{batch} bf16 train step, {path}", rows, wall, 24)
+        else:
+            rows, wall = profile(lambda: step(data), iters)
+            report(f"{name} b{batch} bf16 train step", rows, wall, 24)
+        del model, opt, step
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -104,6 +144,7 @@ def main():
     ap.add_argument("--train", action="store_true", help="profile train steps, not forwards")
     ap.add_argument("--batch", type=int, default=None, help="256 (serving) or 128 (--train)")
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--model", choices=["all", *MODELS], default="all")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_blocks needs a CUDA card")
@@ -112,9 +153,10 @@ def main():
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
     if args.train:
-        training(args.batch or 128, args.iters)
+        keys = ["mixer", "as_mlp"] if args.model == "all" else [args.model]
+        training(args.batch or 128, args.iters, keys)
     else:
-        serving(args.batch or 256, args.iters)
+        serving(args.batch or 256, args.iters, list(MODELS) if args.model == "all" else [args.model])
 
 
 if __name__ == "__main__":

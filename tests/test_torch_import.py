@@ -16,13 +16,13 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "import jittor_mlp_tpu_torch.parallel\n"
         "import jittor_mlp_tpu_torch.tools.profile_blocks\n"
         "from jittor_mlp_tpu_torch.ops.kernels import (\n"
-        "    gmlp_block, gmlp_block_int8, mixer_block, mixer_block_bwd, mixer_block_int8,\n"
-        "    resmlp_block, resmlp_block_int8)\n"
+        "    axial_shift, gmlp_block, gmlp_block_int8, mixer_block, mixer_block_bwd,\n"
+        "    mixer_block_int8, resmlp_block, resmlp_block_int8)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'jittor_mlp_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
-        "assert hasattr(jt, 'gMLPForImageClassification')\n"
-        "for m in (gmlp_block, gmlp_block_int8, mixer_block, mixer_block_bwd,\n"
+        "assert hasattr(jt, 'gMLPForImageClassification') and hasattr(jt, 'AS_MLP')\n"
+        "for m in (axial_shift, gmlp_block, gmlp_block_int8, mixer_block, mixer_block_bwd,\n"
         "          mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
         "    assert not m._LIB.loaded, f'{m.__name__}: kernel library loaded at import'\n"
         "print('ok')\n"

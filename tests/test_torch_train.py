@@ -282,6 +282,18 @@ def test_train_example_prints_finite_losses():
     assert "3 steps in" in out
 
 
+def test_train_example_trains_as_mlp():
+    """AS-MLP-T at 32 px with drop-path from the example's generator."""
+    out = subprocess.run(
+        [sys.executable, "-m", "jittor_mlp_tpu_torch.examples.train", "--device", "cpu",
+         "--model", "AS_MLP", "--steps", "3", "--image-size", "32", "--batch", "4",
+         "--mixed-precision"],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    losses = [float(line.split()[-1]) for line in out.splitlines() if line.startswith("step")]
+    assert len(losses) == 2 and np.isfinite(losses).all(), out
+    assert "AS_MLP: 27,521,386 params" in out  # AS-MLP-T with a 10-class head
+
+
 def test_mixer_train_gate_picks_the_route(monkeypatch):
     """bf16 training: the recompute route by default, the kernel route
     under pallas_bwd, each block through its wrapper; eval as before."""
