@@ -8,12 +8,13 @@ kernels against plain versions, and trains: bf16 mixed-precision train
 steps through ``make_train_step`` on both Mixer routes (the forward kernel
 with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
-drop-path. Models: Mixer-B/16 @224 (d_model 768,
-depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model
-384, depth 24, expansion 4; compare.py's), gMLP-S @224 (d_model 256,
-d_ffn 1536, depth 30; compare.py's) and AS-MLP-T @224 (embed 96, depths
-[2, 2, 6, 2], shift 5: the factory's defaults, compare.py's), full width
-and depth, random weights from seed 0. Run from the repository root, with
+drop-path; then runs the port's kernel lab over the Mixer-B/16 stack.
+Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
+compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
+compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
+the factory's defaults, compare.py's), full width and depth, random
+weights from seed 0. Run from the repository root, with
 no arguments:
 
     python3 chip_smoke.py
@@ -76,7 +77,16 @@ Phases (each one fails loudly; there is no CPU fallback):
      b128 with drop_path_rate 0.1 and a seeded generator, remat off and on:
      the loss descends, remat gives the same losses, 480 (720 under remat)
      shift launches; (i) train img/s at b128, kernel path and plain path
-     in turns, with peak memory.
+     in turns, with peak memory;
+  7. the kernel lab (``jittor_mlp_tpu_torch.tools.kernel_lab``, the port of
+     tools/kernel_lab.py) through its own functions: its check of the wide,
+     noscratch and tokmajor kernels against kernel 1 at b8, then every
+     variant of its table over the 12-block Mixer-B/16 stack at b256 (img/s
+     and TFLOP/s; prod4 and noscratch4 launch what prod2 and noscratch2 do
+     and are reported as them); each lab kernel launches 12 times a pass of
+     its own variants, warm-up included. Phase 2 also holds the four lab
+     kernels against their twins at every bt and mode the lab uses, at b8,
+     the stack's b256 and two ragged shapes, and phase 5 times them at b256.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -240,8 +250,25 @@ def train_inputs(kernel):
 
 
 KERNEL_MODULES = ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd", "axial_shift")
-SHIFT_REPLACES = "jittor_mlp_tpu/ops/pallas/shift_kernel.py:50"
+                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd", "axial_shift", "kernel_lab")
+PALLAS = "jittor_mlp_tpu/ops/pallas/"
+SHIFT_REPLACES = PALLAS + "shift_kernel.py:50"
+# The kernel lab's kernels: wrapper → (source, the TPU kernel it replaces).
+# The variants (bt and mode) each runs are the lab's own table, lab_variants.
+LAB_KERNELS = {
+    "tokmajor_block": ("lab_tokmajor.cu", "tools/kernel_lab.py:124 (_call_tokmajor, body "
+                       "_kernel_tokmajor :89)"),
+    "wide_block": ("lab_wide.cu", "tools/kernel_lab.py:255 (_call, body _kernel_wide :39)"),
+    "noscratch_block": ("lab_ablate.cu",
+                        "tools/kernel_lab.py:255 (_call, body _kernel_noscratch :224)"),
+    "ablate_block": ("lab_ablate.cu",
+                     "tools/kernel_lab.py:255 (_call, bodies _make_kernel_ablate :166)"),
+}
+# the lab's check and stack shapes (b8, b256) and two ragged ones
+LAB_SHAPES = [(8, 196, 768, 384, 3072), (8, 20, 36, 24, 72), (8, 33, 136, 50, 200),
+              (256, 196, 768, 384, 3072)]
+LAB_TIMED = "gelu_tanh"  # the ablate kernel's mode in its phase-5 row: all of the block's work
+LAB_ITERS = 10  # timed stack passes per variant in phase 7, after one warm-up pass
 TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_block_bwd.py:220",
                  "chan_data_bwd": "mixer_block_bwd.py:306", "chan_wgt_bwd": "mixer_block_bwd.py:397"}
 # Beyond the shared shapes: chunked CD, the train step's b128, and b131, where
@@ -394,6 +421,60 @@ def phase_shift(mod):
     print("[2] axial_shift autograd wrapper (8, 56, 56, 96) bf16, both axes: forward = twin, "
           "backward on a non-contiguous gradient = twin at sign -1, bit-equal", flush=True)
     return worst
+
+
+def lab_call(mod, fn, x, w, kw, twin=False):
+    """A kernel-lab wrapper (or its twin) on x (B, N, D); the token-major
+    kernel gets x relaid, and its output relaid back."""
+    f = getattr(mod, f"{fn}_ref" if twin else fn)
+    if fn == "tokmajor_block":
+        return mod.from_tokmajor(f(mod.to_tokmajor(x, kw["bt"]), *w, **kw))
+    return f(x, *w, **kw)
+
+
+def lab_variants(fn):
+    """{variant: keyword arguments} of every variant of the lab's table that
+    runs the lab kernel ``fn``."""
+    from jittor_mlp_tpu_torch.tools import kernel_lab as lab
+
+    return {v: kw for v, (f, kw) in lab.VARIANTS.items() if f == fn}
+
+
+def phase_lab(mod, names=None):
+    """The kernel lab's kernels (or those in ``names``) against their twins
+    at LAB_SHAPES, every bt and mode the lab runs: every output within TOL of
+    max(1, max|ref|), two calls bit-equal, one launch a call. Returns name →
+    largest max|Δ|."""
+    errs = {}
+    for fn in LAB_KERNELS:
+        if names is not None and fn not in names:
+            continue
+        errs[fn] = 0.0
+        for shape in LAB_SHAPES:
+            x, w = block_inputs(*shape, seed=sum(shape))
+            for vname, kw in lab_variants(fn).items():
+                tag = f"{fn} ({vname}) {shape}"
+                before = mod.LAUNCHES[fn]
+                got = lab_call(mod, fn, x, w, kw)
+                torch.cuda.synchronize()
+                check(mod.LAUNCHES[fn] == before + 1, f"{tag}: LAUNCHES did not rise by 1")
+                again = lab_call(mod, fn, x, w, kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
+                want = lab_call(mod, fn, x, w, kw, twin=True)
+                check(got.shape == want.shape == x.shape and got.dtype == want.dtype,
+                      f"{tag}: {tuple(got.shape)} {got.dtype}, twin {tuple(want.shape)}")
+                check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / max(1.0, want.float().abs().max().item())
+                errs[fn] = max(errs[fn], err)
+                print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL}); two "
+                      f"calls bit-equal", flush=True)
+                check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
+                del got, again, want
+            del x, w
+            torch.cuda.empty_cache()
+    return errs
 
 
 def images(n, seed):
@@ -709,9 +790,9 @@ def block_bound(name, x, w, outs):
     each read once or written once at the HBM rate, against the call's
     products at the dense tensor-core peak of its type."""
     nbytes = sum(t.numel() * t.element_size() for t in (x, *w, *outs))
-    B, N, D = x.shape
+    B, N, D = x.shape if x.dim() == 3 else (x.shape[0] * x.shape[2], x.shape[1], x.shape[3])
     bnd = 2 * B * N * D
-    if name.startswith("fused_mixer_block") or name == "fwd_with_h":
+    if name.startswith("fused_mixer_block") or name == "fwd_with_h" or name in LAB_KERNELS:
         TD, CD = w[2].shape[0], w[8].shape[0]
         ops = bnd * (2 * TD + 2 * CD)
     elif name == "token_bwd":  # w = (dh, ln1w, ln1b, wt1, bt1, wt2); with the recompute
@@ -806,6 +887,71 @@ def shift_timing(mod, name):
     print("[5] axial_shift: no single PyTorch call computes the zero-fill grouped shift "
           "(torch.roll wraps around): library_ms null", flush=True)
     return sum(ms) / 2, sum(plain_ms) / 2, bound_ms, "bytes"
+
+
+def lab_timing(mod, name):
+    """Phase 5 for the kernel lab's kernels at b256, the block's full shape,
+    bf16: each kernel and its twin at its first variant (the ablate kernel
+    at every mode; its row takes LAB_TIMED), against the bound. Returns
+    name → (ms, twin ms, bound ms, bound_by)."""
+    timings = {}
+    x, w = block_inputs(256, 196, 768, 384, 3072, seed=7)
+    for fn in LAB_KERNELS:
+        variants = lab_variants(fn)
+        for vname, kw in variants.items():
+            if fn != "ablate_block" and vname != next(iter(variants)):
+                continue
+            xin = mod.to_tokmajor(x, kw["bt"]) if fn == "tokmajor_block" else x
+            kern, twin = getattr(mod, fn), getattr(mod, f"{fn}_ref")
+            out = kern(xin, *w, **kw)
+            ms = cuda_ms(lambda: kern(xin, *w, **kw), 10)
+            plain_ms = cuda_ms(lambda: twin(xin, *w, **kw), 5)
+            bound_ms, bound_by = block_bound(fn, xin, w, (out,))
+            print(f"[5] {fn} ({vname}) b256 {tuple(xin.shape)}: kernel {ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})  [{name}]", flush=True)
+            if fn != "ablate_block" or vname == LAB_TIMED:
+                timings[fn] = (ms, plain_ms, bound_ms, bound_by)
+            del out, xin
+            torch.cuda.empty_cache()
+    return timings
+
+
+def phase_lab_stack(mods, name):
+    """Phase 7: the port's kernel lab through its own functions, its check
+    at b8 against kernel 1, then every variant of its table over the
+    12-block stack at b256. Every count is set to 0 just before the stack
+    runs and read just after: each lab kernel launches 12 times a pass of
+    each of its variants, warm-up included. Returns the lab kernels'
+    launches."""
+    from jittor_mlp_tpu_torch.tools import kernel_lab as lab
+
+    kl, mb = mods["kernel_lab"], mods["mixer_block"]
+    weights = lab.make_weights(0, "cuda")
+    print("[7] kernel lab check at b8 against kernel 1:", flush=True)
+    lab.check(weights, lab.make_input(1, 8, "cuda"))
+    names = list(lab.variants())
+    print(f"[7] kernel lab stack: {len(names)} variants, b256, {lab.DEPTH} blocks, 1 warm-up + "
+          f"{LAB_ITERS} timed passes each  [{name}]", flush=True)
+    reset_counts(mods)  # the lab's run starts here
+    stats = lab.bench(names, weights, 256, LAB_ITERS, name)
+    torch.cuda.synchronize()
+    counts = dict(kl.LAUNCHES)
+    counts["fused_mixer_block"] = mb.LAUNCHES
+    want = dict.fromkeys(counts, 0)
+    for v, st in stats.items():  # plain launches no kernel; a SAME_AS variant none of its own
+        fn = lab.VARIANTS[v][0]
+        if fn is not None and "same_as" not in st:
+            want[fn] += lab.DEPTH * st["passes"]
+    print(f"[7] launches in the lab's run: {json.dumps(counts)} (want {json.dumps(want)})",
+          flush=True)
+    check(counts == want, f"kernel lab launches {counts}, want {want}")
+    ref = stats["prod2"]["img_s"]
+    print("[7] variant, img/s, stack TFLOP/s, ratio to prod2:", flush=True)
+    for v, st in stats.items():
+        same = f" (= {st['same_as']})" if "same_as" in st else ""
+        print(f"[7]   {v:12s} {st['img_s']:10.1f} {st['tflops']:8.2f} {st['img_s'] / ref:7.4f}"
+              f"{same}  [{name}]", flush=True)
+    return {fn: counts[fn] for fn in LAB_KERNELS}
 
 
 def grads_of(model, batch, dtype):
@@ -1137,18 +1283,23 @@ def main():
     table = kernel_table(mods)
     errs = phase_kernels(table)
     errs["axial_shift"] = phase_shift(mods["axial_shift"])
+    errs.update(phase_lab(mods["kernel_lab"]))
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
     del mixer, res, gmlp, as_mlp
     torch.cuda.empty_cache()
     timings = phase_timing(jt, table, name)
     timings["axial_shift"] = shift_timing(mods["axial_shift"], name)
+    timings.update(lab_timing(mods["kernel_lab"], name))
     torch.cuda.empty_cache()
     launches.update(phase_train(jt, mods, name))
+    torch.cuda.empty_cache()
+    launches.update(phase_lab_stack(mods, name))
 
-    sources = {k: (source, f"jittor_mlp_tpu/ops/pallas/{replaced}")
+    sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}
     sources["axial_shift"] = ("axial_shift.cu", SHIFT_REPLACES)
+    sources.update(LAB_KERNELS)
     rows = []
     for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
@@ -1164,8 +1315,9 @@ def main():
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes a whole block, a block's backward
-            # or the zero-fill grouped shift (torch.roll wraps around)
+            # no single PyTorch call computes a whole block (of any lab variant),
+            # a block's backward or the zero-fill grouped shift (torch.roll
+            # wraps around)
             "library_ms": None,
         })
     print(f"[end] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -1,7 +1,7 @@
 """Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
 for the Mixer training kernels, its gradient bands (6b), for the axial
 shift its AS-MLP-T gradient bands (6g), against deliberately broken copies
-of the kernels.
+of the kernels (the kernel lab's among them).
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
@@ -59,6 +59,12 @@ MUTANTS = {
     "M11 the channel group is C / shift floored, not ceil (differs at C = 20, shift 3)": (
         "axial_shift", "csrc/axial_shift.cu",
         "const int group = (C + shift - 1) / shift;", "const int group = C / shift;"),
+    "M12 the token-major first token product reads each group at leading dimension D, not bt·D": (
+        "tokmajor_block", "csrc/lab_tokmajor.cu",
+        "wt1, N, 0, xn, W, nw,", "wt1, N, 0, xn, D, nw,"),
+    "M13 the ablate kernel runs the tanh GELU where ReLU was asked": (
+        "ablate_block", "csrc/lab_ablate.cu",
+        "case 3: return run<Act::Relu>(JMT_ARGS);", "case 3: return run<Act::Tanh>(JMT_ARGS);"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
@@ -72,6 +78,8 @@ mods = {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
         for m in cs.KERNEL_MODULES}
 cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush=True)
 cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
+if set(names) & set(cs.LAB_KERNELS):
+    cs.phase_lab(mods["kernel_lab"], names)
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
 if "bands" in sys.argv[2].split(","):
