@@ -20,7 +20,8 @@ no arguments:
     python3 chip_smoke.py
 
 Phases (each one fails loudly; there is no CPU fallback):
-  1. the card and the kernels' build time;
+  1. the card, the kernels' build time, and the tile, ring stages and
+     shared memory of the channel products' GEMM core (gemm_sm90.cuh);
   2. every kernel vs its twin at the full block shape (B=8), two ragged
      small shapes and, for the W8A8 Mixer and ResMLP kernels and the
      Mixer training kernels, a chunked shape (CD ≥ 2048, ragged chunk and
@@ -31,7 +32,14 @@ Phases (each one fails loudly; there is no CPU fallback):
      and checked to occur). The axial shift, a copy, equals its twin bit
      for bit at every AS-MLP-T stage shape (B=8) and five ragged shapes,
      both axes, both signs, bf16 and float32, and its autograd wrapper's
-     backward on a non-contiguous gradient equals the twin at sign -1;
+     backward on a non-contiguous gradient equals the twin at sign -1.
+     The GEMM core alone (gemm_tn, both epilogues): Mixer-B/16's two
+     channel products at B=8 and three ragged (M, N, K), each counted on the
+     wgmma core, the first two also on the WMMA core, and a K % 8 != 0 shape
+     counted on the WMMA route (the wgmma core refuses it), within the same
+     band, two calls bit-equal. Kernel 1 and the training forward also run at
+     D=36, where their channel products take the WMMA route; at every shape
+     their route counts are checked;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -42,7 +50,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      logits (vs shift_size 1, the identity shift) by at least 10x the
      kernel path's deviation from f32. Bands: bf16 5e-2 of
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
-     per forward (by 24, two shifts a block, for AS-MLP-T);
+     per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
+     bf16 forward runs 2 x depth channel products on the wgmma core and
+     none on the WMMA core (so do the bf16 forwards of phase 4);
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
@@ -55,7 +65,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      served at once, shift launches 24 × the forwards of both, and (h) its
      weights="int8" Predictor agrees with the bf16 one;
   5. CUDA-event timings at b256: each kernel vs its twin (the shift at
-     AS-MLP-T's stage-1 shape, both axes); the forwards
+     AS-MLP-T's stage-1 shape, both axes); the GEMM core at the two channel
+     products, on each core and against cuBLAS's torch.matmul; the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
      bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
@@ -69,7 +80,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      (c) 10 AdamW steps at b128 on one batch, each route with remat off
      and on: the loss descends, and remat gives the same losses; (d) the
      launches per step, depth × (1, or 2 for a forward kernel under
-     remat); (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
+     remat), and the block forwards' channel products, all on the wgmma
+     core; (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
      against their plain bf16 paths (≤ 3e-2, as (a)); (f) train img/s at
      b128 on each path, in turns; AS-MLP-T: (g) b32 gradients of the kernel
      path against the plain bf16 path (≤ 3e-2) and both against float32
@@ -84,7 +96,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      variant of its table over the 12-block Mixer-B/16 stack at b256 (img/s
      and TFLOP/s; prod4 and noscratch4 launch what prod2 and noscratch2 do
      and are reported as them); each lab kernel launches 12 times a pass of
-     its own variants, warm-up included. Phase 2 also holds the four lab
+     its own variants, warm-up included, and their channel products all run
+     on the wgmma core. Phase 2 also holds the four lab
      kernels against their twins at every bt and mode the lab uses, at b8,
      the stack's b256 and two ragged shapes, and phase 5 times them at b256.
 
@@ -250,7 +263,8 @@ def train_inputs(kernel):
 
 
 KERNEL_MODULES = ("mixer_block", "mixer_block_int8", "resmlp_block", "resmlp_block_int8",
-                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd", "axial_shift", "kernel_lab")
+                  "gmlp_block", "gmlp_block_int8", "mixer_block_bwd", "axial_shift", "kernel_lab",
+                  "gemm_sm90")
 PALLAS = "jittor_mlp_tpu/ops/pallas/"
 SHIFT_REPLACES = PALLAS + "shift_kernel.py:50"
 # The kernel lab's kernels: wrapper → (source, the TPU kernel it replaces).
@@ -279,17 +293,34 @@ TRAIN_SHAPES = [(2, 33, 136, 50, 2056), (128, 196, 768, 384, 3072), (131, 196, 7
 # argument of the weight that gives the inner width (TD, CD) of a
 # weight-gradient kernel's grouped sums
 GROUPED = {"token_bwd": 3, "chan_wgt_bwd": 4}
+# kernels whose two channel products run on gemm_sm90.cuh's gemm_tn: its
+# wgmma core where TMA can load both operands (rows a multiple of 16 bytes
+# apart), else the WMMA core
+CHANNEL_ROUTED = ("fused_mixer_block", "fwd_with_h")
+# The GEMM core's phase-2 shapes (M, N, K): Mixer-B/16's two channel
+# products at B = 8, then ragged M, N and K (one row; K = 40 and 136 end
+# in a part of a 64-wide K step; N = 72 and 200 in a part of a 256-wide
+# tile); each with the GELU and the residual epilogue, on the wgmma core.
+GEMM_SHAPES = [(1568, 3072, 768), (1568, 768, 3072), (97, 72, 40), (165, 200, 136),
+               (1, 3072, 768)]
+GEMM_WMMA_SHAPE = (33, 40, 50)  # K % 8 != 0: rows 100 bytes apart, the WMMA route
+GEMM_TIMED = [(256 * 196, 3072, 768), (256 * 196, 768, 3072)]  # b256's channel products
+GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_block)"
 
 
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
+    # kernel 1 and the training forward also at D = 36, CD = 100: rows 72 and
+    # 200 bytes apart, which TMA cannot load, so both channel products take
+    # the WMMA core (CHANNEL_ROUTED)
+    fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     gmlp_shapes = [(8, 196, 256, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     return {
         "fused_mixer_block": (
             mods["mixer_block"], "fused_mixer_block", "mixer_block_ref", block_inputs,
-            mixer_shapes, "mixer_block.cu", "mixer_block.py:157", DEPTH),
+            fwd_shapes, "mixer_block.cu", "mixer_block.py:157", DEPTH),
         "fused_mixer_block_int8": (
             mods["mixer_block_int8"], "fused_mixer_block_int8", "mixer_block_int8_ref",
             block_inputs, mixer_shapes + [(2, 33, 136, 50, 2056)],
@@ -309,7 +340,8 @@ def kernel_table(mods):
             gmlp_inputs, gmlp_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
             GMLP_DEPTH),
         **{k: (mods["mixer_block_bwd"], k, f"{k}_ref", train_inputs(k),
-               mixer_shapes + TRAIN_SHAPES, "mixer_block_bwd.cu", replaced, DEPTH)
+               (fwd_shapes if k == "fwd_with_h" else mixer_shapes) + TRAIN_SHAPES,
+               "mixer_block_bwd.cu", replaced, DEPTH)
            for k, replaced in TRAIN_KERNELS.items()},
     }
 
@@ -331,6 +363,72 @@ def grouping(mod, fn, x, w):
     return per, n, x.shape[0] - (n - 1) * per
 
 
+def channel_routes(shape):
+    """{"sm90": n, "wmma": n}: the routes of one Mixer block call's two channel
+    products at (B, N, D, TD, CD): hn · Wc1ᵀ (rows D apart) and c · Wc2ᵀ (rows
+    CD apart) each take the wgmma core where their rows are 16 bytes apart."""
+    sm90 = (shape[2] % 8 == 0) + (shape[4] % 8 == 0)
+    return {"sm90": sm90, "wmma": 2 - sm90}
+
+
+def gemm_inputs(M, N, K, residual, seed):
+    """a (M, K), b (N, K), bias (N,) and the keyword of one epilogue, bf16 on
+    the card, scaled as block_inputs scales a channel product's."""
+    rn, lin = _draw(seed)
+    b, bias = lin(N, K)
+    kw = {"residual": rn(M, N)} if residual else {"act": "gelu_tanh"}
+    return rn(M, K), b, bias, kw
+
+
+def phase_gemm(mod):
+    """Phase 2 for the GEMM core of the channel products: gemm_tn on the
+    auto route at GEMM_SHAPES (each counted on the wgmma core) and on the
+    WMMA core at the first two, at GEMM_WMMA_SHAPE on the auto route
+    (counted on the WMMA core; the wgmma core refuses it), both epilogues:
+    within TOL of max(1, max|ref|) of gemm_tn_ref, two calls bit-equal, one
+    launch a call. Returns the largest max|Δ|."""
+    worst = 0.0
+    cases = ([(shape, "auto", "sm90") for shape in GEMM_SHAPES]
+             + [(shape, "wmma", "wmma") for shape in GEMM_SHAPES[:2]]
+             + [(GEMM_WMMA_SHAPE, "auto", "wmma")])
+    for shape, core, route in cases:
+        for residual in (False, True):
+            a, b, bias, kw = gemm_inputs(*shape, residual, seed=sum(shape) + residual)
+            tag = f"gemm_tn {shape} {'residual' if residual else 'gelu_tanh'} core={core}"
+            before, routes0 = mod.LAUNCHES, mod.routes()
+            got = mod.gemm_tn(a, b, bias, core=core, **kw)
+            torch.cuda.synchronize()
+            again = mod.gemm_tn(a, b, bias, core=core, **kw)
+            torch.cuda.synchronize()
+            routes1 = mod.routes()
+            moved = {k: routes1[k] - routes0[k] for k in routes1}
+            want_routes = {k: 2 * (k == route) for k in routes1}
+            check(mod.LAUNCHES == before + 2, f"{tag}: LAUNCHES did not rise by 1 a call")
+            check(moved == want_routes, f"{tag}: routes {moved}, want {want_routes}")
+            check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
+            want = mod.gemm_tn_ref(a, b, bias, **kw)
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"{tag}: {tuple(got.shape)} {got.dtype}, twin {tuple(want.shape)}")
+            check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+            err = (got.float() - want.float()).abs().max().item()
+            rel = err / max(1.0, want.float().abs().max().item())
+            worst = max(worst, err)
+            print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL}); two calls "
+                  f"bit-equal; on the {route} core ({json.dumps(moved)})", flush=True)
+            check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
+            del a, b, bias, kw, got, again, want
+    a, b, bias, kw = gemm_inputs(*GEMM_WMMA_SHAPE, False, seed=0)
+    try:
+        mod.gemm_tn(a, b, bias, core="sm90", **kw)
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, f"gemm_tn core=sm90 at {GEMM_WMMA_SHAPE} (rows 100 bytes apart) did not raise")
+    print(f"[2] gemm_tn core=sm90 at {GEMM_WMMA_SHAPE}: refused (TMA needs 16-byte row strides)",
+          flush=True)
+    return worst
+
+
 def phase_kernels(table):
     """Each kernel vs its twin at its shapes, every output; two calls agree
     bit for bit. The weight-gradient kernels must have summed several images
@@ -343,11 +441,20 @@ def phase_kernels(table):
         for shape in shapes:
             x, w = inputs(*shape, seed=sum(shape))
             before = launches(mod, fn)
+            routes0 = mod.routes() if name in CHANNEL_ROUTED else None
             got = outputs(getattr(mod, fn)(x, *w))
             torch.cuda.synchronize()
             check(launches(mod, fn) == before + 1, f"{name}: LAUNCHES did not rise by 1 at {shape}")
             again = outputs(getattr(mod, fn)(x, *w))
             torch.cuda.synchronize()
+            note = ""
+            if routes0 is not None:  # two calls, two channel products each
+                routes1 = mod.routes()
+                moved = {k: routes1[k] - routes0[k] for k in routes1}
+                want_routes = {k: 2 * v for k, v in channel_routes(shape).items()}
+                check(moved == want_routes,
+                      f"{name}: channel products on {moved} at {shape}, want {want_routes}")
+                note = f"; channel products of two calls {json.dumps(moved)}"
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: two calls on the same inputs differ at {shape}")
             want = outputs(getattr(mod, ref)(x, *w))
@@ -361,7 +468,6 @@ def phase_kernels(table):
                 err = (a.float() - b.float()).abs().max().item()
                 rels.append(err / max(1.0, b.float().abs().max().item()))
                 errs[name] = max(errs[name], err)
-            note = ""
             if fn in GROUPED:
                 groups.append(grouping(mod, fn, x, w))
                 note = (f"; weight gradients in {groups[-1][1]} partials of {groups[-1][0]} "
@@ -505,6 +611,19 @@ def forward_counted(model, x, mod, want):
     return out
 
 
+def check_routes(tag, before, after, blocks):
+    """Between two readings of a library's route counts, ``blocks`` Mixer-B/16
+    blocks ran their two channel products on the wgmma core each, and none
+    ran on the WMMA core (D = 768 and CD = 3072 rows are 16-byte multiples).
+    Returns the wgmma core's products."""
+    moved = {k: after[k] - before[k] for k in after}
+    want = {"sm90": 2 * blocks, "wmma": 0}
+    print(f"{tag}: channel products {json.dumps(moved)} in {blocks} blocks "
+          f"(want {json.dumps(want)})", flush=True)
+    check(moved == want, f"{tag}: channel products {moved}, want {want}")
+    return moved["sm90"]
+
+
 def phase_logits(jt, mods):
     """Mixer-B/16, ResMLP-S24 and gMLP-S logits, kernel paths against plain
     paths. Returns the bf16 kernel-path models (on the card)."""
@@ -516,9 +635,13 @@ def phase_logits(jt, mods):
     f32 = jt.MLPMixerForImageClassification(**MIXER_B16).eval()
     x = images(64, 0)
     with torch.inference_mode():
+        routes0 = mb.routes()
         lk = forward_counted(kernel, x.bfloat16(), mb, DEPTH)
+        routes1 = mb.routes()
         with config.int8_mode():
             lq = forward_counted(kernel, x.bfloat16(), mbq, DEPTH)
+        check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1, DEPTH)
+        check(mb.routes() == routes1, "the int8 Mixer forward ran kernel 1's channel products")
         lp = plain.forward(x.bfloat16()).float()
         with config.parity_mode():
             lf = f32.forward(x)
@@ -696,6 +819,7 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
 
     # (a) Mixer-B/16 bf16, as the first slice serves it
     reset_counts(mods)  # the main path's run starts here
+    routes0 = mods["mixer_block"].routes()  # a library's count is read, not reset
     pred = jt.Predictor(mixer, batch_size=32).warmup()
     stats = serve(jt, [pred], imgs)
     labels, probs = pred.predict(big)
@@ -708,6 +832,8 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
     print(f"[4a] Predictor.latency_stats: {json.dumps(pred.latency_stats())}", flush=True)
     launches["fused_mixer_block"] = check_launches("[4a] Mixer bf16", mods["mixer_block"],
                                                    DEPTH, pred)
+    launches["gemm_tn_sm90"] = check_routes(
+        "[4a] Mixer bf16", routes0, mods["mixer_block"].routes(), launches["fused_mixer_block"])
 
     # (b), (c): an int8 and a bf16 Predictor on one model, at the same time
     for tag, model, bf_mod, q_mod, depth, bf_name, q_name in (
@@ -718,6 +844,7 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
             ("[4e] gMLP-S", gmlp, "gmlp_block", "gmlp_block_int8", GMLP_DEPTH,
              "fused_gmlp_block", "fused_gmlp_block_int8")):
         reset_counts(mods)
+        routes0 = mods["mixer_block"].routes()
         p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
         p16 = jt.Predictor(model, batch_size=32).warmup()
         check(p8.dtype == "int8" and p16.dtype == "bf16", f"{tag}: dtypes {p8.dtype}, {p16.dtype}")
@@ -729,6 +856,8 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
                   f"{json.dumps(p.latency_stats())}", flush=True)
         launches[q_name] = check_launches(f"{tag} int8", mods[q_mod], depth, p8)
         n16 = check_launches(f"{tag} bf16", mods[bf_mod], depth, p16)
+        check_routes(f"{tag} bf16 (kernel 1)", routes0, mods["mixer_block"].routes(),
+                     n16 if bf_mod == "mixer_block" else 0)
         if bf_name not in launches:
             launches[bf_name] = n16
 
@@ -889,6 +1018,54 @@ def shift_timing(mod, name):
     return sum(ms) / 2, sum(plain_ms) / 2, bound_ms, "bytes"
 
 
+def gemm_timing(mod, name):
+    """Phase 5 for the GEMM core at b256's two channel products (GEMM_TIMED,
+    the GELU and the residual epilogue): gemm_tn on the wgmma core and on the
+    WMMA core and cuBLAS's bf16 torch.matmul (the product alone, without the
+    epilogue: the yardstick, which the port never calls), in turns, then the
+    twin; ms, TFLOP/s and share of the dense bf16 peak. Returns (wgmma ms,
+    twin ms, bound ms, bound_by, cuBLAS ms), each summed over the two
+    products: one block's channel half."""
+    total = dict.fromkeys(("sm90", "wmma", "cublas", "twin", "bound"), 0.0)
+    total_by = set()
+    for (M, N, K), residual in zip(GEMM_TIMED, (False, True)):
+        a, b, bias, kw = gemm_inputs(M, N, K, residual, seed=7)
+        out = mod.gemm_tn(a, b, bias, **kw)
+        flop = 2 * M * N * K
+        nbytes = sum(t.numel() * t.element_size() for t in (a, b, bias, out, *kw.values())
+                     if torch.is_tensor(t))
+        t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
+        bound, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+        fns = {"sm90": lambda: mod.gemm_tn(a, b, bias, core="sm90", **kw),
+               "wmma": lambda: mod.gemm_tn(a, b, bias, core="wmma", **kw),
+               "cublas": lambda: torch.matmul(a, b.t())}
+        runs = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:
+            runs[k].append(cuda_ms(fns[k], 20))
+        epi = "residual" if residual else "gelu_tanh"
+        for k, r in runs.items():
+            ms = sum(r) / len(r)
+            total[k] += ms
+            what = "torch.matmul (cuBLAS, no epilogue)" if k == "cublas" else f"{k} core"
+            rate = flop / ms / 1e9  # TFLOP/s
+            print(f"[5] gemm_tn b256 {(M, N, K)} {epi}, {what}: {ms:.4f} ms, {rate:.1f} TFLOP/s, "
+                  f"{100 * rate * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak (runs {r})  [{name}]",
+                  flush=True)
+        twin = cuda_ms(lambda: mod.gemm_tn_ref(a, b, bias, **kw), 3)
+        total["twin"] += twin
+        total["bound"] += bound
+        print(f"[5] gemm_tn b256 {(M, N, K)} {epi}: twin {twin:.4f} ms, bound {bound:.4f} ms "
+              f"({bound_by})  [{name}]", flush=True)
+        total_by.add(bound_by)
+        del a, b, bias, kw, out
+        torch.cuda.empty_cache()
+    print(f"[5] gemm_tn b256, one block's two channel products: wgmma core {total['sm90']:.4f} ms, "
+          f"WMMA core {total['wmma']:.4f} ms, cuBLAS {total['cublas']:.4f} ms, bound "
+          f"{total['bound']:.4f} ms  [{name}]", flush=True)
+    by = total_by.pop() if len(total_by) == 1 else "operations"  # both are, at these shapes
+    return (total["sm90"], total["twin"], total["bound"], by), total["cublas"]
+
+
 def lab_timing(mod, name):
     """Phase 5 for the kernel lab's kernels at b256, the block's full shape,
     bf16: each kernel and its twin at its first variant (the ablate kernel
@@ -933,6 +1110,7 @@ def phase_lab_stack(mods, name):
     print(f"[7] kernel lab stack: {len(names)} variants, b256, {lab.DEPTH} blocks, 1 warm-up + "
           f"{LAB_ITERS} timed passes each  [{name}]", flush=True)
     reset_counts(mods)  # the lab's run starts here
+    routes0 = {"lab": kl.routes(), "kernel 1": mb.routes()}
     stats = lab.bench(names, weights, 256, LAB_ITERS, name)
     torch.cuda.synchronize()
     counts = dict(kl.LAUNCHES)
@@ -945,6 +1123,10 @@ def phase_lab_stack(mods, name):
     print(f"[7] launches in the lab's run: {json.dumps(counts)} (want {json.dumps(want)})",
           flush=True)
     check(counts == want, f"kernel lab launches {counts}, want {want}")
+    check_routes("[7] the lab's kernels", routes0["lab"], kl.routes(),
+                 sum(counts[fn] for fn in LAB_KERNELS))
+    check_routes("[7] kernel 1 in the lab", routes0["kernel 1"], mb.routes(),
+                 counts["fused_mixer_block"])
     ref = stats["prod2"]["img_s"]
     print("[7] variant, img/s, stack TFLOP/s, ratio to prod2:", flush=True)
     for v, st in stats.items():
@@ -1063,7 +1245,9 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8)
             step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
             config.pallas_bwd = route == "kernel"
+            fwd_mod = bwd if route == "kernel" else mb  # the library of the block forward
             reset_counts(mods)  # the training path's run starts here
+            routes0 = fwd_mod.routes()
             with config.remat_mode() if remat else contextlib.nullcontext():
                 losses = [step(batch).item() for _ in range(steps)]
             torch.cuda.synchronize()
@@ -1083,6 +1267,7 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             check(all(np.isfinite(losses)) and losses[-1] < losses[0],
                   f"{tag}: the loss did not descend: {losses}")
             check(counts == want, f"{tag}: launches {counts}, want {want}")
+            check_routes(f"[6d] {tag}, block forwards", routes0, fwd_mod.routes(), fwd)
             runs[(route, remat)] = losses
             if route == "kernel" and not remat:
                 counted = {k: counts[k] for k in TRAIN_KERNELS}
@@ -1279,11 +1464,14 @@ def main():
         list(pool.map(lambda m: m.build(), mods.values()))
     print(f"[1] kernel builds + loads ({len(mods)} in parallel): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"[1] channel-product core (gemm_sm90.cuh): {json.dumps(mods['gemm_sm90'].config())}",
+          flush=True)
 
     table = kernel_table(mods)
     errs = phase_kernels(table)
     errs["axial_shift"] = phase_shift(mods["axial_shift"])
     errs.update(phase_lab(mods["kernel_lab"]))
+    errs["gemm_tn_sm90"] = phase_gemm(mods["gemm_sm90"])
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
     del mixer, res, gmlp, as_mlp
@@ -1291,6 +1479,7 @@ def main():
     timings = phase_timing(jt, table, name)
     timings["axial_shift"] = shift_timing(mods["axial_shift"], name)
     timings.update(lab_timing(mods["kernel_lab"], name))
+    timings["gemm_tn_sm90"], library = gemm_timing(mods["gemm_sm90"], name)
     torch.cuda.empty_cache()
     launches.update(phase_train(jt, mods, name))
     torch.cuda.empty_cache()
@@ -1300,6 +1489,7 @@ def main():
                for k, (*_mid, source, replaced, _depth) in table.items()}
     sources["axial_shift"] = ("axial_shift.cu", SHIFT_REPLACES)
     sources.update(LAB_KERNELS)
+    sources["gemm_tn_sm90"] = ("gemm_sm90.cuh", GEMM_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
@@ -1317,8 +1507,8 @@ def main():
             "bound_by": bound_by,
             # no single PyTorch call computes a whole block (of any lab variant),
             # a block's backward or the zero-fill grouped shift (torch.roll
-            # wraps around)
-            "library_ms": None,
+            # wraps around); the GEMM core's row: cuBLAS's two products
+            "library_ms": library if kname == "gemm_tn_sm90" else None,
         })
     print(f"[end] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,8 +15,8 @@
 //   out = bf16(h + (c · Wc2^T + bc2))
 // act is the exact-erf GELU, the 3-term A&S 7.1.25 erf GELU (`fast3`, the
 // polynomial the ablation measures, so not replaced by erff), the tanh
-// GELU, or ReLU. Products accumulate in f32 on the tensor cores
-// (gemm_bf16.cuh).
+// GELU, or ReLU. Products accumulate in f32 on the tensor cores, on kernel
+// 1's two cores (gemm_sm90.cuh for the channel products, gemm_bf16.cuh).
 //
 // What bounds it on this card, and what the design does about it: the
 // products are kernel 1's (mixer_block.cu) and so is what bounds them; the
@@ -59,10 +59,8 @@ int run(cudaStream_t s, const void* x, const void* ln1w, const void* ln1b, const
     JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
     h_in = xn;
   }
-  JMT_CHECK(gemm<true>(s, 1, B * N, CD, D, h_in, D, 0, wc1, D, 0,
-                       lab::act_bias<A>(bc1, 0, c, CD, 0)));
-  JMT_CHECK(gemm<true>(s, 1, B * N, D, CD, c, CD, 0, wc2, CD, 0,
-                       residual_bias(bc2, 0, h, out, D, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, h_in, D, wc1, D, lab::act_bias<A>(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }
 
@@ -92,6 +90,11 @@ extern "C" int lab_ablate_bf16(const void* x, const void* ln1w, const void* ln1b
 #undef JMT_ARGS
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// Channel products this library launched on route 0 (the wgmma core) or
+// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long lab_ablate_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* lab_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

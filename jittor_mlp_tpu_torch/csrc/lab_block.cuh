@@ -2,11 +2,11 @@
 // (lab_tokmajor.cu, lab_wide.cu, lab_ablate.cu): the
 // activations the lab ablates, the residual order of its bodies, the
 // token-major variant's bf16 + f32 store of h and the wide variant's
-// scatter of h back to (B, N, D). They plug into gemm_bf16.cuh's main loop;
-// the epilogue contract is that header's.
+// scatter of h back to (B, N, D). They plug into gemm_bf16.cuh's main loop
+// and gemm_sm90.cuh's core; the epilogue contract is gemm_bf16.cuh's.
 #pragma once
 
-#include "gemm_bf16.cuh"
+#include "gemm_sm90.cuh"
 #include "layer_norm.cuh"
 
 namespace jmt {

@@ -12,7 +12,8 @@
 //   hn  = bf16(LN2(hf))                         from the f32 h
 //   c   = bf16(gelu_tanh(hn · Wc1^T + bc1))     all G·N·bt rows
 //   out = bf16(h + (c · Wc2^T + bc2))
-// Products accumulate in f32 on the tensor cores (gemm_bf16.cuh).
+// Products accumulate in f32 on the tensor cores, on kernel 1's two cores
+// (gemm_sm90.cuh for the channel products, gemm_bf16.cuh).
 //
 // What bounds it on this card, and what the design does about it:
 // - As kernel 1 (mixer_block.cu), the channel GEMMs carry 89% of the FLOPs
@@ -26,7 +27,8 @@
 //   B-fold batch for a G-fold one.
 // - The f32 h that LN2 reads is the body's semantics: an extra f32 store and
 //   read of (B, N, D), ≈ 0.05 ms a block at b256 at the HBM rate.
-// wgmma, TMA and keeping the intermediates on chip are later work.
+// The token products on wgmma and keeping the intermediates on chip are
+// later work.
 
 #include "lab_block.cuh"
 
@@ -57,11 +59,15 @@ extern "C" int lab_tokmajor_bf16(const void* x, const void* ln1w, const void* ln
   JMT_CHECK(lab::layer_norm_grouped(s, static_cast<const float*>(hf), ln2w, ln2b, xn, rows, D,
                                     rows, 1));
   // channel mix over all rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(gemm<true>(s, 1, rows, CD, D, xn, D, 0, wc1, D, 0, gelu_bias(bc1, 0, c, CD, 0)));
-  JMT_CHECK(gemm<true>(s, 1, rows, D, CD, c, CD, 0, wc2, CD, 0,
-                       residual_bias(bc2, 0, h, out, D, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, rows, CD, D, xn, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, rows, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }
+
+// Channel products this library launched on route 0 (the wgmma core) or
+// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long lab_tokmajor_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* lab_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -10,7 +10,8 @@
 //   hn  = bf16(LN2(h))
 //   c   = bf16(gelu_tanh(hn · Wc1^T + bc1))     all B·N rows
 //   out = bf16(h + (c · Wc2^T + bc2))
-// Products accumulate in f32 on the tensor cores (gemm_bf16.cuh).
+// Products accumulate in f32 on the tensor cores, on kernel 1's two cores
+// (gemm_sm90.cuh for the channel products, gemm_bf16.cuh).
 //
 // What bounds it on this card, and what the design does about it:
 // - The channel GEMMs, as in kernel 1 (mixer_block.cu), carry 89% of the
@@ -23,7 +24,8 @@
 // - The second token product's epilogue scatters h back to (B, N, D)
 //   through the column → (image, d) map, 16 bytes at a time where D is a
 //   multiple of 8, so LN2 and the channel mix read the native layout.
-// wgmma, TMA and keeping the intermediates on chip are later work.
+// The token products on wgmma and keeping the intermediates on chip are
+// later work.
 
 #include "lab_block.cuh"
 
@@ -51,11 +53,15 @@ extern "C" int lab_wide_bf16(const void* x, const void* ln1w, const void* ln1b, 
                         lab::scatter_residual(bt2, x, h, N, D, bt)));
   JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xg, B * N, D));
   // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(gemm<true>(s, 1, B * N, CD, D, xg, D, 0, wc1, D, 0, gelu_bias(bc1, 0, c, CD, 0)));
-  JMT_CHECK(gemm<true>(s, 1, B * N, D, CD, c, CD, 0, wc2, CD, 0,
-                       residual_bias(bc2, 0, h, out, D, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, xg, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }
+
+// Channel products this library launched on route 0 (the wgmma core) or
+// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long lab_wide_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* lab_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

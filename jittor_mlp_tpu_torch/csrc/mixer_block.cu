@@ -9,7 +9,9 @@
 //   hn  = bf16(LN2(h))
 //   c   = bf16(gelu_tanh(hn · Wc1^T + bc1))             Wc1 (CD, D), rows B·N
 //   out = bf16(h + c · Wc2^T + bc2)                     Wc2 (D, CD)
-// All products accumulate in f32 on the tensor cores (gemm_bf16.cuh).
+// All products accumulate in f32 on the tensor cores: the channel products
+// on the Hopper core (gemm_sm90.cuh), the token products on the WMMA core
+// (gemm_bf16.cuh).
 //
 // What bounds it on this card, and what the design does about it:
 // - The TPU kernel keeps all four weight matrices in VMEM. Here Wc1 alone is
@@ -20,8 +22,11 @@
 //   L2 cache.
 // - The channel GEMMs carry CD/(CD+TD) = 3072/3456 ≈ 89% of the FLOPs. They
 //   stack all B·N rows into one M, so at serving batch sizes they are large,
-//   compute-bound products: 128×128 output tiles reuse each loaded operand
-//   128 times.
+//   compute-bound products. They run on gemm_sm90.cuh: TMA loads into a
+//   four-stage mbarrier ring feeding wgmma.m64n192k16 from warp-specialized
+//   warpgroups, 192×192 output tiles, persistent blocks. Where TMA cannot
+//   load an operand (a row stride that is not a multiple of 16 bytes, e.g.
+//   D % 8 ≠ 0) they take the WMMA core on the same arguments.
 // - The token GEMMs (K = N = 196 and K = TD = 384) are small per image and
 //   bandwidth-bound at this design: each reads and writes a whole (B, TD, D)
 //   intermediate. They run batched over images (grid z) with the weight as
@@ -30,12 +35,13 @@
 //   token GEMM and the M of the second: ragged K tails are zero-filled in
 //   shared memory and ragged M/N edges are masked in the epilogue, instead
 //   of the TPU version's padding to 128.
-// - Rows of Wt1 (384, 196) are 392 bytes apart, not 16-byte aligned. The
-//   tile loader uses 16-byte cp.async copies only where the base, leading
-//   dimension and batch stride allow it, and 2-byte loads elsewhere. Two
-//   shared-memory stages let the copies of the next K step overlap the
-//   tensor-core work of this one.
-// wgmma, TMA and keeping the intermediates on chip are later work.
+// - Rows of Wt1 (384, 196) are 392 bytes apart, not 16-byte aligned, which
+//   TMA cannot load. The token products stay on the WMMA core (128×128
+//   tiles, a two-stage cp.async ring), whose tile loader uses 16-byte
+//   cp.async copies only where the base, leading dimension and batch stride
+//   allow it, and 2-byte loads elsewhere.
+// The token products on wgmma and keeping the intermediates on chip are
+// later work.
 
 #include "mixer_forward.cuh"
 
@@ -54,6 +60,11 @@ extern "C" int mixer_block_bf16(const void* x, const void* ln1w, const void* ln1
   return mixer_forward(static_cast<cudaStream_t>(stream_ptr), x, ln1w, ln1b, wt1, bt1, wt2, bt2,
                        ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, h, c, out, B, N, D, TD, CD);
 }
+
+// Channel products this library launched on route 0 (the wgmma core) or
+// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long mixer_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* mixer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

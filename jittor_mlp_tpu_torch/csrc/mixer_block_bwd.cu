@@ -26,7 +26,8 @@
 // What bounds each entry on this card (Mixer-B/16 at b256, bf16 dense peak
 // 989 TFLOP/s), and what the design does about it:
 // - mixer_fwd_with_h_bf16: 533 GFLOP, 0.539 ms; kernel 1's six launches
-//   (mixer_forward.cuh) with h handed to the caller.
+//   (mixer_forward.cuh, its channel products on gemm_sm90.cuh's wgmma core)
+//   with h handed to the caller.
 // - mixer_token_bwd_bf16: 148 GFLOP (with the recompute of the token
 //   forward), 0.150 ms. Six GEMMs on the shared WMMA main loop
 //   (gemm_bf16.cuh). The products that contract over a weight's row axis
@@ -46,8 +47,9 @@
 // the f32 dtp, dxn and dhn and the bf16 t, c and dcp go through device
 // memory; bias and LayerNorm gradients are f32 sums of pre-rounding values,
 // taken by fixed-order row and column reductions. The two channel entries
-// each recompute LN2 and cp, as the TPU kernels do. wgmma, TMA, fusing the
-// two channel recomputes and keeping intermediates on chip are later work.
+// each recompute LN2 and cp, as the TPU kernels do. The backward products
+// on wgmma, fusing the two channel recomputes and keeping intermediates on
+// chip are later work.
 
 #include "mixer_forward.cuh"
 
@@ -533,6 +535,11 @@ extern "C" int mixer_chan_wgt_bwd_bf16(const void* h, const void* g, const void*
                                   StoreF32(w.pc2, CD, (long long)D * CD))));
   return (int)sum_groups(s, w.pc2, w.slabs, (long long)D * CD, dwc2);
 }
+
+// Channel products this library launched on route 0 (the wgmma core) or
+// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long mixer_bwd_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* mixer_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,9 +1,11 @@
 // The bf16 Mixer block forward as six launches on one stream: the body of
 // mixer_block.cu's entry and of mixer_block_bwd.cu's forward-with-h (see
-// mixer_block.cu's header for the math and what bounds it).
+// mixer_block.cu's header for the math and what bounds it). The channel
+// products run on the Hopper core (gemm_sm90.cuh) where TMA can load their
+// operands, the token products on the WMMA core (gemm_bf16.cuh).
 #pragma once
 
-#include "gemm_bf16.cuh"
+#include "gemm_sm90.cuh"
 #include "layer_norm.cuh"
 
 namespace jmt {
@@ -28,9 +30,8 @@ inline int mixer_forward(cudaStream_t s, const void* x, const void* ln1w, const 
                         residual_bias(bt2, 1, x, h, D, nd)));
   JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
   // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(gemm<true>(s, 1, B * N, CD, D, xn, D, 0, wc1, D, 0, gelu_bias(bc1, 0, c, CD, 0)));
-  JMT_CHECK(gemm<true>(s, 1, B * N, D, CD, c, CD, 0, wc2, CD, 0,
-                       residual_bias(bc2, 0, h, out, D, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, xn, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }
 

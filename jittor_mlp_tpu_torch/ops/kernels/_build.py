@@ -27,6 +27,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+ROUTES = ("sm90", "wmma")  # the GEMM cores of a channel product (csrc/gemm_sm90.cuh), in order
 
 
 def _nvcc():
@@ -69,15 +70,23 @@ class Library:
     of int arguments); every entry takes the stream last and returns a
     cudaError_t code. ``workspace`` maps each entry that returns a size_t
     (the bytes of scratch a kernel needs, or another size of its plan) to
-    its number of int arguments.
+    its number of int arguments. ``queries`` maps each entry that returns a
+    long long (a count, or a constant of a kernel's design) to its number of
+    int arguments; ``routes`` names the query that counts the library's
+    channel products per GEMM core (route 0 ``sm90``, 1 ``wmma``).
     ``error`` names the entry that turns a code into its message."""
 
-    def __init__(self, name, sources, functions, error, workspace=None):
+    def __init__(self, name, sources, functions, error, workspace=None, queries=None,
+                 routes=None):
         self.name = name
         self.sources = sources
         self.functions = functions
         self.error = error
         self.workspace_fns = workspace or {}
+        self.queries = dict(queries or {})
+        if routes is not None:
+            self.queries.setdefault(routes, 1)
+        self.routes_fn = routes
         self._lib = None
         self._lock = threading.Lock()  # first use may come from several threads
 
@@ -99,6 +108,9 @@ class Library:
                 for fn, n_int in self.workspace_fns.items():
                     getattr(lib, fn).argtypes = [ctypes.c_int] * n_int
                     getattr(lib, fn).restype = ctypes.c_size_t
+                for fn, n_int in self.queries.items():
+                    getattr(lib, fn).argtypes = [ctypes.c_int] * n_int
+                    getattr(lib, fn).restype = ctypes.c_longlong
                 self._lib = lib
         return self._lib
 
@@ -108,6 +120,20 @@ class Library:
         if entry is None:
             (entry,) = self.workspace_fns
         return getattr(self.load(), entry)(*dims)
+
+    def query(self, entry, *ints):
+        """The long long that query ``entry`` returns for these ints."""
+        return getattr(self.load(), entry)(*ints)
+
+    def routes(self):
+        """{"sm90": n, "wmma": n}: the channel products this library has
+        launched on each GEMM core since it was loaded (zeros if it is not
+        loaded: it has launched nothing)."""
+        if self.routes_fn is None:
+            raise ValueError(f"{self.name} keeps no count of GEMM routes")
+        if self._lib is None:
+            return dict.fromkeys(ROUTES, 0)
+        return {r: self.query(self.routes_fn, i) for i, r in enumerate(ROUTES)}
 
     def launch(self, fn, device, tensors, ints):
         """Call entry ``fn`` with the tensors' device pointers, the ints and

@@ -38,7 +38,8 @@ wrappers accept and check it (B % bt == 0), so the lab's ``noscratch2`` and
 Each wrapper takes a CPU tensor to its twin (``*_ref``: plain PyTorch with
 the body's rounding points and addition order), launches its kernel on the
 current stream for a contiguous bf16 CUDA tensor, and raises on anything
-else. ``LAUNCHES`` counts kernel launches per wrapper.
+else. ``LAUNCHES`` counts kernel launches per wrapper, ``routes()`` their
+channel products per GEMM core.
 """
 
 from __future__ import annotations
@@ -56,11 +57,11 @@ LAUNCHES = {"tokmajor_block": 0, "wide_block": 0, "noscratch_block": 0, "ablate_
 _COUNT_LOCK = threading.Lock()
 _LIBS = {
     "tokmajor_block": Library("lab_tokmajor", ["lab_tokmajor.cu"], {"lab_tokmajor_bf16": (19, 6)},
-                              error="lab_error_string"),
+                              error="lab_error_string", routes="lab_tokmajor_gemm_products"),
     "wide_block": Library("lab_wide", ["lab_wide.cu"], {"lab_wide_bf16": (18, 6)},
-                          error="lab_error_string"),
+                          error="lab_error_string", routes="lab_wide_gemm_products"),
     "ablate_block": Library("lab_ablate", ["lab_ablate.cu"], {"lab_ablate_bf16": (18, 7)},
-                            error="lab_error_string"),
+                            error="lab_error_string", routes="lab_ablate_gemm_products"),
 }
 _LIBS["noscratch_block"] = _LIBS["ablate_block"]
 GELUS = ("exact", "fast3", "tanh", "relu")  # the ablate kernel's activation codes, in order
@@ -71,6 +72,14 @@ def build():
     libs = set(_LIBS.values())
     with ThreadPoolExecutor(len(libs)) as pool:
         list(pool.map(lambda lib: lib.load(), libs))
+
+
+def routes():
+    """{"sm90": n, "wmma": n}: the lab kernels' channel products so far on
+    each GEMM core (csrc/gemm_sm90.cuh), two a launch, summed over the three
+    libraries."""
+    counts = [lib.routes() for lib in set(_LIBS.values())]
+    return {r: sum(c[r] for c in counts) for r in counts[0]}
 
 
 def gelu_fast3(z):

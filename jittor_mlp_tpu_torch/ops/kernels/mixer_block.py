@@ -18,7 +18,9 @@ wc1 (CD, D), wc2 (D, CD).
   float32 inputs it uses the exact-erf GELU, as the TPU kernel does.
 - ``fused_mixer_block``: a CPU tensor goes to ``mixer_block_ref``; a CUDA
   bf16 contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel; ``routes()``:
+  its channel products on each GEMM core (the wgmma core where TMA can load
+  the operands, else the WMMA core).
 
 Training (the recompute route; ``mixer_block_bwd`` holds the kernel route):
 
@@ -43,7 +45,7 @@ from ._build import Library
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("mixer_block", ["mixer_block.cu"], {"mixer_block_bf16": (18, 5)},
-               error="mixer_error_string")
+               error="mixer_error_string", routes="mixer_gemm_products")
 
 
 def layer_norm_f32(x, w, b, eps=1e-5):
@@ -118,6 +120,12 @@ class KernelForwardPlainBackward(torch.autograd.Function):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90": n, "wmma": n}: the kernel's channel products so far on each
+    GEMM core (csrc/gemm_sm90.cuh), two a launch."""
+    return _LIB.routes()
 
 
 def require_bf16_contiguous(tensors):

@@ -26,7 +26,8 @@ dwc1 (CD, D), dwc2 (D, CD)).
   derivative, as the Pallas kernels do.
 - A CPU tensor runs the twin; a CUDA bf16 contiguous tensor launches the
   kernel; anything else raises.
-- ``LAUNCHES``: launches per wrapper, by name.
+- ``LAUNCHES``: launches per wrapper, by name; ``routes()``: the forward's
+  channel products on each GEMM core.
 - ``images_per_group``: how many images each f32 partial of a weight
   gradient sums on the card (set by the device's multiprocessor count).
 - ``fused_mixer_block_train``: the kernel route's ``autograd.Function``,
@@ -57,7 +58,8 @@ _LIB = Library(
     error="mixer_bwd_error_string",
     workspace={"mixer_token_bwd_workspace": 5, "mixer_chan_data_bwd_workspace": 4,
                "mixer_chan_wgt_bwd_workspace": 5, "mixer_token_bwd_images_per_group": 5,
-               "mixer_chan_wgt_bwd_images_per_group": 5})
+               "mixer_chan_wgt_bwd_images_per_group": 5},
+    routes="mixer_bwd_gemm_products")
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _TANH_C = math.sqrt(2.0 / math.pi)
@@ -155,6 +157,12 @@ def chan_wgt_bwd_ref(h, g, ln2w, ln2b, bc1, wc1, wc2):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90": n, "wmma": n}: ``fwd_with_h``'s channel products so far on
+    each GEMM core (csrc/gemm_sm90.cuh), two a launch."""
+    return _LIB.routes()
 
 
 def _device(x, what):

@@ -1,7 +1,8 @@
 """Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
 for the Mixer training kernels, its gradient bands (6b), for the axial
 shift its AS-MLP-T gradient bands (6g), against deliberately broken copies
-of the kernels (the kernel lab's among them).
+of the kernels (the kernel lab's and the channel products' GEMM core among
+them).
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
@@ -65,6 +66,15 @@ MUTANTS = {
     "M13 the ablate kernel runs the tanh GELU where ReLU was asked": (
         "ablate_block", "csrc/lab_ablate.cu",
         "case 3: return run<Act::Relu>(JMT_ARGS);", "case 3: return run<Act::Tanh>(JMT_ARGS);"),
+    # the wgmma core (gemm_sm90.cuh): the K-step count is shared by the
+    # producer and the consumers, so a step fewer drops a step's product
+    # instead of leaving the consumers waiting for a load that never comes
+    "M14 the wgmma core loads and multiplies K / BK steps, not ceil: a ragged K tail is dropped": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "const int ktiles = (K + BK - 1) / BK;", "const int ktiles = K / BK;"),
+    "M15 the wgmma core's second and third consumer warpgroups write the first one's rows": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "const int mrow = m0 + c * 64 + warp * 16;", "const int mrow = m0 + warp * 16;"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
@@ -80,6 +90,8 @@ cs.check = lambda cond, msg: None if cond else print("  would FAIL:", msg, flush
 cs.phase_kernels({k: v for k, v in cs.kernel_table(mods).items() if k in names})
 if set(names) & set(cs.LAB_KERNELS):
     cs.phase_lab(mods["kernel_lab"], names)
+if "gemm_tn" in names:
+    cs.phase_gemm(mods["gemm_sm90"])
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
 if "bands" in sys.argv[2].split(","):

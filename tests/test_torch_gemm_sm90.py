@@ -1,0 +1,178 @@
+"""The plain twin of the channel products' GEMM core against the block it serves.
+
+``gemm_tn_ref`` (ops/kernels/gemm_sm90.py) is the plain version of one
+channel product on the Hopper core (csrc/gemm_sm90.cuh): an f32 product,
+then ``GeluBias``'s or ``ResidualBias``'s arithmetic and one rounding. Here:
+
+- composed twice (GELU, then residual) it is the channel half of
+  ``mixer_block_ref`` bit for bit, in bf16 and float32;
+- the whole block built from ``layer_norm_f32`` and ``gemm_tn_ref`` (the
+  token products as transposed channel-style products) matches the JAX
+  ``fused_mixer_block`` run in Pallas interpret mode on the CPU, on the same
+  seeded numpy inputs: float32 within 1e-5, bf16 within two bf16 ulps of
+  the output scale (1.6e-2 of max(1, max|want|)), the tolerances of
+  tests/test_torch_mixer_block.py;
+- the CPU wrapper runs the twin without a launch, and bad inputs raise.
+
+The kernel itself runs only on the card (chip_smoke.py phases 2 and 5).
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+import jittor_mlp_tpu.ops.pallas.mixer_block as jmb
+from jittor_mlp_tpu import config as jconfig
+from jittor_mlp_tpu_torch.ops.kernels import gemm_sm90 as tg
+from jittor_mlp_tpu_torch.ops.kernels import mixer_block as tmb
+
+
+def _block_inputs(B, N, D, TD, CD, seed=0):
+    r = np.random.default_rng(seed)
+
+    def rn(*s):
+        return (r.standard_normal(s) * 0.1).astype(np.float32)
+
+    x = r.standard_normal((B, N, D)).astype(np.float32)
+    ln1w, ln2w = 1 + rn(D), 1 + rn(D)
+    weights = (ln1w, rn(D), rn(TD, N), rn(TD), rn(N, TD), rn(N), ln2w, rn(D),
+               rn(CD, D), rn(CD), rn(D, CD), rn(D))
+    return x, weights
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(dtype)
+
+
+def _act(dtype):
+    return "gelu_erf" if dtype == torch.float32 else "gelu_tanh"
+
+
+@pytest.mark.parametrize("shape", [(3, 20, 40, 24, 72), (5, 33, 136, 50, 200)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ref_composes_to_the_channel_half_of_the_block_twin(dtype, shape):
+    B, N, D, TD, CD = shape
+    dt = getattr(torch, dtype)
+    x, weights = _block_inputs(*shape, seed=sum(shape))
+    tx, tw = _torch(x, dt), [_torch(w, dt) for w in weights]
+    want, h = tmb.mixer_block_ref(tx, *tw, with_h=True)
+    ln2w, ln2b, wc1, bc1, wc2, bc2 = tw[6:]
+    hn = tmb.layer_norm_f32(h, ln2w, ln2b).to(dt).reshape(B * N, D)
+    c = tg.gemm_tn_ref(hn, wc1, bc1, act=_act(dt))
+    got = tg.gemm_tn_ref(c, wc2, bc2, residual=h.reshape(B * N, D))
+    assert got.dtype == dt and got.shape == (B * N, D)
+    assert torch.equal(got.reshape(B, N, D), want)
+
+
+def _block_from_gemm_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
+    """The Mixer block from layer_norm_f32 and gemm_tn_ref alone: the token
+    products per image transposed, tᵀ = act(xnᵀ · Wt1ᵀ + bt1) and
+    hᵀ = xᵀ + (tᵀ · Wt2ᵀ + bt2), over all B·D rows at once."""
+    B, N, D = x.shape
+    dt, act = x.dtype, _act(x.dtype)
+    xn = tmb.layer_norm_f32(x, ln1w, ln1b).to(dt)
+    t = tg.gemm_tn_ref(xn.transpose(1, 2).reshape(B * D, N), wt1, bt1, act=act)
+    xt = x.transpose(1, 2).reshape(B * D, N)
+    h = tg.gemm_tn_ref(t, wt2, bt2, residual=xt).reshape(B, D, N).transpose(1, 2)
+    hn = tmb.layer_norm_f32(h, ln2w, ln2b).to(dt).reshape(B * N, D)
+    c = tg.gemm_tn_ref(hn, wc1, bc1, act=act)
+    return tg.gemm_tn_ref(c, wc2, bc2, residual=h.reshape(B * N, D)).reshape(B, N, D)
+
+
+def _pallas_interpret(x, weights, dtype):
+    orig = pl.pallas_call
+    pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        out = jmb.fused_mixer_block(jnp.asarray(x, dtype),
+                                    *(jnp.asarray(w, dtype) for w in weights), bt=2)
+    finally:
+        pl.pallas_call = orig
+    return np.asarray(out.astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_from_the_ref_matches_the_pallas_kernel(dtype):
+    shape = (4, 20, 32, 24, 64)
+    x, weights = _block_inputs(*shape)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jconfig.parity_mode():
+        want = _pallas_interpret(x, weights, jdt)
+    got = _block_from_gemm_ref(_torch(x, tdt), *(_torch(w, tdt) for w in weights))
+    assert got.dtype == tdt and got.shape == shape[:3]
+    err = np.abs(got.float().numpy() - want).max()
+    if dtype == "float32":
+        assert err <= 1e-5, err
+    else:
+        assert err <= 1.6e-2 * max(1.0, np.abs(want).max()), err
+
+
+def _gemm_inputs(M=9, N=16, K=24, dtype=torch.bfloat16, seed=0):
+    r = np.random.default_rng(seed)
+    a, b = r.standard_normal((M, K)), r.standard_normal((N, K)) * K ** -0.5
+    bias, res = r.standard_normal(N) * 0.5, r.standard_normal((M, N))
+    return [torch.from_numpy(v.astype(np.float32)).to(dtype) for v in (a, b, bias, res)]
+
+
+@pytest.mark.parametrize("core", ["auto", "sm90", "wmma"])
+@pytest.mark.parametrize("epilogue", ["gelu_tanh", "residual"])
+def test_cpu_wrapper_runs_twin_without_launch(epilogue, core):
+    a, b, bias, res = _gemm_inputs(seed=1)
+    kw = {"residual": res} if epilogue == "residual" else {"act": "gelu_tanh"}
+    got = tg.gemm_tn(a, b, bias, core=core, **kw)
+    assert tg.LAUNCHES == 0
+    assert not tg._LIB.loaded
+    assert tg.routes() == {"sm90": 0, "wmma": 0}  # read without loading the library
+    assert torch.equal(got, tg.gemm_tn_ref(a, b, bias, **kw))
+    assert got.dtype == torch.bfloat16 and got.shape == (9, 16)
+
+
+def test_ref_epilogues_round_once():
+    a, b, bias, res = _gemm_inputs(dtype=torch.float32, seed=2)
+    acc = a.double() @ b.double().t() + bias.double()
+    ab = [v.bfloat16() for v in (a, b, bias, res)]
+    accb = ab[0].double() @ ab[1].double().t() + ab[2].double()
+    got = tg.gemm_tn_ref(*ab[:3], residual=ab[3])
+    # one rounding of the f32 result: within half a bf16 ulp (plus f32 noise)
+    want = ab[3].double() + accb
+    assert (got.double() - want).abs().max() <= want.abs().max() * 2 ** -8 + 1e-5
+    g = tg.gemm_tn_ref(a, b, bias, act="gelu_erf")
+    exact = 0.5 * acc * (1 + torch.erf(acc / 2 ** 0.5))
+    assert (g.double() - exact).abs().max() <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["k_mismatch", "bias_shape", "residual_shape", "both", "neither",
+                                  "act", "core", "dtype_mix", "int", "one_dim", "device"])
+def test_wrapper_rejects_bad_inputs(case):
+    a, b, bias, res = _gemm_inputs()
+    kw = {"act": "gelu_tanh"}
+    err = ValueError
+    if case == "k_mismatch":
+        b = b[:, :-1]
+    elif case == "bias_shape":
+        bias = bias[:-1]
+    elif case == "residual_shape":
+        kw = {"residual": res[:, :-1]}
+    elif case == "both":
+        kw = {"act": "gelu_tanh", "residual": res}
+    elif case == "neither":
+        kw = {}
+    elif case == "act":
+        kw = {"act": "relu"}
+    elif case == "core":
+        kw = {"act": "gelu_tanh", "core": "cublas"}
+    elif case == "dtype_mix":
+        b, err = b.float(), TypeError
+    elif case == "int":
+        a, b, bias = (torch.zeros(v.shape, dtype=torch.int32) for v in (a, b, bias))
+        err = TypeError
+    elif case == "one_dim":
+        a = a[0]
+    elif case == "device":  # no kernel for the meta device
+        a, b, bias = (v.to("meta") for v in (a, b, bias))
+    with pytest.raises(err):
+        tg.gemm_tn(a, b, bias, **kw)
+    assert tg.LAUNCHES == 0

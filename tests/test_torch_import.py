@@ -17,14 +17,14 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "import jittor_mlp_tpu_torch.tools.profile_blocks\n"
         "import jittor_mlp_tpu_torch.tools.kernel_lab\n"
         "from jittor_mlp_tpu_torch.ops.kernels import (\n"
-        "    axial_shift, gmlp_block, gmlp_block_int8, kernel_lab, mixer_block, mixer_block_bwd,\n"
-        "    mixer_block_int8, resmlp_block, resmlp_block_int8)\n"
+        "    axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, kernel_lab, mixer_block,\n"
+        "    mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8)\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'jittor_mlp_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert hasattr(jt, 'gMLPForImageClassification') and hasattr(jt, 'AS_MLP')\n"
-        "for m in (axial_shift, gmlp_block, gmlp_block_int8, mixer_block, mixer_block_bwd,\n"
-        "          mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
+        "for m in (axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, mixer_block,\n"
+        "          mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
         "    assert not m._LIB.loaded, f'{m.__name__}: kernel library loaded at import'\n"
         "assert not any(lib.loaded for lib in kernel_lab._LIBS.values()), 'lab library loaded'\n"
         "print('ok')\n"
