@@ -26,10 +26,11 @@ Phases (each one fails loudly; there is no CPU fallback):
      small shapes and, for the W8A8 Mixer and ResMLP kernels and the
      Mixer training kernels, a chunked shape (CD ≥ 2048, ragged chunk and
      tokens), every output within 1.6e-2 of max(1, max|ref|); two calls on
-     the same inputs agree bit for bit. The training kernels also run at the
-     train step's b128 and at b131, where each weight gradient's sum over
-     images has partials of several images and a short last one (printed,
-     and checked to occur). The axial shift, a copy, equals its twin bit
+     the same inputs agree bit for bit. The training kernels and the W8A8
+     gMLP block also run at the train step's b128 and at b131; there each
+     weight gradient's sum over images has partials of several images and a
+     short last one (printed, and checked to occur), and the channel weight
+     backward's twin sums in the kernel's slabs. The axial shift, a copy, equals its twin bit
      for bit at every AS-MLP-T stage shape (B=8) and five ragged shapes,
      both axes, both signs, bf16 and float32, and its autograd wrapper's
      backward on a non-contiguous gradient equals the twin at sign -1.
@@ -37,9 +38,16 @@ Phases (each one fails loudly; there is no CPU fallback):
      channel products at B=8 and three ragged (M, N, K), each counted on the
      wgmma core, the first two also on the WMMA core, and a K % 8 != 0 shape
      counted on the WMMA route (the wgmma core refuses it), within the same
-     band, two calls bit-equal. Kernel 1 and the training forward also run at
-     D=36, where their channel products take the WMMA route; at every shape
-     their route counts are checked;
+     band, two calls bit-equal. Its new modes alone: gemm_bf16 (MN-major A
+     and/or B, row slabs with one f32 partial each) at Mixer-B/16's four
+     channel backward products at B=8 and ragged ones (a short last slab),
+     on the wgmma core and the WMMA core, and rows 72 bytes apart on the
+     WMMA route; gemm_s8 (int8 with row and column scales, entries batched
+     or shared) at gMLP-S's three products at B=8 and b256 and ragged ones,
+     on the s8 wgmma core and mma.sync, bit-equal to its twin. Kernel 1, the training forward and the two
+     channel backwards also run at D=36, where their bf16 products take the
+     WMMA route; at every shape the route counts of those kernels and of
+     the W8A8 gMLP block (three s8 wgmma products a call) are checked;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -52,7 +60,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
      per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
      bf16 forward runs 2 x depth channel products on the wgmma core and
-     none on the WMMA core (so do the bf16 forwards of phase 4);
+     none on the WMMA core (so do the bf16 forwards of phase 4), and a
+     gMLP-S int8 forward 3 x depth products on the s8 wgmma core and none
+     on mma.sync (so does the int8 gMLP-S serving run of phase 4);
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
@@ -65,8 +75,12 @@ Phases (each one fails loudly; there is no CPU fallback):
      served at once, shift launches 24 × the forwards of both, and (h) its
      weights="int8" Predictor agrees with the bf16 one;
   5. CUDA-event timings at b256: each kernel vs its twin (the shift at
-     AS-MLP-T's stage-1 shape, both axes); the GEMM core at the two channel
-     products, on each core and against cuBLAS's torch.matmul; the forwards
+     AS-MLP-T's stage-1 shape, both axes; the W8A8 gMLP block beside the
+     bytes of its f32 intermediates); the GEMM core at the two channel
+     products, on each core and against cuBLAS's torch.matmul; its new modes
+     at gMLP-S's three int8 products (against mma.sync and torch._int_mm)
+     and Mixer-B/16's four channel backward products (against WMMA and
+     torch.matmul); the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
      bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
@@ -80,8 +94,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      (c) 10 AdamW steps at b128 on one batch, each route with remat off
      and on: the loss descends, and remat gives the same losses; (d) the
      launches per step, depth × (1, or 2 for a forward kernel under
-     remat), and the block forwards' channel products, all on the wgmma
-     core; (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
+     remat), and the products of the block forwards and the channel
+     backwards (2, 2 and 4 a block), all on the wgmma core; (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
      against their plain bf16 paths (≤ 3e-2, as (a)); (f) train img/s at
      b128 on each path, in turns; AS-MLP-T: (g) b32 gradients of the kernel
      path against the plain bf16 path (≤ 3e-2) and both against float32
@@ -288,15 +302,38 @@ TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_blo
 # Beyond the shared shapes: chunked CD, the train step's b128, and b131, where
 # the last f32 partial of each weight-gradient sum takes fewer images
 # than the others (on an H100: dWt1/dWt2 in 66 partials of 2 images, the
-# last of 1; dWc1/dWc2 in 4 slabs of 33 images, the last of 32).
+# last of 1; dWc1/dWc2 in 2 slabs of 66 images, the last of 65).
 TRAIN_SHAPES = [(2, 33, 136, 50, 2056), (128, 196, 768, 384, 3072), (131, 196, 768, 384, 3072)]
 # argument of the weight that gives the inner width (TD, CD) of a
 # weight-gradient kernel's grouped sums
 GROUPED = {"token_bwd": 3, "chan_wgt_bwd": 4}
-# kernels whose two channel products run on gemm_sm90.cuh's gemm_tn: its
-# wgmma core where TMA can load both operands (rows a multiple of 16 bytes
-# apart), else the WMMA core
-CHANNEL_ROUTED = ("fused_mixer_block", "fwd_with_h")
+# kernels whose products run on gemm_sm90.cuh's core, and the routes of one
+# call's products at (B, N, D, TD, CD) or (B, N, D, F): a bf16 product takes
+# the wgmma core where TMA can load both operands (rows a multiple of 16
+# bytes apart: D and CD multiples of 8), else the WMMA core; the W8A8 gMLP
+# block's three products take the s8 wgmma core (its operands are padded to
+# 32 codes), none mma.sync.
+
+
+def _bf16_routes(*on_sm90):
+    return {"sm90": sum(on_sm90), "wmma": len(on_sm90) - sum(on_sm90)}
+
+
+ROUTED = {
+    # hn·Wc1ᵀ (rows D apart), c·Wc2ᵀ (rows CD apart)
+    "fused_mixer_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
+    "fwd_with_h": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
+    # hn·Wc1ᵀ; g·Wc2 (g rows D apart, Wc2 rows CD apart)
+    "chan_data_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == s[4] % 8 == 0),
+    # the two recompute products, then dcpᵀ·hn and gᵀ·c (rows CD and D apart)
+    "chan_wgt_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, *[s[2] % 8 == s[4] % 8 == 0] * 3),
+    "fused_gmlp_block_int8": lambda s: {"sm90_s8": 3, "mma_s8": 0},
+}
+# products on the s8 wgmma core per W8A8 gMLP block, and on the bf16 wgmma
+# core per Mixer-B/16 block of a kernel-route step: the forward's two, the
+# channel data backward's two and the channel weight backward's four
+GMLP_INT8_PRODUCTS = 3
+BWD_PRODUCTS = {"fwd_with_h": 2, "chan_data_bwd": 2, "chan_wgt_bwd": 4}
 # The GEMM core's phase-2 shapes (M, N, K): Mixer-B/16's two channel
 # products at B = 8, then ragged M, N and K (one row; K = 40 and 136 end
 # in a part of a 64-wide K step; N = 72 and 200 in a part of a 256-wide
@@ -311,12 +348,16 @@ GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_bl
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
-    # kernel 1 and the training forward also at D = 36, CD = 100: rows 72 and
-    # 200 bytes apart, which TMA cannot load, so both channel products take
-    # the WMMA core (CHANNEL_ROUTED)
+    # kernel 1, the training forward and the channel backwards also at
+    # D = 36, CD = 100: rows 72 and 200 bytes apart, which TMA cannot load,
+    # so their bf16 products take the WMMA core (ROUTED)
     fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     gmlp_shapes = [(8, 196, 256, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
+    # the W8A8 gMLP block's token product is one launch over the images (a
+    # 3-D tensor map for all but the last, a 2-D one for the last), so it is
+    # also held at the batches the path runs it at: b128 and b131
+    gmlp_int8_shapes = gmlp_shapes + [(128, 196, 256, 1536), (131, 196, 256, 1536)]
     return {
         "fused_mixer_block": (
             mods["mixer_block"], "fused_mixer_block", "mixer_block_ref", block_inputs,
@@ -337,10 +378,10 @@ def kernel_table(mods):
             gmlp_shapes, "gmlp_block.cu", "gmlp_block.py:57", GMLP_DEPTH),
         "fused_gmlp_block_int8": (
             mods["gmlp_block_int8"], "fused_gmlp_block_int8", "gmlp_block_int8_ref",
-            gmlp_inputs, gmlp_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
+            gmlp_inputs, gmlp_int8_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
             GMLP_DEPTH),
         **{k: (mods["mixer_block_bwd"], k, f"{k}_ref", train_inputs(k),
-               (fwd_shapes if k == "fwd_with_h" else mixer_shapes) + TRAIN_SHAPES,
+               (mixer_shapes if k == "token_bwd" else fwd_shapes) + TRAIN_SHAPES,
                "mixer_block_bwd.cu", replaced, DEPTH)
            for k, replaced in TRAIN_KERNELS.items()},
     }
@@ -363,14 +404,6 @@ def grouping(mod, fn, x, w):
     return per, n, x.shape[0] - (n - 1) * per
 
 
-def channel_routes(shape):
-    """{"sm90": n, "wmma": n}: the routes of one Mixer block call's two channel
-    products at (B, N, D, TD, CD): hn · Wc1ᵀ (rows D apart) and c · Wc2ᵀ (rows
-    CD apart) each take the wgmma core where their rows are 16 bytes apart."""
-    sm90 = (shape[2] % 8 == 0) + (shape[4] % 8 == 0)
-    return {"sm90": sm90, "wmma": 2 - sm90}
-
-
 def gemm_inputs(M, N, K, residual, seed):
     """a (M, K), b (N, K), bias (N,) and the keyword of one epilogue, bf16 on
     the card, scaled as block_inputs scales a channel product's."""
@@ -389,7 +422,7 @@ def phase_gemm(mod):
     launch a call. Returns the largest max|Δ|."""
     worst = 0.0
     cases = ([(shape, "auto", "sm90") for shape in GEMM_SHAPES]
-             + [(shape, "wmma", "wmma") for shape in GEMM_SHAPES[:2]]
+             + [(shape, "legacy", "wmma") for shape in GEMM_SHAPES[:2]]
              + [(GEMM_WMMA_SHAPE, "auto", "wmma")])
     for shape, core, route in cases:
         for residual in (False, True):
@@ -429,11 +462,144 @@ def phase_gemm(mod):
     return worst
 
 
+# The core's bf16 modes alone (gemm_bf16): Mixer-B/16's four channel
+# backward products at B = 8 (rows 1568, slabs of 4 images: 2 partials) as
+# (M, N, K, a_mn, b_mn, slab): hn·Wc1ᵀ, g·Wc2 (Wc2 N-major), dcpᵀ·hn and
+# gᵀ·c (both operands MN-major, row slabs); then ragged ones (M, N against
+# the 192 tile, K against the 64-row step): an MN-major A alone, slabs of
+# 66 rows over 165 (the last 33), one slab; and rows 72 bytes apart
+# (M = 36), which take the WMMA route with the same slabs.
+CORE_BF16 = [(1568, 3072, 768, False, False, None), (1568, 3072, 768, False, True, None),
+             (3072, 768, 1568, True, True, 784), (768, 3072, 1568, True, True, 784),
+             (200, 72, 136, True, False, None), (200, 136, 165, True, True, 66),
+             (40, 200, 136, True, True, None)]
+CORE_BF16_WMMA = (36, 50, 100, True, True, 40)
+# The core's int8 form alone (gemm_s8) at gMLP-S's three products at B = 8:
+# (entries, M, N, K, a batched, b batched): GEMM1 (B·N rows, 2F, Dp), the
+# token product per image (qWsp shared, qv an entry an image: N, F, Np) and
+# GEMM2 (B·N, D = 256 against a 192-wide tile, Fp); then ragged ones.
+CORE_S8 = [(1, 1568, 3072, 256, False, False), (8, 196, 1536, 224, False, True),
+           (1, 1568, 256, 1536, False, False), (1, 97, 72, 64, False, False),
+           (3, 20, 200, 32, True, True), (1, 1, 3072, 288, False, False)]
+# b256's products for phase 5: gMLP-S's three (int8) and Mixer-B/16's four
+# channel backward ones (bf16; slabs of 128 images, as on an H100)
+CORE_S8_TIMED = [(1, 256 * 196, 3072, 256, False, False), (256, 196, 1536, 224, False, True),
+                 (1, 256 * 196, 256, 1536, False, False)]
+CORE_BF16_TIMED = [(256 * 196, 3072, 768, False, False, None),
+                   (256 * 196, 3072, 768, False, True, None),
+                   (3072, 768, 256 * 196, True, True, 128 * 196),
+                   (768, 3072, 256 * 196, True, True, 128 * 196)]
+S8_REPLACES = PALLAS + "gmlp_block_int8.py:61 (the products of fused_gmlp_block_int8)"
+BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :306, "
+                "the recompute products of _chan_data_bwd)")
+
+
+def bf16_core_inputs(M, N, K, a_mn, b_mn, seed):
+    """bf16 operands of gemm_bf16 on the card, O(1) products: a (M, K) or
+    (K, M), b (N, K) or (K, N), b scaled by 1/sqrt(K)."""
+    rn, _ = _draw(seed)
+    a = rn(K, M) if a_mn else rn(M, K)
+    b = rn(K, N, scale=K ** -0.5) if b_mn else rn(N, K, scale=K ** -0.5)
+    return a, b
+
+
+def s8_core_inputs(nz, M, N, K, a_batched, b_batched, seed):
+    """int8 codes in [-127, 127] and f32 scales of gemm_s8 on the card: rs
+    per row, cs per column, each batched where its operand is."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def codes(*shape):
+        q = torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int32)
+        return q.to(torch.int8)
+
+    def scales(*shape):
+        return torch.rand(*shape, generator=g, device="cuda") * 2e-3 + 1e-4
+
+    a = codes(nz, M, K) if a_batched else codes(M, K)
+    b = codes(nz, N, K) if b_batched else codes(N, K)
+    rs = scales(nz, M) if a_batched else scales(M)
+    cs = scales(nz, N) if b_batched else scales(N)
+    return a, b, rs, cs
+
+
+def _core_case(mod, tag, call, twin, route_fn, want_moved, exact=False):
+    """One core-mode case: launched twice (bit-equal, one launch each, the
+    routes moved as wanted), held within TOL of max(1, max|ref|) of its
+    twin, or with ``exact`` bit-equal to it. Returns max|Δ|."""
+    before, routes0 = mod.LAUNCHES, route_fn()
+    got = call()
+    torch.cuda.synchronize()
+    again = call()
+    torch.cuda.synchronize()
+    routes1 = route_fn()
+    moved = {k: routes1[k] - routes0[k] for k in routes1}
+    check(mod.LAUNCHES == before + 2, f"{tag}: LAUNCHES did not rise by 1 a call")
+    check(moved == want_moved, f"{tag}: routes {moved}, want {want_moved}")
+    check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
+    want = twin()
+    check(got.shape == want.shape and got.dtype == want.dtype,
+          f"{tag}: {tuple(got.shape)} {got.dtype}, twin {tuple(want.shape)} {want.dtype}")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    err = (got.float() - want.float()).abs().max().item()
+    rel = err / max(1.0, want.float().abs().max().item())
+    limit = "bit-equal" if exact else f"limit {TOL}"
+    print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (max|d| {err:.6g}; {limit}); "
+          f"two calls bit-equal; routes {json.dumps(moved)}", flush=True)
+    if exact:
+        check(torch.equal(got, want), f"{tag} is not bit-equal to its twin: max|d| {err}")
+    check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
+    return err
+
+
+def phase_core(mod):
+    """Phase 2 for the core's new modes alone: gemm_bf16 at CORE_BF16 on the
+    auto route (each counted on the wgmma core; the first four also on the
+    WMMA core) and at CORE_BF16_WMMA (counted on the WMMA route; core="sm90"
+    must raise), each partial within TOL of gemm_bf16_ref's; gemm_s8 at
+    CORE_S8 and at b256 (CORE_S8_TIMED) on the s8 wgmma core (the first
+    three of CORE_S8 also on mma.sync) bit-equal to gemm_s8_ref: the integer
+    product is exact and the scales are applied in the twin's order. Returns
+    {"bf16": max|Δ|, "s8": max|Δ|}."""
+    worst = {"bf16": 0.0, "s8": 0.0}
+    cases = ([(c, "auto", "sm90") for c in CORE_BF16] + [(c, "legacy", "wmma") for c in CORE_BF16[:4]]
+             + [(CORE_BF16_WMMA, "auto", "wmma")])
+    for (M, N, K, a_mn, b_mn, slab), core, route in cases:
+        a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=M + N + K)
+        kw = dict(a_mn=a_mn, b_mn=b_mn, slab=slab)
+        tag = f"gemm_bf16 (M, N, K) {(M, N, K)} a_mn={a_mn} b_mn={b_mn} slab={slab} core={core}"
+        worst["bf16"] = max(worst["bf16"], _core_case(
+            mod, tag, lambda: mod.gemm_bf16(a, b, core=core, **kw),
+            lambda: mod.gemm_bf16_ref(a, b, **kw), mod.routes,
+            {"sm90": (route == "sm90") * 2, "wmma": (route == "wmma") * 2}))
+        del a, b
+    M, N, K, a_mn, b_mn, slab = CORE_BF16_WMMA
+    a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=1)
+    try:
+        mod.gemm_bf16(a, b, a_mn=a_mn, b_mn=b_mn, slab=slab, core="sm90")
+        refused = False
+    except RuntimeError:
+        refused = True
+    check(refused, f"gemm_bf16 core=sm90 at {CORE_BF16_WMMA} (rows 72 bytes apart) did not raise")
+    print(f"[2] gemm_bf16 core=sm90 at {CORE_BF16_WMMA}: refused (TMA needs 16-byte row strides)",
+          flush=True)
+    cases = ([(c, "auto", "sm90_s8") for c in CORE_S8 + CORE_S8_TIMED]
+             + [(c, "legacy", "mma_s8") for c in CORE_S8[:3]])
+    for (nz, M, N, K, ab, bb), core, route in cases:
+        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, seed=nz + M + N + K)
+        tag = f"gemm_s8 {nz} x (M, N, K) {(M, N, K)} a_batched={ab} b_batched={bb} core={core}"
+        worst["s8"] = max(worst["s8"], _core_case(
+            mod, tag, lambda: mod.gemm_s8(a, b, rs, cs, core=core),
+            lambda: mod.gemm_s8_ref(a, b, rs, cs), mod.s8_routes,
+            {"sm90_s8": (route == "sm90_s8") * 2, "mma_s8": (route == "mma_s8") * 2}, exact=True))
+        del a, b, rs, cs
+    return worst
+
+
 def phase_kernels(table):
     """Each kernel vs its twin at its shapes, every output; two calls agree
     bit for bit. The weight-gradient kernels must have summed several images
-    into one partial, and a short last partial, at some shape. Returns name →
-    largest max|Δ|."""
+    into one partial, and a short last partial, at some shape; chan_wgt_bwd's
+    twin sums in the kernel's slabs. Returns name → largest max|Δ|."""
     errs = {}
     for name, (mod, fn, ref, inputs, shapes, *_rest) in table.items():
         errs[name] = 0.0
@@ -441,23 +607,30 @@ def phase_kernels(table):
         for shape in shapes:
             x, w = inputs(*shape, seed=sum(shape))
             before = launches(mod, fn)
-            routes0 = mod.routes() if name in CHANNEL_ROUTED else None
+            routes0 = mod.routes() if name in ROUTED else None
             got = outputs(getattr(mod, fn)(x, *w))
             torch.cuda.synchronize()
             check(launches(mod, fn) == before + 1, f"{name}: LAUNCHES did not rise by 1 at {shape}")
             again = outputs(getattr(mod, fn)(x, *w))
             torch.cuda.synchronize()
             note = ""
-            if routes0 is not None:  # two calls, two channel products each
+            if routes0 is not None:  # two calls
                 routes1 = mod.routes()
                 moved = {k: routes1[k] - routes0[k] for k in routes1}
-                want_routes = {k: 2 * v for k, v in channel_routes(shape).items()}
+                want_routes = {k: 2 * v for k, v in ROUTED[name](shape).items()}
                 check(moved == want_routes,
-                      f"{name}: channel products on {moved} at {shape}, want {want_routes}")
-                note = f"; channel products of two calls {json.dumps(moved)}"
+                      f"{name}: products on {moved} at {shape}, want {want_routes}")
+                note = f"; products of two calls {json.dumps(moved)}"
             check(all(torch.equal(a, b) for a, b in zip(got, again)),
                   f"{name}: two calls on the same inputs differ at {shape}")
-            want = outputs(getattr(mod, ref)(x, *w))
+            kw = {}
+            if fn in GROUPED:
+                groups.append(grouping(mod, fn, x, w))
+                note += (f"; weight gradients in {groups[-1][1]} partials of {groups[-1][0]} "
+                         f"images (last {groups[-1][2]})")
+                if fn == "chan_wgt_bwd":  # its twin sums in the kernel's slabs, in order
+                    kw = {"images_per_slab": groups[-1][0]}
+            want = outputs(getattr(mod, ref)(x, *w, **kw))
             check(len(got) == len(want), f"{name}: {len(got)} outputs, twin {len(want)}")
             rels = []
             for i, (a, b) in enumerate(zip(got, want)):
@@ -468,10 +641,6 @@ def phase_kernels(table):
                 err = (a.float() - b.float()).abs().max().item()
                 rels.append(err / max(1.0, b.float().abs().max().item()))
                 errs[name] = max(errs[name], err)
-            if fn in GROUPED:
-                groups.append(grouping(mod, fn, x, w))
-                note = (f"; weight gradients in {groups[-1][1]} partials of {groups[-1][0]} "
-                        f"images (last {groups[-1][2]})")
             print(f"[2] {name} vs twin {shape}: max|d|/max(1,max|ref|) per output "
                   f"{' '.join(f'{r:.6g}' for r in rels)} (limit {TOL}); two calls bit-equal"
                   f"{note}", flush=True)
@@ -611,17 +780,17 @@ def forward_counted(model, x, mod, want):
     return out
 
 
-def check_routes(tag, before, after, blocks):
-    """Between two readings of a library's route counts, ``blocks`` Mixer-B/16
-    blocks ran their two channel products on the wgmma core each, and none
-    ran on the WMMA core (D = 768 and CD = 3072 rows are 16-byte multiples).
-    Returns the wgmma core's products."""
+def check_routes(tag, before, after, products, route="sm90"):
+    """Between two readings of a library's route counts, ``products`` products
+    ran on ``route`` (by default the bf16 wgmma core) and none on any other
+    core: at Mixer-B/16's and gMLP-S's shapes every operand is one TMA can
+    load (D = 768, CD = 3072 rows are 16-byte multiples; int8 codes are
+    padded to 32). Returns the products on ``route``."""
     moved = {k: after[k] - before[k] for k in after}
-    want = {"sm90": 2 * blocks, "wmma": 0}
-    print(f"{tag}: channel products {json.dumps(moved)} in {blocks} blocks "
-          f"(want {json.dumps(want)})", flush=True)
-    check(moved == want, f"{tag}: channel products {moved}, want {want}")
-    return moved["sm90"]
+    want = {k: products if k == route else 0 for k in after}
+    print(f"{tag}: products {json.dumps(moved)} (want {json.dumps(want)})", flush=True)
+    check(moved == want, f"{tag}: products {moved}, want {want}")
+    return moved[route]
 
 
 def phase_logits(jt, mods):
@@ -640,7 +809,7 @@ def phase_logits(jt, mods):
         routes1 = mb.routes()
         with config.int8_mode():
             lq = forward_counted(kernel, x.bfloat16(), mbq, DEPTH)
-        check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1, DEPTH)
+        check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1, 2 * DEPTH)
         check(mb.routes() == routes1, "the int8 Mixer forward ran kernel 1's channel products")
         lp = plain.forward(x.bfloat16()).float()
         with config.parity_mode():
@@ -683,8 +852,11 @@ def phase_logits(jt, mods):
             blk.channel_proj2.bias.zero_()
     with torch.inference_mode():
         gk = forward_counted(gmlp, x.bfloat16(), gb, GMLP_DEPTH)
+        s8_0 = gbq.routes()
         with config.int8_mode():
             gq = forward_counted(gmlp, x.bfloat16(), gbq, GMLP_DEPTH)
+        check_routes("[3] gMLP-S int8 kernel-path forward", s8_0, gbq.routes(),
+                     GMLP_INT8_PRODUCTS * GMLP_DEPTH, route="sm90_s8")
         gz = forward_counted(g_ident, x.bfloat16(), gb, GMLP_DEPTH)
         gp = g_plain.forward(x.bfloat16()).float()
         with config.parity_mode():
@@ -833,7 +1005,8 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
     launches["fused_mixer_block"] = check_launches("[4a] Mixer bf16", mods["mixer_block"],
                                                    DEPTH, pred)
     launches["gemm_tn_sm90"] = check_routes(
-        "[4a] Mixer bf16", routes0, mods["mixer_block"].routes(), launches["fused_mixer_block"])
+        "[4a] Mixer bf16", routes0, mods["mixer_block"].routes(),
+        2 * launches["fused_mixer_block"])
 
     # (b), (c): an int8 and a bf16 Predictor on one model, at the same time
     for tag, model, bf_mod, q_mod, depth, bf_name, q_name in (
@@ -845,6 +1018,7 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
              "fused_gmlp_block", "fused_gmlp_block_int8")):
         reset_counts(mods)
         routes0 = mods["mixer_block"].routes()
+        s8_0 = mods["gmlp_block_int8"].routes()
         p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
         p16 = jt.Predictor(model, batch_size=32).warmup()
         check(p8.dtype == "int8" and p16.dtype == "bf16", f"{tag}: dtypes {p8.dtype}, {p16.dtype}")
@@ -857,7 +1031,13 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
         launches[q_name] = check_launches(f"{tag} int8", mods[q_mod], depth, p8)
         n16 = check_launches(f"{tag} bf16", mods[bf_mod], depth, p16)
         check_routes(f"{tag} bf16 (kernel 1)", routes0, mods["mixer_block"].routes(),
-                     n16 if bf_mod == "mixer_block" else 0)
+                     2 * n16 if bf_mod == "mixer_block" else 0)
+        s8 = check_routes(f"{tag} int8 (the W8A8 gMLP block)", s8_0,
+                          mods["gmlp_block_int8"].routes(),
+                          GMLP_INT8_PRODUCTS * launches[q_name] if q_mod == "gmlp_block_int8"
+                          else 0, route="sm90_s8")
+        if q_mod == "gmlp_block_int8":
+            launches["gemm_s8_sm90"] = s8
         if bf_name not in launches:
             launches[bf_name] = n16
 
@@ -954,6 +1134,14 @@ def phase_timing(jt, table, name):
         bound_ms, bound_by = block_bound(kname, x, w, outs)
         print(f"[5] {kname} b256 {shape}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})  [{name}]", flush=True)
+        if kname == "fused_gmlp_block_int8":
+            # the f32 intermediates this data flow moves: y (B·N, 2F) written,
+            # its v half read twice and its u half once, g (B·N, F) written
+            # and read: 7 · B·N·F f32
+            floor = 7 * shape[0] * shape[1] * shape[3] * 4
+            print(f"[5] {kname} b256: the f32 intermediates' bytes {floor / 1e9:.4f} GB, "
+                  f"{floor / HBM_BYTES_S * 1e3:.4f} ms at the HBM rate (the data flow's floor)  "
+                  f"[{name}]", flush=True)
         timings[kname] = (ms, plain_ms, bound_ms, bound_by)
         del x, w, outs
         torch.cuda.empty_cache()
@@ -1037,7 +1225,7 @@ def gemm_timing(mod, name):
         t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
         bound, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
         fns = {"sm90": lambda: mod.gemm_tn(a, b, bias, core="sm90", **kw),
-               "wmma": lambda: mod.gemm_tn(a, b, bias, core="wmma", **kw),
+               "wmma": lambda: mod.gemm_tn(a, b, bias, core="legacy", **kw),
                "cublas": lambda: torch.matmul(a, b.t())}
         runs = {k: [] for k in fns}
         for k in list(fns) + list(fns)[::-1]:
@@ -1064,6 +1252,115 @@ def gemm_timing(mod, name):
           f"{total['bound']:.4f} ms  [{name}]", flush=True)
     by = total_by.pop() if len(total_by) == 1 else "operations"  # both are, at these shapes
     return (total["sm90"], total["twin"], total["bound"], by), total["cublas"]
+
+
+def _timed_turns(fns, iters):
+    """{name: mean ms} of each fn, in turns (each name, then in reverse)."""
+    runs = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        runs[k].append(cuda_ms(fns[k], iters))
+    return {k: sum(r) / len(r) for k, r in runs.items()}, runs
+
+
+def core_timing(mod, name):
+    """Phase 5 for the core's new modes at b256: gMLP-S's three int8
+    products (CORE_S8_TIMED) on the s8 wgmma core, on mma.sync and as
+    torch._int_mm on the same codes (the product alone, no scales: the
+    yardstick, which the port never calls; the token product as one
+    (B·F, Np) × (Np, N) call, qWsp's rows zero-padded to a multiple of 8,
+    as _int_mm needs), and Mixer-B/16's four channel backward bf16 products
+    (CORE_BF16_TIMED) on the wgmma core, the WMMA core and torch.matmul,
+    in turns; then each twin. Returns {row: ((ms, twin ms, bound ms,
+    bound_by), library ms)} for "gemm_s8_sm90" and "gemm_bwd_sm90", each
+    summed over its products."""
+    rows = {}
+    total = dict.fromkeys(("sm90", "old", "lib", "twin", "bound", "ops_ms", "bytes_ms"), 0.0)
+    for nz, M, N, K, ab, bb in CORE_S8_TIMED:
+        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, seed=7)
+        out = mod.gemm_s8(a, b, rs, cs)
+        ops = 2 * nz * M * N * K
+        nbytes = sum(t.numel() * t.element_size() for t in (a, b, rs, cs, out))
+        if bb and not ab:  # the token product: (B·F, Np) codes times qWsp padded
+            aa = b.reshape(nz * N, K)
+            bpad = torch.zeros((-(-M // 8) * 8, K), dtype=torch.int8, device="cuda")
+            bpad[:M] = a
+
+            def lib():
+                return torch._int_mm(aa, bpad.t())
+        else:
+            def lib():
+                return torch._int_mm(a, b.t())
+        ms, runs = _timed_turns({"sm90": lambda: mod.gemm_s8(a, b, rs, cs),
+                                 "old": lambda: mod.gemm_s8(a, b, rs, cs, core="legacy"),
+                                 "lib": lib}, 20)
+        twin = cuda_ms(lambda: mod.gemm_s8_ref(a, b, rs, cs), 3)
+        t_ops, t_bytes = ops / PEAK["int8"], nbytes / HBM_BYTES_S
+        for k in ms:
+            total[k] += ms[k]
+        total["twin"] += twin
+        total["bound"] += max(t_ops, t_bytes) * 1e3
+        total["ops_ms"] += t_ops * 1e3
+        total["bytes_ms"] += t_bytes * 1e3
+        print(f"[5] gemm_s8 b256 {nz} x (M, N, K) {(M, N, K)}: s8 wgmma core {ms['sm90']:.4f} ms "
+              f"({ops / ms['sm90'] / 1e9:.1f} TOP/s), mma.sync core {ms['old']:.4f} ms "
+              f"({ops / ms['old'] / 1e9:.1f}), torch._int_mm (no scales) {ms['lib']:.4f} ms "
+              f"({ops / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
+              f"{max(t_ops, t_bytes) * 1e3:.4f} ms (operations {t_ops * 1e3:.4f}, bytes "
+              f"{t_bytes * 1e3:.4f}) (runs {json.dumps(runs)})  [{name}]", flush=True)
+        del a, b, rs, cs, out
+        torch.cuda.empty_cache()
+    # The token product's 196 tokens take two 192-row tiles, the second
+    # nearly all zero fill: the same product on the first 192 tokens alone
+    # shows what that second tile costs, the most that a layout without it
+    # (the transposed product with an N tile over the tokens) could save.
+    cut = {}
+    for M in (196, 192):
+        a, b, rs, cs = s8_core_inputs(256, M, 1536, 224, False, True, seed=8)
+        cut[M] = cuda_ms(lambda: mod.gemm_s8(a, b, rs, cs), 20)
+        del a, b, rs, cs
+    print(f"[5] gemm_s8 b256 token product, 256 x (M, 1536, 224): M = 196 tokens (two row "
+          f"tiles) {cut[196]:.4f} ms, M = 192 (one) {cut[192]:.4f} ms: the ragged tile costs "
+          f"{cut[196] - cut[192]:.4f} ms  [{name}]", flush=True)
+    print(f"[5] gemm_s8 b256, gMLP-S's three products: s8 wgmma core {total['sm90']:.4f} ms, "
+          f"mma.sync core {total['old']:.4f} ms, torch._int_mm {total['lib']:.4f} ms, bound "
+          f"{total['bound']:.4f} ms  [{name}]", flush=True)
+    rows["gemm_s8_sm90"] = ((total["sm90"], total["twin"], total["bound"], "operations"
+                             if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+    total = dict.fromkeys(total, 0.0)
+    for M, N, K, a_mn, b_mn, slab in CORE_BF16_TIMED:
+        a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=7)
+        kw = dict(a_mn=a_mn, b_mn=b_mn, slab=slab)
+        out = mod.gemm_bf16(a, b, **kw)
+        flop = 2 * M * N * K
+        nbytes = sum(t.numel() * t.element_size() for t in (a, b, out))
+        at = a.t() if a_mn else a
+        bt = b if b_mn else b.t()
+        ms, runs = _timed_turns({"sm90": lambda: mod.gemm_bf16(a, b, **kw),
+                                 "old": lambda: mod.gemm_bf16(a, b, core="legacy", **kw),
+                                 "lib": lambda: torch.matmul(at, bt)}, 20)
+        twin = cuda_ms(lambda: mod.gemm_bf16_ref(a, b, **kw), 3)
+        t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
+        for k in ms:
+            total[k] += ms[k]
+        total["twin"] += twin
+        total["bound"] += max(t_ops, t_bytes) * 1e3
+        total["ops_ms"] += t_ops * 1e3
+        total["bytes_ms"] += t_bytes * 1e3
+        print(f"[5] gemm_bf16 b256 (M, N, K) {(M, N, K)} a_mn={a_mn} b_mn={b_mn} slab={slab}: "
+              f"wgmma core {ms['sm90']:.4f} ms ({flop / ms['sm90'] / 1e9:.1f} TFLOP/s, "
+              f"{100 * flop / ms['sm90'] / 1e9 * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak), "
+              f"WMMA core {ms['old']:.4f} ms ({flop / ms['old'] / 1e9:.1f}), torch.matmul "
+              f"{ms['lib']:.4f} ms ({flop / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
+              f"{max(t_ops, t_bytes) * 1e3:.4f} ms (runs {json.dumps(runs)})  [{name}]",
+              flush=True)
+        del a, b, out, at, bt
+        torch.cuda.empty_cache()
+    print(f"[5] gemm_bf16 b256, Mixer-B/16's four channel backward products: wgmma core "
+          f"{total['sm90']:.4f} ms, WMMA core {total['old']:.4f} ms, torch.matmul "
+          f"{total['lib']:.4f} ms, bound {total['bound']:.4f} ms  [{name}]", flush=True)
+    rows["gemm_bwd_sm90"] = ((total["sm90"], total["twin"], total["bound"], "operations"
+                              if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+    return rows
 
 
 def lab_timing(mod, name):
@@ -1124,9 +1421,9 @@ def phase_lab_stack(mods, name):
           flush=True)
     check(counts == want, f"kernel lab launches {counts}, want {want}")
     check_routes("[7] the lab's kernels", routes0["lab"], kl.routes(),
-                 sum(counts[fn] for fn in LAB_KERNELS))
+                 2 * sum(counts[fn] for fn in LAB_KERNELS))
     check_routes("[7] kernel 1 in the lab", routes0["kernel 1"], mb.routes(),
-                 counts["fused_mixer_block"])
+                 2 * counts["fused_mixer_block"])
     ref = stats["prod2"]["img_s"]
     print("[7] variant, img/s, stack TFLOP/s, ratio to prod2:", flush=True)
     for v, st in stats.items():
@@ -1267,10 +1564,15 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             check(all(np.isfinite(losses)) and losses[-1] < losses[0],
                   f"{tag}: the loss did not descend: {losses}")
             check(counts == want, f"{tag}: launches {counts}, want {want}")
-            check_routes(f"[6d] {tag}, block forwards", routes0, fwd_mod.routes(), fwd)
+            # the kernel route's library also runs the channel backwards' products
+            products = sum(BWD_PRODUCTS.get(k, 0) * counts[k] for k in TRAIN_KERNELS) \
+                if route == "kernel" else 2 * fwd
+            moved = check_routes(f"[6d] {tag}, block forwards and channel backwards", routes0,
+                                 fwd_mod.routes(), products)
             runs[(route, remat)] = losses
             if route == "kernel" and not remat:
                 counted = {k: counts[k] for k in TRAIN_KERNELS}
+                counted["gemm_bwd_sm90"] = moved - BWD_PRODUCTS["fwd_with_h"] * counts["fwd_with_h"]
         check(runs[(route, True)] == runs[(route, False)],
               f"{route} route: remat changed the losses")
         print(f"[6c] {route} route: remat on gives the same losses, bit for bit", flush=True)
@@ -1472,6 +1774,8 @@ def main():
     errs["axial_shift"] = phase_shift(mods["axial_shift"])
     errs.update(phase_lab(mods["kernel_lab"]))
     errs["gemm_tn_sm90"] = phase_gemm(mods["gemm_sm90"])
+    core_errs = phase_core(mods["gemm_sm90"])
+    errs["gemm_s8_sm90"], errs["gemm_bwd_sm90"] = core_errs["s8"], core_errs["bf16"]
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
     del mixer, res, gmlp, as_mlp
@@ -1479,7 +1783,10 @@ def main():
     timings = phase_timing(jt, table, name)
     timings["axial_shift"] = shift_timing(mods["axial_shift"], name)
     timings.update(lab_timing(mods["kernel_lab"], name))
-    timings["gemm_tn_sm90"], library = gemm_timing(mods["gemm_sm90"], name)
+    library = {}
+    timings["gemm_tn_sm90"], library["gemm_tn_sm90"] = gemm_timing(mods["gemm_sm90"], name)
+    for row, (timing, lib_ms) in core_timing(mods["gemm_sm90"], name).items():
+        timings[row], library[row] = timing, lib_ms
     torch.cuda.empty_cache()
     launches.update(phase_train(jt, mods, name))
     torch.cuda.empty_cache()
@@ -1490,6 +1797,8 @@ def main():
     sources["axial_shift"] = ("axial_shift.cu", SHIFT_REPLACES)
     sources.update(LAB_KERNELS)
     sources["gemm_tn_sm90"] = ("gemm_sm90.cuh", GEMM_REPLACES)
+    sources["gemm_s8_sm90"] = ("gemm_sm90.cuh", S8_REPLACES)
+    sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
@@ -1507,8 +1816,8 @@ def main():
             "bound_by": bound_by,
             # no single PyTorch call computes a whole block (of any lab variant),
             # a block's backward or the zero-fill grouped shift (torch.roll
-            # wraps around); the GEMM core's row: cuBLAS's two products
-            "library_ms": library if kname == "gemm_tn_sm90" else None,
+            # wraps around); the GEMM core's rows: cuBLAS's products
+            "library_ms": library.get(kname),
         })
     print(f"[end] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -42,6 +42,30 @@ __device__ __forceinline__ void cp_async_wait_1() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Eight f32 values at p as two 16-byte accesses.
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* p, const float* v) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Eight values rounded to bf16 as one 16-byte store.
+__device__ __forceinline__ void store8(bf16* p, const float* v) {
+  uint4 out;
+  bf16* ov = reinterpret_cast<bf16*>(&out);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(v[e]);
+  *reinterpret_cast<uint4*>(p) = out;
+}
+
 // Whether a buffer allows 16-byte access of rows ld elements apart, batch
 // entries stride elements apart (elem bytes each).
 inline bool vec_ok(const void* p, long long ld, long long stride, int elem = 2) {

@@ -178,7 +178,9 @@ gemm_kernel(int M, int N, int K, int chunk, const int8_t* __restrict__ A, int ld
 }
 
 // Epilogue: C = gelu_tanh(v + bias) in f32; bias per row of C or per
-// column.
+// column. row8: eight columns of the s8 wgmma core's epilogue
+// (gemm_sm90.cuh), the same arithmetic, as two 16-byte stores where C is
+// aligned.
 struct BiasGeluF32 {
   const bf16* bias;
   int per_row;
@@ -191,10 +193,22 @@ struct BiasGeluF32 {
     for (int e = 0; e < cnt; ++e)
       c[e] = gelu_tanh(__fadd_rn(v[e], __bfloat162float(bias[per_row ? m : n + e])));
   }
+
+  __device__ void row8(long long z, int m, int n, const float* v) const {
+    float* c = C + z * sC + (long long)m * ldc + n;
+    if (!aligned16(c)) return (*this)(z, m, n, v, 8);
+    float out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      out[e] = gelu_tanh(__fadd_rn(v[e], __bfloat162float(bias[per_row ? m : n + e])));
+    store8(c, out);
+  }
 };
 
 // C = bf16(R + (v + bias)) (bias_first) or bf16((R + v) + bias); bias per
-// row or per column; R and C bf16 with the same layout.
+// row or per column; R and C bf16 with the same layout. row8: eight
+// columns of the s8 wgmma core's epilogue, the same arithmetic, as one
+// 16-byte load and one 16-byte store where R and C are aligned.
 struct ResidBias {
   const bf16* R;
   const bf16* bias;
@@ -212,6 +226,21 @@ struct ResidBias {
       C[o + e] = __float2bfloat16(bias_first ? __fadd_rn(r, __fadd_rn(v[e], b))
                                              : __fadd_rn(__fadd_rn(r, v[e]), b));
     }
+  }
+
+  __device__ void row8(long long z, int m, int n, const float* v) const {
+    const long long o = z * sC + (long long)m * ldc + n;
+    if (!aligned16(R + o) || !aligned16(C + o)) return (*this)(z, m, n, v, 8);
+    const uint4 res = *reinterpret_cast<const uint4*>(R + o);
+    const bf16* rv = reinterpret_cast<const bf16*>(&res);
+    float out[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float r = __bfloat162float(rv[e]);
+      const float b = __bfloat162float(bias[per_row ? m : n + e]);
+      out[e] = bias_first ? __fadd_rn(r, __fadd_rn(v[e], b)) : __fadd_rn(__fadd_rn(r, v[e]), b);
+    }
+    store8(C + o, out);
   }
 };
 

@@ -1,20 +1,48 @@
-// One channel product of the Mixer block on Hopper (sm_90a), with a plain C
-// interface: the checking entry of gemm_sm90.cuh, so that a product can be
-// held against its plain version and timed on its own, on either core.
+// The Hopper GEMM core (sm_90a) alone, with a plain C interface: the
+// checking entries of gemm_sm90.cuh, so that each of its modes can be held
+// against its plain version and timed on its own, on either route.
 //
-// Replaces the channel half of the Pallas TPU kernel
-// jittor_mlp_tpu/ops/pallas/mixer_block.py:157 fused_mixer_block, one
-// product at a time: for A (M, K), B (N, K) and bias (N,), all bf16,
-//   act 0:  C = bf16(gelu_tanh(A · Bᵀ + bias))          (GeluBias)
-//   act 1:  C = bf16(R + (A · Bᵀ + bias)), R (M, N)     (ResidualBias)
+// - gemm_tn_bf16: one Mixer channel product (the channel half of
+//   jittor_mlp_tpu/ops/pallas/mixer_block.py:157 fused_mixer_block): for
+//   A (M, K), B (N, K) and bias (N,), all bf16,
+//     act 0:  C = bf16(gelu_tanh(A · Bᵀ + bias))          (GeluBias)
+//     act 1:  C = bf16(R + (A · Bᵀ + bias)), R (M, N)     (ResidualBias)
+// - gemm_bf16_f32: the bf16 modes of the Mixer channel backward
+//   (mixer_block_bwd.py:397 _chan_wgt_bwd): MN-major A and/or B, and K cut
+//   into row slabs, one f32 partial each (StoreF32's output).
+// - gemm_s8_f32: the W8A8 products of gmlp_block_int8.py:61: int8 A and B,
+//   per-row and per-column scales, entries batched or shared, the f32
+//   dequantized product.
 // with f32 sums. What bounds it and what the design does about it: see
-// gemm_sm90.cuh. Nothing on the serving or training path calls this entry;
-// kernel 1 and the training forward reach the same core through
-// mixer_forward.cuh.
+// gemm_sm90.cuh. Nothing on the serving or training path calls these
+// entries; the block kernels reach the same core through its templates.
 
 #include "gemm_sm90.cuh"
 
 using namespace jmt;
+
+namespace {
+
+// C[z·M·N + m·N + n] = v, f32.
+struct StoreOut {
+  float* C;
+  int M, N;
+
+  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
+    float* o = C + (z * M + m) * (long long)N + n;
+    if (cnt == 8 && aligned16(o)) {
+      store8(o, v);
+    } else {
+      for (int e = 0; e < cnt; ++e) o[e] = v[e];
+    }
+  }
+
+  __device__ void row8(long long z, int m, int n, const float* v) const { (*this)(z, m, n, v, 8); }
+};
+
+bool valid_core(int core) { return core >= 0 && core <= 2; }
+
+}  // namespace
 
 // All pointers are contiguous bf16 device buffers; r is read for act 1
 // only. core: 0 the wgmma core where TMA's rules hold, else the WMMA core;
@@ -24,7 +52,7 @@ using namespace jmt;
 extern "C" int gemm_tn_bf16(const void* a, const void* b, const void* bias, const void* r, void* c,
                             int M, int N, int K, int act, int core, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (core < 0 || core > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
   const sm90::Core which = static_cast<sm90::Core>(core);
   if (act == 0)
     return static_cast<int>(
@@ -35,12 +63,58 @@ extern "C" int gemm_tn_bf16(const void* a, const void* b, const void* bias, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Products this library launched on route 0 (the wgmma core) or 1 (the
-// WMMA core), since it was loaded; -1 for another route.
+// out (nz, M, N) f32, nz = ceil(K / slab): partial z = op(A)·op(B) over
+// K rows z·slab .. min((z+1)·slab, K) − 1. a: bf16 (M, K), or (K, M) with
+// a_mn; b: bf16 (N, K), or (K, N) with b_mn; contiguous. slab < K (more
+// than one partial) needs both operands MN-major: a slab is then a block
+// of rows. core as gemm_tn_bf16's.
+extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int M, int N, int K,
+                             int slab, int a_mn, int b_mn, int core, void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (!valid_core(core) || slab <= 0 || (slab < K && !(a_mn && b_mn)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const sm90::Core which = static_cast<sm90::Core>(core);
+  const int nz = (K + slab - 1) / slab, kz = nz == 1 ? K : slab, last = K - (nz - 1) * kz;
+  const int lda = a_mn ? M : K, ldb = b_mn ? N : K;
+  const long long sA = nz == 1 ? 0 : (long long)slab * M, sB = nz == 1 ? 0 : (long long)slab * N;
+  const StoreOut epi{static_cast<float*>(out), M, N};
+  cudaError_t e;
+  if (a_mn && b_mn)
+    e = sm90::gemm_bf16<true, true>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  else if (a_mn)
+    e = sm90::gemm_bf16<true, false>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  else if (b_mn)
+    e = sm90::gemm_bf16<false, true>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  else
+    e = sm90::gemm_bf16<false, false>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  return static_cast<int>(e);
+}
+
+// out (nz, M, N) f32 = (f32(A_z · B_zᵀ) · rs_z[m]) · cs_z[n]: a int8
+// (nz, M, K), or (M, K) shared by every entry when a_batched is 0; b int8
+// (nz, N, K) or (N, K); rs f32 (nz, M) or (M); cs f32 (nz, N) or (N); K a
+// multiple of 32; contiguous. core: 0 or 1 the s8 wgmma core; 2 the
+// mma.sync core.
+extern "C" int gemm_s8_f32(const void* a, const void* b, const void* rs, const void* cs, void* out,
+                           int nz, int M, int N, int K, int a_batched, int b_batched,
+                           int rs_batched, int cs_batched, int core, void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
+  const s8gemm::Scales sc{static_cast<const float*>(rs), rs_batched ? M : 0, 1,
+                          static_cast<const float*>(cs), cs_batched ? N : 0};
+  return static_cast<int>(sm90::gemm_s8(s, nz, M, N, K, a, K, a_batched ? (long long)M * K : 0,
+                                        b, K, b_batched ? (long long)N * K : 0, sc,
+                                        StoreOut{static_cast<float*>(out), M, N},
+                                        static_cast<sm90::Core>(core)));
+}
+
+// Products this library launched on route 0 (the bf16 wgmma core), 1 (the
+// WMMA core), 2 (the s8 wgmma core) or 3 (the mma.sync core), since it was
+// loaded; -1 for another route.
 extern "C" long long gemm_tn_products(int route) { return sm90::products(route); }
 
-// The core's tile (rows, columns, K step), ring stages and dynamic shared
-// memory in bytes: what = 0, 1, 2, 3, 4; -1 otherwise.
+// The core's tile (rows, columns, K step in bf16 values), ring stages and
+// dynamic shared memory in bytes: what = 0, 1, 2, 3, 4; -1 otherwise.
 extern "C" long long gemm_sm90_config(int what) {
   const long long v[] = {sm90::BM, sm90::BN, sm90::BK, sm90::STAGES, sm90::SMEM_BYTES};
   return what >= 0 && what < 5 ? v[what] : -1;

@@ -1,67 +1,95 @@
-// A Hopper GEMM core (sm_90a) for the Mixer block's channel products:
+// A Hopper GEMM core (sm_90a): TMA loads into a 128-byte-swizzled
+// mbarrier ring, wgmma from warp-specialized warpgroups, persistent blocks.
 //
-//   C = epi(A · Bᵀ),   A (M×K) row-major at leading dimension lda,
-//                      B (N×K) row-major at ldb (a torch Linear weight),
+//   C[z] = epi(z, op(A[z]) · op(B[z])),   z = 0 .. nz−1
 //
-// bf16 operands, f32 sums, one product (the weight shared by every row).
+// bf16 operands with f32 sums (wgmma m64n192k16), or int8 operands with
+// s32 sums (wgmma m64n192k32 .s32.s8.s8). op(A) is M×K: A stored M×K
+// row-major (K-major) or, with TA, K×M row-major (MN-major, read through
+// wgmma's transpose); op(B) is K×N: B stored N×K row-major (K-major, a
+// torch Linear weight) or, with TB, K×N row-major (MN-major). wgmma's s8
+// shapes have no transpose: int8 operands are K-major. Entry z of an
+// operand is the matrix at p + z·zstride elements (zstride 0: one matrix
+// shared by every entry). Every entry has the same K but the last, whose K
+// may be shorter (K_last): a sum over K cut into row slabs, one f32 partial
+// per slab written by the epilogue at its z and added by the caller in a
+// fixed order, is split-K without atomics.
+//
 // The epilogue is gemm_bf16.cuh's functor, unchanged:
 //   void operator()(long long z, int m, int n, const float* v, int cnt) const
-// gets the f32 sums of row m, columns n .. n+cnt-1 (n % 8 == 0, cnt ≤ 8),
-// with z = 0. So GeluBias, ResidualBias and the kernel lab's epilogues
-// (lab_block.cuh) plug in as they are, and every rounding point of a block
-// stays where it was.
+// gets the f32 sums of row m, columns n .. n+cnt-1 of entry z (n % 8 == 0,
+// cnt ≤ 8). So GeluBias, ResidualBias, the Mixer backward's BiasPreact,
+// GeluGrad and StoreF32 and the kernel lab's epilogues plug in as they
+// are. gemm_s8 wraps the W8A8 functors of gemm_s8.cuh (BiasGeluF32,
+// ResidBias, the gMLP gate) in Dequant, which hands them
+// v = (f32(acc) · rs[m]) · cs[n] with gemm_s8.cuh's rounding (eight columns
+// through their row8, the same arithmetic as operator() with 16-byte
+// accesses; mma.sync's calls of operator() are unchanged); so every
+// rounding point of a block stays where it was.
 //
-// Which TPU work it serves: the channel half of
+// Which TPU work it serves: the channel products of
 // jittor_mlp_tpu/ops/pallas/mixer_block.py:157 fused_mixer_block (kernel 1,
-// mixer_block.cu) and of its forward-with-h (mixer_block_bwd.cu), through
-// mixer_forward.cuh; the kernel lab's bodies call it for the same products.
+// mixer_block.cu; the forward-with-h and the kernel lab's bodies too); the
+// four products of mixer_block_bwd.py:397 _chan_wgt_bwd and the two it
+// shares with :306 _chan_data_bwd (mixer_block_bwd.cu); the three int8
+// products of gmlp_block_int8.py:61 fused_gmlp_block_int8
+// (gmlp_block_int8.cu).
 //
-// What bounds it: at Mixer-B/16 b256 each channel product is M = 50,176
-// rows, K 768 → N 3072 or K 3072 → N 768: 236.8 GFLOP, 0.239 ms at the
-// H100's 989 TFLOP/s dense bf16 peak, against 0.1–0.4 GB of operands and
-// output (≤ 0.12 ms at 3.35 TB/s): bound by operations. Only wgmma reaches
-// that rate; the WMMA core (gemm_bf16.cuh) ran these products at ≈ 160.
-// What the design does about it:
-// - Loads: TMA (cp.async.bulk.tensor.2d, the CUtensorMap a __grid_constant__
-//   parameter) of 192×64 A and 192×64 B tiles into 128-byte-swizzled shared
-//   memory aligned to 1024 bytes, the layout wgmma reads through its
-//   descriptors. Ragged M, N and K tails are TMA's out-of-bounds zero fill:
-//   the main loop has no masks, and the epilogue skips rows ≥ M and columns
-//   ≥ N.
+// What bounds it: the Mixer-B/16 channel products at b256 are 236.8 GFLOP
+// each, 0.239 ms at the H100's 989 TFLOP/s dense bf16 peak, against 0.1–0.4
+// GB of operands and output: bound by operations, and only wgmma reaches
+// that rate (the WMMA core ran them at ≈ 160 TFLOP/s, mma.sync's s8 GEMM
+// the gMLP products at ≈ 70 TOP/s). Where an epilogue reads and writes f32
+// intermediates (the backward's cp, the W8A8 gMLP's y and g) the bytes
+// bound instead. Measured at b256 on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 5, f32 output, two runs): the Mixer backward's slab
+// products (MN-major operands) at 762–789 TFLOP/s, its K-major and N-major
+// B ones at 459–479; the gMLP's int8 products at 138–516 TOP/s, 2.3–2.7×
+// mma.sync, each 1.6–2.1× its bytes bound. What the design does about it:
+// - Loads: TMA (cp.async.bulk.tensor, the CUtensorMaps __grid_constant__
+//   parameters) of one 128-byte row of each operand row per K step (64 bf16
+//   or 128 int8 values) into 128-byte-swizzled shared memory aligned to
+//   1024 bytes, the layout wgmma reads through its descriptors. A K-major
+//   operand is one box of 192 rows; an MN-major one three boxes of 64
+//   values × 64 K rows, 8 KB apart (the descriptor's leading byte offset),
+//   read with wgmma's transpose bit. Ragged M, N and K tails are TMA's
+//   zero fill: the main loop has no masks, and the epilogue skips rows ≥ M
+//   and columns ≥ N. A batched operand has two maps: a 3-D one (columns,
+//   rows, entries) for every entry but the last, so that a slab's K tail
+//   reads zeros and not the next slab's rows, and a 2-D one for the last.
 // - Pipeline: a ring of STAGES = 4 stages (48 KB each) with full and empty
 //   mbarriers. One producer thread (warpgroup 0, which gives up registers
 //   with setmaxnreg) keeps the TMA loads in flight; three consumer
-//   warpgroups each issue wgmma.m64n192k16 on their 64 rows of the 192×192
-//   block tile, four per 64-wide K step, and keep one step's wgmmas in
-//   flight: a stage goes back to the producer only after the wgmmas that
-//   read it have retired (wait_group 1, then an arrive on its empty
-//   barrier from each consumer warp).
-// - The tile: the L2 feeds 48 KB a K step for 4.7 MFLOP (98 FLOP a byte;
-//   128×256 with two consumers measured slower on the card, at 85), and
-//   the consumers' 96 f32 accumulators a thread fit the 128 registers that
-//   four warpgroups leave (m64n256 needs 154: three of those do not fit).
+//   warpgroups each run wgmma.m64n192 on their 64 rows of the 192×192
+//   block tile, four per K step, and keep one step's wgmmas in flight: a
+//   stage goes back to the producer only after the wgmmas that read it have
+//   retired (wait_group 1, then an arrive on its empty barrier from each
+//   consumer warp).
+// - The tile: the L2 feeds 48 KB a K step for 4.7 M multiply-adds (98
+//   operations a byte in bf16; 128×256 with two consumers measured slower
+//   on the card), and the consumers' 96 accumulators a thread fit the 128
+//   registers that four warpgroups leave (m64n256 needs 154).
 // - Persistent blocks, one per SM (the ring and staging take 220 KB of
-//   shared memory), walk the output tiles in row-major order with a stride
-//   of the grid, so the producer loads the next tile while the consumers
-//   run this one's epilogue, and the ≈ 132 tiles in flight share their A
-//   rows; the 4.7 MB weight stays in the 50 MB L2.
+//   shared memory), walk the output tiles (entry, then rows, then columns)
+//   with a stride of the grid, so the producer loads the next tile while
+//   the consumers run this one's epilogue.
 // - Epilogue: wgmma's accumulator spreads a row's 8 columns over the 4
 //   lanes of a quad, so each consumer warp stages its 16 rows 32 columns at
-//   a time through 2.3 KB of shared memory, and 4 lanes then hand one
-//   row's 32 columns (64 contiguous bytes of bf16 output) to the functor.
-//   The epilogue does not overlap this block's wgmmas: with a GELU (its
-//   tanhf) it is what keeps the K = 768 product furthest from the peak.
-// - Deterministic: no split-K and no atomics. Each output element is one
-//   tile's sum over K in a fixed order, whatever the grid: two calls agree
-//   bit for bit, and so do two callers with the same rows (the kernel lab's
-//   bodies and kernel 1).
+//   a time, as f32, through 2.3 KB of shared memory, and 4 lanes then hand
+//   one row's 32 columns to the functor. The epilogue does not overlap this
+//   block's wgmmas.
+// - Deterministic: no atomics. Each output element is one tile's sum over
+//   its entry's K in a fixed order, whatever the grid: two calls agree bit
+//   for bit.
 //
-// Two routes, both hand-written and both counted (products(route)):
-// gemm_tn takes this core where TMA's rules hold (A and B 16-byte aligned,
-// lda and ldb multiples of 8 elements, i.e. 16-byte row strides); otherwise
-// it runs bf16gemm::gemm<true> (the WMMA core) on the same arguments.
-// cuTensorMapEncodeTiled is looked up in libcuda at run time (the runtime's
-// entry-point query), so the library needs no -lcuda.
+// Routes, both hand-written and both counted (products(route)): bf16
+// takes the wgmma core where TMA's rules hold (bases 16-byte aligned, row
+// and entry strides multiples of 16 bytes), else bf16gemm's WMMA core on
+// the same arguments. int8 takes the s8 wgmma core always: s8gemm's
+// mma.sync core, which it replaces, takes only operands whose rows are
+// 16-byte aligned, which TMA loads too; mma.sync stays for comparison
+// (Core::Legacy). cuTensorMapEncodeTiled is looked up in libcuda at run
+// time (the runtime's entry-point query), so the library needs no -lcuda.
 #pragma once
 
 #include <cuda.h>          // CUtensorMap and its enums (types only)
@@ -70,41 +98,63 @@
 #include <atomic>
 
 #include "gemm_bf16.cuh"
+#include "gemm_s8.cuh"
 
 namespace jmt {
 namespace sm90 {
 
 constexpr int CONSUMERS = 3;                      // warpgroups of 64 tile rows each
-constexpr int BM = 64 * CONSUMERS, BN = 192, BK = 64;  // block tile; BK bf16: one 128-byte row
+constexpr int BM = 64 * CONSUMERS, BN = 192;      // block tile
+constexpr int K_BYTES = 128;                      // a K step: one 128-byte row of each operand row
+constexpr int BK = K_BYTES / 2;                   // ... 64 bf16 values (128 int8)
 constexpr int STAGES = 4;
 constexpr int THREADS = 128 * (1 + CONSUMERS);    // warpgroup 0 produces
 // setmaxnreg: 128·40 + 384·152 = 63,488 of the 512·128 the launch bounds give
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 152;
-constexpr int A_BYTES = BM * BK * 2;              // 24 KB
-constexpr int B_BYTES = BN * BK * 2;              // 24 KB
+constexpr int A_BYTES = BM * K_BYTES;             // 24 KB
+constexpr int B_BYTES = BN * K_BYTES;             // 24 KB
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int MN_LBO = BK * K_BYTES;              // MN-major: 64-value chunks one 8 KB box apart
 constexpr int STG_LD = 36;                        // f32 row of a warp's 16×32 staging tile
 constexpr int STG_FLOATS = 16 * STG_LD;
-static_assert(BN == 192, "the consumers' wgmma is m64n192k16");
+static_assert(BN == 192, "the consumers' wgmma is m64n192");
 constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + CONSUMERS * 4 * STG_FLOATS * 4 +
                            2 * STAGES * 8;        // alignment slack, ring, staging, barriers
 static_assert(SMEM_BYTES <= 232448, "the ring fits the 227 KB a block may use");
 
-enum Route { SM90 = 0, WMMA = 1 };
-enum class Core { Auto = 0, Sm90 = 1, Wmma = 2 };
+// bf16 on wgmma and on the WMMA core; int8 on wgmma and on mma.sync.
+enum Route { SM90 = 0, WMMA = 1, SM90_S8 = 2, MMA_S8 = 3 };
+// Auto: the wgmma core where TMA's rules hold, else the core it replaces;
+// Sm90 forces the wgmma core (an error where the rules do not hold);
+// Legacy the core it replaces (WMMA for bf16, mma.sync for int8).
+enum class Core { Auto = 0, Sm90 = 1, Legacy = 2 };
 
 // Products launched per route, in this library (internal linkage: each
 // kernel library is one translation unit and keeps its own counts).
-static std::atomic<long long> g_products[2];
+static std::atomic<long long> g_products[4];
 
 inline long long products(int route) {
-  return route == SM90 || route == WMMA ? g_products[route].load() : -1;
+  return route >= 0 && route < 4 ? g_products[route].load() : -1;
 }
 
-// Whether TMA can load a row-major bf16 operand at p with leading dimension ld.
-inline bool tma_ok(const void* p, int ld) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0;
-}
+template <class T>
+struct Elem;
+
+template <>
+struct Elem<bf16> {
+  typedef float Acc;
+  static constexpr int K_INST = 16;  // one wgmma's K: 32 bytes
+  static constexpr Route WGMMA = SM90;
+  static CUtensorMapDataType tma_type() { return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16; }
+};
+
+template <>
+struct Elem<int8_t> {
+  typedef int Acc;
+  static constexpr int K_INST = 32;
+  static constexpr Route WGMMA = SM90_S8;
+  static CUtensorMapDataType tma_type() { return CU_TENSOR_MAP_DATA_TYPE_UINT8; }
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -139,23 +189,32 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
-// One box of a 2-D tensor map (x: column, y: row) into shared memory; the
-// bytes land on `bar`'s transaction count.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
-      : "memory");
+// One box of a tensor map (x: column, y: row, z: entry of a 3-D map) into
+// shared memory; the bytes land on `bar`'s transaction count.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int x, int y, int z,
+                                         bool two_d, uint64_t* bar) {
+  if (two_d)
+    asm volatile(
+        "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_u32(bar))
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(smem_u32(bar))
+        : "memory");
 }
 
-// wgmma descriptor of a K-major tile in the 128-byte swizzle: start address,
-// leading byte offset 16 (unused by this layout), stride 1024 bytes between
-// 8-row groups, layout type 1 (128B swizzle). The tile is 1024-aligned;
-// +32 bytes of start address is the next 16-wide K slice.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(16 >> 4) << 16) |
+// wgmma descriptor of a tile in the 128-byte swizzle (layout type 1): start
+// address, leading byte offset `lbo` (MN-major: the next 64-value chunk of
+// M or N; unused by the K-major layout), stride 1024 bytes between 8-row
+// groups (rows of M or N K-major, rows of K MN-major). The tile is
+// 1024-aligned; K-major, +32 bytes of start address is the next wgmma's K
+// slice; MN-major, +K_INST rows of 128 bytes.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
@@ -172,57 +231,120 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Keeps the compiler from moving accesses of the accumulators across the
+// Keep the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma and its wait.
 __device__ __forceinline__ void fence_acc(float (&d)[BN / 2]) {
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64×192, f32) += A (64×16, K-major, desc a) · B (192×16, K-major, desc b)ᵀ
-// for one warpgroup. d[4j + 2i + c] holds row 16·warp + lane/4 + 8i, column
-// 8j + 2·(lane % 4) + c.
+__device__ __forceinline__ void fence_acc(int (&d)[BN / 2]) {
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// The 96 accumulator registers of one m64n192 wgmma, as operands %0..%95.
+#define JMT_WGMMA_D96                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "     \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, " \
+  "%31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "  \
+  "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "  \
+  "%61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, "  \
+  "%76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, "  \
+  "%91, %92, %93, %94, %95}"
+#define JMT_WGMMA_OUT96(C)                                                                   \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), C(d[7]), C(d[8]), C(d[9]),  \
+      C(d[10]), C(d[11]), C(d[12]), C(d[13]), C(d[14]), C(d[15]), C(d[16]), C(d[17]),        \
+      C(d[18]), C(d[19]), C(d[20]), C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]),        \
+      C(d[26]), C(d[27]), C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]),        \
+      C(d[34]), C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]),        \
+      C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47]), C(d[48]), C(d[49]),        \
+      C(d[50]), C(d[51]), C(d[52]), C(d[53]), C(d[54]), C(d[55]), C(d[56]), C(d[57]),        \
+      C(d[58]), C(d[59]), C(d[60]), C(d[61]), C(d[62]), C(d[63]), C(d[64]), C(d[65]),        \
+      C(d[66]), C(d[67]), C(d[68]), C(d[69]), C(d[70]), C(d[71]), C(d[72]), C(d[73]),        \
+      C(d[74]), C(d[75]), C(d[76]), C(d[77]), C(d[78]), C(d[79]), C(d[80]), C(d[81]),        \
+      C(d[82]), C(d[83]), C(d[84]), C(d[85]), C(d[86]), C(d[87]), C(d[88]), C(d[89]),        \
+      C(d[90]), C(d[91]), C(d[92]), C(d[93]), C(d[94]), C(d[95])
+
+// d (64×192, f32) += op(A) (64×16, desc a) · op(B) (16×192, desc b) for one
+// warpgroup; TA, TB: the operand is MN-major (wgmma's imm-trans-a, -b).
+// d[4j + 2i + c] holds row 16·warp + lane/4 + 8i, column 8j + 2·(lane % 4) + c.
+template <bool TA, bool TB>
 __device__ __forceinline__ void wgmma_192(float (&d)[96], uint64_t a, uint64_t b) {
   asm volatile(
       "{\n"
       ".reg .pred p;\n"
       "setp.ne.b32 p, %98, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, "
-      "%72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, "
-      "%88, %89, %90, %91, %92, %93, %94, %95},"
-      " %96, %97, p, 1, 1, 0, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " JMT_WGMMA_D96
+      ", %96, %97, p, 1, 1, %99, %100;\n"
       "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]),
-        "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]),
-        "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
-        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
-        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : JMT_WGMMA_OUT96("+f")
+      : "l"(a), "l"(b), "r"(1), "n"(TA ? 1 : 0), "n"(TB ? 1 : 0));
+}
+
+// d (64×192, s32) += A (64×32 int8, K-major) · B (192×32 int8, K-major)ᵀ;
+// the accumulator layout of the bf16 form.
+template <bool TA, bool TB>
+__device__ __forceinline__ void wgmma_192(int (&d)[96], uint64_t a, uint64_t b) {
+  static_assert(!TA && !TB, "wgmma's s8 shapes read K-major operands only");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 " JMT_WGMMA_D96 ", %96, %97, p;\n"
+      "}\n"
+      : JMT_WGMMA_OUT96("+r")
       : "l"(a), "l"(b), "r"(1));
 }
 
-template <class Epi>
+#undef JMT_WGMMA_D96
+#undef JMT_WGMMA_OUT96
+
+// Output tile `tile` of the walk: entry z, first row m0, first column n0.
+struct TilePos {
+  int z, m0, n0;
+};
+
+__device__ __forceinline__ TilePos tile_pos(int tile, int tiles_m, int tiles_n) {
+  const int per = tiles_m * tiles_n, r = tile % per;
+  return {tile / per, r / tiles_n * BM, r % tiles_n * BN};
+}
+
+// K steps of entry z (the last entry's K may be shorter). The producer and
+// the consumers count alike, so neither waits for a step the other skips.
+template <class T>
+__device__ __forceinline__ int k_steps(int z, int nz, int K, int K_last) {
+  constexpr int step = K_BYTES / (int)sizeof(T);
+  const int kz = z == nz - 1 ? K_last : K;
+  return (kz + step - 1) / step;
+}
+
+// One K step of an operand into the stage at dst, from the 2-D map `last`
+// or the 3-D map `full` (entry z): K-major, one box of ROWS rows × 128
+// bytes at (k0, r0); MN-major, ROWS/64 boxes of 64 values × BK rows at
+// (r0 + 64j, k0), MN_LBO bytes apart.
+template <bool MN, int ROWS>
+__device__ __forceinline__ void load_operand(unsigned char* dst, const CUtensorMap* full,
+                                             const CUtensorMap* last, bool use_last, int z, int r0,
+                                             int k0, uint64_t* bar) {
+  const CUtensorMap* map = use_last ? last : full;
+  if constexpr (MN) {
+#pragma unroll
+    for (int j = 0; j < ROWS / 64; ++j)
+      tma_load(dst + j * MN_LBO, map, r0 + 64 * j, k0, z, use_last, bar);
+  } else {
+    tma_load(dst, map, k0, r0, z, use_last, bar);
+  }
+}
+
+template <class T, bool TA, bool TB, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
-gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_b,
-               int M, int N, int K, Epi epi) {
+gemm_kernel(const __grid_constant__ CUtensorMap a_full, const __grid_constant__ CUtensorMap a_last,
+            const __grid_constant__ CUtensorMap b_full, const __grid_constant__ CUtensorMap b_last,
+            int nz, int a_batched, int b_batched, int M, int N, int K, int K_last, Epi epi) {
+  typedef typename Elem<T>::Acc Acc;
+  constexpr int KI = Elem<T>::K_INST;
+  constexpr int STEP = K_BYTES / (int)sizeof(T);
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -230,9 +352,8 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + CONSUMERS * 4 * STG_FLOATS);
   uint64_t* empty = full + STAGES;
 
-  const int tiles_n = (N + BN - 1) / BN;
-  const int tiles = (M + BM - 1) / BM * tiles_n;
-  const int ktiles = (K + BK - 1) / BK;  // the last K step is zero-filled past K
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles = nz * tiles_m * tiles_n;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -251,14 +372,16 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     if (threadIdx.x == 0) {
       int it = 0;  // K steps loaded so far, over all tiles: stage it % STAGES
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+        const TilePos p = tile_pos(tile, tiles_m, tiles_n);
+        const int ktiles = k_steps<T>(p.z, nz, K, K_last);
+        const bool la = !a_batched || p.z == nz - 1, lb = !b_batched || p.z == nz - 1;
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
           mbar_expect_tx(&full[s], STAGE_BYTES);
           unsigned char* st = smem + s * STAGE_BYTES;
-          tma_load(st, &map_a, kt * BK, m0, &full[s]);
-          tma_load(st + A_BYTES, &map_b, kt * BK, n0, &full[s]);
+          load_operand<TA, BM>(st, &a_full, &a_last, la, p.z, p.m0, kt * STEP, &full[s]);
+          load_operand<TB, BN>(st + A_BYTES, &b_full, &b_last, lb, p.z, p.n0, kt * STEP, &full[s]);
         }
       }
     }
@@ -268,22 +391,26 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
     const int c = wg - 1;
     const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
     float* stg = staging + (c * 4 + warp) * STG_FLOATS;
-    float acc[BN / 2];
+    Acc acc[BN / 2];
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int m0 = tile / tiles_n * BM, n0 = tile % tiles_n * BN;
+      const TilePos p = tile_pos(tile, tiles_m, tiles_n);
+      const int ktiles = k_steps<T>(p.z, nz, K, K_last);
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
       for (int kt = 0; kt < ktiles; ++kt, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
-        const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + c * 64 * 128;  // 64 rows of 128 B
+        // this warpgroup's 64 rows: K-major 64 rows of 128 bytes, MN-major
+        // box c (BK rows of 128 bytes); 8 KB either way
+        const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + c * (A_BYTES / CONSUMERS);
         const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < BK / 16; ++k)
-          wgmma_192(acc, desc_sw128(a + 32 * k), desc_sw128(b + 32 * k));
+        for (int k = 0; k < STEP / KI; ++k)
+          wgmma_192<TA, TB>(acc, desc_sw128(TA ? a + k * KI * K_BYTES : a + 32 * k, MN_LBO),
+                            desc_sw128(TB ? b + k * KI * K_BYTES : b + 32 * k, MN_LBO));
         wgmma_commit();
         fence_acc(acc);
         wgmma_wait<1>();  // the previous K step's wgmmas have retired: free its stage
@@ -296,7 +423,7 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       // Epilogue: 32 columns at a time through the warp's staging tile; lane
       // (r, q) of the accumulator writes its pairs, then 4 lanes a row read
       // 8 columns each.
-      const int mrow = m0 + c * 64 + warp * 16;  // this warp's first row
+      const int mrow = p.m0 + c * 64 + warp * 16;  // this warp's first row
       const int r = lane / 4, q = lane % 4;
 #pragma unroll
       for (int cc = 0; cc < BN / 32; ++cc) {
@@ -304,16 +431,16 @@ gemm_tn_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
         for (int jj = 0; jj < 4; ++jj) {
           const int j = cc * 4 + jj, col = jj * 8 + 2 * q;
           *reinterpret_cast<float2*>(stg + r * STG_LD + col) =
-              make_float2(acc[4 * j], acc[4 * j + 1]);
+              make_float2(static_cast<float>(acc[4 * j]), static_cast<float>(acc[4 * j + 1]));
           *reinterpret_cast<float2*>(stg + (r + 8) * STG_LD + col) =
-              make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+              make_float2(static_cast<float>(acc[4 * j + 2]), static_cast<float>(acc[4 * j + 3]));
         }
         __syncwarp();
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int row = r + 8 * h;
-          const int gm = mrow + row, gn = n0 + cc * 32 + q * 8;
-          if (gm < M && gn < N) epi(0, gm, gn, stg + row * STG_LD + q * 8, min(8, N - gn));
+          const int gm = mrow + row, gn = p.n0 + cc * 32 + q * 8;
+          if (gm < M && gn < N) epi(p.z, gm, gn, stg + row * STG_LD + q * 8, min(8, N - gn));
         }
         __syncwarp();
       }
@@ -341,17 +468,51 @@ inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
   return fn;
 }
 
-// A 2-D map of a rows × cols bf16 row-major matrix (leading dimension ld),
-// read in boxes of box_rows × BK, 128-byte swizzled, zero past the edges.
-inline bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int ld, int box_rows) {
+// One operand of a product: element (row, col) of entry z at
+// p + z·zstride + row·ld + col (zstride 0: shared by every entry).
+struct Operand {
+  const void* p;
+  int ld;
+  long long zstride;
+};
+
+// Whether TMA can load the operand's entries: base 16-byte aligned, row
+// and entry strides multiples of 16 bytes.
+template <class T>
+inline bool tma_ok(const Operand& o) {
+  return reinterpret_cast<uintptr_t>(o.p) % 16 == 0 && (o.ld * sizeof(T)) % 16 == 0 &&
+         (o.zstride * (long long)sizeof(T)) % 16 == 0;
+}
+
+// The maps of one operand whose M (or N) extent is `mn` (box_rows rows a
+// K-major box): `last`, 2-D (columns, rows), of entry nz−1 with K_last;
+// `full`, 3-D (columns, rows, entries), of entries 0 .. nz−2 with K (a
+// copy of `last` where the operand is not batched). 128-byte swizzled,
+// zero past the edges.
+template <class T, bool MN>
+inline bool operand_maps(CUtensorMap* full, CUtensorMap* last, const Operand& o, int mn,
+                         int box_rows, int nz, int K, int K_last) {
   const auto encode = tensor_map_encoder();
   if (!encode) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims, strides, box,
-                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  constexpr long long es = sizeof(T);
+  const cuuint64_t strides[2] = {(cuuint64_t)(o.ld * es), (cuuint64_t)(o.zstride * es)};
+  const cuuint32_t box[3] = {MN ? 64u : (cuuint32_t)(K_BYTES / es),
+                             MN ? (cuuint32_t)BK : (cuuint32_t)box_rows, 1u};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  cuuint64_t dims[3] = {(cuuint64_t)(MN ? mn : K_last), (cuuint64_t)(MN ? K_last : mn),
+                        (cuuint64_t)(nz - 1)};
+  const char* base = static_cast<const char*>(o.p) + (long long)(nz - 1) * o.zstride * es;
+  if (encode(last, Elem<T>::tma_type(), 2, const_cast<char*>(base), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (nz == 1 || o.zstride == 0) {
+    *full = *last;
+    return true;
+  }
+  dims[MN ? 1 : 0] = (cuuint64_t)K;
+  return encode(full, Elem<T>::tma_type(), 3, const_cast<void*>(o.p), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -362,16 +523,21 @@ inline bool tensor_map(CUtensorMap* map, const void* p, int rows, int cols, int 
     if (e_ != cudaSuccess) return e_;   \
   } while (0)
 
-// This core alone: cudaErrorInvalidValue where TMA's rules do not hold.
-template <class Epi>
-cudaError_t gemm_tn_sm90(cudaStream_t stream, int M, int N, int K, const void* A, int lda,
-                         const void* B, int ldb, const Epi& epi) {
-  if (M <= 0 || N <= 0 || K <= 0 || !tma_ok(A, lda) || !tma_ok(B, ldb))
+// The wgmma core alone: cudaErrorInvalidValue where TMA's rules do not hold
+// or the shapes are not a product's.
+template <class T, bool TA, bool TB, class Epi>
+cudaError_t launch_sm90(cudaStream_t stream, int nz, int M, int N, int K, int K_last,
+                        const Operand& a, const Operand& b, const Epi& epi) {
+  if (nz <= 0 || M <= 0 || N <= 0 || K <= 0 || K_last <= 0 || K_last > K || !tma_ok<T>(a) ||
+      !tma_ok<T>(b))
     return cudaErrorInvalidValue;
-  CUtensorMap map_a, map_b;
-  if (!tensor_map(&map_a, A, M, K, lda, BM) || !tensor_map(&map_b, B, N, K, ldb, BN))
+  if ((a.zstride == 0 || b.zstride == 0) && K_last != K)  // a shared matrix has one K
     return cudaErrorInvalidValue;
-  const auto kernel = gemm_tn_kernel<Epi>;
+  CUtensorMap maps[4];
+  if (!operand_maps<T, TA>(&maps[0], &maps[1], a, M, BM, nz, K, K_last) ||
+      !operand_maps<T, TB>(&maps[2], &maps[3], b, N, BN, nz, K, K_last))
+    return cudaErrorInvalidValue;
+  const auto kernel = gemm_kernel<T, TA, TB, Epi>;
   // setmaxnreg moves registers between warpgroups within the block's own
   // allocation: refuse to launch (rather than hang) if ptxas gave it less.
   cudaFuncAttributes attr;
@@ -383,25 +549,79 @@ cudaError_t gemm_tn_sm90(cudaStream_t stream, int M, int N, int K, const void* A
   int dev = 0, sms = 0;
   SM90_TRY(cudaGetDevice(&dev));
   SM90_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const long long tiles = (long long)nz * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(map_a, map_b, M, N, K, epi);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], nz,
+                                                a.zstride != 0, b.zstride != 0, M, N, K, K_last,
+                                                epi);
   const cudaError_t e = cudaGetLastError();
-  if (e == cudaSuccess) ++g_products[SM90];
+  if (e == cudaSuccess) ++g_products[Elem<T>::WGMMA];
   return e;
 }
 
-// C = epi(A · Bᵀ) on this core where TMA's rules hold, else on the WMMA
-// core (Core::Auto); Core::Sm90 and Core::Wmma force one (Sm90 then fails
-// where the rules do not hold).
+// bf16: C[z] = epi(z, op(A[z])·op(B[z])) for z < nz (see the header; A
+// entries sA elements apart, B entries sB apart), on the wgmma core where
+// TMA's rules hold (Core::Auto), else on the WMMA core with the same entries
+// (gemm_bf16.cuh: A_T is an MN-major A, B_T a K-major B; several entries
+// are gemm_sum's images, one a block).
+template <bool TA, bool TB, class Epi>
+cudaError_t gemm_bf16(cudaStream_t stream, int nz, int M, int N, int K, int K_last,
+                      const void* A, int lda, long long sA, const void* B, int ldb,
+                      long long sB, const Epi& epi, Core core = Core::Auto) {
+  const Operand a{A, lda, sA}, b{B, ldb, sB};
+  if (core == Core::Sm90 || (core == Core::Auto && tma_ok<bf16>(a) && tma_ok<bf16>(b)))
+    return launch_sm90<bf16, TA, TB>(stream, nz, M, N, K, K_last, a, b, epi);
+  const cudaError_t e =
+      nz == 1 ? bf16gemm::gemm_ex<TA, !TB>(stream, 1, M, N, K_last, A, lda, 0, B, ldb, 0, epi)
+              : bf16gemm::gemm_sum<TA, !TB>(stream, (long long)(nz - 1) * K + K_last, K, 1, M,
+                                            N, A, lda, sA, B, ldb, sB, epi);
+  if (e == cudaSuccess) ++g_products[WMMA];
+  return e;
+}
+
+// C = epi(A · Bᵀ), A (M×K) and B (N×K) row-major bf16: one product, K-major
+// operands (the Mixer channel products).
 template <class Epi>
 cudaError_t gemm_tn(cudaStream_t stream, int M, int N, int K, const void* A, int lda, const void* B,
                     int ldb, const Epi& epi, Core core = Core::Auto) {
-  const bool tma = tma_ok(A, lda) && tma_ok(B, ldb);
-  if (core == Core::Sm90 || (core == Core::Auto && tma))
-    return gemm_tn_sm90(stream, M, N, K, A, lda, B, ldb, epi);
-  const cudaError_t e = bf16gemm::gemm<true>(stream, 1, M, N, K, A, lda, 0, B, ldb, 0, epi);
-  if (e == cudaSuccess) ++g_products[WMMA];
+  return gemm_bf16<false, false>(stream, 1, M, N, K, K, A, lda, 0, B, ldb, 0, epi, core);
+}
+
+// The s8 core's epilogue: v = (f32(acc) · rs[m]) · cs[n], gemm_s8.cuh's
+// dequantization of one K chunk, then the W8A8 functor.
+template <class Epi>
+struct Dequant {
+  s8gemm::Scales sc;
+  Epi epi;
+
+  __device__ void operator()(long long z, int m, int n, const float* acc, int cnt) const {
+    const float rs = sc.row[z * sc.row_batch + (long long)m * sc.row_stride];
+    const float* cs = sc.col + z * sc.col_batch + n;
+    float v[8];
+    for (int e = 0; e < cnt; ++e) v[e] = __fmul_rn(__fmul_rn(acc[e], rs), cs[e]);
+    if (cnt == 8) {
+      epi.row8(z, m, n, v);
+    } else {
+      epi(z, m, n, v, cnt);
+    }
+  }
+};
+
+// int8: C[z] = epi(z, m, n, (f32(A[z]·B[z]ᵀ) · rs) · cs), A[z] M×K and
+// B[z] N×K row-major int8 (entries sA, sB elements apart), K a multiple of
+// 32 (zero codes past the data), one K chunk; on the s8 wgmma core
+// (Core::Auto, Core::Sm90), or on gemm_s8.cuh's mma.sync core
+// (Core::Legacy). Both refuse rows that are not 16-byte aligned.
+template <class Epi>
+cudaError_t gemm_s8(cudaStream_t stream, int nz, int M, int N, int K, const void* A, int lda,
+                    long long sA, const void* B, int ldb, long long sB, const s8gemm::Scales& sc,
+                    const Epi& epi, Core core = Core::Auto) {
+  if (K % 32) return cudaErrorInvalidValue;
+  if (core != Core::Legacy)
+    return launch_sm90<int8_t, false, false>(stream, nz, M, N, K, K, Operand{A, lda, sA},
+                                             Operand{B, ldb, sB}, Dequant<Epi>{sc, epi});
+  const cudaError_t e = s8gemm::gemm(stream, nz, M, N, K, K, A, lda, sA, B, ldb, sB, sc, epi);
+  if (e == cudaSuccess) ++g_products[MMA_S8];
   return e;
 }
 

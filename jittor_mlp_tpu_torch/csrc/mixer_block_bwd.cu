@@ -37,19 +37,41 @@
 //   a group of images and write an f32 partial, and the partials are added
 //   in a fixed order (no atomics: two calls agree bit for bit).
 // - mixer_chan_data_bwd_bf16: 710 GFLOP (with the recompute of hn·Wc1ᵀ),
-//   0.718 ms. One K = CD product for dhn: the TPU kernel's chunking of CD
-//   only fits VMEM and is not part of the function.
-// - mixer_chan_wgt_bwd_bf16: 947 GFLOP, 0.958 ms. dWc1 and dWc2 contract
-//   over all B·N rows; with 144 output tiles at Mixer-B/16 that is about
-//   one wave, so the rows are cut into a few slabs whose f32 partials are
-//   added in order.
-// Every entry is bound by operations. The f32 pre-activations (tp, cp),
-// the f32 dtp, dxn and dhn and the bf16 t, c and dcp go through device
-// memory; bias and LayerNorm gradients are f32 sums of pre-rounding values,
-// taken by fixed-order row and column reductions. The two channel entries
-// each recompute LN2 and cp, as the TPU kernels do. The backward products
+//   0.718 ms. Its two recompute products (below) run on gemm_sm90.cuh's
+//   wgmma core; its own dhn = dcp·Wc1 (one K = CD product: the TPU kernel's
+//   chunking of CD only fits VMEM and is not part of the function) and the
+//   LayerNorm backward stay on the WMMA core and the row kernels.
+// - mixer_chan_wgt_bwd_bf16: 947 GFLOP, 0.958 ms, all four products on the
+//   wgmma core: the recompute hn·Wc1ᵀ (both operands K-major, as kernel 1's)
+//   and g·Wc2 (Wc2 read N-major: the core's transposed B), then
+//   dWc1 = dcpᵀ·hn and dWc2 = gᵀ·c, which contract over all B·N rows with
+//   both operands MN-major (the transpose bits, TMA boxes of 64 columns ×
+//   64 rows). Their 3072×768 outputs are only 64 tiles of 192×192 for 132
+//   SMs, so the rows are cut into slabs of whole images, about
+//   SMs / tiles of them (2 on an H100), each slab an entry of the core's
+//   batch axis (a 3-D tensor map, so a slab's K tail reads zeros, not the
+//   next slab's rows) writing its own f32 partial; sum_groups adds the
+//   partials in slab order: split-K without atomics, two calls bit-equal.
+//   The bytes bound too: cp (f32) is written, read and rewritten in place
+//   by the two recompute products and read again by dbc1's column sums,
+//   and c and dcp (bf16) go out and back: ≈ 4 GB at b256, ≈ 1.2 ms at
+//   3.35 TB/s, above the operation bound. Measured at b256 on an H100 80GB
+//   HBM3 at 700 W (chip_smoke.py phase 5, two runs): 2.72–2.76 ms (7.47 with
+//   all four on the WMMA core), its four products alone 1.62 ms: the slab
+//   products at 762–789 TFLOP/s, the recompute products at 459–479 with
+//   plain f32 stores and slower with their f32 epilogues.
+// Every entry is bound by operations or by the bytes of its f32
+// intermediates. The f32 pre-activations (tp, cp), the f32 dtp, dxn and
+// dhn and the bf16 t, c and dcp go through device memory; bias and
+// LayerNorm gradients are f32 sums of pre-rounding values, taken by
+// fixed-order row and column reductions. The two channel entries each
+// recompute LN2 and cp, as the TPU kernels do. Products that TMA cannot
+// load (rows not 16 bytes apart) take the WMMA core with the same slabs,
+// counted per route (mixer_bwd_gemm_products). The token products and dhn
 // on wgmma, fusing the two channel recomputes and keeping intermediates on
 // chip are later work.
+
+#include <algorithm>
 
 #include "mixer_forward.cuh"
 
@@ -75,26 +97,6 @@ __device__ __forceinline__ float gelu_tanh_grad(float x) {
   const float t = tanhf(u);
   const float du = 0.7978845608028654f * (1.0f + 3.0f * 0.044715f * x * x);
   return 0.5f * (1.0f + t) + 0.5f * x * (1.0f - t * t) * du;
-}
-
-// Eight f32 values at p as two 16-byte accesses.
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 a = reinterpret_cast<const float4*>(p)[0], b = reinterpret_cast<const float4*>(p)[1];
-  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* v) {
-  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
-  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
-}
-
-// Eight values rounded to bf16 as one 16-byte store.
-__device__ __forceinline__ void store8(bf16* p, const float* v) {
-  uint4 out;
-  bf16* ov = reinterpret_cast<bf16*>(&out);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) ov[e] = __float2bfloat16(v[e]);
-  *reinterpret_cast<uint4*>(p) = out;
 }
 
 // Whether C's f32 (P) and bf16 (G, where given) rows allow 16-byte access of
@@ -373,6 +375,16 @@ struct ChanWork {
   int slab, slabs;  // rows of a slab of the weight-gradient sums, their count
 };
 
+// Images per row slab of dWc1 (M×N = CD×D) and dWc2: whole images, about
+// sms / tiles slabs for the output's `tiles` 192×192 tiles, so that the
+// (slab, tile) pairs fill the card about once; at least one slab, at most
+// one an image.
+inline int slab_images(int B, int M, int N, int sms) {
+  const int tiles = ((M + sm90::BM - 1) / sm90::BM) * ((N + sm90::BN - 1) / sm90::BN);
+  const int g = std::max(1, std::min(B, sms / tiles));
+  return (B + g - 1) / g;
+}
+
 // sms: the device's multiprocessor count (only the weight-gradient entry,
 // wgt, uses it).
 ChanWork chan_work(char* base, size_t* bytes, int B, int N, int D, int CD, bool wgt, int sms) {
@@ -383,8 +395,7 @@ ChanWork chan_work(char* base, size_t* bytes, int B, int N, int D, int CD, bool 
   w.cp = cv.take<float>(rows * CD);
   w.dcp = cv.take<bf16>(rows * CD);
   if (wgt) {
-    // slabs of whole images, about enough for 4 blocks an SM
-    w.slab = bf16gemm::images_per_group(B, CD, D, sms) * N;
+    w.slab = slab_images(B, CD, D, sms) * N;
     w.slabs = bf16gemm::groups((long long)rows, w.slab, 1);
     w.c = cv.take<bf16>(rows * CD);
     w.pcol = cv.take<float>((size_t)col_groups((int)rows) * CD);
@@ -400,14 +411,14 @@ ChanWork chan_work(char* base, size_t* bytes, int B, int N, int D, int CD, bool 
 
 // hn = bf16(LN2(h)); cp = hn·Wc1ᵀ + bc1 (f32, and c = bf16(act(cp)) where
 // c is given); dcp = bf16((g·Wc2)·act'(cp)), with keep the f32 value in cp.
+// Both products on the wgmma core; g·Wc2 reads Wc2 (D, CD) N-major.
 cudaError_t chan_recompute(cudaStream_t s, const void* h, const void* g, const void* ln2w,
-                   const void* ln2b, const void* bc1, const void* wc1, const void* wc2,
-                   const ChanWork& w, int rows, int D, int CD, int keep) {
+                           const void* ln2b, const void* bc1, const void* wc1, const void* wc2,
+                           const ChanWork& w, int rows, int D, int CD, int keep) {
   BWD_CHECK(layer_norm(s, h, D, ln2w, ln2b, w.hn, rows, D));
-  BWD_CHECK(gemm<true>(s, 1, rows, CD, D, w.hn, D, 0, wc1, D, 0,
-                       BiasPreact(bc1, 0, w.cp, w.c, CD, 0)));
-  BWD_CHECK(gemm<false>(s, 1, rows, CD, D, g, D, 0, wc2, CD, 0,
-                        GeluGrad(w.cp, w.dcp, CD, 0, keep)));
+  BWD_CHECK(sm90::gemm_tn(s, rows, CD, D, w.hn, D, wc1, D, BiasPreact(bc1, 0, w.cp, w.c, CD, 0)));
+  BWD_CHECK((sm90::gemm_bf16<false, true>(s, 1, rows, CD, D, D, g, D, 0, wc2, CD, 0,
+                                          GeluGrad(w.cp, w.dcp, CD, 0, keep))));
   return cudaSuccess;
 }
 
@@ -525,20 +536,23 @@ extern "C" int mixer_chan_wgt_bwd_bf16(const void* h, const void* g, const void*
   JMT_CHECK(chan_recompute(s, h, g, ln2w, ln2b, bc1, wc1, wc2, w, rows, D, CD, 1));
   // dbc1 = column sums of the f32 dcp, before its bf16 cast
   JMT_CHECK(col_sum(s, w.cp, rows, CD, w.pcol, dbc1));
-  // dWc1 = dcpᵀ·hn and dWc2 = gᵀ·c over all rows, in slabs added in order
-  JMT_CHECK((gemm_sum<true, false>(s, rows, w.slab, 1, CD, D, w.dcp, CD, (long long)w.slab * CD,
-                                  w.hn, D, (long long)w.slab * D,
-                                  StoreF32(w.pc1, D, (long long)CD * D))));
+  // dWc1 = dcpᵀ·hn and dWc2 = gᵀ·c over all rows: both operands MN-major,
+  // one entry (f32 partial) a slab of rows, the partials added in order
+  const int last = rows - (w.slabs - 1) * w.slab;
+  JMT_CHECK((sm90::gemm_bf16<true, true>(s, w.slabs, CD, D, w.slab, last, w.dcp, CD,
+                                         (long long)w.slab * CD, w.hn, D, (long long)w.slab * D,
+                                         StoreF32(w.pc1, D, (long long)CD * D))));
   JMT_CHECK(sum_groups(s, w.pc1, w.slabs, (long long)CD * D, dwc1));
-  JMT_CHECK((gemm_sum<true, false>(s, rows, w.slab, 1, D, CD, g, D, (long long)w.slab * D, w.c,
-                                  CD, (long long)w.slab * CD,
-                                  StoreF32(w.pc2, CD, (long long)D * CD))));
+  JMT_CHECK((sm90::gemm_bf16<true, true>(s, w.slabs, D, CD, w.slab, last, g, D,
+                                         (long long)w.slab * D, w.c, CD, (long long)w.slab * CD,
+                                         StoreF32(w.pc2, CD, (long long)D * CD))));
   return (int)sum_groups(s, w.pc2, w.slabs, (long long)D * CD, dwc2);
 }
 
-// Channel products this library launched on route 0 (the wgmma core) or
-// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
-// route.
+// Products this library launched on route 0 (the wgmma core) or 1 (the
+// WMMA core), since it was loaded (gemm_sm90.cuh): the forward's two
+// channel products, the channel data backward's two recompute products and
+// the channel weight backward's four; -1 for another route.
 extern "C" long long mixer_bwd_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* mixer_bwd_error_string(int code) {

@@ -27,7 +27,10 @@ _CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
-ROUTES = ("sm90", "wmma")  # the GEMM cores of a channel product (csrc/gemm_sm90.cuh), in order
+# The GEMM cores a product may take (csrc/gemm_sm90.cuh's routes, in order):
+# bf16 on wgmma or WMMA, int8 on wgmma or mma.sync.
+ROUTES = ("sm90", "wmma", "sm90_s8", "mma_s8")
+BF16_ROUTES, S8_ROUTES = ROUTES[:2], ROUTES[2:]
 
 
 def _nvcc():
@@ -73,11 +76,12 @@ class Library:
     its number of int arguments. ``queries`` maps each entry that returns a
     long long (a count, or a constant of a kernel's design) to its number of
     int arguments; ``routes`` names the query that counts the library's
-    channel products per GEMM core (route 0 ``sm90``, 1 ``wmma``).
+    products per GEMM core (its argument the index of the route in
+    ``ROUTES``), and ``route_names`` the routes ``routes()`` reports.
     ``error`` names the entry that turns a code into its message."""
 
     def __init__(self, name, sources, functions, error, workspace=None, queries=None,
-                 routes=None):
+                 routes=None, route_names=BF16_ROUTES):
         self.name = name
         self.sources = sources
         self.functions = functions
@@ -87,6 +91,7 @@ class Library:
         if routes is not None:
             self.queries.setdefault(routes, 1)
         self.routes_fn = routes
+        self.route_names = tuple(route_names)
         self._lib = None
         self._lock = threading.Lock()  # first use may come from several threads
 
@@ -125,15 +130,16 @@ class Library:
         """The long long that query ``entry`` returns for these ints."""
         return getattr(self.load(), entry)(*ints)
 
-    def routes(self):
-        """{"sm90": n, "wmma": n}: the channel products this library has
-        launched on each GEMM core since it was loaded (zeros if it is not
-        loaded: it has launched nothing)."""
+    def routes(self, names=None):
+        """{route: n}: the products this library has launched on each GEMM
+        core of ``names`` (by default ``route_names``) since it was loaded
+        (zeros if it is not loaded: it has launched nothing)."""
         if self.routes_fn is None:
             raise ValueError(f"{self.name} keeps no count of GEMM routes")
+        names = self.route_names if names is None else tuple(names)
         if self._lib is None:
-            return dict.fromkeys(ROUTES, 0)
-        return {r: self.query(self.routes_fn, i) for i, r in enumerate(ROUTES)}
+            return dict.fromkeys(names, 0)
+        return {r: self.query(self.routes_fn, ROUTES.index(r)) for r in names}
 
     def launch(self, fn, device, tensors, ints):
         """Call entry ``fn`` with the tensors' device pointers, the ints and

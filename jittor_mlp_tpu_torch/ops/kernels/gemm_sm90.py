@@ -1,35 +1,53 @@
-"""One Mixer channel product on the Hopper GEMM core: the checking entry, its plain twin.
+"""The Hopper GEMM core alone: its checking entries and their plain twins.
 
 Kernel 1 (``mixer_block``) and the training forward (``mixer_block_bwd.fwd_with_h``)
 run both channel products of the block on ``csrc/gemm_sm90.cuh``: TMA loads
 into a 128-byte-swizzled shared-memory ring, ``wgmma`` from warp-specialized
 warpgroups (its header says what bounds it on an H100 and what the design
-does about that). The core replaces the channel half of
-``jittor_mlp_tpu/ops/pallas/mixer_block.py::fused_mixer_block``. This module
-launches one such product on its own (``csrc/gemm_sm90.cu``), so that
-``chip_smoke.py`` can hold the core against its plain version and time it
-against the WMMA core and the library. Nothing on the serving or training
-path calls it: it is an instrument, like ``tools/kernel_lab.py``.
+does about that). The channel weight backward (``chan_wgt_bwd``) runs its
+four products on the core's bf16 modes (MN-major operands, row slabs with
+one f32 partial each), the channel data backward its two recompute
+products, and the W8A8 gMLP block (``gmlp_block_int8``) its three products
+on the core's int8 form. This module launches one product on its own
+(``csrc/gemm_sm90.cu``), so that ``chip_smoke.py`` can hold each mode of the
+core against its plain version and time it against the core it replaced
+and the library. Nothing on the serving or training path calls it: it is an
+instrument, like ``tools/kernel_lab.py``.
 
-For a (M, K), b (N, K) (a torch Linear weight) and bias (N,):
+- ``gemm_tn(a, b, bias, act= | residual=)``: one Mixer channel product, for
+  a (M, K), b (N, K) (a torch Linear weight) and bias (N,)::
 
-    act="gelu_tanh":  out = bf16(gelu_tanh(a · bᵀ + bias))
-    residual=R:       out = bf16(R + (a · bᵀ + bias)),  R (M, N)
+      act="gelu_tanh":  out = bf16(gelu_tanh(a · bᵀ + bias))
+      residual=R:       out = bf16(R + (a · bᵀ + bias)),  R (M, N)
 
-with f32 sums, the rounding points of ``GeluBias`` and ``ResidualBias``
-(``csrc/gemm_bf16.cuh``), which kernel 1 uses for these products.
+  with f32 sums, the rounding points of ``GeluBias`` and ``ResidualBias``
+  (``csrc/gemm_bf16.cuh``), which kernel 1 uses for these products.
+- ``gemm_bf16(a, b, a_mn=, b_mn=, slab=)``: bf16 operands, a (M, K) or
+  with ``a_mn`` (K, M), b (N, K) or with ``b_mn`` (K, N); the f32 partial
+  products over K in row slabs of ``slab`` (all of K by default),
+  (partials, M, N).
+- ``gemm_s8(a, b, rs, cs)``: int8 a (M, K) and b (N, K), each shared or one
+  a batch entry (a leading dimension), f32 row scales rs and column scales
+  cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the W8A8 dequantization.
 
-- ``gemm_tn_ref``: plain PyTorch, the f32 product of the operands, then the
-  epilogue's arithmetic and one rounding to the operands' dtype. It also
-  takes ``act="gelu_erf"`` (the float32 block's activation), which the
-  kernel does not.
-- ``gemm_tn``: a CPU tensor goes to ``gemm_tn_ref``; a contiguous bf16 CUDA
-  tensor launches the kernel on the current stream, on ``core`` ``"auto"``
-  (the wgmma core where TMA can load both operands, else the WMMA core),
-  ``"sm90"`` (the wgmma core, or raise) or ``"wmma"``; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel;
-  ``routes()``: its products on each core; ``config()``: the core's tile,
-  ring stages and shared memory.
+Each has its plain twin: ``gemm_tn_ref`` (the f32 product of the operands,
+then the epilogue's arithmetic and one rounding to the operands' dtype; it
+also takes ``act="gelu_erf"``, the float32 block's activation, which the
+kernel does not), and from ``ops/products.py``, which the block twins
+share, ``gemm_bf16_ref`` with ``sum_slabs_ref`` (the partials added in slab
+order, as the backward adds them) and ``gemm_s8_ref`` (the exact integer
+product, then the scales in the kernel's order).
+
+- A CPU tensor goes to the twin; a contiguous CUDA tensor of the kernel's
+  dtype launches the kernel on the current stream, on ``core`` ``"auto"``
+  (the wgmma core where TMA can load both operands, else the core it
+  replaced; int8 always the wgmma core, which loads every operand the
+  mma.sync core took), ``"sm90"`` (the wgmma core, or raise) or
+  ``"legacy"`` (the core it replaced: WMMA for bf16, mma.sync for int8;
+  ``Core::Legacy`` in C); anything else raises.
+- ``LAUNCHES``: how many times the wrappers launched a kernel;
+  ``routes()``: the bf16 products on each core, ``s8_routes()`` the int8
+  ones; ``config()``: the core's tile, ring stages and shared memory.
 """
 
 from __future__ import annotations
@@ -39,15 +57,17 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
-from ._build import Library
+from ..products import bf16_dims, gemm_bf16_ref, gemm_s8_ref, slab_rows, sum_slabs_ref
+from ._build import S8_ROUTES, Library
 from .mixer_block import require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
-_LIB = Library("gemm_sm90", ["gemm_sm90.cu"], {"gemm_tn_bf16": (5, 5)},
+_LIB = Library("gemm_sm90", ["gemm_sm90.cu"],
+               {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 7), "gemm_s8_f32": (5, 9)},
                error="gemm_error_string", queries={"gemm_sm90_config": 1},
                routes="gemm_tn_products")
-CORES = {"auto": 0, "sm90": 1, "wmma": 2}
+CORES = {"auto": 0, "sm90": 1, "legacy": 2}
 _ACTS = {"gelu_tanh": gelu_tanh, "gelu_erf": gelu_erf}
 
 
@@ -57,8 +77,15 @@ def build():
 
 
 def routes():
-    """{"sm90": n, "wmma": n}: the products this entry launched on each core."""
+    """{"sm90": n, "wmma": n}: the bf16 products these entries launched on
+    each core."""
     return _LIB.routes()
+
+
+def s8_routes():
+    """{"sm90_s8": n, "mma_s8": n}: the int8 products these entries launched
+    on each core."""
+    return _LIB.routes(S8_ROUTES)
 
 
 def config():
@@ -110,10 +137,8 @@ def gemm_tn(a, b, bias, *, act=None, residual=None, core="auto"):
     contiguous, ``act`` "gelu_tanh" or a residual) on ``core``, launched on
     the current stream; it raises on anything it does not take and never
     falls back to the twin."""
-    global LAUNCHES
     M, N, K = _args(a, b, bias, act, residual)
-    if core not in CORES:
-        raise ValueError(f"core must be one of {sorted(CORES)}, got {core!r}")
+    _check_core(core)
     if a.device.type == "cpu":
         return gemm_tn_ref(a, b, bias, act=act, residual=residual)
     if a.device.type != "cuda":
@@ -125,6 +150,81 @@ def gemm_tn(a, b, bias, *, act=None, residual=None, core="auto"):
     r = out if residual is None else residual  # read only with a residual
     _LIB.launch("gemm_tn_bf16", a.device, (a, b, bias, r, out),
                 (M, N, K, 0 if residual is None else 1, CORES[core]))
+    _count()
+    return out
+
+
+def _count():
+    global LAUNCHES
     with _COUNT_LOCK:
         LAUNCHES += 1
+
+
+def _check_core(core):
+    if core not in CORES:
+        raise ValueError(f"core must be one of {sorted(CORES)}, got {core!r}")
+
+
+def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):
+    """The core's bf16 modes: f32 partial products (partials, M, N). CPU: the
+    plain twin. CUDA: the kernel (bf16, contiguous) on ``core``, launched on
+    the current stream; it raises on anything it does not take and never
+    falls back to the twin."""
+    M, N, K = bf16_dims(a, b, a_mn, b_mn, slab)
+    _check_core(core)
+    if a.device.type == "cpu":
+        return gemm_bf16_ref(a, b, a_mn=a_mn, b_mn=b_mn, slab=slab)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    require_bf16_contiguous((a, b))
+    nz, step = slab_rows(K, slab)
+    out = torch.empty((nz, M, N), dtype=torch.float32, device=a.device)
+    _LIB.launch("gemm_bf16_f32", a.device, (a, b, out),
+                (M, N, K, step, int(a_mn), int(b_mn), CORES[core]))
+    _count()
     return out
+
+
+def _s8_args(a, b, rs, cs):
+    """(entries, M, N, K, which of a, b, rs, cs have a batch dimension)."""
+    if a.dim() not in (2, 3) or b.dim() not in (2, 3):
+        raise ValueError(f"want a (M, K) or (Z, M, K), b (N, K) or (Z, N, K); got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}")
+    M, K = a.shape[-2:]
+    N, Kb = b.shape[-2:]
+    nz = max(a.shape[0] if a.dim() == 3 else 1, b.shape[0] if b.dim() == 3 else 1)
+    if Kb != K:
+        raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not share K")
+    batched = []
+    for name, t, want in (("a", a, (M, K)), ("b", b, (N, K)), ("rs", rs, (M,)), ("cs", cs, (N,))):
+        if tuple(t.shape) not in (want, (nz, *want)):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want} or {(nz, *want)}")
+        if t.device != a.device:
+            raise ValueError(f"{name} is on {t.device}, a on {a.device}")
+        batched.append(int(t.dim() > len(want)))
+    return nz, M, N, K, tuple(batched)
+
+
+def gemm_s8(a, b, rs, cs, *, core="auto"):
+    """The core's int8 form: (M, N) f32, or (Z, M, N) where an operand has a
+    batch dimension. CPU: the plain twin. CUDA: the kernel (int8 operands
+    with K a multiple of 32, f32 scales, contiguous) on ``core``, launched on
+    the current stream; it raises on anything it does not take and never
+    falls back to the twin."""
+    nz, M, N, K, batched = _s8_args(a, b, rs, cs)
+    _check_core(core)
+    if a.device.type == "cpu":
+        return gemm_s8_ref(a, b, rs, cs)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    for t, dt in ((a, torch.int8), (b, torch.int8), (rs, torch.float32), (cs, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous():
+            raise TypeError(f"the int8 kernel takes contiguous int8 operands and f32 scales, "
+                            f"got {t.dtype}")
+    if K % 32:
+        raise ValueError(f"K must be a multiple of 32 (zero-padded codes), got {K}")
+    out = torch.empty((nz, M, N), dtype=torch.float32, device=a.device)
+    _LIB.launch("gemm_s8_f32", a.device, (a, b, rs, cs, out),
+                (nz, M, N, K, *batched, CORES[core]))
+    _count()
+    return out if any(batched) else out[0]

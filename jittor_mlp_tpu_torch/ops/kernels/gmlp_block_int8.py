@@ -16,10 +16,14 @@ Nothing is rounded to x's dtype before the output:
     out = dt(x + (deq(q(u·v2)·qW2ᵀ) + b2))
 
 - ``gmlp_block_int8_ref``: plain PyTorch with the same quantization
-  arithmetic and multiplication order; its integer products are exact.
+  arithmetic and multiplication order, its three products the s8 core's
+  twin ``ops.products.gemm_s8_ref`` (exact integer products, then the row and
+  the column scale), as the kernel runs them on the s8 ``wgmma`` core.
 - ``fused_gmlp_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
+  the ``mma.sync`` core (``mma_s8``), three a launch.
 """
 
 from __future__ import annotations
@@ -29,8 +33,9 @@ import threading
 import torch
 
 from ...core.nnf import gelu_tanh
-from ...quant import exact_int_matmul, quant_act, quant_weight
-from ._build import Library
+from ...quant import quant_act, quant_weight
+from ..products import gemm_s8_ref
+from ._build import S8_ROUTES, Library
 from .gmlp_block import block_dims
 from .mixer_block import layer_norm_f32, require_bf16_contiguous
 from .mixer_block_int8 import weight_operands
@@ -38,7 +43,8 @@ from .mixer_block_int8 import weight_operands
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gmlp_block_int8", ["gmlp_block_int8.cu"], {"gmlp_block_int8": (16, 4)},
-               error="gmlp_int8_error_string", workspace={"gmlp_block_int8_workspace": 4})
+               error="gmlp_int8_error_string", workspace={"gmlp_block_int8_workspace": 4},
+               routes="gmlp_int8_gemm_products", route_names=S8_ROUTES)
 
 
 def gmlp_block_int8_ref(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
@@ -51,20 +57,26 @@ def gmlp_block_int8_ref(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     qwsp, swsp = quant_weight(wsp, 1)  # (N, N), scales (N, 1)
     qw2, sw2 = quant_weight(w2, 1)  # (D, F), scales (D, 1)
     qxn, sxn = quant_act(layer_norm_f32(x, ln1w, ln1b).reshape(B * N, D), 1)
-    y = gelu_tanh(exact_int_matmul(qxn, qw1.t()) * sxn * sw1.t() + b1.float())
+    y = gelu_tanh(gemm_s8_ref(qxn, qw1, sxn[:, 0], sw1[:, 0]) + b1.float())
     u, v = y[:, :F], y[:, F:]
-    # spatial product, per image; activation scales per column f
+    # spatial product, per image (qWsp shared); activation scales per column f
     qv, sv = quant_act(layer_norm_f32(v, sgu_w, sgu_b).reshape(B, N, F), 1)
-    v2 = exact_int_matmul(qwsp, qv) * swsp * sv + bs.float()[:, None]
+    v2 = gemm_s8_ref(qwsp, qv.transpose(1, 2), swsp[:, 0], sv[:, 0]) + bs.float()[:, None]
     g = u * v2.reshape(B * N, F)
     qg, sg = quant_act(g, 1)
-    h = exact_int_matmul(qg, qw2.t()) * sg * sw2.t() + b2.float()
+    h = gemm_s8_ref(qg, qw2, sg[:, 0], sw2[:, 0]) + b2.float()
     return (x.float().reshape(B * N, D) + h).reshape(B, N, D).to(dt)
 
 
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90_s8": n, "mma_s8": n}: the kernel's products so far on each
+    int8 GEMM core (csrc/gemm_sm90.cuh), three a launch."""
+    return _LIB.routes()
 
 
 def fused_gmlp_block_int8(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

@@ -26,10 +26,13 @@ dwc1 (CD, D), dwc2 (D, CD)).
   derivative, as the Pallas kernels do.
 - A CPU tensor runs the twin; a CUDA bf16 contiguous tensor launches the
   kernel; anything else raises.
-- ``LAUNCHES``: launches per wrapper, by name; ``routes()``: the forward's
-  channel products on each GEMM core.
+- ``LAUNCHES``: launches per wrapper, by name; ``routes()``: the products
+  on each bf16 GEMM core of the forward (two a launch), the channel data
+  backward (two) and the channel weight backward (four).
 - ``images_per_group``: how many images each f32 partial of a weight
   gradient sums on the card (set by the device's multiprocessor count).
+  ``chan_wgt_bwd_ref`` takes it as ``images_per_slab`` and adds its slab
+  partials in order, as the kernel does; by default one slab.
 - ``fused_mixer_block_train``: the kernel route's ``autograd.Function``,
   the JAX ``_train_fwd`` / ``_train_bwd``: ``fwd_with_h`` forward saving x
   and h; backward ``chan_data_bwd``, ``chan_wgt_bwd``, ``token_bwd``, with
@@ -46,6 +49,7 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
+from ..products import gemm_bf16_ref, sum_slabs_ref
 from ._build import Library
 from .mixer_block import block_dims, check_weights, mixer_block_ref, require_bf16_contiguous
 
@@ -144,14 +148,25 @@ def chan_data_bwd_ref(h, g, ln2w, ln2b, bc1, wc1, wc2):
     return dh, (dhn * xhat).sum((0, 1)), dhn.sum((0, 1))
 
 
-def chan_wgt_bwd_ref(h, g, ln2w, ln2b, bc1, wc1, wc2):
-    """Twin of ``chan_wgt_bwd`` (the Pallas ``_chan_wgt_kernel``)."""
+def chan_wgt_bwd_ref(h, g, ln2w, ln2b, bc1, wc1, wc2, images_per_slab=None):
+    """Twin of ``chan_wgt_bwd`` (the Pallas ``_chan_wgt_kernel``): dWc1 =
+    dcpᵀ·hn and dWc2 = gᵀ·c over the B·N rows, both operands MN-major, in
+    slabs of ``images_per_slab`` images (all by default) whose f32 partials
+    are added in order."""
     act, _ = _act(h.dtype)
     _, _, hn, cp, gf, dcp = _chan_recompute(h, g, ln2w, ln2b, bc1, wc1, wc2)
     c = act(cp).to(h.dtype).float()
     dbc1 = dcp.sum((0, 1))
     dcp = dcp.to(h.dtype).float()
-    return torch.einsum("bnc,bnd->cd", dcp, hn), torch.einsum("bnd,bnc->dc", gf, c), dbc1
+    B, N, D = h.shape
+    slab = (images_per_slab or B) * N
+
+    def rows(t):
+        return t.reshape(B * N, -1)
+
+    dwc1 = sum_slabs_ref(gemm_bf16_ref(rows(dcp), rows(hn), a_mn=True, b_mn=True, slab=slab))
+    dwc2 = sum_slabs_ref(gemm_bf16_ref(rows(gf), rows(c), a_mn=True, b_mn=True, slab=slab))
+    return dwc1, dwc2, dbc1
 
 
 def build():
@@ -160,8 +175,9 @@ def build():
 
 
 def routes():
-    """{"sm90": n, "wmma": n}: ``fwd_with_h``'s channel products so far on
-    each GEMM core (csrc/gemm_sm90.cuh), two a launch."""
+    """{"sm90": n, "wmma": n}: the products so far on each bf16 GEMM core
+    (csrc/gemm_sm90.cuh) of ``fwd_with_h`` (two a launch), ``chan_data_bwd``
+    (two) and ``chan_wgt_bwd`` (four)."""
     return _LIB.routes()
 
 

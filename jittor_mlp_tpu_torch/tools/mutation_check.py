@@ -1,8 +1,7 @@
 """Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
 for the Mixer training kernels, its gradient bands (6b), for the axial
 shift its AS-MLP-T gradient bands (6g), against deliberately broken copies
-of the kernels (the kernel lab's and the channel products' GEMM core among
-them).
+of the kernels (the kernel lab's and the GEMM core's modes among them).
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
@@ -69,12 +68,29 @@ MUTANTS = {
     # the wgmma core (gemm_sm90.cuh): the K-step count is shared by the
     # producer and the consumers, so a step fewer drops a step's product
     # instead of leaving the consumers waiting for a load that never comes
-    "M14 the wgmma core loads and multiplies K / BK steps, not ceil: a ragged K tail is dropped": (
-        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
-        "const int ktiles = (K + BK - 1) / BK;", "const int ktiles = K / BK;"),
+    "M14 the wgmma core loads and multiplies K / step steps, not ceil: a ragged K tail is dropped": (
+        "gemm_tn,fused_mixer_block,gemm_core", "csrc/gemm_sm90.cuh",
+        "return (kz + step - 1) / step;", "return kz / step;"),
     "M15 the wgmma core's second and third consumer warpgroups write the first one's rows": (
-        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
-        "const int mrow = m0 + c * 64 + warp * 16;", "const int mrow = m0 + warp * 16;"),
+        "gemm_tn,fused_mixer_block,gemm_core", "csrc/gemm_sm90.cuh",
+        "const int mrow = p.m0 + c * 64 + warp * 16;", "const int mrow = p.m0 + warp * 16;"),
+    # the core's modes of this round: MN-major operands, the batch axis (row
+    # slabs of a sum, images of the gMLP token product), the s8 epilogue
+    "M16 the transpose bit of an MN-major B is dropped: wgmma reads its tile as K-major": (
+        "gemm_core,chan_wgt_bwd,chan_data_bwd", "csrc/gemm_sm90.cuh",
+        '"n"(TB ? 1 : 0));', '"n"(0));'),
+    "M17 every entry of a batched operand loads the last entry's matrix (no 3-D map)": (
+        "gemm_core,chan_wgt_bwd,fused_gmlp_block_int8", "csrc/gemm_sm90.cuh",
+        "const bool la = !a_batched || p.z == nz - 1, lb = !b_batched || p.z == nz - 1;",
+        "const bool la = true, lb = true;"),
+    "M18 dWc1 is summed without its last slab's partial": (
+        "chan_wgt_bwd", "csrc/mixer_block_bwd.cu",
+        "JMT_CHECK(sum_groups(s, w.pc1, w.slabs, (long long)CD * D, dwc1));",
+        "JMT_CHECK(sum_groups(s, w.pc1, w.slabs - 1, (long long)CD * D, dwc1));"),
+    "M19 the s8 epilogue scales eight columns by the first one's column scale": (
+        "gemm_core,fused_gmlp_block_int8", "csrc/gemm_sm90.cuh",
+        "v[e] = __fmul_rn(__fmul_rn(acc[e], rs), cs[e]);",
+        "v[e] = __fmul_rn(__fmul_rn(acc[e], rs), cs[0]);"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
@@ -92,6 +108,8 @@ if set(names) & set(cs.LAB_KERNELS):
     cs.phase_lab(mods["kernel_lab"], names)
 if "gemm_tn" in names:
     cs.phase_gemm(mods["gemm_sm90"])
+if "gemm_core" in names:
+    cs.phase_core(mods["gemm_sm90"])
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
 if "bands" in sys.argv[2].split(","):

@@ -117,7 +117,7 @@ def _gemm_inputs(M=9, N=16, K=24, dtype=torch.bfloat16, seed=0):
     return [torch.from_numpy(v.astype(np.float32)).to(dtype) for v in (a, b, bias, res)]
 
 
-@pytest.mark.parametrize("core", ["auto", "sm90", "wmma"])
+@pytest.mark.parametrize("core", ["auto", "sm90", "legacy"])
 @pytest.mark.parametrize("epilogue", ["gelu_tanh", "residual"])
 def test_cpu_wrapper_runs_twin_without_launch(epilogue, core):
     a, b, bias, res = _gemm_inputs(seed=1)
@@ -175,4 +175,135 @@ def test_wrapper_rejects_bad_inputs(case):
         a, b, bias = (v.to("meta") for v in (a, b, bias))
     with pytest.raises(err):
         tg.gemm_tn(a, b, bias, **kw)
+    assert tg.LAUNCHES == 0
+
+
+# ---- the core's bf16 modes and int8 form: plain twins ------------------------
+
+
+def _bf16_pair(M, N, K, seed=0, dtype=torch.bfloat16):
+    r = np.random.default_rng(seed)
+    a = torch.from_numpy(r.standard_normal((M, K)).astype(np.float32)).to(dtype)
+    b = torch.from_numpy((r.standard_normal((N, K)) * K ** -0.5).astype(np.float32)).to(dtype)
+    return a, b
+
+
+@pytest.mark.parametrize("a_mn", [False, True], ids=["a_k", "a_mn"])
+@pytest.mark.parametrize("b_mn", [False, True], ids=["b_k", "b_mn"])
+def test_bf16_ref_reads_mn_major_operands_as_their_transposes(a_mn, b_mn):
+    """An MN-major operand is the K-major one transposed: the same product,
+    bit for bit, and within f32 rounding of the float64 product."""
+    a, b = _bf16_pair(37, 52, 45, seed=3)
+    ga = a.t().contiguous() if a_mn else a
+    gb = b.t().contiguous() if b_mn else b
+    got = tg.gemm_bf16_ref(ga, gb, a_mn=a_mn, b_mn=b_mn)
+    assert got.dtype == torch.float32 and got.shape == (1, 37, 52)
+    assert torch.equal(got, tg.gemm_bf16_ref(a, b))
+    exact = a.double() @ b.double().t()
+    assert (got[0].double() - exact).abs().max() <= 1e-5 * max(1.0, exact.abs().max().item())
+
+
+@pytest.mark.parametrize("K,slab", [(165, 66), (132, 66), (40, 64)], ids=["short_last", "even", "one"])
+def test_bf16_ref_slab_partials_add_in_order(K, slab):
+    """Row slabs of K: one f32 partial each (the last may be shorter), each
+    the product over its rows; sum_slabs_ref adds them in slab order, and
+    the sum is the whole product within f32 rounding."""
+    a, b = _bf16_pair(24, 40, K, seed=K)
+    at, bt = a.t().contiguous(), b.t().contiguous()  # (K, M), (K, N): MN-major
+    parts = tg.gemm_bf16_ref(at, bt, a_mn=True, b_mn=True, slab=slab)
+    n = -(-K // slab)
+    assert parts.shape == (n, 24, 40)
+    for z in range(n):
+        rows = slice(z * slab, min(K, (z + 1) * slab))
+        assert torch.equal(parts[z], at[rows].float().t() @ bt[rows].float())
+    want = parts[0]
+    for z in range(1, n):
+        want = want + parts[z]
+    assert torch.equal(tg.sum_slabs_ref(parts), want)
+    full = a.double() @ b.double().t()
+    assert (tg.sum_slabs_ref(parts).double() - full).abs().max() <= 1e-5 * full.abs().max()
+
+
+def _s8_operands(nz, M, N, K, a_batched, b_batched, seed=0):
+    r = np.random.default_rng(seed)
+
+    def codes(*s):
+        return torch.from_numpy(r.integers(-127, 128, s).astype(np.int8))
+
+    def scales(*s):
+        return torch.from_numpy((r.random(s) * 2e-3 + 1e-4).astype(np.float32))
+
+    a = codes(nz, M, K) if a_batched else codes(M, K)
+    b = codes(nz, N, K) if b_batched else codes(N, K)
+    return a, b, scales(nz, M) if a_batched else scales(M), scales(nz, N) if b_batched else scales(N)
+
+
+@pytest.mark.parametrize("case", [(1, 9, 16, 64, False, False), (3, 7, 40, 32, False, True),
+                                  (2, 5, 24, 1536, True, True)],
+                         ids=["one", "shared_a", "batched_k1536"])
+def test_s8_ref_scales_the_exact_product_by_row_then_column(case):
+    """gemm_s8_ref: the exact integer product rounded once to f32, times the
+    row scale, then times the column scale, each rounded in f32 (the
+    kernel's __fmul_rn order), per entry with shared operands broadcast."""
+    nz, M, N, K, ab, bb = case
+    a, b, rs, cs = _s8_operands(*case, seed=sum(case[:4]))
+    got = tg.gemm_s8_ref(a, b, rs, cs)
+    assert got.dtype == torch.float32 and got.shape == ((nz, M, N) if ab or bb else (M, N))
+    A = a.numpy().astype(np.int64) if ab else np.broadcast_to(a.numpy(), (nz, M, K)).astype(np.int64)
+    B = b.numpy().astype(np.int64) if bb else np.broadcast_to(b.numpy(), (nz, N, K)).astype(np.int64)
+    R = rs.numpy() if ab else np.broadcast_to(rs.numpy(), (nz, M))
+    C = cs.numpy() if bb else np.broadcast_to(cs.numpy(), (nz, N))
+    acc = (A @ B.transpose(0, 2, 1)).astype(np.float32)
+    want = (acc * R[:, :, None]).astype(np.float32) * C[:, None, :]
+    want = want if ab or bb else want[0]
+    assert np.array_equal(got.numpy(), want.astype(np.float32))
+
+
+def test_cpu_core_wrappers_run_twins_without_launch():
+    a, b = _bf16_pair(10, 16, 24, seed=5)
+    got = tg.gemm_bf16(a.t().contiguous(), b.t().contiguous(), a_mn=True, b_mn=True, slab=10)
+    assert torch.equal(got, tg.gemm_bf16_ref(a.t().contiguous(), b.t().contiguous(),
+                                             a_mn=True, b_mn=True, slab=10))
+    q = _s8_operands(2, 6, 8, 32, False, True, seed=6)
+    assert torch.equal(tg.gemm_s8(*q), tg.gemm_s8_ref(*q))
+    assert tg.LAUNCHES == 0
+    assert not tg._LIB.loaded
+    assert tg.s8_routes() == {"sm90_s8": 0, "mma_s8": 0}  # read without loading the library
+
+
+@pytest.mark.parametrize("case", ["k_mismatch", "slab_k_major", "slab_zero", "bf16_dtype_mix",
+                                  "bf16_one_dim", "bf16_core", "s8_k_mismatch", "s8_scale_shape",
+                                  "s8_batch", "s8_core", "s8_device"])
+def test_core_wrappers_reject_bad_inputs(case):
+    a, b = _bf16_pair(8, 16, 24)
+    q = list(_s8_operands(2, 6, 8, 32, False, True))
+    err = ValueError
+    if case.startswith("s8"):
+        if case == "s8_k_mismatch":
+            q[1] = q[1][..., :-1]
+        elif case == "s8_scale_shape":
+            q[2] = q[2][:-1]
+        elif case == "s8_batch":  # 2 entries of b, 3 of cs
+            q[3] = torch.ones((3, 8))
+        elif case == "s8_device":
+            q = [t.to("meta") for t in q]
+        with pytest.raises(err):
+            tg.gemm_s8(*q, core="cublas" if case == "s8_core" else "auto")
+    else:
+        kw = {}
+        if case == "k_mismatch":
+            b = b[:, :-1]
+        elif case == "slab_k_major":
+            kw = {"a_mn": False, "b_mn": False, "slab": 8}
+        elif case == "slab_zero":
+            a, b, kw = a.t().contiguous(), b.t().contiguous(), {"a_mn": True, "b_mn": True,
+                                                                "slab": 0}
+        elif case == "bf16_dtype_mix":
+            b, err = b.float(), TypeError
+        elif case == "bf16_one_dim":
+            a = a[0]
+        elif case == "bf16_core":
+            kw = {"core": "cublas"}
+        with pytest.raises(err):
+            tg.gemm_bf16(a, b, **kw)
     assert tg.LAUNCHES == 0

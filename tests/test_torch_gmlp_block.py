@@ -143,3 +143,40 @@ def test_wrapper_rejects_bad_inputs(fn):
         fn(torch.zeros(x.shape, dtype=torch.int32), *tw)
     with pytest.raises(ValueError):  # weights on another device than x
         fn(_torch(x, torch.float32).to("meta"), *tw)
+
+
+def _int8_block_by_whole_products(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """The W8A8 block written with whole exact integer products and the
+    scales applied as (acc · row scale) · column scale, per image for the
+    token product: the formulation the twin had before it was built from the
+    s8 core's twin."""
+    from jittor_mlp_tpu_torch.ops.kernels.mixer_block import layer_norm_f32
+    from jittor_mlp_tpu_torch.quant import exact_int_matmul, quant_act, quant_weight
+    from jittor_mlp_tpu_torch.core.nnf import gelu_tanh
+    B, N, D = x.shape
+    F = w1.shape[0] // 2
+    qw1, sw1 = quant_weight(w1, 1)
+    qwsp, swsp = quant_weight(wsp, 1)
+    qw2, sw2 = quant_weight(w2, 1)
+    qxn, sxn = quant_act(layer_norm_f32(x, ln1w, ln1b).reshape(B * N, D), 1)
+    y = gelu_tanh(exact_int_matmul(qxn, qw1.t()) * sxn * sw1.t() + b1.float())
+    u, v = y[:, :F], y[:, F:]
+    qv, sv = quant_act(layer_norm_f32(v, sgu_w, sgu_b).reshape(B, N, F), 1)
+    v2 = torch.stack([exact_int_matmul(qwsp, qv[i]) * swsp * sv[i] for i in range(B)])
+    g = u * (v2 + bs.float()[:, None]).reshape(B * N, F)
+    qg, sg = quant_act(g, 1)
+    h = exact_int_matmul(qg, qw2.t()) * sg * sw2.t() + b2.float()
+    return (x.float().reshape(B * N, D) + h).reshape(B, N, D).to(x.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_int8_ref_built_from_the_s8_core_twin_keeps_its_rounding(shape, dtype):
+    """gmlp_block_int8_ref runs its three products through gemm_s8_ref (the
+    token product batched per image with qWsp shared, as the kernel runs it
+    on the s8 wgmma core): bit for bit the block written with whole
+    products, so every rounding point stayed where it was."""
+    x, weights = _inputs(*SHAPES[shape], seed=5)
+    tdt = getattr(torch, dtype)
+    args = [_torch(a, tdt) for a in (x, *weights)]
+    assert torch.equal(tgq.gmlp_block_int8_ref(*args), _int8_block_by_whole_products(*args))

@@ -61,7 +61,7 @@ def _kind(decl):
 
 def test_every_library_is_found():
     assert {"mixer_block", "mixer_block_bwd", "gemm_sm90", "lab_ablate", "lab_tokmajor",
-            "lab_wide", "axial_shift"} <= set(LIBRARIES)
+            "lab_wide", "axial_shift", "gmlp_block_int8"} <= set(LIBRARIES)
 
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))
@@ -102,9 +102,14 @@ def test_size_and_count_queries_match_their_c_parameters(name):
 
 
 def test_channel_product_libraries_count_their_routes():
-    # every library whose sources run gemm_sm90.cuh's gemm_tn names its count
+    # every library whose sources run gemm_sm90.cuh's products (gemm_tn,
+    # gemm_bf16, gemm_s8) names its count, of the routes of its operands' type
     for lib in LIBRARIES.values():
         text = "".join(open(os.path.join(CSRC, s)).read() for s in lib.sources)
-        uses = "gemm_tn(" in text or '#include "mixer_forward.cuh"' in text or \
-            '#include "lab_block.cuh"' in text
+        s8 = "gemm_s8(" in text
+        uses = s8 or "gemm_tn(" in text or "gemm_bf16<" in text or \
+            '#include "mixer_forward.cuh"' in text or '#include "lab_block.cuh"' in text
         assert (lib.routes_fn is not None) == uses, lib.name
+        if uses and lib.name != "gemm_sm90":  # the checking library runs both types
+            want = _build.S8_ROUTES if s8 else _build.BF16_ROUTES
+            assert lib.route_names == want, (lib.name, lib.route_names)

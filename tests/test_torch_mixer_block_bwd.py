@@ -170,3 +170,28 @@ def test_wrappers_reject_bad_inputs():
         tbwd.chan_data_bwd(tx.int(), tg, ln2w, ln2b, bc1, wc1, wc2)
     with pytest.raises(ValueError):  # no kernel for the meta device
         tbwd.fwd_with_h(tx.to("meta"), *(a.to("meta") for a in tw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chan_wgt_twin_in_slabs_matches_pallas_kernel(dtype):
+    """chan_wgt_bwd_ref sums dWc1 = dcpᵀ·hn and dWc2 = gᵀ·c in row slabs of
+    whole images (the MN-major slab twin, gemm_bf16_ref, its partials added
+    in order by sum_slabs_ref), as the kernel does on the card: at B = 5
+    with 2 images a slab (slabs of 2, 2 and a short last 1) it matches the
+    Pallas _chan_wgt_bwd within the tolerances above."""
+    x, weights, g = _inputs(5, 20, 32, 24, 64, seed=7)
+    args = _call_args("chan_wgt_bwd", x, weights, g)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jconfig.parity_mode():
+        want = _interpret(jbwd._chan_wgt_bwd, *(jnp.asarray(a, jdt) for a in args), bt=1)
+    targs = [torch.from_numpy(a).to(tdt) for a in args]
+    got = tbwd.chan_wgt_bwd_ref(*targs, images_per_slab=2)
+    whole = tbwd.chan_wgt_bwd_ref(*targs)
+    for i, (a, b, c) in enumerate(zip(got, want, whole)):
+        b = np.asarray(jnp.asarray(b).astype(jnp.float32))
+        assert a.dtype == torch.float32 and tuple(a.shape) == b.shape, i
+        err = np.abs(a.numpy() - b).max()
+        assert err <= TOL[dtype] * max(1.0, np.abs(b).max()), (i, err)
+        # the slab cut changes only the f32 order of the sum
+        assert (a - c).abs().max().item() <= 1e-5 * max(1.0, c.abs().max().item()), i
+    assert torch.equal(got[2], whole[2])  # dbc1 is not cut in slabs
