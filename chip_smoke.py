@@ -38,16 +38,24 @@ Phases (each one fails loudly; there is no CPU fallback):
      channel products at B=8 and three ragged (M, N, K), each counted on the
      wgmma core, the first two also on the WMMA core, and a K % 8 != 0 shape
      counted on the WMMA route (the wgmma core refuses it), within the same
-     band, two calls bit-equal. Its new modes alone: gemm_bf16 (MN-major A
-     and/or B, row slabs with one f32 partial each) at Mixer-B/16's four
+     band, two calls bit-equal. Its other modes alone: gemm_bf16 (MN-major
+     A and/or B, row slabs with one f32 partial each) at Mixer-B/16's four
      channel backward products at B=8 and ragged ones (a short last slab),
      on the wgmma core and the WMMA core, and rows 72 bytes apart on the
-     WMMA route; gemm_s8 (int8 with row and column scales, entries batched
-     or shared) at gMLP-S's three products at B=8 and b256 and ragged ones,
-     on the s8 wgmma core and mma.sync, bit-equal to its twin. Kernel 1, the training forward and the two
-     channel backwards also run at D=36, where their bf16 products take the
-     WMMA route; at every shape the route counts of those kernels and of
-     the W8A8 gMLP block (three s8 wgmma products a call) are checked;
+     WMMA route; gemm_bf16 with batch entries at the bf16 gMLP block's
+     three products at B=8 and b256 (Wsp shared in rows of 200, vn an
+     N-major entry an image) and a ragged token product, on both cores;
+     gemm_s8 (int8 with row and column scales, entries batched or shared)
+     at gMLP-S's three products and the W8A8 Mixer-B/16 block's four at B=8
+     and b256 and ragged ones, the Mixer's second channel product in the
+     chunked mode (4 chunks of 768 codes; and 4 of 544, ending inside a
+     128-code K step; one chunk; batched 32-code chunks), on the s8 wgmma
+     core and mma.sync, bit-equal to its twin. Kernel 1, the training
+     forward and the two channel backwards also run at D=36, the bf16 gMLP
+     block at D=36 and at D=44, F=100, where their bf16 products (some or
+     all) take the WMMA route; at every shape the route counts of those
+     kernels and of the W8A8 gMLP and Mixer blocks (three and four s8
+     wgmma products a call) are checked;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -60,9 +68,11 @@ Phases (each one fails loudly; there is no CPU fallback):
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
      per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
      bf16 forward runs 2 x depth channel products on the wgmma core and
-     none on the WMMA core (so do the bf16 forwards of phase 4), and a
-     gMLP-S int8 forward 3 x depth products on the s8 wgmma core and none
-     on mma.sync (so does the int8 gMLP-S serving run of phase 4);
+     none on the WMMA core, a Mixer-B/16 int8 forward 4 x depth products on
+     the s8 wgmma core and none on mma.sync, a gMLP-S bf16 forward 3 x
+     depth on the wgmma core and none on WMMA, and a gMLP-S int8 forward
+     3 x depth on the s8 wgmma core and none on mma.sync (so do the serving
+     runs of phase 4, each block library's products checked at every run);
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
@@ -76,11 +86,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      weights="int8" Predictor agrees with the bf16 one;
   5. CUDA-event timings at b256: each kernel vs its twin (the shift at
      AS-MLP-T's stage-1 shape, both axes; the W8A8 gMLP block beside the
-     bytes of its f32 intermediates); the GEMM core at the two channel
-     products, on each core and against cuBLAS's torch.matmul; its new modes
-     at gMLP-S's three int8 products (against mma.sync and torch._int_mm)
-     and Mixer-B/16's four channel backward products (against WMMA and
-     torch.matmul); the forwards
+     bytes of its f32 intermediates, the W8A8 Mixer and bf16 gMLP blocks
+     beside the bytes of their data flows); the GEMM core at the two
+     channel products, on each core and against cuBLAS's torch.matmul; its
+     other modes at gMLP-S's three int8 products and the W8A8 Mixer
+     block's four (against mma.sync and torch._int_mm), gMLP-S's three bf16
+     products and Mixer-B/16's four channel backward products (against
+     WMMA and torch.matmul); the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
      bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
@@ -95,9 +107,12 @@ Phases (each one fails loudly; there is no CPU fallback):
      and on: the loss descends, and remat gives the same losses; (d) the
      launches per step, depth × (1, or 2 for a forward kernel under
      remat), and the products of the block forwards and the channel
-     backwards (2, 2 and 4 a block), all on the wgmma core; (e) one ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients
-     against their plain bf16 paths (≤ 3e-2, as (a)); (f) train img/s at
-     b128 on each path, in turns; AS-MLP-T: (g) b32 gradients of the kernel
+     backwards (2, 2 and 4 a block), all on the wgmma core; (e) one
+     ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients against their
+     plain bf16 paths (≤ 3e-2, as (a)), the gMLP-S forward's 3 x depth
+     products on the wgmma core; (f) Mixer-B/16 train img/s at b128 on each
+     route and the plain path, and gMLP-S's on its kernel and plain paths,
+     in turns; AS-MLP-T: (g) b32 gradients of the kernel
      path against the plain bf16 path (≤ 3e-2) and both against float32
      (global relative L2), 48 shift launches a step; (h) 10 AdamW steps at
      b128 with drop_path_rate 0.1 and a seeded generator, remat off and on:
@@ -310,9 +325,9 @@ GROUPED = {"token_bwd": 3, "chan_wgt_bwd": 4}
 # kernels whose products run on gemm_sm90.cuh's core, and the routes of one
 # call's products at (B, N, D, TD, CD) or (B, N, D, F): a bf16 product takes
 # the wgmma core where TMA can load both operands (rows a multiple of 16
-# bytes apart: D and CD multiples of 8), else the WMMA core; the W8A8 gMLP
-# block's three products take the s8 wgmma core (its operands are padded to
-# 32 codes), none mma.sync.
+# bytes apart: D and CD, or D and F, multiples of 8), else the WMMA core;
+# the W8A8 blocks' products take the s8 wgmma core (their operands are
+# padded to 32 codes), none mma.sync.
 
 
 def _bf16_routes(*on_sm90):
@@ -327,13 +342,23 @@ ROUTED = {
     "chan_data_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == s[4] % 8 == 0),
     # the two recompute products, then dcpᵀ·hn and gᵀ·c (rows CD and D apart)
     "chan_wgt_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, *[s[2] % 8 == s[4] % 8 == 0] * 3),
+    # xn·W1ᵀ (rows D apart), Wsp·vn (vn rows F apart), g·W2ᵀ (rows F apart)
+    "fused_gmlp_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[3] % 8 == 0, s[3] % 8 == 0),
     "fused_gmlp_block_int8": lambda s: {"sm90_s8": 3, "mma_s8": 0},
+    # the two token products, the two channel products (the second chunked)
+    "fused_mixer_block_int8": lambda s: {"sm90_s8": 4, "mma_s8": 0},
 }
-# products on the s8 wgmma core per W8A8 gMLP block, and on the bf16 wgmma
-# core per Mixer-B/16 block of a kernel-route step: the forward's two, the
-# channel data backward's two and the channel weight backward's four
-GMLP_INT8_PRODUCTS = 3
+# products on the GEMM cores per block of each routed forward kernel at the
+# models' widths (every operand one TMA can load), by library: (route,
+# products a launch); and on the bf16 wgmma core per Mixer-B/16 block of a
+# kernel-route step: the forward's two, the channel data backward's two and
+# the channel weight backward's four
+BLOCK_PRODUCTS = {"mixer_block": ("sm90", 2), "mixer_block_int8": ("sm90_s8", 4),
+                  "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3)}
 BWD_PRODUCTS = {"fwd_with_h": 2, "chan_data_bwd": 2, "chan_wgt_bwd": 4}
+# the kernels line's rows of a block library's products on the core
+PRODUCT_ROWS = {"mixer_block_int8": "gemm_s8_mixer_sm90", "gmlp_block": "gemm_bf16_gmlp_sm90",
+                "gmlp_block_int8": "gemm_s8_sm90"}
 # The GEMM core's phase-2 shapes (M, N, K): Mixer-B/16's two channel
 # products at B = 8, then ragged M, N and K (one row; K = 40 and 136 end
 # in a part of a 64-wide K step; N = 72 and 200 in a part of a 256-wide
@@ -354,6 +379,10 @@ def kernel_table(mods):
     fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     gmlp_shapes = [(8, 196, 256, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
+    # the bf16 gMLP block also at D = 36 (GEMM1's rows 72 bytes apart: the
+    # WMMA route, the other two on wgmma) and D = 44, F = 100 (all three on
+    # WMMA) (ROUTED)
+    gmlp_bf16_shapes = gmlp_shapes + [(3, 20, 36, 72), (2, 13, 44, 100)]
     # the W8A8 gMLP block's token product is one launch over the images (a
     # 3-D tensor map for all but the last, a 2-D one for the last), so it is
     # also held at the batches the path runs it at: b128 and b131
@@ -375,7 +404,7 @@ def kernel_table(mods):
             "resmlp_block_int8.cu", "resmlp_block_int8.py:69", RES_DEPTH),
         "fused_gmlp_block": (
             mods["gmlp_block"], "fused_gmlp_block", "gmlp_block_ref", gmlp_inputs,
-            gmlp_shapes, "gmlp_block.cu", "gmlp_block.py:57", GMLP_DEPTH),
+            gmlp_bf16_shapes, "gmlp_block.cu", "gmlp_block.py:57", GMLP_DEPTH),
         "fused_gmlp_block_int8": (
             mods["gmlp_block_int8"], "fused_gmlp_block_int8", "gmlp_block_int8_ref",
             gmlp_inputs, gmlp_int8_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
@@ -474,22 +503,52 @@ CORE_BF16 = [(1568, 3072, 768, False, False, None), (1568, 3072, 768, False, Tru
              (200, 72, 136, True, False, None), (200, 136, 165, True, True, 66),
              (40, 200, 136, True, True, None)]
 CORE_BF16_WMMA = (36, 50, 100, True, True, 40)
+# The bf16 gMLP block's three products alone (gemm_bf16 with batch
+# entries) at gMLP-S's B = 8, as (entries, M, N, K, A's row length, b_mn):
+# GEMM1 (B·N rows, 2F, D), the token product per image (Wsp shared, in rows
+# of Np = 200 read as its first N = 196 columns; vn an N-major entry an
+# image) and GEMM2 (B·N, D = 256 against the 192 tile, F); then a ragged
+# token product (N = 20 in rows of 24, F = 72).
+GMLP_BF16 = [(1, 1568, 3072, 256, 256, False), (8, 196, 1536, 196, 200, True),
+             (1, 1568, 256, 1536, 1536, False), (3, 20, 72, 20, 24, True)]
+GMLP_BF16_TIMED = [(1, 256 * 196, 3072, 256, 256, False), (256, 196, 1536, 196, 200, True),
+                   (1, 256 * 196, 256, 1536, 1536, False)]
 # The core's int8 form alone (gemm_s8) at gMLP-S's three products at B = 8:
-# (entries, M, N, K, a batched, b batched): GEMM1 (B·N rows, 2F, Dp), the
-# token product per image (qWsp shared, qv an entry an image: N, F, Np) and
-# GEMM2 (B·N, D = 256 against a 192-wide tile, Fp); then ragged ones.
-CORE_S8 = [(1, 1568, 3072, 256, False, False), (8, 196, 1536, 224, False, True),
-           (1, 1568, 256, 1536, False, False), (1, 97, 72, 64, False, False),
-           (3, 20, 200, 32, True, True), (1, 1, 3072, 288, False, False)]
-# b256's products for phase 5: gMLP-S's three (int8) and Mixer-B/16's four
+# (entries, M, N, K, a batched, b batched, chunk): GEMM1 (B·N rows, 2F, Dp),
+# the token product per image (qWsp shared, qv an entry an image: N, F,
+# Np) and GEMM2 (B·N, D = 256 against a 192-wide tile, Fp); then ragged
+# ones.
+CORE_S8 = [(1, 1568, 3072, 256, False, False, None), (8, 196, 1536, 224, False, True, None),
+           (1, 1568, 256, 1536, False, False, None), (1, 97, 72, 64, False, False, None),
+           (3, 20, 200, 32, True, True, None), (1, 1, 3072, 288, False, False, None)]
+# The W8A8 Mixer block's four products alone at Mixer-B/16's B = 8: the two
+# token products per image (the weight shared, the codes an entry an image:
+# TD × D over Np, N × D over TDp), the first channel product (B·N, CD, Dp)
+# and the second in the chunked mode (B·N, D, 4 chunks of 768 codes); then
+# the chunked mode at the ragged chunk of phase 2's (2, 33, 136, 50, 2056)
+# block (4 chunks of ck 514 padded to 544 codes, each ending inside a
+# 128-code K step; M and N ragged against the 192×96 tile), at one chunk,
+# and with batched entries and 32-code chunks.
+MIXER_S8 = [(8, 384, 768, 224, False, True, None), (8, 196, 768, 384, False, True, None),
+            (1, 1568, 3072, 768, False, False, None), (1, 1568, 768, 3072, False, False, 768),
+            (1, 66, 136, 2176, False, False, 544), (1, 97, 40, 96, False, False, 96),
+            (3, 20, 100, 128, True, True, 32)]
+# b256's products for phase 5 (and phase 2): gMLP-S's three (int8), the W8A8
+# Mixer-B/16 block's four, gMLP-S's three bf16 ones and Mixer-B/16's four
 # channel backward ones (bf16; slabs of 128 images, as on an H100)
-CORE_S8_TIMED = [(1, 256 * 196, 3072, 256, False, False), (256, 196, 1536, 224, False, True),
-                 (1, 256 * 196, 256, 1536, False, False)]
+CORE_S8_TIMED = [(1, 256 * 196, 3072, 256, False, False, None),
+                 (256, 196, 1536, 224, False, True, None),
+                 (1, 256 * 196, 256, 1536, False, False, None)]
+MIXER_S8_TIMED = [(256, 384, 768, 224, False, True, None), (256, 196, 768, 384, False, True, None),
+                  (1, 256 * 196, 3072, 768, False, False, None),
+                  (1, 256 * 196, 768, 3072, False, False, 768)]
 CORE_BF16_TIMED = [(256 * 196, 3072, 768, False, False, None),
                    (256 * 196, 3072, 768, False, True, None),
                    (3072, 768, 256 * 196, True, True, 128 * 196),
                    (768, 3072, 256 * 196, True, True, 128 * 196)]
 S8_REPLACES = PALLAS + "gmlp_block_int8.py:61 (the products of fused_gmlp_block_int8)"
+MIXER_S8_REPLACES = PALLAS + "mixer_block_int8.py:121 (the products of fused_mixer_block_int8)"
+GMLP_BF16_REPLACES = PALLAS + "gmlp_block.py:57 (the products of fused_gmlp_block)"
 BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :306, "
                 "the recompute products of _chan_data_bwd)")
 
@@ -503,9 +562,21 @@ def bf16_core_inputs(M, N, K, a_mn, b_mn, seed):
     return a, b
 
 
-def s8_core_inputs(nz, M, N, K, a_batched, b_batched, seed):
+def gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed):
+    """bf16 operands of one of the bf16 gMLP block's products: a (M, K), a
+    view of rows lda long (the columns past K random: the kernel must not
+    read them), shared; b (N, K), or with b_mn (nz, K, N), an entry an
+    image; b scaled by 1/sqrt(K)."""
+    rn, _ = _draw(seed)
+    a = rn(M, lda)[:, :K]
+    b = rn(nz, K, N, scale=K ** -0.5) if b_mn else rn(N, K, scale=K ** -0.5)
+    return a, b
+
+
+def s8_core_inputs(nz, M, N, K, a_batched, b_batched, chunk, seed):
     """int8 codes in [-127, 127] and f32 scales of gemm_s8 on the card: rs
-    per row, cs per column, each batched where its operand is."""
+    per row (per row and chunk of K with ``chunk``), cs per column, each
+    batched where its operand is."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def codes(*shape):
@@ -515,9 +586,10 @@ def s8_core_inputs(nz, M, N, K, a_batched, b_batched, seed):
     def scales(*shape):
         return torch.rand(*shape, generator=g, device="cuda") * 2e-3 + 1e-4
 
+    pieces = () if chunk is None else (K // chunk,)
     a = codes(nz, M, K) if a_batched else codes(M, K)
     b = codes(nz, N, K) if b_batched else codes(N, K)
-    rs = scales(nz, M) if a_batched else scales(M)
+    rs = scales(nz, M, *pieces) if a_batched else scales(M, *pieces)
     cs = scales(nz, N) if b_batched else scales(N)
     return a, b, rs, cs
 
@@ -552,25 +624,33 @@ def _core_case(mod, tag, call, twin, route_fn, want_moved, exact=False):
 
 
 def phase_core(mod):
-    """Phase 2 for the core's new modes alone: gemm_bf16 at CORE_BF16 on the
+    """Phase 2 for the core's modes alone: gemm_bf16 at CORE_BF16 on the
     auto route (each counted on the wgmma core; the first four also on the
     WMMA core) and at CORE_BF16_WMMA (counted on the WMMA route; core="sm90"
-    must raise), each partial within TOL of gemm_bf16_ref's; gemm_s8 at
-    CORE_S8 and at b256 (CORE_S8_TIMED) on the s8 wgmma core (the first
-    three of CORE_S8 also on mma.sync) bit-equal to gemm_s8_ref: the integer
-    product is exact and the scales are applied in the twin's order. Returns
-    {"bf16": max|Δ|, "s8": max|Δ|}."""
-    worst = {"bf16": 0.0, "s8": 0.0}
+    must raise), each partial within TOL of gemm_bf16_ref's; gemm_bf16 at
+    the bf16 gMLP block's products (GMLP_BF16, and at b256) on the auto
+    route (the first three also on WMMA), within TOL; gemm_s8 at CORE_S8,
+    MIXER_S8 (the chunked mode among them) and at b256 (CORE_S8_TIMED,
+    MIXER_S8_TIMED) on the s8 wgmma core (the first three of CORE_S8 and
+    the two Mixer chunked ones at B = 8 and the ragged chunk also on
+    mma.sync), bit-equal to gemm_s8_ref: the integer product is exact and
+    the scales are applied, and the chunks added, in the twin's order.
+    Returns each core row's largest max|Δ|."""
+    worst = dict.fromkeys(("gemm_bwd_sm90", "gemm_bf16_gmlp_sm90", "gemm_s8_sm90",
+                           "gemm_s8_mixer_sm90"), 0.0)
+
+    def bf16_routes(route):
+        return {"sm90": (route == "sm90") * 2, "wmma": (route == "wmma") * 2}
+
     cases = ([(c, "auto", "sm90") for c in CORE_BF16] + [(c, "legacy", "wmma") for c in CORE_BF16[:4]]
              + [(CORE_BF16_WMMA, "auto", "wmma")])
     for (M, N, K, a_mn, b_mn, slab), core, route in cases:
         a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=M + N + K)
         kw = dict(a_mn=a_mn, b_mn=b_mn, slab=slab)
         tag = f"gemm_bf16 (M, N, K) {(M, N, K)} a_mn={a_mn} b_mn={b_mn} slab={slab} core={core}"
-        worst["bf16"] = max(worst["bf16"], _core_case(
+        worst["gemm_bwd_sm90"] = max(worst["gemm_bwd_sm90"], _core_case(
             mod, tag, lambda: mod.gemm_bf16(a, b, core=core, **kw),
-            lambda: mod.gemm_bf16_ref(a, b, **kw), mod.routes,
-            {"sm90": (route == "sm90") * 2, "wmma": (route == "wmma") * 2}))
+            lambda: mod.gemm_bf16_ref(a, b, **kw), mod.routes, bf16_routes(route)))
         del a, b
     M, N, K, a_mn, b_mn, slab = CORE_BF16_WMMA
     a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=1)
@@ -582,16 +662,30 @@ def phase_core(mod):
     check(refused, f"gemm_bf16 core=sm90 at {CORE_BF16_WMMA} (rows 72 bytes apart) did not raise")
     print(f"[2] gemm_bf16 core=sm90 at {CORE_BF16_WMMA}: refused (TMA needs 16-byte row strides)",
           flush=True)
-    cases = ([(c, "auto", "sm90_s8") for c in CORE_S8 + CORE_S8_TIMED]
-             + [(c, "legacy", "mma_s8") for c in CORE_S8[:3]])
-    for (nz, M, N, K, ab, bb), core, route in cases:
-        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, seed=nz + M + N + K)
-        tag = f"gemm_s8 {nz} x (M, N, K) {(M, N, K)} a_batched={ab} b_batched={bb} core={core}"
-        worst["s8"] = max(worst["s8"], _core_case(
-            mod, tag, lambda: mod.gemm_s8(a, b, rs, cs, core=core),
-            lambda: mod.gemm_s8_ref(a, b, rs, cs), mod.s8_routes,
+    cases = ([(c, "auto", "sm90") for c in GMLP_BF16 + GMLP_BF16_TIMED]
+             + [(c, "legacy", "wmma") for c in GMLP_BF16[:3]])
+    for (nz, M, N, K, lda, b_mn), core, route in cases:
+        a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=nz + M + N + K)
+        tag = (f"gemm_bf16 {nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn} "
+               f"(the bf16 gMLP block's) core={core}")
+        worst["gemm_bf16_gmlp_sm90"] = max(worst["gemm_bf16_gmlp_sm90"], _core_case(
+            mod, tag, lambda: mod.gemm_bf16(a, b, b_mn=b_mn, core=core),
+            lambda: mod.gemm_bf16_ref(a, b, b_mn=b_mn), mod.routes, bf16_routes(route)))
+        del a, b
+    cases = ([(c, "auto", "sm90_s8", "gemm_s8_sm90") for c in CORE_S8 + CORE_S8_TIMED]
+             + [(c, "legacy", "mma_s8", "gemm_s8_sm90") for c in CORE_S8[:3]]
+             + [(c, "auto", "sm90_s8", "gemm_s8_mixer_sm90") for c in MIXER_S8 + MIXER_S8_TIMED]
+             + [(c, "legacy", "mma_s8", "gemm_s8_mixer_sm90") for c in MIXER_S8[3:5]])
+    for (nz, M, N, K, ab, bb, chunk), core, route, row in cases:
+        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, chunk, seed=nz + M + N + K)
+        tag = (f"gemm_s8 {nz} x (M, N, K) {(M, N, K)} a_batched={ab} b_batched={bb} "
+               f"chunk={chunk} core={core}")
+        worst[row] = max(worst[row], _core_case(
+            mod, tag, lambda: mod.gemm_s8(a, b, rs, cs, chunk=chunk, core=core),
+            lambda: mod.gemm_s8_ref(a, b, rs, cs, chunk=chunk), mod.s8_routes,
             {"sm90_s8": (route == "sm90_s8") * 2, "mma_s8": (route == "mma_s8") * 2}, exact=True))
         del a, b, rs, cs
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -807,10 +901,13 @@ def phase_logits(jt, mods):
         routes0 = mb.routes()
         lk = forward_counted(kernel, x.bfloat16(), mb, DEPTH)
         routes1 = mb.routes()
+        q0 = mbq.routes()
         with config.int8_mode():
             lq = forward_counted(kernel, x.bfloat16(), mbq, DEPTH)
         check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1, 2 * DEPTH)
         check(mb.routes() == routes1, "the int8 Mixer forward ran kernel 1's channel products")
+        check_routes("[3] Mixer-B/16 int8 kernel-path forward", q0, mbq.routes(),
+                     BLOCK_PRODUCTS["mixer_block_int8"][1] * DEPTH, route="sm90_s8")
         lp = plain.forward(x.bfloat16()).float()
         with config.parity_mode():
             lf = f32.forward(x)
@@ -851,12 +948,15 @@ def phase_logits(jt, mods):
             blk.channel_proj2.weight.zero_()
             blk.channel_proj2.bias.zero_()
     with torch.inference_mode():
+        g0 = gb.routes()
         gk = forward_counted(gmlp, x.bfloat16(), gb, GMLP_DEPTH)
+        check_routes("[3] gMLP-S bf16 kernel-path forward", g0, gb.routes(),
+                     BLOCK_PRODUCTS["gmlp_block"][1] * GMLP_DEPTH)
         s8_0 = gbq.routes()
         with config.int8_mode():
             gq = forward_counted(gmlp, x.bfloat16(), gbq, GMLP_DEPTH)
         check_routes("[3] gMLP-S int8 kernel-path forward", s8_0, gbq.routes(),
-                     GMLP_INT8_PRODUCTS * GMLP_DEPTH, route="sm90_s8")
+                     BLOCK_PRODUCTS["gmlp_block_int8"][1] * GMLP_DEPTH, route="sm90_s8")
         gz = forward_counted(g_ident, x.bfloat16(), gb, GMLP_DEPTH)
         gp = g_plain.forward(x.bfloat16()).float()
         with config.parity_mode():
@@ -1017,8 +1117,7 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
             ("[4e] gMLP-S", gmlp, "gmlp_block", "gmlp_block_int8", GMLP_DEPTH,
              "fused_gmlp_block", "fused_gmlp_block_int8")):
         reset_counts(mods)
-        routes0 = mods["mixer_block"].routes()
-        s8_0 = mods["gmlp_block_int8"].routes()
+        routes0 = {lib: mods[lib].routes() for lib in BLOCK_PRODUCTS}
         p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
         p16 = jt.Predictor(model, batch_size=32).warmup()
         check(p8.dtype == "int8" and p16.dtype == "bf16", f"{tag}: dtypes {p8.dtype}, {p16.dtype}")
@@ -1030,14 +1129,14 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
                   f"{json.dumps(p.latency_stats())}", flush=True)
         launches[q_name] = check_launches(f"{tag} int8", mods[q_mod], depth, p8)
         n16 = check_launches(f"{tag} bf16", mods[bf_mod], depth, p16)
-        check_routes(f"{tag} bf16 (kernel 1)", routes0, mods["mixer_block"].routes(),
-                     2 * n16 if bf_mod == "mixer_block" else 0)
-        s8 = check_routes(f"{tag} int8 (the W8A8 gMLP block)", s8_0,
-                          mods["gmlp_block_int8"].routes(),
-                          GMLP_INT8_PRODUCTS * launches[q_name] if q_mod == "gmlp_block_int8"
-                          else 0, route="sm90_s8")
-        if q_mod == "gmlp_block_int8":
-            launches["gemm_s8_sm90"] = s8
+        # every block library's GEMM routes: its products on the wgmma cores
+        # where this pair ran its kernel, none elsewhere
+        for lib, (route, per) in BLOCK_PRODUCTS.items():
+            n = launches[q_name] if lib == q_mod else n16 if lib == bf_mod else 0
+            moved = check_routes(f"{tag} {lib}", routes0[lib], mods[lib].routes(), per * n,
+                                 route=route)
+            if n and lib in PRODUCT_ROWS:
+                launches[PRODUCT_ROWS[lib]] = moved
         if bf_name not in launches:
             launches[bf_name] = n16
 
@@ -1121,6 +1220,58 @@ def block_bound(name, x, w, outs):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def _mixer_int8_floor(B, N, D, TD, CD):
+    """The W8A8 Mixer block's data flow (csrc/mixer_block_int8.cu's Work):
+    each pass reads what it consumes and writes what it makes once; the
+    weights once."""
+    M, Np, TDp, Dp = B * N, -(-N // 32) * 32, -(-TD // 32) * 32, -(-D // 32) * 32
+    ck = CD // 4 if CD % 4 == 0 and CD >= 2048 else CD
+    ckp, nch = -(-ck // 32) * 32, CD // ck
+    nbytes = (3 * M * D * 2            # x: LN1's statistics, its quantize pass, the residual
+              + 2 * 2 * M * 8          # two row_stats passes, written and read
+              + 2 * (B * D * Np + B * D * 4)  # qxn, sxn written and read
+              + 2 * B * TD * D * 4     # t
+              + 2 * (B * D * TDp + B * D * 4)  # qt, st
+              + 4 * M * D * 2          # h written, read by its statistics, LN2 and the residual
+              + 2 * (M * Dp + M * 4)   # qhn, shn
+              + 2 * M * CD * 4         # c
+              + 2 * (M * nch * ckp + M * nch * 4)  # qc, sc
+              + M * D * 2              # out
+              + TD * Np + N * TDp + CD * Dp + D * nch * ckp  # int8 weights
+              + 4 * (TD + N + CD + D) + 2 * (4 * D + TD + N + CD + D))  # scales, LN, biases
+    return "the data flow's bytes (f32 t and c each way, x three reads, h four passes, codes)", nbytes
+
+
+def _gmlp_bf16_floor(B, N, D, F):
+    """The bf16 gMLP block's data flow (csrc/gmlp_block.cu's Work): each
+    pass reads what it consumes and writes what it makes once; the weights
+    once."""
+    M, Np = B * N, -(-N // 8) * 8
+    nbytes = 2 * (2 * M * D            # x: LN1 and the residual
+                  + 2 * M * D          # xn written and read
+                  + M * 2 * F          # y written
+                  + M * F + M * F      # its v half read by LN2, its u half by the gate
+                  + 2 * M * F          # vn written and read
+                  + 2 * M * F          # g written and read
+                  + M * D              # out
+                  + 2 * N * Np + N * N  # Wsp copied into rows of Np, then read
+                  + 2 * F * D + D * F + 3 * D + 2 * F + 2 * F + N)  # weights, LN, biases
+    return "the data flow's bytes (y written, its halves read, vn and g each way, xn, x, out)", \
+        nbytes
+
+
+# the data flow's bytes of a block kernel at b256, where they bound it
+# beyond its operations
+FLOORS = {
+    # the f32 intermediates this data flow moves: y (B·N, 2F) written, its v
+    # half read twice and its u half once, g (B·N, F) written and read
+    "fused_gmlp_block_int8": lambda B, N, D, F: ("the f32 intermediates' bytes",
+                                                 7 * B * N * F * 4),
+    "fused_mixer_block_int8": _mixer_int8_floor,
+    "fused_gmlp_block": _gmlp_bf16_floor,
+}
+
+
 def phase_timing(jt, table, name):
     from jittor_mlp_tpu_torch import config
 
@@ -1134,12 +1285,9 @@ def phase_timing(jt, table, name):
         bound_ms, bound_by = block_bound(kname, x, w, outs)
         print(f"[5] {kname} b256 {shape}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})  [{name}]", flush=True)
-        if kname == "fused_gmlp_block_int8":
-            # the f32 intermediates this data flow moves: y (B·N, 2F) written,
-            # its v half read twice and its u half once, g (B·N, F) written
-            # and read: 7 · B·N·F f32
-            floor = 7 * shape[0] * shape[1] * shape[3] * 4
-            print(f"[5] {kname} b256: the f32 intermediates' bytes {floor / 1e9:.4f} GB, "
+        if kname in FLOORS:
+            what, floor = FLOORS[kname](*shape)
+            print(f"[5] {kname} b256: {what} {floor / 1e9:.4f} GB, "
                   f"{floor / HBM_BYTES_S * 1e3:.4f} ms at the HBM rate (the data flow's floor)  "
                   f"[{name}]", flush=True)
         timings[kname] = (ms, plain_ms, bound_ms, bound_by)
@@ -1262,25 +1410,22 @@ def _timed_turns(fns, iters):
     return {k: sum(r) / len(r) for k, r in runs.items()}, runs
 
 
-def core_timing(mod, name):
-    """Phase 5 for the core's new modes at b256: gMLP-S's three int8
-    products (CORE_S8_TIMED) on the s8 wgmma core, on mma.sync and as
-    torch._int_mm on the same codes (the product alone, no scales: the
-    yardstick, which the port never calls; the token product as one
-    (B·F, Np) × (Np, N) call, qWsp's rows zero-padded to a multiple of 8,
-    as _int_mm needs), and Mixer-B/16's four channel backward bf16 products
-    (CORE_BF16_TIMED) on the wgmma core, the WMMA core and torch.matmul,
-    in turns; then each twin. Returns {row: ((ms, twin ms, bound ms,
-    bound_by), library ms)} for "gemm_s8_sm90" and "gemm_bwd_sm90", each
-    summed over its products."""
-    rows = {}
+def _s8_timing(mod, name, cases, what):
+    """Phase 5 for a block's int8 products at b256 (cases as CORE_S8's) on
+    the s8 wgmma core, on mma.sync and as torch._int_mm on the same codes
+    (the product alone, no scales and no chunks: the yardstick, which the
+    port never calls; a token product, the weight shared and the codes an
+    entry an image, as one (entries·N, K) × (K, M) call, the weight's rows
+    zero-padded to a multiple of 8, as _int_mm needs), in turns; then each
+    twin. Returns ((ms, twin ms, bound ms, bound_by), library ms), each
+    summed over the products."""
     total = dict.fromkeys(("sm90", "old", "lib", "twin", "bound", "ops_ms", "bytes_ms"), 0.0)
-    for nz, M, N, K, ab, bb in CORE_S8_TIMED:
-        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, seed=7)
-        out = mod.gemm_s8(a, b, rs, cs)
+    for nz, M, N, K, ab, bb, chunk in cases:
+        a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, chunk, seed=7)
+        out = mod.gemm_s8(a, b, rs, cs, chunk=chunk)
         ops = 2 * nz * M * N * K
         nbytes = sum(t.numel() * t.element_size() for t in (a, b, rs, cs, out))
-        if bb and not ab:  # the token product: (B·F, Np) codes times qWsp padded
+        if bb and not ab:  # a token product: (entries·N, K) codes times the weight padded
             aa = b.reshape(nz * N, K)
             bpad = torch.zeros((-(-M // 8) * 8, K), dtype=torch.int8, device="cuda")
             bpad[:M] = a
@@ -1290,10 +1435,11 @@ def core_timing(mod, name):
         else:
             def lib():
                 return torch._int_mm(a, b.t())
-        ms, runs = _timed_turns({"sm90": lambda: mod.gemm_s8(a, b, rs, cs),
-                                 "old": lambda: mod.gemm_s8(a, b, rs, cs, core="legacy"),
+        ms, runs = _timed_turns({"sm90": lambda: mod.gemm_s8(a, b, rs, cs, chunk=chunk),
+                                 "old": lambda: mod.gemm_s8(a, b, rs, cs, chunk=chunk,
+                                                            core="legacy"),
                                  "lib": lib}, 20)
-        twin = cuda_ms(lambda: mod.gemm_s8_ref(a, b, rs, cs), 3)
+        twin = cuda_ms(lambda: mod.gemm_s8_ref(a, b, rs, cs, chunk=chunk), 3)
         t_ops, t_bytes = ops / PEAK["int8"], nbytes / HBM_BYTES_S
         for k in ms:
             total[k] += ms[k]
@@ -1301,40 +1447,36 @@ def core_timing(mod, name):
         total["bound"] += max(t_ops, t_bytes) * 1e3
         total["ops_ms"] += t_ops * 1e3
         total["bytes_ms"] += t_bytes * 1e3
-        print(f"[5] gemm_s8 b256 {nz} x (M, N, K) {(M, N, K)}: s8 wgmma core {ms['sm90']:.4f} ms "
-              f"({ops / ms['sm90'] / 1e9:.1f} TOP/s), mma.sync core {ms['old']:.4f} ms "
-              f"({ops / ms['old'] / 1e9:.1f}), torch._int_mm (no scales) {ms['lib']:.4f} ms "
-              f"({ops / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
+        print(f"[5] gemm_s8 b256 {nz} x (M, N, K) {(M, N, K)} chunk={chunk}: s8 wgmma core "
+              f"{ms['sm90']:.4f} ms ({ops / ms['sm90'] / 1e9:.1f} TOP/s), mma.sync core "
+              f"{ms['old']:.4f} ms ({ops / ms['old'] / 1e9:.1f}), torch._int_mm (no scales) "
+              f"{ms['lib']:.4f} ms ({ops / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
               f"{max(t_ops, t_bytes) * 1e3:.4f} ms (operations {t_ops * 1e3:.4f}, bytes "
               f"{t_bytes * 1e3:.4f}) (runs {json.dumps(runs)})  [{name}]", flush=True)
         del a, b, rs, cs, out
         torch.cuda.empty_cache()
-    # The token product's 196 tokens take two 192-row tiles, the second
-    # nearly all zero fill: the same product on the first 192 tokens alone
-    # shows what that second tile costs, the most that a layout without it
-    # (the transposed product with an N tile over the tokens) could save.
-    cut = {}
-    for M in (196, 192):
-        a, b, rs, cs = s8_core_inputs(256, M, 1536, 224, False, True, seed=8)
-        cut[M] = cuda_ms(lambda: mod.gemm_s8(a, b, rs, cs), 20)
-        del a, b, rs, cs
-    print(f"[5] gemm_s8 b256 token product, 256 x (M, 1536, 224): M = 196 tokens (two row "
-          f"tiles) {cut[196]:.4f} ms, M = 192 (one) {cut[192]:.4f} ms: the ragged tile costs "
-          f"{cut[196] - cut[192]:.4f} ms  [{name}]", flush=True)
-    print(f"[5] gemm_s8 b256, gMLP-S's three products: s8 wgmma core {total['sm90']:.4f} ms, "
-          f"mma.sync core {total['old']:.4f} ms, torch._int_mm {total['lib']:.4f} ms, bound "
+    print(f"[5] gemm_s8 b256, {what}: s8 wgmma core {total['sm90']:.4f} ms, mma.sync core "
+          f"{total['old']:.4f} ms, torch._int_mm {total['lib']:.4f} ms, bound "
           f"{total['bound']:.4f} ms  [{name}]", flush=True)
-    rows["gemm_s8_sm90"] = ((total["sm90"], total["twin"], total["bound"], "operations"
-                             if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
-    total = dict.fromkeys(total, 0.0)
-    for M, N, K, a_mn, b_mn, slab in CORE_BF16_TIMED:
-        a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=7)
-        kw = dict(a_mn=a_mn, b_mn=b_mn, slab=slab)
+    return ((total["sm90"], total["twin"], total["bound"],
+             "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+
+
+def _bf16_timing(mod, name, cases, what):
+    """Phase 5 for bf16 products at b256 (cases as (entries, M, N, K, a,
+    b, keywords) with their operands) on the wgmma core, the WMMA core and
+    torch.matmul on the same operands (the product alone, without the
+    epilogue: the yardstick), in turns; then each twin. Returns ((ms, twin
+    ms, bound ms, bound_by), library ms), each summed over the products."""
+    total = dict.fromkeys(("sm90", "old", "lib", "twin", "bound", "ops_ms", "bytes_ms"), 0.0)
+    for tag, a, b, kw in cases:
         out = mod.gemm_bf16(a, b, **kw)
-        flop = 2 * M * N * K
+        nz, M, N = out.shape
+        K = a.shape[-2] if kw.get("a_mn") else a.shape[-1]
+        flop = 2 * (nz if kw.get("slab") is None else 1) * M * N * K
         nbytes = sum(t.numel() * t.element_size() for t in (a, b, out))
-        at = a.t() if a_mn else a
-        bt = b if b_mn else b.t()
+        at = a.transpose(-1, -2) if kw.get("a_mn") else a
+        bt = b if kw.get("b_mn") else b.transpose(-1, -2)
         ms, runs = _timed_turns({"sm90": lambda: mod.gemm_bf16(a, b, **kw),
                                  "old": lambda: mod.gemm_bf16(a, b, core="legacy", **kw),
                                  "lib": lambda: torch.matmul(at, bt)}, 20)
@@ -1346,20 +1488,60 @@ def core_timing(mod, name):
         total["bound"] += max(t_ops, t_bytes) * 1e3
         total["ops_ms"] += t_ops * 1e3
         total["bytes_ms"] += t_bytes * 1e3
-        print(f"[5] gemm_bf16 b256 (M, N, K) {(M, N, K)} a_mn={a_mn} b_mn={b_mn} slab={slab}: "
-              f"wgmma core {ms['sm90']:.4f} ms ({flop / ms['sm90'] / 1e9:.1f} TFLOP/s, "
+        print(f"[5] gemm_bf16 b256 {tag}: wgmma core {ms['sm90']:.4f} ms "
+              f"({flop / ms['sm90'] / 1e9:.1f} TFLOP/s, "
               f"{100 * flop / ms['sm90'] / 1e9 * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak), "
               f"WMMA core {ms['old']:.4f} ms ({flop / ms['old'] / 1e9:.1f}), torch.matmul "
               f"{ms['lib']:.4f} ms ({flop / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
               f"{max(t_ops, t_bytes) * 1e3:.4f} ms (runs {json.dumps(runs)})  [{name}]",
               flush=True)
-        del a, b, out, at, bt
+        del out, at, bt
         torch.cuda.empty_cache()
-    print(f"[5] gemm_bf16 b256, Mixer-B/16's four channel backward products: wgmma core "
-          f"{total['sm90']:.4f} ms, WMMA core {total['old']:.4f} ms, torch.matmul "
-          f"{total['lib']:.4f} ms, bound {total['bound']:.4f} ms  [{name}]", flush=True)
-    rows["gemm_bwd_sm90"] = ((total["sm90"], total["twin"], total["bound"], "operations"
-                              if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+    print(f"[5] gemm_bf16 b256, {what}: wgmma core {total['sm90']:.4f} ms, WMMA core "
+          f"{total['old']:.4f} ms, torch.matmul {total['lib']:.4f} ms, bound "
+          f"{total['bound']:.4f} ms  [{name}]", flush=True)
+    return ((total["sm90"], total["twin"], total["bound"],
+             "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+
+
+def core_timing(mod, name):
+    """Phase 5 for the core's modes at b256, by block: gMLP-S's three int8
+    products (CORE_S8_TIMED) and the W8A8 Mixer-B/16 block's four
+    (MIXER_S8_TIMED, the second chunked) on the s8 wgmma core, on mma.sync
+    and as torch._int_mm; gMLP-S's three bf16 products (GMLP_BF16_TIMED) and
+    Mixer-B/16's four channel backward products (CORE_BF16_TIMED) on the
+    wgmma core, the WMMA core and torch.matmul; in turns, then each twin.
+    Returns {row: ((ms, twin ms, bound ms, bound_by), library ms)}."""
+    rows = {"gemm_s8_sm90": _s8_timing(mod, name, CORE_S8_TIMED, "gMLP-S's three products")}
+    # The token product's 196 tokens take two 192-row tiles, the second
+    # nearly all zero fill: the same product on the first 192 tokens alone
+    # shows what that second tile costs, the most that a layout without it
+    # (the transposed product with an N tile over the tokens) could save.
+    cut = {}
+    for M in (196, 192):
+        a, b, rs, cs = s8_core_inputs(256, M, 1536, 224, False, True, None, seed=8)
+        cut[M] = cuda_ms(lambda: mod.gemm_s8(a, b, rs, cs), 20)
+        del a, b, rs, cs
+    print(f"[5] gemm_s8 b256 token product, 256 x (M, 1536, 224): M = 196 tokens (two row "
+          f"tiles) {cut[196]:.4f} ms, M = 192 (one) {cut[192]:.4f} ms: the ragged tile costs "
+          f"{cut[196] - cut[192]:.4f} ms  [{name}]", flush=True)
+    rows["gemm_s8_mixer_sm90"] = _s8_timing(mod, name, MIXER_S8_TIMED,
+                                            "the W8A8 Mixer-B/16 block's four products")
+    gmlp = []
+    for nz, M, N, K, lda, b_mn in GMLP_BF16_TIMED:
+        a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=7)
+        gmlp.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
+                     {"b_mn": b_mn}))
+    rows["gemm_bf16_gmlp_sm90"] = _bf16_timing(mod, name, gmlp,
+                                               "gMLP-S's three bf16 products")
+    del gmlp
+    bwd = []
+    for M, N, K, a_mn, b_mn, slab in CORE_BF16_TIMED:
+        a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=7)
+        bwd.append((f"(M, N, K) {(M, N, K)} a_mn={a_mn} b_mn={b_mn} slab={slab}", a, b,
+                    dict(a_mn=a_mn, b_mn=b_mn, slab=slab)))
+    rows["gemm_bwd_sm90"] = _bf16_timing(mod, name, bwd,
+                                         "Mixer-B/16's four channel backward products")
     return rows
 
 
@@ -1595,9 +1777,13 @@ def other_families(jt, mods, batch_size=32):
         _, plain = grads_of(model, batch, torch.bfloat16)
         model.use_pallas = True
         before = mod.LAUNCHES
+        routes0 = mod.routes() if tag == "gMLP-S" else None
         _, kern = grads_of(model, batch, torch.bfloat16)
         check(mod.LAUNCHES == before + depth,
               f"{tag}: {mod.LAUNCHES - before} forward-kernel launches in a step, want {depth}")
+        if routes0 is not None:  # the block forward's three products, all on wgmma
+            check_routes(f"[6e] {tag} step", routes0, mod.routes(),
+                         BLOCK_PRODUCTS["gmlp_block"][1] * depth)
         err = rel_l2(kern, plain)
         step = make_train_step(model, torch.optim.AdamW(model.parameters(), lr=1e-3,
                                                         weight_decay=1e-4, eps=1e-8),
@@ -1632,6 +1818,31 @@ def train_throughput(jt, name, batch_size=128):
     for path, runs in times.items():
         ms = sum(runs) / len(runs)
         print(f"[6f] Mixer-B/16 bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
+              f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
+              f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
+
+
+def gmlp_throughput(jt, name, batch_size=128):
+    """(f) gMLP-S bf16 train img/s at b128, kernel path (the block kernel
+    forward, autograd of the plain block backward) and plain path in turns,
+    by CUDA events, with peak memory."""
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    model = jt.gMLPForImageClassification(**GMLP_S)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    batch = train_batch(batch_size, 11)
+    paths = {"kernel path": True, "plain bf16 path": False}
+    times, peak = {k: [] for k in paths}, {}
+    for path in list(paths) + list(paths)[::-1]:
+        model.use_pallas = paths[path]
+        torch.cuda.reset_peak_memory_stats()
+        times[path].append(cuda_ms(lambda: step(batch), 5))
+        peak[path] = torch.cuda.max_memory_allocated() / 2**30
+    model.use_pallas = True
+    for path, runs in times.items():
+        ms = sum(runs) / len(runs)
+        print(f"[6f] gMLP-S bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
               f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
               f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
 
@@ -1736,6 +1947,8 @@ def phase_train(jt, mods, name):
     torch.cuda.empty_cache()
     train_throughput(jt, name)
     torch.cuda.empty_cache()
+    gmlp_throughput(jt, name)
+    torch.cuda.empty_cache()
     as_mlp_grads(jt, mods)
     torch.cuda.empty_cache()
     as_mlp_train(jt, mods)
@@ -1774,8 +1987,7 @@ def main():
     errs["axial_shift"] = phase_shift(mods["axial_shift"])
     errs.update(phase_lab(mods["kernel_lab"]))
     errs["gemm_tn_sm90"] = phase_gemm(mods["gemm_sm90"])
-    core_errs = phase_core(mods["gemm_sm90"])
-    errs["gemm_s8_sm90"], errs["gemm_bwd_sm90"] = core_errs["s8"], core_errs["bf16"]
+    errs.update(phase_core(mods["gemm_sm90"]))
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
     del mixer, res, gmlp, as_mlp
@@ -1798,6 +2010,8 @@ def main():
     sources.update(LAB_KERNELS)
     sources["gemm_tn_sm90"] = ("gemm_sm90.cuh", GEMM_REPLACES)
     sources["gemm_s8_sm90"] = ("gemm_sm90.cuh", S8_REPLACES)
+    sources["gemm_s8_mixer_sm90"] = ("gemm_sm90.cuh", MIXER_S8_REPLACES)
+    sources["gemm_bf16_gmlp_sm90"] = ("gemm_sm90.cuh", GMLP_BF16_REPLACES)
     sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():

@@ -9,10 +9,14 @@
 //     act 1:  C = bf16(R + (A · Bᵀ + bias)), R (M, N)     (ResidualBias)
 // - gemm_bf16_f32: the bf16 modes of the Mixer channel backward
 //   (mixer_block_bwd.py:397 _chan_wgt_bwd): MN-major A and/or B, and K cut
-//   into row slabs, one f32 partial each (StoreF32's output).
-// - gemm_s8_f32: the W8A8 products of gmlp_block_int8.py:61: int8 A and B,
-//   per-row and per-column scales, entries batched or shared, the f32
-//   dequantized product.
+//   into row slabs, one f32 partial each (StoreF32's output); or entries
+//   batched or shared (the bf16 gMLP block's token product,
+//   gmlp_block.py:57: Wsp shared, vn an N-major entry an image).
+// - gemm_s8_f32: the W8A8 products of gmlp_block_int8.py:61 and
+//   mixer_block_int8.py:121: int8 A and B, per-row and per-column scales,
+//   entries batched or shared, the f32 dequantized product; with a chunk,
+//   the chunked mode (the Mixer's second channel product): per-(row, chunk)
+//   row scales, the chunks' dequantized sums added in order.
 // with f32 sums. What bounds it and what the design does about it: see
 // gemm_sm90.cuh. Nothing on the serving or training path calls these
 // entries; the block kernels reach the same core through its templates.
@@ -63,20 +67,28 @@ extern "C" int gemm_tn_bf16(const void* a, const void* b, const void* bias, cons
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// out (nz, M, N) f32, nz = ceil(K / slab): partial z = op(A)·op(B) over
-// K rows z·slab .. min((z+1)·slab, K) − 1. a: bf16 (M, K), or (K, M) with
-// a_mn; b: bf16 (N, K), or (K, N) with b_mn; contiguous. slab < K (more
-// than one partial) needs both operands MN-major: a slab is then a block
-// of rows. core as gemm_tn_bf16's.
-extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int M, int N, int K,
-                             int slab, int a_mn, int b_mn, int core, void* stream_ptr) {
+// out (nz, M, N) f32. Slabs (nb 1): nz = ceil(K / slab), partial z =
+// op(A)·op(B) over K rows z·slab .. min((z+1)·slab, K) − 1; slab < K (more
+// than one partial) needs both operands MN-major: a slab is then a block of
+// rows. Entries (slab ≥ K): nz = nb, entry z = op(A_z)·op(B_z), an operand
+// batched (a_batched, b_batched: nb matrices one after another) or shared.
+// a: bf16 (M, K), or (K, M) with a_mn, rows lda elements apart; b: bf16
+// (N, K), or (K, N) with b_mn, rows ldb apart. core as gemm_tn_bf16's.
+extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int nb, int M, int N,
+                             int K, int lda, int ldb, int slab, int a_mn, int b_mn,
+                             int a_batched, int b_batched, int core, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (!valid_core(core) || slab <= 0 || (slab < K && !(a_mn && b_mn)))
+  if (!valid_core(core) || slab <= 0 || nb <= 0 || (slab < K && !(a_mn && b_mn)) ||
+      (slab < K && nb > 1) || lda < (a_mn ? M : K) || ldb < (b_mn ? N : K))
     return static_cast<int>(cudaErrorInvalidValue);
   const sm90::Core which = static_cast<sm90::Core>(core);
-  const int nz = (K + slab - 1) / slab, kz = nz == 1 ? K : slab, last = K - (nz - 1) * kz;
-  const int lda = a_mn ? M : K, ldb = b_mn ? N : K;
-  const long long sA = nz == 1 ? 0 : (long long)slab * M, sB = nz == 1 ? 0 : (long long)slab * N;
+  const bool slabs = slab < K;
+  const int nz = slabs ? (K + slab - 1) / slab : nb, kz = slabs ? slab : K;
+  const int last = K - (slabs ? nz - 1 : 0) * kz;
+  const long long sA = slabs ? (long long)slab * lda
+                             : a_batched ? (long long)(a_mn ? K : M) * lda : 0;
+  const long long sB = slabs ? (long long)slab * ldb
+                             : b_batched ? (long long)(b_mn ? K : N) * ldb : 0;
   const StoreOut epi{static_cast<float*>(out), M, N};
   cudaError_t e;
   if (a_mn && b_mn)
@@ -93,19 +105,26 @@ extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int M, int
 // out (nz, M, N) f32 = (f32(A_z · B_zᵀ) · rs_z[m]) · cs_z[n]: a int8
 // (nz, M, K), or (M, K) shared by every entry when a_batched is 0; b int8
 // (nz, N, K) or (N, K); rs f32 (nz, M) or (M); cs f32 (nz, N) or (N); K a
-// multiple of 32; contiguous. core: 0 or 1 the s8 wgmma core; 2 the
+// multiple of 32; contiguous. chunk > 0: K in pieces of chunk codes (a
+// multiple of 32 that divides K), rs (nz, M, K / chunk) or (M, K / chunk),
+// out = Σ_p (f32(A_z · B_zᵀ over piece p) · rs_z[m, p]) · cs_z[n] in piece
+// order (sm90::gemm_s8_chunked). core: 0 or 1 the s8 wgmma core; 2 the
 // mma.sync core.
 extern "C" int gemm_s8_f32(const void* a, const void* b, const void* rs, const void* cs, void* out,
-                           int nz, int M, int N, int K, int a_batched, int b_batched,
+                           int nz, int M, int N, int K, int chunk, int a_batched, int b_batched,
                            int rs_batched, int cs_batched, int core, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
-  const s8gemm::Scales sc{static_cast<const float*>(rs), rs_batched ? M : 0, 1,
-                          static_cast<const float*>(cs), cs_batched ? N : 0};
-  return static_cast<int>(sm90::gemm_s8(s, nz, M, N, K, a, K, a_batched ? (long long)M * K : 0,
-                                        b, K, b_batched ? (long long)N * K : 0, sc,
-                                        StoreOut{static_cast<float*>(out), M, N},
-                                        static_cast<sm90::Core>(core)));
+  if (!valid_core(core) || chunk < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int pieces = chunk > 0 ? K / chunk : 1;
+  const s8gemm::Scales sc{static_cast<const float*>(rs), rs_batched ? (long long)M * pieces : 0,
+                          pieces, static_cast<const float*>(cs), cs_batched ? N : 0};
+  const long long sA = a_batched ? (long long)M * K : 0, sB = b_batched ? (long long)N * K : 0;
+  const StoreOut epi{static_cast<float*>(out), M, N};
+  const sm90::Core which = static_cast<sm90::Core>(core);
+  if (chunk > 0)
+    return static_cast<int>(
+        sm90::gemm_s8_chunked(s, nz, M, N, K, chunk, a, K, sA, b, K, sB, sc, epi, which));
+  return static_cast<int>(sm90::gemm_s8(s, nz, M, N, K, a, K, sA, b, K, sB, sc, epi, which));
 }
 
 // Products this library launched on route 0 (the bf16 wgmma core), 1 (the

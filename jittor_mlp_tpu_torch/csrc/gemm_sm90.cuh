@@ -4,7 +4,8 @@
 //   C[z] = epi(z, op(A[z]) · op(B[z])),   z = 0 .. nz−1
 //
 // bf16 operands with f32 sums (wgmma m64n192k16), or int8 operands with
-// s32 sums (wgmma m64n192k32 .s32.s8.s8). op(A) is M×K: A stored M×K
+// s32 sums (wgmma m64n192k32 .s32.s8.s8; m64n96k32 in the chunked mode).
+// op(A) is M×K: A stored M×K
 // row-major (K-major) or, with TA, K×M row-major (MN-major, read through
 // wgmma's transpose); op(B) is K×N: B stored N×K row-major (K-major, a
 // torch Linear weight) or, with TB, K×N row-major (MN-major). wgmma's s8
@@ -18,14 +19,32 @@
 // The epilogue is gemm_bf16.cuh's functor, unchanged:
 //   void operator()(long long z, int m, int n, const float* v, int cnt) const
 // gets the f32 sums of row m, columns n .. n+cnt-1 of entry z (n % 8 == 0,
-// cnt ≤ 8). So GeluBias, ResidualBias, the Mixer backward's BiasPreact,
-// GeluGrad and StoreF32 and the kernel lab's epilogues plug in as they
-// are. gemm_s8 wraps the W8A8 functors of gemm_s8.cuh (BiasGeluF32,
+// cnt ≤ 8). So GeluBias, ResidualBias, the gMLP gate, the Mixer backward's
+// BiasPreact, GeluGrad and StoreF32 and the kernel lab's epilogues plug in
+// as they are. gemm_s8 wraps the W8A8 functors of gemm_s8.cuh (BiasGeluF32,
 // ResidBias, the gMLP gate) in Dequant, which hands them
 // v = (f32(acc) · rs[m]) · cs[n] with gemm_s8.cuh's rounding (eight columns
 // through their row8, the same arithmetic as operator() with 16-byte
 // accesses; mma.sync's calls of operator() are unchanged); so every
 // rounding point of a block stays where it was.
+//
+// The chunked s8 mode (gemm_s8_chunked) is gemm_s8.cuh's chunk flush in the
+// core: K is cut into pieces of `chunk` codes (a multiple of 32 that divides
+// K), and where a piece ends, after any of a K step's four k32 wgmmas, the
+// consumer retires its wgmmas, adds (f32(acc) · rs[m, piece]) · cs[n] into
+// an f32 running sum in piece order, v = ((0 + p0) + p1) + …, and zeroes the
+// s32 sums; the epilogue hands v to the functor unchanged. The running sums
+// need 48 more registers a thread beside the s32 sums: the mode's tile is
+// 192×96 (three m64n96 consumers, 48 + 48 a thread, within the 128 that
+// four warpgroups leave) rather than two consumers of m64n192 at 232
+// registers each after setmaxnreg, which ptxas would have to honour
+// (ptxas -v: 128 registers, no spills). Measured on an H100 80GB HBM3 at
+// 700 W (chip_smoke.py phase 5, f32 output): the W8A8 Mixer-B/16's second
+// channel product at b256, (50176, 768, 3072) in 4 chunks of 768 codes,
+// 0.3781 ms, 626 TOP/s (mma.sync 1.0171 ms; torch._int_mm's whole product,
+// without chunks or scales, 0.3219). The design not taken: each piece as
+// an f32 partial through device memory, summed by a later pass (4 × 154 MB
+// more traffic at Mixer-B/16 b256, about 0.3 ms a block).
 //
 // Which TPU work it serves: the channel products of
 // jittor_mlp_tpu/ops/pallas/mixer_block.py:157 fused_mixer_block (kernel 1,
@@ -33,7 +52,10 @@
 // four products of mixer_block_bwd.py:397 _chan_wgt_bwd and the two it
 // shares with :306 _chan_data_bwd (mixer_block_bwd.cu); the three int8
 // products of gmlp_block_int8.py:61 fused_gmlp_block_int8
-// (gmlp_block_int8.cu).
+// (gmlp_block_int8.cu); the four int8 products of mixer_block_int8.py:121
+// fused_mixer_block_int8, the second channel product in the chunked mode
+// (mixer_block_int8.cu); the three bf16 products of gmlp_block.py:57
+// fused_gmlp_block, the token product with an MN-major B (gmlp_block.cu).
 //
 // What bounds it: the Mixer-B/16 channel products at b256 are 236.8 GFLOP
 // each, 0.239 ms at the H100's 989 TFLOP/s dense bf16 peak, against 0.1–0.4
@@ -50,8 +72,9 @@
 //   parameters) of one 128-byte row of each operand row per K step (64 bf16
 //   or 128 int8 values) into 128-byte-swizzled shared memory aligned to
 //   1024 bytes, the layout wgmma reads through its descriptors. A K-major
-//   operand is one box of 192 rows; an MN-major one three boxes of 64
-//   values × 64 K rows, 8 KB apart (the descriptor's leading byte offset),
+//   operand is one box of 192 rows (B's 96 in the chunked mode); an
+//   MN-major one three boxes of 64 values × 64 K rows, 8 KB apart (the
+//   descriptor's leading byte offset),
 //   read with wgmma's transpose bit. Ragged M, N and K tails are TMA's
 //   zero fill: the main loop has no masks, and the epilogue skips rows ≥ M
 //   and columns ≥ N. A batched operand has two maps: a 3-D one (columns,
@@ -105,6 +128,7 @@ namespace sm90 {
 
 constexpr int CONSUMERS = 3;                      // warpgroups of 64 tile rows each
 constexpr int BM = 64 * CONSUMERS, BN = 192;      // block tile
+constexpr int BN_CHUNKED = 96;                    // the chunked s8 mode's tile width
 constexpr int K_BYTES = 128;                      // a K step: one 128-byte row of each operand row
 constexpr int BK = K_BYTES / 2;                   // ... 64 bf16 values (128 int8)
 constexpr int STAGES = 4;
@@ -112,15 +136,25 @@ constexpr int THREADS = 128 * (1 + CONSUMERS);    // warpgroup 0 produces
 // setmaxnreg: 128·40 + 384·152 = 63,488 of the 512·128 the launch bounds give
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 152;
 constexpr int A_BYTES = BM * K_BYTES;             // 24 KB
-constexpr int B_BYTES = BN * K_BYTES;             // 24 KB
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int MN_LBO = BK * K_BYTES;              // MN-major: 64-value chunks one 8 KB box apart
 constexpr int STG_LD = 36;                        // f32 row of a warp's 16×32 staging tile
 constexpr int STG_FLOATS = 16 * STG_LD;
-static_assert(BN == 192, "the consumers' wgmma is m64n192");
-constexpr int SMEM_BYTES = 1024 + STAGES * STAGE_BYTES + CONSUMERS * 4 * STG_FLOATS * 4 +
-                           2 * STAGES * 8;        // alignment slack, ring, staging, barriers
-static_assert(SMEM_BYTES <= 232448, "the ring fits the 227 KB a block may use");
+
+// The geometry of a block tile W columns wide: each consumer thread holds
+// W / 2 sums; a stage is A's 192 rows and B's W rows of one K step.
+template <int W>
+struct Tile {
+  static constexpr int ACC = W / 2;
+  static constexpr int B_BYTES = W * K_BYTES;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  // alignment slack, ring, staging, barriers
+  static constexpr int SMEM_BYTES =
+      1024 + STAGES * STAGE_BYTES + CONSUMERS * 4 * STG_FLOATS * 4 + 2 * STAGES * 8;
+  static_assert(W % 32 == 0 && STAGE_BYTES % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(SMEM_BYTES <= 232448, "the ring fits the 227 KB a block may use");
+};
+constexpr int SMEM_BYTES = Tile<BN>::SMEM_BYTES;  // 48 KB stages; 36 KB in the chunked mode
+static_assert(BN == 192 && BN_CHUNKED == 96, "the consumers' wgmma is m64n192 (m64n96 chunked)");
 
 // bf16 on wgmma and on the WMMA core; int8 on wgmma and on mma.sync.
 enum Route { SM90 = 0, WMMA = 1, SM90_S8 = 2, MMA_S8 = 3 };
@@ -233,14 +267,16 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accesses of the accumulators across the
 // asynchronous wgmma and its wait.
-__device__ __forceinline__ void fence_acc(float (&d)[BN / 2]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void fence_acc(int (&d)[BN / 2]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) asm volatile("" : "+r"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // The 96 accumulator registers of one m64n192 wgmma, as operands %0..%95.
@@ -300,14 +336,49 @@ __device__ __forceinline__ void wgmma_192(int (&d)[96], uint64_t a, uint64_t b) 
 #undef JMT_WGMMA_D96
 #undef JMT_WGMMA_OUT96
 
-// Output tile `tile` of the walk: entry z, first row m0, first column n0.
+// The 48 accumulator registers of one m64n96 wgmma, as operands %0..%47.
+#define JMT_WGMMA_D48 \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, " \
+  "%44, %45, %46, %47}"
+#define JMT_WGMMA_OUT48(C) \
+  C(d[0]), C(d[1]), C(d[2]), C(d[3]), C(d[4]), C(d[5]), C(d[6]), \
+  C(d[7]), C(d[8]), C(d[9]), C(d[10]), C(d[11]), C(d[12]), C(d[13]), \
+  C(d[14]), C(d[15]), C(d[16]), C(d[17]), C(d[18]), C(d[19]), C(d[20]), \
+  C(d[21]), C(d[22]), C(d[23]), C(d[24]), C(d[25]), C(d[26]), C(d[27]), \
+  C(d[28]), C(d[29]), C(d[30]), C(d[31]), C(d[32]), C(d[33]), C(d[34]), \
+  C(d[35]), C(d[36]), C(d[37]), C(d[38]), C(d[39]), C(d[40]), C(d[41]), \
+  C(d[42]), C(d[43]), C(d[44]), C(d[45]), C(d[46]), C(d[47])
+
+// d (64×96, s32) += A (64×32 int8, K-major) · B (96×32 int8, K-major)ᵀ: the
+// chunked mode's wgmma; d[4j + 2i + c] as in the m64n192 forms, j < 12.
+template <bool TA, bool TB>
+__device__ __forceinline__ void wgmma_96(int (&d)[48], uint64_t a, uint64_t b) {
+  static_assert(!TA && !TB, "wgmma's s8 shapes read K-major operands only");
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 " JMT_WGMMA_D48 ", %48, %49, p;\n"
+      "}\n"
+      : JMT_WGMMA_OUT48("+r")
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef JMT_WGMMA_D48
+#undef JMT_WGMMA_OUT48
+
+// Output tile `tile` of a walk over tiles W columns wide: entry z, first
+// row m0, first column n0.
 struct TilePos {
   int z, m0, n0;
 };
 
+template <int W>
 __device__ __forceinline__ TilePos tile_pos(int tile, int tiles_m, int tiles_n) {
   const int per = tiles_m * tiles_n, r = tile % per;
-  return {tile / per, r / tiles_n * BM, r % tiles_n * BN};
+  return {tile / per, r / tiles_n * BM, r % tiles_n * W};
 }
 
 // K steps of entry z (the last entry's K may be shorter). The producer and
@@ -337,22 +408,64 @@ __device__ __forceinline__ void load_operand(unsigned char* dst, const CUtensorM
   }
 }
 
-template <class T, bool TA, bool TB, class Epi>
+// The chunked s8 mode's pieces: K cut into pieces of `chunk` codes; piece p
+// of entry z is scaled by rs[z·row_batch + m·row_stride + p] and
+// cs[z·col_batch + n] (chunk 0: not chunked).
+struct Chunks {
+  s8gemm::Scales sc;
+  int chunk;
+};
+
+// The chunked mode's flush of one piece by one consumer thread, whose sums
+// lie in rows m0, m0 + 8 and columns n0 + 8j + c (c < 2): run +=
+// (f32(acc) · rs) · cs, each product and the sum rounded in f32 in
+// gemm_s8.cuh's order, then acc = 0. Rows and columns past the edge take
+// scale 0 (their sums are zero fill, and the epilogue skips them).
+template <int ACC>
+__device__ __forceinline__ void flush_piece(int (&acc)[ACC], float (&run)[ACC],
+                                            const s8gemm::Scales& sc, long long z, int m0,
+                                            int n0, int M, int N, int piece) {
+  float rs[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int m = m0 + 8 * i;
+    rs[i] = m < M ? sc.row[z * sc.row_batch + (long long)m * sc.row_stride + piece] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < ACC / 4; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = n0 + 8 * j + c;
+      const float cs = n < N ? sc.col[z * sc.col_batch + n] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int e = 4 * j + 2 * i + c;
+        run[e] = __fadd_rn(run[e], __fmul_rn(__fmul_rn(static_cast<float>(acc[e]), rs[i]), cs));
+        acc[e] = 0;
+      }
+    }
+}
+
+template <class T, bool TA, bool TB, bool CHUNKED, class Epi>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_kernel(const __grid_constant__ CUtensorMap a_full, const __grid_constant__ CUtensorMap a_last,
             const __grid_constant__ CUtensorMap b_full, const __grid_constant__ CUtensorMap b_last,
-            int nz, int a_batched, int b_batched, int M, int N, int K, int K_last, Epi epi) {
+            int nz, int a_batched, int b_batched, int M, int N, int K, int K_last, Chunks ch,
+            Epi epi) {
   typedef typename Elem<T>::Acc Acc;
+  constexpr int W = CHUNKED ? BN_CHUNKED : BN;
+  typedef Tile<W> G;
   constexpr int KI = Elem<T>::K_INST;
   constexpr int STEP = K_BYTES / (int)sizeof(T);
+  static_assert(!CHUNKED || sizeof(T) == 1, "the chunked mode is the s8 core's");
   extern __shared__ unsigned char smem_raw[];
   // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* staging = reinterpret_cast<float*>(smem + STAGES * STAGE_BYTES);
+  float* staging = reinterpret_cast<float*>(smem + STAGES * G::STAGE_BYTES);
   uint64_t* full = reinterpret_cast<uint64_t*>(staging + CONSUMERS * 4 * STG_FLOATS);
   uint64_t* empty = full + STAGES;
 
-  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
+  const int tiles_m = (M + BM - 1) / BM, tiles_n = (N + W - 1) / W;
   const int tiles = nz * tiles_m * tiles_n;
   const int wg = threadIdx.x / 128;
 
@@ -372,16 +485,16 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_full, const __grid_constant__ 
     if (threadIdx.x == 0) {
       int it = 0;  // K steps loaded so far, over all tiles: stage it % STAGES
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const TilePos p = tile_pos(tile, tiles_m, tiles_n);
+        const TilePos p = tile_pos<W>(tile, tiles_m, tiles_n);
         const int ktiles = k_steps<T>(p.z, nz, K, K_last);
         const bool la = !a_batched || p.z == nz - 1, lb = !b_batched || p.z == nz - 1;
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % STAGES;
           mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);  // round 0 passes at once
-          mbar_expect_tx(&full[s], STAGE_BYTES);
-          unsigned char* st = smem + s * STAGE_BYTES;
+          mbar_expect_tx(&full[s], G::STAGE_BYTES);
+          unsigned char* st = smem + s * G::STAGE_BYTES;
           load_operand<TA, BM>(st, &a_full, &a_last, la, p.z, p.m0, kt * STEP, &full[s]);
-          load_operand<TB, BN>(st + A_BYTES, &b_full, &b_last, lb, p.z, p.n0, kt * STEP, &full[s]);
+          load_operand<TB, W>(st + A_BYTES, &b_full, &b_last, lb, p.z, p.n0, kt * STEP, &full[s]);
         }
       }
     }
@@ -390,27 +503,52 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_full, const __grid_constant__ 
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
     const int c = wg - 1;
     const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+    const int r = lane / 4, q = lane % 4;
     float* stg = staging + (c * 4 + warp) * STG_FLOATS;
-    Acc acc[BN / 2];
+    Acc acc[G::ACC];
+    float run[CHUNKED ? G::ACC : 1];  // the chunked mode's f32 running sums
     int it = 0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const TilePos p = tile_pos(tile, tiles_m, tiles_n);
+      const TilePos p = tile_pos<W>(tile, tiles_m, tiles_n);
       const int ktiles = k_steps<T>(p.z, nz, K, K_last);
+      const int mrow = p.m0 + c * 64 + warp * 16;  // this warp's first row
 #pragma unroll
-      for (int i = 0; i < BN / 2; ++i) acc[i] = 0;
+      for (int i = 0; i < G::ACC; ++i) acc[i] = 0;
+      if constexpr (CHUNKED) {
+#pragma unroll
+        for (int i = 0; i < G::ACC; ++i) run[i] = 0.0f;
+      }
       for (int kt = 0; kt < ktiles; ++kt, ++it) {
         const int s = it % STAGES;
         mbar_wait(&full[s], (it / STAGES) & 1);
         // this warpgroup's 64 rows: K-major 64 rows of 128 bytes, MN-major
         // box c (BK rows of 128 bytes); 8 KB either way
-        const uint32_t a = smem_u32(smem + s * STAGE_BYTES) + c * (A_BYTES / CONSUMERS);
-        const uint32_t b = smem_u32(smem + s * STAGE_BYTES + A_BYTES);
+        const uint32_t a = smem_u32(smem + s * G::STAGE_BYTES) + c * (A_BYTES / CONSUMERS);
+        const uint32_t b = smem_u32(smem + s * G::STAGE_BYTES + A_BYTES);
         fence_acc(acc);
         wgmma_fence();
 #pragma unroll
-        for (int k = 0; k < STEP / KI; ++k)
-          wgmma_192<TA, TB>(acc, desc_sw128(TA ? a + k * KI * K_BYTES : a + 32 * k, MN_LBO),
-                            desc_sw128(TB ? b + k * KI * K_BYTES : b + 32 * k, MN_LBO));
+        for (int k = 0; k < STEP / KI; ++k) {
+          const uint64_t da = desc_sw128(TA ? a + k * KI * K_BYTES : a + 32 * k, MN_LBO);
+          const uint64_t db = desc_sw128(TB ? b + k * KI * K_BYTES : b + 32 * k, MN_LBO);
+          if constexpr (CHUNKED) {
+            wgmma_96<TA, TB>(acc, da, db);
+            // a piece ends after this wgmma's K slice (which may be inside the
+            // step): retire the wgmmas and flush the piece's sums
+            const int kend = kt * STEP + (k + 1) * KI;
+            if (kend % ch.chunk == 0 && kend <= K) {
+              wgmma_commit();
+              wgmma_wait<0>();
+              fence_acc(acc);
+              flush_piece(acc, run, ch.sc, p.z, mrow + r, p.n0 + 2 * q, M, N,
+                          kend / ch.chunk - 1);
+              fence_acc(acc);
+              wgmma_fence();
+            }
+          } else {
+            wgmma_192<TA, TB>(acc, da, db);
+          }
+        }
         wgmma_commit();
         fence_acc(acc);
         wgmma_wait<1>();  // the previous K step's wgmmas have retired: free its stage
@@ -422,18 +560,21 @@ gemm_kernel(const __grid_constant__ CUtensorMap a_full, const __grid_constant__ 
 
       // Epilogue: 32 columns at a time through the warp's staging tile; lane
       // (r, q) of the accumulator writes its pairs, then 4 lanes a row read
-      // 8 columns each.
-      const int mrow = p.m0 + c * 64 + warp * 16;  // this warp's first row
-      const int r = lane / 4, q = lane % 4;
+      // 8 columns each. The chunked mode hands over its running sums.
+      auto val = [&](int e) {
+        if constexpr (CHUNKED)
+          return run[e];
+        else
+          return static_cast<float>(acc[e]);
+      };
 #pragma unroll
-      for (int cc = 0; cc < BN / 32; ++cc) {
+      for (int cc = 0; cc < W / 32; ++cc) {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           const int j = cc * 4 + jj, col = jj * 8 + 2 * q;
-          *reinterpret_cast<float2*>(stg + r * STG_LD + col) =
-              make_float2(static_cast<float>(acc[4 * j]), static_cast<float>(acc[4 * j + 1]));
+          *reinterpret_cast<float2*>(stg + r * STG_LD + col) = make_float2(val(4 * j), val(4 * j + 1));
           *reinterpret_cast<float2*>(stg + (r + 8) * STG_LD + col) =
-              make_float2(static_cast<float>(acc[4 * j + 2]), static_cast<float>(acc[4 * j + 3]));
+              make_float2(val(4 * j + 2), val(4 * j + 3));
         }
         __syncwarp();
 #pragma unroll
@@ -524,36 +665,41 @@ inline bool operand_maps(CUtensorMap* full, CUtensorMap* last, const Operand& o,
   } while (0)
 
 // The wgmma core alone: cudaErrorInvalidValue where TMA's rules do not hold
-// or the shapes are not a product's.
-template <class T, bool TA, bool TB, class Epi>
+// or the shapes are not a product's. CHUNKED: the chunked s8 mode, its
+// pieces in `ch`.
+template <class T, bool TA, bool TB, bool CHUNKED = false, class Epi>
 cudaError_t launch_sm90(cudaStream_t stream, int nz, int M, int N, int K, int K_last,
-                        const Operand& a, const Operand& b, const Epi& epi) {
+                        const Operand& a, const Operand& b, const Epi& epi,
+                        const Chunks& ch = Chunks{}) {
+  constexpr int W = CHUNKED ? BN_CHUNKED : BN;
   if (nz <= 0 || M <= 0 || N <= 0 || K <= 0 || K_last <= 0 || K_last > K || !tma_ok<T>(a) ||
       !tma_ok<T>(b))
     return cudaErrorInvalidValue;
   if ((a.zstride == 0 || b.zstride == 0) && K_last != K)  // a shared matrix has one K
     return cudaErrorInvalidValue;
+  if (CHUNKED && (ch.chunk <= 0 || ch.chunk % Elem<T>::K_INST || K % ch.chunk || K_last != K))
+    return cudaErrorInvalidValue;  // pieces end on a wgmma's K slice and tile every entry's K
   CUtensorMap maps[4];
   if (!operand_maps<T, TA>(&maps[0], &maps[1], a, M, BM, nz, K, K_last) ||
-      !operand_maps<T, TB>(&maps[2], &maps[3], b, N, BN, nz, K, K_last))
+      !operand_maps<T, TB>(&maps[2], &maps[3], b, N, W, nz, K, K_last))
     return cudaErrorInvalidValue;
-  const auto kernel = gemm_kernel<T, TA, TB, Epi>;
+  const auto kernel = gemm_kernel<T, TA, TB, CHUNKED, Epi>;
   // setmaxnreg moves registers between warpgroups within the block's own
   // allocation: refuse to launch (rather than hang) if ptxas gave it less.
   cudaFuncAttributes attr;
   SM90_TRY(cudaFuncGetAttributes(&attr, kernel));
   if (attr.numRegs * THREADS < PRODUCER_REGS * 128 + CONSUMER_REGS * 128 * CONSUMERS)
     return cudaErrorInvalidConfiguration;
-  SM90_TRY(
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES));
+  constexpr int smem = Tile<W>::SMEM_BYTES;
+  SM90_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
   int dev = 0, sms = 0;
   SM90_TRY(cudaGetDevice(&dev));
   SM90_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const long long tiles = (long long)nz * ((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  const long long tiles = (long long)nz * ((M + BM - 1) / BM) * ((N + W - 1) / W);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(maps[0], maps[1], maps[2], maps[3], nz,
-                                                a.zstride != 0, b.zstride != 0, M, N, K, K_last,
-                                                epi);
+  kernel<<<grid, THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], nz,
+                                          a.zstride != 0, b.zstride != 0, M, N, K, K_last, ch,
+                                          epi);
   const cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess) ++g_products[Elem<T>::WGMMA];
   return e;
@@ -621,6 +767,44 @@ cudaError_t gemm_s8(cudaStream_t stream, int nz, int M, int N, int K, const void
     return launch_sm90<int8_t, false, false>(stream, nz, M, N, K, K, Operand{A, lda, sA},
                                              Operand{B, ldb, sB}, Dequant<Epi>{sc, epi});
   const cudaError_t e = s8gemm::gemm(stream, nz, M, N, K, K, A, lda, sA, B, ldb, sB, sc, epi);
+  if (e == cudaSuccess) ++g_products[MMA_S8];
+  return e;
+}
+
+// The chunked s8 mode's epilogue: v, the running sums, is dequantized
+// already and goes to the W8A8 functor unchanged (eight columns through its
+// row8, as Dequant hands them).
+template <class Epi>
+struct Rows8 {
+  Epi epi;
+
+  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
+    if (cnt == 8) {
+      epi.row8(z, m, n, v);
+    } else {
+      epi(z, m, n, v, cnt);
+    }
+  }
+};
+
+// int8 with K in pieces: C[z] = epi(z, m, n, v), v = Σ_p (f32(A[z]·B[z]ᵀ
+// over piece p) · rs[.., m, p]) · cs[n] summed in piece order from 0
+// (gemm_s8.cuh's chunk flush; sc.row_stride is the pieces a row), pieces of
+// `chunk` codes, a multiple of 32 that divides K. On the s8 wgmma core's
+// chunked mode (Core::Auto, Core::Sm90: 192×96 tiles, the flush after the
+// wgmma whose K slice ends a piece), or on gemm_s8.cuh's mma.sync core
+// (Core::Legacy).
+template <class Epi>
+cudaError_t gemm_s8_chunked(cudaStream_t stream, int nz, int M, int N, int K, int chunk,
+                            const void* A, int lda, long long sA, const void* B, int ldb,
+                            long long sB, const s8gemm::Scales& sc, const Epi& epi,
+                            Core core = Core::Auto) {
+  if (core != Core::Legacy)  // each core refuses pieces that do not tile K in 32-code slices
+    return launch_sm90<int8_t, false, false, true>(stream, nz, M, N, K, K, Operand{A, lda, sA},
+                                                   Operand{B, ldb, sB}, Rows8<Epi>{epi},
+                                                   Chunks{sc, chunk});
+  const cudaError_t e =
+      s8gemm::gemm(stream, nz, M, N, K, chunk, A, lda, sA, B, ldb, sB, sc, epi);
   if (e == cudaSuccess) ++g_products[MMA_S8];
   return e;
 }

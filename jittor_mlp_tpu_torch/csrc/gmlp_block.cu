@@ -10,8 +10,8 @@
 //   v2  = bf16(Wsp · vn + bs)                            Wsp (N, N), per image
 //   g   = bf16(f32(u) · f32(v2))
 //   out = bf16(x + (g · W2ᵀ + b2))                       W2 (D, F)
-// All products accumulate in f32 on the tensor cores, on the Mixer block's
-// GEMM (gemm_bf16.cuh) with gMLP epilogues.
+// All products accumulate in f32 on the tensor cores, on gemm_sm90.cuh's
+// bf16 wgmma core with gMLP epilogues.
 //
 // What bounds it on this card, and what the design does about it:
 // - 2·B·N·(D·2F + N·F + F·D) flops: 148.6 G at b256 for gMLP-S (N = 196,
@@ -21,19 +21,45 @@
 // - No VMEM: the block is five launches (LN1, GEMM1, LN2 over the v half,
 //   token GEMM, GEMM2); xn, y, vn and g go through device memory in bf16,
 //   as the TPU kernel rounds them; the weights are shared by every image
-//   and stay in the 50 MB L2 cache.
-// - The token product is per image, M = K = N = 196, with Wsp as the shared
-//   A operand. Wsp's 392-byte rows would take the 2-byte load path, as
-//   ResMLP's token product does (PERF.md §5), so each call first copies Wsp
-//   into rows of Np = round_up(N, 8) elements, zero in the padding (the
-//   JAX wrapper pads its K axis to 128 the same way): the rows are then
-//   16-byte aligned and go by cp.async. K stays N; the ragged K tail is
-//   zero-filled in shared memory and the ragged M edge masked.
+//   and stay in the 50 MB L2 cache. The bytes floor of this data flow at
+//   b256 for gMLP-S: y written (308 MB), its v half read by LN2 and its u
+//   half by the gate (154 MB each), vn and g written and read (154 MB each
+//   way), x read twice (LN1, the residual), xn written and read and out
+//   written (26 MB each): 1.36 GB, 0.406 ms at 3.35 TB/s, 2.7× the
+//   operation bound.
+// - The three products run on the wgmma core (TMA loads into a four-stage
+//   ring, wgmma.m64n192k16 from three consumer warpgroups, persistent
+//   blocks), where the WMMA core (gemm_bf16.cuh) ran them before. GEMM1
+//   (K = D = 256, four K steps of 64) is bound by its epilogue: the tanh
+//   GELU of B·N·2F values and their bf16 stores run after its wgmmas, not
+//   beside them. GEMM2's N = D = 256 is ragged against the 192-wide tile
+//   (TMA zero fill, the epilogue skips the columns).
+// - The token product is per image through the core's batch axis, M = K =
+//   N = 196, with Wsp as the shared A operand and vn as an N-major B (K × F
+//   row-major per image, wgmma's transpose bit: the core's TB mode, a 3-D
+//   tensor map for every image but the last so that no image reads the
+//   next one's rows). Wsp's 392-byte rows break TMA's 16-byte stride rule,
+//   so each call first copies Wsp into rows of Np = round_up(N, 8) elements
+//   (400 bytes), zero in the padding (the JAX wrapper pads its K axis to
+//   128 the same way); K stays N, and TMA zero-fills the K tail. M = 196
+//   tokens is cut as 192 + 4 rows, so the second row tile is mostly zero
+//   fill.
+// - Where TMA's rules fail (D or F not a multiple of 8: rows that are not
+//   16-byte multiples apart) a product takes the WMMA core on the same
+//   arguments, a route counted by gmlp_gemm_products as the wgmma one is.
 // - The gate is the token product's epilogue: it reads u at leading
 //   dimension 2F, adds bs per token, rounds v2 to bf16 and writes g, so v2
 //   never reaches device memory.
+// - Where the time goes (H100 80GB HBM3, 700 W, b256, profile_blocks): a
+//   block takes 1.05 ms (1.48 with its products on WMMA): GEMM1 with GELU
+//   0.40 ms, the token product with the gate 0.33, GEMM2 0.13, the two
+//   LayerNorms 0.15. With a plain f32 store the three products take 0.70
+//   ms (chip_smoke.py phase 5; GEMM1 0.33, 236 TFLOP/s, against the
+//   library's 0.15 for the product alone): the epilogues and the ragged
+//   token tile, not the wgmmas, are what is left.
+// - No atomics: two calls on the same inputs agree bit for bit.
 
-#include "gemm_bf16.cuh"
+#include "gemm_sm90.cuh"
 #include "layer_norm.cuh"
 
 using namespace jmt;
@@ -114,7 +140,6 @@ extern "C" int gmlp_block_bf16(const void* x, const void* ln1w, const void* ln1b
                                void* ws, void* out, int B, int N, int D, int F,
                                void* stream_ptr) {
   using bf16gemm::gelu_bias;
-  using bf16gemm::gemm;
   using bf16gemm::residual_bias;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   Carver carver{static_cast<char*>(ws)};
@@ -127,17 +152,24 @@ extern "C" int gmlp_block_bf16(const void* x, const void* ln1w, const void* ln1b
                               sizeof(bf16) * N, N, cudaMemcpyDeviceToDevice, s));
   JMT_CHECK(layer_norm(s, x, D, ln1w, ln1b, w.xn, M, D));
   // channel expand over all B·N rows: y = gelu(xn · W1ᵀ + b1), (B·N, 2F)
-  JMT_CHECK(gemm<true>(s, 1, M, F2, D, w.xn, D, 0, w1, D, 0, gelu_bias(b1, 0, w.y, F2, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, M, F2, D, w.xn, D, w1, D, gelu_bias(b1, 0, w.y, F2, 0)));
   // the SGU: vn = LN2(v), v the second half of each row of y
   JMT_CHECK(layer_norm(s, w.y + F, F2, sgu_w, sgu_b, w.vn, M, F));
-  // token product per image, gated: g = u · bf16(Wsp · vn + bs)
-  JMT_CHECK(gemm<false>(s, B, N, F, N, w.wsp, Np, 0, w.vn, F, (long long)N * F,
-                        Gate{w.y, F2, static_cast<const bf16*>(bs), w.g, F, N,
-                             vec_ok(w.y, F2, 0) && vec_ok(w.g, F, 0)}));
+  // token product per image, gated: g = u · bf16(Wsp · vn + bs); Wsp shared,
+  // vn (K = N tokens × F per image) N-major
+  const Gate gate{w.y, F2, static_cast<const bf16*>(bs), w.g, F, N,
+                  vec_ok(w.y, F2, 0) && vec_ok(w.g, F, 0)};
+  JMT_CHECK((sm90::gemm_bf16<false, true>(s, B, N, F, N, N, w.wsp, Np, 0, w.vn, F,
+                                          (long long)N * F, gate)));
   // channel project back with the residual: out = x + (g · W2ᵀ + b2)
-  JMT_CHECK(gemm<true>(s, 1, M, D, F, w.g, F, 0, w2, F, 0, residual_bias(b2, 0, x, out, D, 0)));
+  JMT_CHECK(sm90::gemm_tn(s, M, D, F, w.g, F, w2, F, residual_bias(b2, 0, x, out, D, 0)));
   return 0;
 }
+
+// Products this library launched on route 0 (the bf16 wgmma core) or 1
+// (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
+// route.
+extern "C" long long gmlp_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* gmlp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel jittor_mlp_tpu/ops/pallas/
 // mixer_block_int8.py::fused_mixer_block_int8 (body `_kernel_int8`). Every
-// product is int8 × int8 → int32 on the tensor cores (gemm_s8.cuh); weights
+// product is int8 × int8 → int32 on the s8 wgmma core (gemm_sm90.cuh); weights
 // arrive quantized per output channel (the wrapper quantizes them, as the
 // JAX wrapper does outside its kernel); activations are quantized here,
 // dynamically (quant_s8.cuh). For x (B, N, D) bf16, per image:
@@ -27,18 +27,45 @@
 //   for the next product. Every quantization is a pass of its own between
 //   the GEMMs, and the f32 intermediates t (B, TD, D) and c (B·N, CD) go
 //   through device memory unrounded, as the reference keeps them in f32:
-//   rounding them to bf16 would change the int8 codes. That traffic (t is
-//   302 MB each way at b256, c 617 MB) is this design's cost; ten launches
-//   per block.
-// - mma.sync's s8 shapes take both operands K-contiguous, so the token
-//   products' B operands are written transposed, (B, D, Np) and (B, D, TDp),
-//   by the quantize passes; the token axis N = 196 is padded with zero codes
-//   to Np = 224 (a multiple of the MMA's K, 32), which is exact and makes the
-//   rows 16-byte aligned.
-// - The second channel product keeps one f32 sum per output in registers
-//   and flushes its int32 sum into it at each chunk boundary (gemm_s8.cuh).
-
-#include "gemm_s8.cuh"
+//   rounding them to bf16 would change the int8 codes. The bytes floor of
+//   this data flow (Work below; each pass reads what it consumes once and
+//   writes what it makes once), at b256 for Mixer-B/16: t 302 MB written
+//   and read, c 617 MB written and read, x read three times (LN1's
+//   statistics, its quantize pass, the residual) and h written once and
+//   read three times (77 MB each), the codes written and read (qxn 44, qt
+//   75, qhn 39, qc 154 MB) and out written: 3.08 GB, 0.918 ms at 3.35
+//   TB/s, 3.4× the operation bound. Ten launches per block.
+// - The four products run on gemm_sm90.cuh's s8 wgmma core
+//   (wgmma...s32.s8.s8, TMA loads of 128-code rows into a four-stage
+//   ring, persistent blocks), as the W8A8 gMLP block's do; mma.sync
+//   (gemm_s8.cuh), which they replace, reached ≈ 70 TOP/s here. The core
+//   dequantizes each tile in its epilogue, (f32(acc) · rs[m]) · cs[n], and
+//   hands v to the W8A8 functors of gemm_s8.cuh, so every rounding point
+//   is where the reference has it.
+// - wgmma's s8 shapes take both operands K-major, so the token products'
+//   B operands are written transposed, (B, D, Np) and (B, D, TDp), by the
+//   quantize passes, and run per image through the core's batch axis (a
+//   3-D tensor map, one entry an image; the weight shared). The token axis
+//   N = 196 is padded with zero codes to Np = 224 (a multiple of the
+//   wgmma's K, 32), which is exact and makes the rows 16-byte aligned, as
+//   TMA needs. The second token product's M = 196 tokens is cut as 192 + 4
+//   rows: its second row tile is nearly all zero fill (as in the W8A8
+//   gMLP block's token product, which measured that tile at 0.023 ms).
+// - The second channel product sums its hidden axis in chunks, one
+//   activation scale per (row, chunk): the core's chunked mode keeps an f32
+//   running sum beside the s32 sums and flushes each chunk into it where
+//   the chunk ends, in chunk order, inside a 128-code K step where ckp is
+//   not a multiple of 128 (ck = 514 → ckp = 544 in chip_smoke.py's ragged
+//   shape). The running sums cost 48 registers a thread, so that mode's
+//   tile is 192×96 (m64n96 consumers) where the others are 192×192.
+// - Where the time goes (H100 80GB HBM3, 700 W, b256, profile_blocks): a
+//   block takes 2.71 ms (4.85 with its products on mma.sync): the products
+//   1.53 ms (the token and channel products with their GELU epilogues and
+//   f32 stores of t and c 0.90, the chunked product 0.41, the second token
+//   product 0.22), the quantize passes and statistics 0.89 ms, the
+//   wrapper's weight quantization most of the rest.
+// - No atomics: two calls on the same inputs agree bit for bit.
+#include "gemm_sm90.cuh"
 #include "quant_s8.cuh"
 
 using namespace jmt;
@@ -112,8 +139,8 @@ extern "C" int mixer_block_int8(const void* x, const void* ln1w, const void* ln1
                                 const void* swc1, const void* bc1, const void* qwc2,
                                 const void* swc2, const void* bc2, void* ws, void* out, int B,
                                 int N, int D, int TD, int CD, void* stream_ptr) {
-  using s8gemm::gemm;
   using s8gemm::Scales;
+  using sm90::gemm_s8;
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
   const Dims d(B, N, D, TD, CD);
   Carver carver{static_cast<char*>(ws)};
@@ -121,33 +148,38 @@ extern "C" int mixer_block_int8(const void* x, const void* ln1w, const void* ln1
   auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
   auto f32 = [](const void* p) { return static_cast<const float*>(p); };
 
-  // token mix, per image
+  // token mix, per image (the weight shared, the codes an entry an image)
   JMT_CHECK(quant::row_stats(s, x, w.stats, d.M, D));
   JMT_CHECK(quant::quant_cols(s, quant::LnSrc{bf(x), w.stats, bf(ln1w), bf(ln1b), N, D}, B, N,
                               d.Np, D, w.qxn, w.sxn));
-  JMT_CHECK(gemm(s, B, TD, D, d.Np, d.Np, qwt1, d.Np, 0, w.qxn, d.Np, (long long)D * d.Np,
-                 Scales{f32(swt1), 0, 1, w.sxn, D},
-                 s8gemm::BiasGeluF32{bf(bt1), 1, w.t, D, (long long)TD * D}));
+  JMT_CHECK(gemm_s8(s, B, TD, D, d.Np, qwt1, d.Np, 0, w.qxn, d.Np, (long long)D * d.Np,
+                    Scales{f32(swt1), 0, 1, w.sxn, D},
+                    s8gemm::BiasGeluF32{bf(bt1), 1, w.t, D, (long long)TD * D}));
   JMT_CHECK(quant::quant_cols(s, quant::F32Src{w.t, (long long)TD * D, D}, B, TD, d.TDp, D,
                               w.qt, w.st));
-  JMT_CHECK(gemm(s, B, N, D, d.TDp, d.TDp, qwt2, d.TDp, 0, w.qt, d.TDp, (long long)D * d.TDp,
-                 Scales{f32(swt2), 0, 1, w.st, D},
-                 s8gemm::ResidBias{bf(x), bf(bt2), 1, 0, w.h, D, (long long)N * D}));
+  JMT_CHECK(gemm_s8(s, B, N, D, d.TDp, qwt2, d.TDp, 0, w.qt, d.TDp, (long long)D * d.TDp,
+                    Scales{f32(swt2), 0, 1, w.st, D},
+                    s8gemm::ResidBias{bf(x), bf(bt2), 1, 0, w.h, D, (long long)N * D}));
   // channel mix over all B·N rows, the hidden axis in chunks
   JMT_CHECK(quant::row_stats(s, w.h, w.stats, d.M, D));
   JMT_CHECK(quant::quant_rows(s, quant::LnSrc{w.h, w.stats, bf(ln2w), bf(ln2b), d.M, D}, d.M,
                               1, D, d.Dp, w.qhn, w.shn));
-  JMT_CHECK(gemm(s, 1, d.M, CD, d.Dp, d.Dp, w.qhn, d.Dp, 0, qwc1, d.Dp, 0,
-                 Scales{w.shn, 0, 1, f32(swc1), 0},
-                 s8gemm::BiasGeluF32{bf(bc1), 0, w.c, CD, 0}));
+  JMT_CHECK(gemm_s8(s, 1, d.M, CD, d.Dp, w.qhn, d.Dp, 0, qwc1, d.Dp, 0,
+                    Scales{w.shn, 0, 1, f32(swc1), 0},
+                    s8gemm::BiasGeluF32{bf(bc1), 0, w.c, CD, 0}));
   JMT_CHECK(quant::quant_rows(s, quant::F32Src{w.c, 0, CD}, d.M, d.nch, d.ck, d.ckp, w.qc,
                               w.sc));
   const int K2 = d.nch * d.ckp;
-  JMT_CHECK(gemm(s, 1, d.M, D, K2, d.ckp, w.qc, K2, 0, qwc2, K2, 0,
-                 Scales{w.sc, 0, d.nch, f32(swc2), 0},
-                 s8gemm::ResidBias{w.h, bf(bc2), 0, 1, static_cast<bf16*>(out), D, 0}));
+  JMT_CHECK(sm90::gemm_s8_chunked(
+      s, 1, d.M, D, K2, d.ckp, w.qc, K2, 0, qwc2, K2, 0, Scales{w.sc, 0, d.nch, f32(swc2), 0},
+      s8gemm::ResidBias{w.h, bf(bc2), 0, 1, static_cast<bf16*>(out), D, 0}));
   return 0;
 }
+
+// Products this library launched on route 2 (the s8 wgmma core) or 3 (the
+// mma.sync core), or 0, 1 (the bf16 cores: none), since it was loaded
+// (gemm_sm90.cuh); -1 for another route.
+extern "C" long long mixer_int8_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* mixer_int8_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

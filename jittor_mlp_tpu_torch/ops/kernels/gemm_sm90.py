@@ -7,8 +7,11 @@ warpgroups (its header says what bounds it on an H100 and what the design
 does about that). The channel weight backward (``chan_wgt_bwd``) runs its
 four products on the core's bf16 modes (MN-major operands, row slabs with
 one f32 partial each), the channel data backward its two recompute
-products, and the W8A8 gMLP block (``gmlp_block_int8``) its three products
-on the core's int8 form. This module launches one product on its own
+products, the bf16 gMLP block (``gmlp_block``) its three (the token product
+with a shared A and an N-major B an entry an image), the W8A8 gMLP block
+(``gmlp_block_int8``) its three products on the core's int8 form, and the
+W8A8 Mixer block (``mixer_block_int8``) its four, the second in the int8
+form's chunked mode. This module launches one product on its own
 (``csrc/gemm_sm90.cu``), so that ``chip_smoke.py`` can hold each mode of the
 core against its plain version and time it against the core it replaced
 and the library. Nothing on the serving or training path calls it: it is an
@@ -25,10 +28,16 @@ instrument, like ``tools/kernel_lab.py``.
 - ``gemm_bf16(a, b, a_mn=, b_mn=, slab=)``: bf16 operands, a (M, K) or
   with ``a_mn`` (K, M), b (N, K) or with ``b_mn`` (K, N); the f32 partial
   products over K in row slabs of ``slab`` (all of K by default),
-  (partials, M, N).
-- ``gemm_s8(a, b, rs, cs)``: int8 a (M, K) and b (N, K), each shared or one
-  a batch entry (a leading dimension), f32 row scales rs and column scales
-  cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the W8A8 dequantization.
+  (partials, M, N); or, where an operand has a leading batch dimension,
+  one product an entry, (entries, M, N). A 2-D operand may be a view whose
+  rows lie further apart than their width (the bf16 gMLP block's Wsp, in
+  rows of round_up(N, 8)).
+- ``gemm_s8(a, b, rs, cs, chunk=)``: int8 a (M, K) and b (N, K), each
+  shared or one a batch entry (a leading dimension), f32 row scales rs and
+  column scales cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the W8A8
+  dequantization; with ``chunk``, the chunked mode: K in pieces of
+  ``chunk`` codes, rs (M, K // chunk) one scale a (row, piece), the
+  pieces' dequantized products added in piece order.
 
 Each has its plain twin: ``gemm_tn_ref`` (the f32 product of the operands,
 then the epilogue's arithmetic and one rounding to the operands' dtype; it
@@ -64,7 +73,7 @@ from .mixer_block import require_bf16_contiguous
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gemm_sm90", ["gemm_sm90.cu"],
-               {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 7), "gemm_s8_f32": (5, 9)},
+               {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 12), "gemm_s8_f32": (5, 10)},
                error="gemm_error_string", queries={"gemm_sm90_config": 1},
                routes="gemm_tn_products")
 CORES = {"auto": 0, "sm90": 1, "legacy": 2}
@@ -166,26 +175,33 @@ def _check_core(core):
 
 
 def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):
-    """The core's bf16 modes: f32 partial products (partials, M, N). CPU: the
+    """The core's bf16 modes: f32 partial products (partials, M, N), or one
+    product an entry (entries, M, N) where an operand is batched. CPU: the
     plain twin. CUDA: the kernel (bf16, contiguous) on ``core``, launched on
     the current stream; it raises on anything it does not take and never
     falls back to the twin."""
-    M, N, K = bf16_dims(a, b, a_mn, b_mn, slab)
+    nb, M, N, K = bf16_dims(a, b, a_mn, b_mn, slab)
     _check_core(core)
     if a.device.type == "cpu":
         return gemm_bf16_ref(a, b, a_mn=a_mn, b_mn=b_mn, slab=slab)
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
-    require_bf16_contiguous((a, b))
-    nz, step = slab_rows(K, slab)
-    out = torch.empty((nz, M, N), dtype=torch.float32, device=a.device)
+    for t in (a, b):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the kernel takes bf16 operands, got {t.dtype}")
+        if not (t.is_contiguous() or (t.dim() == 2 and t.stride(1) == 1)):
+            raise ValueError(f"want contiguous operands, or 2-D ones with contiguous rows; got "
+                             f"strides {t.stride()}")
+    parts, step = slab_rows(K, slab)
+    out = torch.empty((max(parts, nb), M, N), dtype=torch.float32, device=a.device)
     _LIB.launch("gemm_bf16_f32", a.device, (a, b, out),
-                (M, N, K, step, int(a_mn), int(b_mn), CORES[core]))
+                (nb, M, N, K, a.stride(-2), b.stride(-2), step, int(a_mn), int(b_mn),
+                 int(a.dim() == 3), int(b.dim() == 3), CORES[core]))
     _count()
     return out
 
 
-def _s8_args(a, b, rs, cs):
+def _s8_args(a, b, rs, cs, chunk):
     """(entries, M, N, K, which of a, b, rs, cs have a batch dimension)."""
     if a.dim() not in (2, 3) or b.dim() not in (2, 3):
         raise ValueError(f"want a (M, K) or (Z, M, K), b (N, K) or (Z, N, K); got "
@@ -195,8 +211,11 @@ def _s8_args(a, b, rs, cs):
     nz = max(a.shape[0] if a.dim() == 3 else 1, b.shape[0] if b.dim() == 3 else 1)
     if Kb != K:
         raise ValueError(f"a {tuple(a.shape)} and b {tuple(b.shape)} do not share K")
+    if chunk is not None and (not isinstance(chunk, int) or chunk <= 0 or chunk % 32 or K % chunk):
+        raise ValueError(f"chunk must be a multiple of 32 that divides K = {K}, got {chunk!r}")
+    want_rs = (M,) if chunk is None else (M, K // chunk)
     batched = []
-    for name, t, want in (("a", a, (M, K)), ("b", b, (N, K)), ("rs", rs, (M,)), ("cs", cs, (N,))):
+    for name, t, want in (("a", a, (M, K)), ("b", b, (N, K)), ("rs", rs, want_rs), ("cs", cs, (N,))):
         if tuple(t.shape) not in (want, (nz, *want)):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, want {want} or {(nz, *want)}")
         if t.device != a.device:
@@ -205,16 +224,16 @@ def _s8_args(a, b, rs, cs):
     return nz, M, N, K, tuple(batched)
 
 
-def gemm_s8(a, b, rs, cs, *, core="auto"):
+def gemm_s8(a, b, rs, cs, *, chunk=None, core="auto"):
     """The core's int8 form: (M, N) f32, or (Z, M, N) where an operand has a
-    batch dimension. CPU: the plain twin. CUDA: the kernel (int8 operands
-    with K a multiple of 32, f32 scales, contiguous) on ``core``, launched on
-    the current stream; it raises on anything it does not take and never
-    falls back to the twin."""
-    nz, M, N, K, batched = _s8_args(a, b, rs, cs)
+    batch dimension; with ``chunk``, its chunked mode. CPU: the plain twin.
+    CUDA: the kernel (int8 operands with K a multiple of 32, f32 scales,
+    contiguous) on ``core``, launched on the current stream; it raises on
+    anything it does not take and never falls back to the twin."""
+    nz, M, N, K, batched = _s8_args(a, b, rs, cs, chunk)
     _check_core(core)
     if a.device.type == "cpu":
-        return gemm_s8_ref(a, b, rs, cs)
+        return gemm_s8_ref(a, b, rs, cs, chunk=chunk)
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
     for t, dt in ((a, torch.int8), (b, torch.int8), (rs, torch.float32), (cs, torch.float32)):
@@ -225,6 +244,6 @@ def gemm_s8(a, b, rs, cs, *, core="auto"):
         raise ValueError(f"K must be a multiple of 32 (zero-padded codes), got {K}")
     out = torch.empty((nz, M, N), dtype=torch.float32, device=a.device)
     _LIB.launch("gemm_s8_f32", a.device, (a, b, rs, cs, out),
-                (nz, M, N, K, *batched, CORES[core]))
+                (nz, M, N, K, chunk or 0, *batched, CORES[core]))
     _count()
     return out if any(batched) else out[0]

@@ -16,10 +16,17 @@ for float32, and the weights in their torch layouts: w1 (2F, D)
 [channel_proj1], wsp (N, N) [sgu.spatial_proj, the Conv1d squeezed],
 w2 (D, F) [channel_proj2].
 
-- ``gmlp_block_ref``: plain PyTorch with the kernel's rounding points.
+- ``gmlp_block_ref``: plain PyTorch with the kernel's rounding points, its
+  three products the core's twin ``ops.products.gemm_bf16_ref`` on the
+  kernel's layouts (xn and g K-major over all B·N rows; Wsp in rows of
+  Np = round_up(N, 8) read as its first N columns, shared by every image,
+  and vn an N-major B operand an entry an image).
 - ``fused_gmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
+  the WMMA core (``wmma``), three a launch: the ``wgmma`` core where TMA
+  can load the operands (D and F multiples of 8), else WMMA.
 - ``gmlp_block_plain``: the JAX ``_plain_gmlp_block`` (products and bias adds
   in the input dtype), whose autograd is the training backward.
 - ``fused_gmlp_block_trainable``: forward ``fused_gmlp_block``, backward
@@ -33,6 +40,7 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
+from ..products import gemm_bf16_ref
 from ._build import Library
 from .mixer_block import (KernelForwardPlainBackward, check_weights, layer_norm_f32,
                           require_bf16_contiguous)
@@ -40,7 +48,8 @@ from .mixer_block import (KernelForwardPlainBackward, check_weights, layer_norm_
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gmlp_block", ["gmlp_block.cu"], {"gmlp_block_bf16": (13, 4)},
-               error="gmlp_error_string", workspace={"gmlp_block_bf16_workspace": 4})
+               error="gmlp_error_string", workspace={"gmlp_block_bf16_workspace": 4},
+               routes="gmlp_gemm_products")
 
 
 def block_dims(x, weights):
@@ -62,14 +71,17 @@ def gmlp_block_ref(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     matmuls) to match."""
     dt = x.dtype
     act = gelu_erf if dt == torch.float32 else gelu_tanh
+    B, N, D = x.shape
     F = w1.shape[0] // 2
-    xn = layer_norm_f32(x, ln1w, ln1b).to(dt)
-    y = act(torch.matmul(xn.float(), w1.float().t()) + b1.float()).to(dt)
-    u, v = y[..., :F], y[..., F:]
-    vn = layer_norm_f32(v, sgu_w, sgu_b).to(dt)
-    v2 = (torch.matmul(wsp.float(), vn.float()) + bs.float()[:, None]).to(dt)
-    g = (u.float() * v2.float()).to(dt)
-    return (x.float() + (torch.matmul(g.float(), w2.float().t()) + b2.float())).to(dt)
+    xn = layer_norm_f32(x, ln1w, ln1b).to(dt).reshape(B * N, D)
+    y = act(gemm_bf16_ref(xn, w1)[0] + b1.float()).to(dt)  # (B·N, 2F)
+    u, v = y[:, :F], y[:, F:]
+    vn = layer_norm_f32(v, sgu_w, sgu_b).to(dt).reshape(B, N, F)
+    wsp_rows = torch.nn.functional.pad(wsp, (0, -N % 8))  # the kernel's copy: rows of Np
+    v2 = (gemm_bf16_ref(wsp_rows[:, :N], vn, b_mn=True) + bs.float()[:, None]).to(dt)
+    g = (u.float() * v2.reshape(B * N, F).float()).to(dt)
+    out = x.float().reshape(B * N, D) + (gemm_bf16_ref(g, w2)[0] + b2.float())
+    return out.reshape(B, N, D).to(dt)
 
 
 def gmlp_block_plain(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
@@ -91,6 +103,12 @@ def gmlp_block_plain(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90": n, "wmma": n}: the kernel's products so far on each bf16
+    GEMM core (csrc/gemm_sm90.cuh), three a launch."""
+    return _LIB.routes()
 
 
 def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

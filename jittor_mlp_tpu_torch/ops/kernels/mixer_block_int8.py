@@ -17,11 +17,17 @@ every product is int8 × int8 → int32:
   reference.
 
 - ``mixer_block_int8_ref``: plain PyTorch with the same quantization
-  arithmetic and chunk rule; its integer products are exact
-  (``quant.exact_int_matmul``).
+  arithmetic and chunk rule, its four products the s8 core's twin
+  ``ops.products.gemm_s8_ref`` on the kernel's operand layouts (codes
+  zero-padded to 32, the token products' codes transposed and one an
+  image, the second channel product in chunks of ckp codes with a row
+  scale a chunk), as the kernel runs them on the s8 ``wgmma`` core; its
+  integer products are exact.
 - ``fused_mixer_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
+  the ``mma.sync`` core (``mma_s8``), four a launch.
 """
 
 from __future__ import annotations
@@ -32,15 +38,17 @@ import torch
 import torch.nn.functional as F
 
 from ...core.nnf import gelu_tanh
-from ...quant import exact_int_matmul, quant_act, quant_weight
-from ._build import Library
+from ...quant import quant_act, quant_weight
+from ..products import gemm_s8_ref
+from ._build import S8_ROUTES, Library
 from .mixer_block import block_dims, layer_norm_f32, require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("mixer_block_int8", ["mixer_block_int8.cu"],
                {"mixer_block_int8": (19, 5)}, error="mixer_int8_error_string",
-               workspace={"mixer_block_int8_workspace": 5})
+               workspace={"mixer_block_int8_workspace": 5},
+               routes="mixer_int8_gemm_products", route_names=S8_ROUTES)
 
 
 def chunk_size(cd):
@@ -55,34 +63,32 @@ def mixer_block_int8_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     dt = x.dtype
     B, N, D = x.shape
     CD = wc1.shape[0]
-    qwt1, swt1 = quant_weight(wt1, 1)  # (TD, N), scales (TD, 1)
-    qwt2, swt2 = quant_weight(wt2, 1)  # (N, TD), scales (N, 1)
-    qwc1, swc1 = quant_weight(wc1, 1)  # (CD, D), scales (CD, 1)
-    qwc2, swc2 = quant_weight(wc2, 1)  # (D, CD), scales (D, 1)
-    # token mixes, per image; activation scales per column d
+    ck = chunk_size(CD)
+    nch = CD // ck
+    # the kernel's weight operands: (TD, Np), (N, TDp), (CD, Dp), (D, nch·ckp)
+    qwt1, swt1, qwt2, swt2, qwc1, swc1, qwc2, swc2 = weight_operands((wt1, wt2, wc1, wc2), ck)
+    Np, TDp, Dp, ckp = qwt1.shape[1], qwt2.shape[1], qwc1.shape[1], qwc2.shape[1] // nch
+    # token mixes, per image (the weight shared); activation scales per
+    # column d, the codes transposed to (B, D, Np) and (B, D, TDp)
     qxn, sxn = quant_act(layer_norm_f32(x, ln1w, ln1b), 1)  # sxn (B, 1, D)
-    t = exact_int_matmul(qwt1, qxn) * swt1 * sxn
+    t = gemm_s8_ref(qwt1, _pad_last(qxn.transpose(1, 2), Np), swt1, sxn[:, 0])
     t = gelu_tanh(t + bt1.float()[:, None])
     qt, st = quant_act(t, 1)
-    t2 = exact_int_matmul(qwt2, qt) * swt2 * st
+    t2 = gemm_s8_ref(qwt2, _pad_last(qt.transpose(1, 2), TDp), swt2, st[:, 0])
     h = (x.float() + t2 + bt2.float()[:, None]).to(dt)
-    # channel mixes over all rows, the hidden axis in chunks with
-    # per-(row, chunk) activation scales
+    # channel mixes over all rows; the hidden axis in chunks with
+    # per-(row, chunk) activation scales, each chunk's codes padded to ckp
     qhn, shn = quant_act(layer_norm_f32(h, ln2w, ln2b).reshape(B * N, D), 1)
-    ck = chunk_size(CD)
-    acc = torch.zeros((B * N, D), dtype=torch.float32, device=x.device)
-    for k0 in range(0, CD, ck):
-        c = exact_int_matmul(qhn, qwc1[k0:k0 + ck].t()) * shn * swc1[k0:k0 + ck].t()
-        c = gelu_tanh(c + bc1.float()[k0:k0 + ck])
-        qc, sc = quant_act(c, 1)
-        acc = acc + exact_int_matmul(qc, qwc2[:, k0:k0 + ck].t()) * sc * swc2.t()
-    acc = acc + bc2.float()
-    return (h.float().reshape(B * N, D) + acc).reshape(B, N, D).to(dt)
+    c = gelu_tanh(gemm_s8_ref(_pad_last(qhn, Dp), qwc1, shn[:, 0], swc1) + bc1.float())
+    qc, sc = quant_act(c.reshape(B * N, nch, ck), 2)
+    acc = gemm_s8_ref(_pad_last(qc, ckp).reshape(B * N, nch * ckp), qwc2, sc[..., 0], swc2,
+                      chunk=ckp)
+    return (h.float().reshape(B * N, D) + (acc + bc2.float())).reshape(B, N, D).to(dt)
 
 
-def _pad_cols(q, width):
-    """int8 copy of q (rows, cols) with zero columns up to ``width``."""
-    return F.pad(q, (0, width - q.shape[1])).to(torch.int8).contiguous()
+def _pad_last(q, width):
+    """q with zero codes appended along its last axis up to ``width``."""
+    return F.pad(q, (0, width - q.shape[-1]))
 
 
 def weight_operands(weights, ck):
@@ -95,14 +101,20 @@ def weight_operands(weights, ck):
         q, s = quant_weight(w, 1)
         rows, cols = q.shape
         width = ck if i == len(weights) - 1 else cols
-        q = _pad_cols(q.reshape(-1, width), -(-width // 32) * 32).reshape(rows, -1)
-        out += [q.contiguous(), s.reshape(-1).contiguous()]
+        q = _pad_last(q.reshape(-1, width), -(-width // 32) * 32).reshape(rows, -1)
+        out += [q.to(torch.int8).contiguous(), s.reshape(-1).contiguous()]
     return out
 
 
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90_s8": n, "mma_s8": n}: the kernel's products so far on each
+    int8 GEMM core (csrc/gemm_sm90.cuh), four a launch."""
+    return _LIB.routes()
 
 
 def fused_mixer_block_int8(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,

@@ -27,8 +27,10 @@ import sys
 
 MUTANTS = {
     "correct": (None, None, None, None),
+    # the mma.sync core's chunk flush: the W8A8 ResMLP block's chunked
+    # shape and the core's legacy chunked cases run it
     "M1 chunked flush applies chunk 0's row scales": (
-        "fused_mixer_block_int8", "csrc/gemm_s8.cuh",
+        "fused_resmlp_block_int8,gemm_core", "csrc/gemm_s8.cuh",
         "if (kend % chunk == 0) flush(kend / chunk - 1);", "if (kend % chunk == 0) flush(0);"),
     "M2 second token mix takes image 0's column scales": (
         "fused_mixer_block_int8", "csrc/mixer_block_int8.cu",
@@ -40,7 +42,7 @@ MUTANTS = {
         "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
         "__fadd_rn(h1(z, m, c),", "__fadd_rn(h1(z, m, n),"),
     "M5 bf16 gMLP gate reads u at leading dimension F instead of 2F": (
-        "fused_gmlp_block", "csrc/gmlp_block.cu", "Gate{w.y, F2,", "Gate{w.y, F,"),
+        "fused_gmlp_block", "csrc/gmlp_block.cu", "gate{w.y, F2,", "gate{w.y, F,"),
     "M6 W8A8 gMLP token product takes image 0's column scales for every image": (
         "fused_gmlp_block_int8", "csrc/gmlp_block_int8.cu",
         "Scales{f32(swsp), 0, 1, w.sv, F}", "Scales{f32(swsp), 0, 1, w.sv, 0}"),
@@ -91,6 +93,16 @@ MUTANTS = {
         "gemm_core,fused_gmlp_block_int8", "csrc/gemm_sm90.cuh",
         "v[e] = __fmul_rn(__fmul_rn(acc[e], rs), cs[e]);",
         "v[e] = __fmul_rn(__fmul_rn(acc[e], rs), cs[0]);"),
+    # the core's chunked s8 mode and the bf16 gMLP block's token product
+    "M20 the chunked mode's flush scales every chunk by chunk 0's row scale": (
+        "gemm_core,fused_mixer_block_int8", "csrc/gemm_sm90.cuh",
+        "(long long)m * sc.row_stride + piece]", "(long long)m * sc.row_stride + 0]"),
+    "M21 the chunked mode flushes only where a 128-code K step ends (wrong for 544-code chunks)": (
+        "gemm_core,fused_mixer_block_int8", "csrc/gemm_sm90.cuh",
+        "const int kend = kt * STEP + (k + 1) * KI;", "const int kend = (kt + 1) * STEP;"),
+    "M22 the bf16 gMLP token product's TB bit is dropped: vn is read as a K-major B": (
+        "fused_gmlp_block", "csrc/gmlp_block.cu",
+        "sm90::gemm_bf16<false, true>(s, B, N, F,", "sm90::gemm_bf16<false, false>(s, B, N, F,"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 

@@ -259,6 +259,68 @@ def test_s8_ref_scales_the_exact_product_by_row_then_column(case):
     assert np.array_equal(got.numpy(), want.astype(np.float32))
 
 
+@pytest.mark.parametrize("case", [(1, 9, 16, 128, 32, False), (2, 5, 24, 288, 96, True),
+                                  (1, 6, 40, 2176, 544, False)],
+                         ids=["chunk32", "batched_chunk96", "chunk544"])
+def test_s8_ref_chunks_add_their_dequantized_products_in_order(case):
+    """gemm_s8_ref with chunk: each piece's exact integer product rounded
+    once to f32, times its own row scale, then the column scale, and the
+    pieces added in order from zero, each step rounded in f32, bit for bit
+    a numpy int64 computation; chunks of 96 and 544 codes end inside the
+    core's 128-code K step."""
+    nz, M, N, K, chunk, batched = case
+    r = np.random.default_rng(K)
+    a = torch.from_numpy(r.integers(-127, 128, (nz, M, K) if batched else (M, K)).astype(np.int8))
+    b = torch.from_numpy(r.integers(-127, 128, (nz, N, K)).astype(np.int8))
+    pieces = K // chunk
+    rs = torch.from_numpy((r.random((nz, M, pieces) if batched else (M, pieces)) * 2e-3 + 1e-4)
+                          .astype(np.float32))
+    cs = torch.from_numpy((r.random((nz, N)) * 2e-3 + 1e-4).astype(np.float32))
+    got = tg.gemm_s8_ref(a, b, rs, cs, chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == (nz, M, N)
+    A = np.broadcast_to(a.numpy(), (nz, M, K)).astype(np.int64)
+    B = b.numpy().astype(np.int64)
+    R = np.broadcast_to(rs.numpy(), (nz, M, pieces))
+    want = np.zeros((nz, M, N), np.float32)
+    for p in range(pieces):
+        k = slice(p * chunk, (p + 1) * chunk)
+        acc = (A[..., k] @ B[..., k].transpose(0, 2, 1)).astype(np.float32)
+        want = want + (acc * R[..., p:p + 1]).astype(np.float32) * cs.numpy()[:, None, :]
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["batched", "shared_a"])
+def test_s8_ref_in_one_chunk_is_the_unchunked_twin(shared):
+    """One piece (chunk = K, one row scale a row): 0 + p_0 is p_0, so the
+    chunked twin is the unchunked one bit for bit."""
+    a, b, rs, cs = _s8_operands(3, 7, 40, 96, not shared, True, seed=11)
+    got = tg.gemm_s8_ref(a, b, rs[..., None], cs, chunk=96)
+    assert torch.equal(got, tg.gemm_s8_ref(a, b, rs, cs))
+
+
+@pytest.mark.parametrize("a_batched,b_mn", [(False, True), (True, False), (True, True)],
+                         ids=["shared_a_b_mn", "batched_a", "both_batched_b_mn"])
+def test_bf16_ref_entries_are_their_matrices_products(a_batched, b_mn):
+    """Batch entries: entry z is the product of op(a[z]) and op(b[z]) (a
+    2-D operand shared by every entry), bit for bit the 2-D twin of that
+    entry's matrices: the bf16 gMLP block's token product (Wsp shared, vn
+    N-major an entry an image)."""
+    r = np.random.default_rng(12)
+    nz, M, N, K = 3, 13, 40, 21
+
+    def t(*shape):
+        return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).bfloat16()
+
+    a = t(nz, M, K) if a_batched else t(M, K)
+    b = t(nz, K, N) if b_mn else t(nz, N, K)
+    got = tg.gemm_bf16_ref(a, b, b_mn=b_mn)
+    assert got.shape == (nz, M, N) and got.dtype == torch.float32
+    for z in range(nz):
+        az = a[z] if a_batched else a
+        assert torch.equal(got[z], tg.gemm_bf16_ref(az, b[z], b_mn=b_mn)[0])
+    assert torch.equal(tg.gemm_bf16(a, b, b_mn=b_mn), got)  # the CPU wrapper: the twin
+
+
 def test_cpu_core_wrappers_run_twins_without_launch():
     a, b = _bf16_pair(10, 16, 24, seed=5)
     got = tg.gemm_bf16(a.t().contiguous(), b.t().contiguous(), a_mn=True, b_mn=True, slab=10)
@@ -266,14 +328,20 @@ def test_cpu_core_wrappers_run_twins_without_launch():
                                              a_mn=True, b_mn=True, slab=10))
     q = _s8_operands(2, 6, 8, 32, False, True, seed=6)
     assert torch.equal(tg.gemm_s8(*q), tg.gemm_s8_ref(*q))
+    a, b, rs, cs = _s8_operands(2, 6, 8, 64, False, True, seed=7)
+    rs2 = torch.stack([rs, rs * 2], -1)  # two pieces of 32 codes
+    assert torch.equal(tg.gemm_s8(a, b, rs2, cs, chunk=32),
+                       tg.gemm_s8_ref(a, b, rs2, cs, chunk=32))
     assert tg.LAUNCHES == 0
     assert not tg._LIB.loaded
     assert tg.s8_routes() == {"sm90_s8": 0, "mma_s8": 0}  # read without loading the library
 
 
 @pytest.mark.parametrize("case", ["k_mismatch", "slab_k_major", "slab_zero", "bf16_dtype_mix",
-                                  "bf16_one_dim", "bf16_core", "s8_k_mismatch", "s8_scale_shape",
-                                  "s8_batch", "s8_core", "s8_device"])
+                                  "bf16_one_dim", "bf16_core", "bf16_batch_mismatch",
+                                  "bf16_slab_batched", "s8_k_mismatch", "s8_scale_shape",
+                                  "s8_batch", "s8_core", "s8_device", "s8_chunk_divides",
+                                  "s8_chunk_32", "s8_chunk_scales"])
 def test_core_wrappers_reject_bad_inputs(case):
     a, b = _bf16_pair(8, 16, 24)
     q = list(_s8_operands(2, 6, 8, 32, False, True))
@@ -287,8 +355,16 @@ def test_core_wrappers_reject_bad_inputs(case):
             q[3] = torch.ones((3, 8))
         elif case == "s8_device":
             q = [t.to("meta") for t in q]
+        kw = {"core": "cublas"} if case == "s8_core" else {}
+        if case == "s8_chunk_divides":  # K = 32 in pieces of 64
+            q[2], kw = q[2][:, None], {"chunk": 64}
+        elif case == "s8_chunk_32":  # pieces end on a wgmma's 32-code K slice
+            q[2], kw = q[2][:, None].repeat(1, 2), {"chunk": 16}
+        elif case == "s8_chunk_scales":  # one row scale, two pieces
+            q = list(_s8_operands(2, 6, 8, 64, False, True))
+            q[2], kw = q[2][:, None], {"chunk": 32}
         with pytest.raises(err):
-            tg.gemm_s8(*q, core="cublas" if case == "s8_core" else "auto")
+            tg.gemm_s8(*q, **kw)
     else:
         kw = {}
         if case == "k_mismatch":
@@ -304,6 +380,11 @@ def test_core_wrappers_reject_bad_inputs(case):
             a = a[0]
         elif case == "bf16_core":
             kw = {"core": "cublas"}
+        elif case == "bf16_batch_mismatch":  # 2 entries of a, 3 of b
+            a, b = a.expand(2, 8, 24), b.expand(3, 16, 24)
+        elif case == "bf16_slab_batched":
+            a, b = a.t().expand(2, 24, 8), b.t().contiguous()
+            kw = {"a_mn": True, "b_mn": True, "slab": 8}
         with pytest.raises(err):
             tg.gemm_bf16(a, b, **kw)
     assert tg.LAUNCHES == 0

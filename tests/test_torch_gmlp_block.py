@@ -7,8 +7,10 @@ of the two CUDA kernels. Here they are held against
 the CPU, on the same seeded numpy inputs (1/sqrt(fan_in) weights, std-0.5
 biases, LayerNorm affines near 1, spatial bias near 1): the bf16 twin in
 float32 within 1e-5 and in bf16 within 1.6e-2 of max(1, max|want|); the
-W8A8 twin within 1.6e-2 of max(1, max|want|) in float32 and bf16. The
-kernels themselves run only on the card (chip_smoke.py).
+W8A8 twin within 1.6e-2 of max(1, max|want|) in float32 and bf16. Both
+twins run their products through the GEMM core's twins on the kernels'
+layouts; written with whole products instead, each block is the same bit
+for bit. The kernels themselves run only on the card (chip_smoke.py).
 """
 
 import functools
@@ -180,3 +182,41 @@ def test_int8_ref_built_from_the_s8_core_twin_keeps_its_rounding(shape, dtype):
     tdt = getattr(torch, dtype)
     args = [_torch(a, tdt) for a in (x, *weights)]
     assert torch.equal(tgq.gmlp_block_int8_ref(*args), _int8_block_by_whole_products(*args))
+
+
+def _block_by_whole_products(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """The bf16 block written with whole f32 products on the (B, N, ·)
+    tensors, the token product as one matmul broadcast over the images: the
+    formulation the twin had before it was built from the bf16 core's twin."""
+    from jittor_mlp_tpu_torch.core.nnf import gelu_erf, gelu_tanh
+    from jittor_mlp_tpu_torch.ops.kernels.mixer_block import layer_norm_f32
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    F = w1.shape[0] // 2
+    xn = layer_norm_f32(x, ln1w, ln1b).to(dt)
+    y = act(torch.matmul(xn.float(), w1.float().t()) + b1.float()).to(dt)
+    u, v = y[..., :F], y[..., F:]
+    vn = layer_norm_f32(v, sgu_w, sgu_b).to(dt)
+    v2 = (torch.matmul(wsp.float(), vn.float()) + bs.float()[:, None]).to(dt)
+    g = (u.float() * v2.float()).to(dt)
+    return (x.float() + (torch.matmul(g.float(), w2.float().t()) + b2.float())).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", list(SHAPES), ids=list(SHAPES))
+def test_ref_built_from_the_bf16_core_twin_keeps_its_rounding(shape, dtype):
+    """gmlp_block_ref runs its three products through gemm_bf16_ref on the
+    kernel's layouts (Wsp copied into rows of Np = round_up(N, 8) and read
+    as its first N columns, shared; vn an N-major B operand an entry an
+    image): bit for bit the block written with whole products."""
+    x, weights = _inputs(*SHAPES[shape], seed=7)
+    tdt = getattr(torch, dtype)
+    args = [_torch(a, tdt) for a in (x, *weights)]
+    assert torch.equal(tg.gmlp_block_ref(*args), _block_by_whole_products(*args))
+
+
+@pytest.mark.parametrize("mod,want", [(tg, {"sm90": 0, "wmma": 0}),
+                                      (tgq, {"sm90_s8": 0, "mma_s8": 0})], ids=["bf16", "int8"])
+def test_routes_read_without_loading_the_library(mod, want):
+    assert mod.routes() == want
+    assert not mod._LIB.loaded

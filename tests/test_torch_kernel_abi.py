@@ -61,7 +61,8 @@ def _kind(decl):
 
 def test_every_library_is_found():
     assert {"mixer_block", "mixer_block_bwd", "gemm_sm90", "lab_ablate", "lab_tokmajor",
-            "lab_wide", "axial_shift", "gmlp_block_int8"} <= set(LIBRARIES)
+            "lab_wide", "axial_shift", "gmlp_block_int8", "mixer_block_int8",
+            "gmlp_block"} <= set(LIBRARIES)
 
 
 @pytest.mark.parametrize("name", sorted(LIBRARIES))

@@ -6,7 +6,9 @@ PyTorch twin of the CUDA kernel. Here it is held against
 in Pallas interpret mode on the CPU, on the same seeded numpy inputs, at a
 small shape and at a shape whose 2048-wide channel hidden axis is chunked
 (four chunks of 512, per-(row, chunk) activation scales): within 1.6e-2 of
-max(1, max|want|). The kernel itself runs only on the card
+max(1, max|want|). The twin runs its products through the s8 core's twin
+on the kernel's operand layouts; written with whole products instead, the
+block is the same bit for bit. The kernel itself runs only on the card
 (chip_smoke.py).
 """
 
@@ -23,6 +25,8 @@ from jittor_mlp_tpu_torch.ops.kernels import mixer_block as tmb
 from jittor_mlp_tpu_torch.ops.kernels import mixer_block_int8 as tq
 
 SHAPES = {"small": (4, 20, 32, 24, 64), "chunked": (2, 20, 32, 24, 2048)}
+# chunks of 514 columns, 544 codes (not a multiple of 128): chip_smoke.py's ragged chunk
+RAGGED_CHUNK = (2, 13, 40, 24, 2056)
 
 
 def _inputs(B, N, D, TD, CD, seed=0):
@@ -124,3 +128,51 @@ def test_wrapper_rejects_bad_inputs():
         tq.fused_mixer_block_int8(torch.zeros(x.shape, dtype=torch.int32), *tw)
     with pytest.raises(ValueError):  # weights on another device than x
         tq.fused_mixer_block_int8(_torch(x, torch.float32).to("meta"), *tw)
+
+
+def _int8_block_by_whole_products(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1,
+                                  wc2, bc2):
+    """The W8A8 block written with whole exact integer products on the
+    unpadded codes, the second channel product summed chunk by chunk: the
+    formulation the twin had before it was built from the s8 core's twin."""
+    from jittor_mlp_tpu_torch.core.nnf import gelu_tanh
+    from jittor_mlp_tpu_torch.quant import exact_int_matmul, quant_act, quant_weight
+    dt = x.dtype
+    B, N, D = x.shape
+    CD = wc1.shape[0]
+    qwt1, swt1 = quant_weight(wt1, 1)
+    qwt2, swt2 = quant_weight(wt2, 1)
+    qwc1, swc1 = quant_weight(wc1, 1)
+    qwc2, swc2 = quant_weight(wc2, 1)
+    qxn, sxn = quant_act(tmb.layer_norm_f32(x, ln1w, ln1b), 1)
+    t = gelu_tanh(exact_int_matmul(qwt1, qxn) * swt1 * sxn + bt1.float()[:, None])
+    qt, st = quant_act(t, 1)
+    h = (x.float() + exact_int_matmul(qwt2, qt) * swt2 * st + bt2.float()[:, None]).to(dt)
+    qhn, shn = quant_act(tmb.layer_norm_f32(h, ln2w, ln2b).reshape(B * N, D), 1)
+    ck = tq.chunk_size(CD)
+    acc = torch.zeros((B * N, D), dtype=torch.float32)
+    for k0 in range(0, CD, ck):
+        c = exact_int_matmul(qhn, qwc1[k0:k0 + ck].t()) * shn * swc1[k0:k0 + ck].t()
+        qc, sc = quant_act(gelu_tanh(c + bc1.float()[k0:k0 + ck]), 1)
+        acc = acc + exact_int_matmul(qc, qwc2[:, k0:k0 + ck].t()) * sc * swc2.t()
+    return (h.float().reshape(B * N, D) + (acc + bc2.float())).reshape(B, N, D).to(dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [*SHAPES.values(), RAGGED_CHUNK],
+                         ids=[*SHAPES, "ragged_chunk"])
+def test_ref_built_from_the_s8_core_twin_keeps_its_rounding(shape, dtype):
+    """mixer_block_int8_ref runs its four products through gemm_s8_ref on
+    the kernel's layouts (codes zero-padded to 32, the token products per
+    image with the weight shared, the second channel product chunked with a
+    row scale a chunk and ckp codes a chunk): bit for bit the block written
+    with whole products, so every rounding point stayed where it was."""
+    x, weights = _inputs(*shape, seed=6)
+    tdt = getattr(torch, dtype)
+    args = [_torch(a, tdt) for a in (x, *weights)]
+    assert torch.equal(tq.mixer_block_int8_ref(*args), _int8_block_by_whole_products(*args))
+
+
+def test_routes_read_without_loading_the_library():
+    assert tq.routes() == {"sm90_s8": 0, "mma_s8": 0}
+    assert not tq._LIB.loaded
