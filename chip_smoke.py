@@ -27,10 +27,10 @@ Phases (each one fails loudly; there is no CPU fallback):
      Mixer training kernels, a chunked shape (CD ≥ 2048, ragged chunk and
      tokens), every output within 1.6e-2 of max(1, max|ref|); two calls on
      the same inputs agree bit for bit. The training kernels and the W8A8
-     gMLP block also run at the train step's b128 and at b131; there each
-     weight gradient's sum over images has partials of several images and a
-     short last one (printed, and checked to occur), and the channel weight
-     backward's twin sums in the kernel's slabs. The axial shift, a copy, equals its twin bit
+     gMLP and ResMLP blocks also run at the train step's b128 and at b131;
+     there each weight gradient's sum over images has partials of several
+     images and a short last one (printed, and checked to occur), and the
+     channel weight backward's twin sums in the kernel's slabs. The axial shift, a copy, equals its twin bit
      for bit at every AS-MLP-T stage shape (B=8) and five ragged shapes,
      both axes, both signs, bf16 and float32, and its autograd wrapper's
      backward on a non-contiguous gradient equals the twin at sign -1.
@@ -52,10 +52,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      128-code K step; one chunk; batched 32-code chunks), on the s8 wgmma
      core and mma.sync, bit-equal to its twin. Kernel 1, the training
      forward and the two channel backwards also run at D=36, the bf16 gMLP
-     block at D=36 and at D=44, F=100, where their bf16 products (some or
-     all) take the WMMA route; at every shape the route counts of those
-     kernels and of the W8A8 gMLP and Mixer blocks (three and four s8
-     wgmma products a call) are checked;
+     and ResMLP blocks at D=36 and at D=44, F=100, where their bf16
+     products (some or all) take the WMMA route; at every shape the route
+     counts of those kernels and of the W8A8 gMLP, Mixer and ResMLP blocks
+     (three, four and three s8 wgmma products a call) are checked; the
+     ResMLP blocks' three products alone (gemm_bf16 with Wt shared in rows
+     of 200 and h an N-major entry an image; gemm_s8) at B=8 and b256 on
+     both cores of each type;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -69,10 +72,11 @@ Phases (each one fails loudly; there is no CPU fallback):
      per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
      bf16 forward runs 2 x depth channel products on the wgmma core and
      none on the WMMA core, a Mixer-B/16 int8 forward 4 x depth products on
-     the s8 wgmma core and none on mma.sync, a gMLP-S bf16 forward 3 x
-     depth on the wgmma core and none on WMMA, and a gMLP-S int8 forward
-     3 x depth on the s8 wgmma core and none on mma.sync (so do the serving
-     runs of phase 4, each block library's products checked at every run);
+     the s8 wgmma core and none on mma.sync, a gMLP-S or ResMLP-S24 bf16
+     forward 3 x depth on the wgmma core and none on WMMA, and a gMLP-S or
+     ResMLP-S24 int8 forward 3 x depth on the s8 wgmma core and none on
+     mma.sync (so do the serving runs of phase 4, each block library's
+     products checked at every run);
   4. serving: (a) Mixer-B/16 bf16 Predictor(batch_size=32) behind
      MicroBatcher, 64 requests from 8 threads plus 2 resized ones;
      (b) Mixer-B/16 compute="int8" and bf16 Predictors on one model, and
@@ -86,13 +90,14 @@ Phases (each one fails loudly; there is no CPU fallback):
      weights="int8" Predictor agrees with the bf16 one;
   5. CUDA-event timings at b256: each kernel vs its twin (the shift at
      AS-MLP-T's stage-1 shape, both axes; the W8A8 gMLP block beside the
-     bytes of its f32 intermediates, the W8A8 Mixer and bf16 gMLP blocks
-     beside the bytes of their data flows); the GEMM core at the two
-     channel products, on each core and against cuBLAS's torch.matmul; its
-     other modes at gMLP-S's three int8 products and the W8A8 Mixer
-     block's four (against mma.sync and torch._int_mm), gMLP-S's three bf16
-     products and Mixer-B/16's four channel backward products (against
-     WMMA and torch.matmul); the forwards
+     bytes of its f32 intermediates, the W8A8 Mixer, bf16 gMLP and both
+     ResMLP blocks beside the bytes of their data flows); the GEMM core at
+     the two channel products, on each core and against cuBLAS's
+     torch.matmul; its other modes at gMLP-S's and ResMLP-S24's three int8
+     products and the W8A8 Mixer block's four (against mma.sync and
+     torch._int_mm), gMLP-S's and ResMLP-S24's three bf16 products and
+     Mixer-B/16's four channel backward products (against WMMA and
+     torch.matmul); the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
      bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
@@ -109,10 +114,10 @@ Phases (each one fails loudly; there is no CPU fallback):
      remat), and the products of the block forwards and the channel
      backwards (2, 2 and 4 a block), all on the wgmma core; (e) one
      ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients against their
-     plain bf16 paths (≤ 3e-2, as (a)), the gMLP-S forward's 3 x depth
-     products on the wgmma core; (f) Mixer-B/16 train img/s at b128 on each
-     route and the plain path, and gMLP-S's on its kernel and plain paths,
-     in turns; AS-MLP-T: (g) b32 gradients of the kernel
+     plain bf16 paths (≤ 3e-2, as (a)), each forward's 3 x depth products
+     on the wgmma core; (f) Mixer-B/16 train img/s at b128 on each route
+     and the plain path, and gMLP-S's and ResMLP-S24's on their kernel and
+     plain paths, in turns, with peak memory; AS-MLP-T: (g) b32 gradients of the kernel
      path against the plain bf16 path (≤ 3e-2) and both against float32
      (global relative L2), 48 shift launches a step; (h) 10 AdamW steps at
      b128 with drop_path_rate 0.1 and a seeded generator, remat off and on:
@@ -345,6 +350,10 @@ ROUTED = {
     # xn·W1ᵀ (rows D apart), Wsp·vn (vn rows F apart), g·W2ᵀ (rows F apart)
     "fused_gmlp_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[3] % 8 == 0, s[3] % 8 == 0),
     "fused_gmlp_block_int8": lambda s: {"sm90_s8": 3, "mma_s8": 0},
+    # Wt·h per image (h rows D apart), h2b·W1ᵀ (rows D apart), c·W2ᵀ (rows F apart)
+    "fused_resmlp_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == 0, s[3] % 8 == 0),
+    # the token product, FF1, FF2 (chunked where F >= 2048 and F % 4 == 0)
+    "fused_resmlp_block_int8": lambda s: {"sm90_s8": 3, "mma_s8": 0},
     # the two token products, the two channel products (the second chunked)
     "fused_mixer_block_int8": lambda s: {"sm90_s8": 4, "mma_s8": 0},
 }
@@ -354,11 +363,13 @@ ROUTED = {
 # kernel-route step: the forward's two, the channel data backward's two and
 # the channel weight backward's four
 BLOCK_PRODUCTS = {"mixer_block": ("sm90", 2), "mixer_block_int8": ("sm90_s8", 4),
-                  "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3)}
+                  "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3),
+                  "resmlp_block": ("sm90", 3), "resmlp_block_int8": ("sm90_s8", 3)}
 BWD_PRODUCTS = {"fwd_with_h": 2, "chan_data_bwd": 2, "chan_wgt_bwd": 4}
 # the kernels line's rows of a block library's products on the core
 PRODUCT_ROWS = {"mixer_block_int8": "gemm_s8_mixer_sm90", "gmlp_block": "gemm_bf16_gmlp_sm90",
-                "gmlp_block_int8": "gemm_s8_sm90"}
+                "gmlp_block_int8": "gemm_s8_sm90", "resmlp_block": "gemm_bf16_resmlp_sm90",
+                "resmlp_block_int8": "gemm_s8_resmlp_sm90"}
 # The GEMM core's phase-2 shapes (M, N, K): Mixer-B/16's two channel
 # products at B = 8, then ragged M, N and K (one row; K = 40 and 136 end
 # in a part of a 64-wide K step; N = 72 and 200 in a part of a 256-wide
@@ -378,6 +389,16 @@ def kernel_table(mods):
     # so their bf16 products take the WMMA core (ROUTED)
     fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
+    # the bf16 ResMLP block also at D = 36 (the token product's h and FF1's
+    # rows 72 bytes apart: the WMMA route, FF2 on wgmma) and D = 44, F = 100
+    # (all three on WMMA) (ROUTED)
+    res_bf16_shapes = res_shapes + [(3, 20, 36, 72), (2, 13, 44, 100)]
+    # the W8A8 ResMLP block: a chunked shape (F = 2056: four chunks of 514
+    # codes padded to 544, each ending inside a 128-code K step), and, as its
+    # token product is one launch over the images, the batches the path runs
+    # it at: b128 and b131 (a short last entry)
+    res_int8_shapes = res_shapes + [(2, 33, 136, 2056), (128, 196, 384, 1536),
+                                    (131, 196, 384, 1536)]
     gmlp_shapes = [(8, 196, 256, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     # the bf16 gMLP block also at D = 36 (GEMM1's rows 72 bytes apart: the
     # WMMA route, the other two on wgmma) and D = 44, F = 100 (all three on
@@ -397,11 +418,11 @@ def kernel_table(mods):
             "mixer_block_int8.cu", "mixer_block_int8.py:121", DEPTH),
         "fused_resmlp_block": (
             mods["resmlp_block"], "fused_resmlp_block", "resmlp_block_ref", resmlp_inputs,
-            res_shapes, "resmlp_block.cu", "resmlp_block.py:54", RES_DEPTH),
+            res_bf16_shapes, "resmlp_block.cu", "resmlp_block.py:54", RES_DEPTH),
         "fused_resmlp_block_int8": (
             mods["resmlp_block_int8"], "fused_resmlp_block_int8", "resmlp_block_int8_ref",
-            resmlp_inputs, res_shapes + [(2, 33, 136, 2056)],
-            "resmlp_block_int8.cu", "resmlp_block_int8.py:69", RES_DEPTH),
+            resmlp_inputs, res_int8_shapes, "resmlp_block_int8.cu", "resmlp_block_int8.py:69",
+            RES_DEPTH),
         "fused_gmlp_block": (
             mods["gmlp_block"], "fused_gmlp_block", "gmlp_block_ref", gmlp_inputs,
             gmlp_bf16_shapes, "gmlp_block.cu", "gmlp_block.py:57", GMLP_DEPTH),
@@ -533,6 +554,22 @@ MIXER_S8 = [(8, 384, 768, 224, False, True, None), (8, 196, 768, 384, False, Tru
             (1, 1568, 3072, 768, False, False, None), (1, 1568, 768, 3072, False, False, 768),
             (1, 66, 136, 2176, False, False, 544), (1, 97, 40, 96, False, False, 96),
             (3, 20, 100, 128, True, True, 32)]
+# The ResMLP blocks' three products alone at ResMLP-S24's B = 8 (N = 196,
+# D = 384, F = 1536): bf16 as GMLP_BF16's (entries, M, N, K, A's row length,
+# b_mn): the token product per image (Wt shared, in rows of Np = 200 read as
+# its first 196 columns; h an N-major entry an image), FF1 (B·N, F, D), FF2
+# (B·N, D = two whole 192-wide tiles, F); int8 as CORE_S8's: the token
+# product (qWt shared, qh an entry an image: N, D, Np), FF1 (B·N, F, Dp),
+# FF2 (B·N, D, F: one chunk at F = 1536)
+RES_BF16 = [(8, 196, 384, 196, 200, True), (1, 1568, 1536, 384, 384, False),
+            (1, 1568, 384, 1536, 1536, False)]
+RES_BF16_TIMED = [(256, 196, 384, 196, 200, True), (1, 256 * 196, 1536, 384, 384, False),
+                  (1, 256 * 196, 384, 1536, 1536, False)]
+RES_S8 = [(8, 196, 384, 224, False, True, None), (1, 1568, 1536, 384, False, False, None),
+          (1, 1568, 384, 1536, False, False, None)]
+RES_S8_TIMED = [(256, 196, 384, 224, False, True, None),
+                (1, 256 * 196, 1536, 384, False, False, None),
+                (1, 256 * 196, 384, 1536, False, False, None)]
 # b256's products for phase 5 (and phase 2): gMLP-S's three (int8), the W8A8
 # Mixer-B/16 block's four, gMLP-S's three bf16 ones and Mixer-B/16's four
 # channel backward ones (bf16; slabs of 128 images, as on an H100)
@@ -549,6 +586,8 @@ CORE_BF16_TIMED = [(256 * 196, 3072, 768, False, False, None),
 S8_REPLACES = PALLAS + "gmlp_block_int8.py:61 (the products of fused_gmlp_block_int8)"
 MIXER_S8_REPLACES = PALLAS + "mixer_block_int8.py:121 (the products of fused_mixer_block_int8)"
 GMLP_BF16_REPLACES = PALLAS + "gmlp_block.py:57 (the products of fused_gmlp_block)"
+RES_BF16_REPLACES = PALLAS + "resmlp_block.py:54 (the products of fused_resmlp_block)"
+RES_S8_REPLACES = PALLAS + "resmlp_block_int8.py:69 (the products of fused_resmlp_block_int8)"
 BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :306, "
                 "the recompute products of _chan_data_bwd)")
 
@@ -628,16 +667,18 @@ def phase_core(mod):
     auto route (each counted on the wgmma core; the first four also on the
     WMMA core) and at CORE_BF16_WMMA (counted on the WMMA route; core="sm90"
     must raise), each partial within TOL of gemm_bf16_ref's; gemm_bf16 at
-    the bf16 gMLP block's products (GMLP_BF16, and at b256) on the auto
-    route (the first three also on WMMA), within TOL; gemm_s8 at CORE_S8,
-    MIXER_S8 (the chunked mode among them) and at b256 (CORE_S8_TIMED,
-    MIXER_S8_TIMED) on the s8 wgmma core (the first three of CORE_S8 and
-    the two Mixer chunked ones at B = 8 and the ragged chunk also on
-    mma.sync), bit-equal to gemm_s8_ref: the integer product is exact and
-    the scales are applied, and the chunks added, in the twin's order.
-    Returns each core row's largest max|Δ|."""
+    the bf16 gMLP and ResMLP blocks' products (GMLP_BF16, RES_BF16, and
+    at b256) on the auto route (those at B = 8 also on WMMA), within TOL;
+    gemm_s8 at CORE_S8, MIXER_S8 (the chunked mode among them), RES_S8 and
+    at b256 (CORE_S8_TIMED, MIXER_S8_TIMED, RES_S8_TIMED) on the s8 wgmma
+    core (the first three of CORE_S8, the two Mixer chunked ones at B = 8
+    and the ragged chunk, and RES_S8, also on mma.sync), bit-equal to
+    gemm_s8_ref: the integer product is exact and the scales are applied,
+    and the chunks added, in the twin's order. Returns each core row's
+    largest max|Δ|."""
     worst = dict.fromkeys(("gemm_bwd_sm90", "gemm_bf16_gmlp_sm90", "gemm_s8_sm90",
-                           "gemm_s8_mixer_sm90"), 0.0)
+                           "gemm_s8_mixer_sm90", "gemm_bf16_resmlp_sm90",
+                           "gemm_s8_resmlp_sm90"), 0.0)
 
     def bf16_routes(route):
         return {"sm90": (route == "sm90") * 2, "wmma": (route == "wmma") * 2}
@@ -662,20 +703,26 @@ def phase_core(mod):
     check(refused, f"gemm_bf16 core=sm90 at {CORE_BF16_WMMA} (rows 72 bytes apart) did not raise")
     print(f"[2] gemm_bf16 core=sm90 at {CORE_BF16_WMMA}: refused (TMA needs 16-byte row strides)",
           flush=True)
-    cases = ([(c, "auto", "sm90") for c in GMLP_BF16 + GMLP_BF16_TIMED]
-             + [(c, "legacy", "wmma") for c in GMLP_BF16[:3]])
-    for (nz, M, N, K, lda, b_mn), core, route in cases:
+    cases = ([(c, "auto", "sm90", "gMLP", "gemm_bf16_gmlp_sm90")
+              for c in GMLP_BF16 + GMLP_BF16_TIMED]
+             + [(c, "legacy", "wmma", "gMLP", "gemm_bf16_gmlp_sm90") for c in GMLP_BF16[:3]]
+             + [(c, "auto", "sm90", "ResMLP", "gemm_bf16_resmlp_sm90")
+                for c in RES_BF16 + RES_BF16_TIMED]
+             + [(c, "legacy", "wmma", "ResMLP", "gemm_bf16_resmlp_sm90") for c in RES_BF16])
+    for (nz, M, N, K, lda, b_mn), core, route, block, row in cases:
         a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=nz + M + N + K)
         tag = (f"gemm_bf16 {nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn} "
-               f"(the bf16 gMLP block's) core={core}")
-        worst["gemm_bf16_gmlp_sm90"] = max(worst["gemm_bf16_gmlp_sm90"], _core_case(
+               f"(the bf16 {block} block's) core={core}")
+        worst[row] = max(worst[row], _core_case(
             mod, tag, lambda: mod.gemm_bf16(a, b, b_mn=b_mn, core=core),
             lambda: mod.gemm_bf16_ref(a, b, b_mn=b_mn), mod.routes, bf16_routes(route)))
         del a, b
     cases = ([(c, "auto", "sm90_s8", "gemm_s8_sm90") for c in CORE_S8 + CORE_S8_TIMED]
              + [(c, "legacy", "mma_s8", "gemm_s8_sm90") for c in CORE_S8[:3]]
              + [(c, "auto", "sm90_s8", "gemm_s8_mixer_sm90") for c in MIXER_S8 + MIXER_S8_TIMED]
-             + [(c, "legacy", "mma_s8", "gemm_s8_mixer_sm90") for c in MIXER_S8[3:5]])
+             + [(c, "legacy", "mma_s8", "gemm_s8_mixer_sm90") for c in MIXER_S8[3:5]]
+             + [(c, "auto", "sm90_s8", "gemm_s8_resmlp_sm90") for c in RES_S8 + RES_S8_TIMED]
+             + [(c, "legacy", "mma_s8", "gemm_s8_resmlp_sm90") for c in RES_S8])
     for (nz, M, N, K, ab, bb, chunk), core, route, row in cases:
         a, b, rs, cs = s8_core_inputs(nz, M, N, K, ab, bb, chunk, seed=nz + M + N + K)
         tag = (f"gemm_s8 {nz} x (M, N, K) {(M, N, K)} a_batched={ab} b_batched={bb} "
@@ -926,9 +973,15 @@ def phase_logits(jt, mods):
     res_f32 = jt.ResMLPForImageClassification(**RESMLP_S24).load_torch_state_dict(sd).eval()
     res = res.to_bf16().eval()
     with torch.inference_mode():
+        r0 = rb.routes()
         rk = forward_counted(res, x.bfloat16(), rb, RES_DEPTH)
+        check_routes("[3] ResMLP-S24 bf16 kernel-path forward", r0, rb.routes(),
+                     BLOCK_PRODUCTS["resmlp_block"][1] * RES_DEPTH)
+        rq0 = rbq.routes()
         with config.int8_mode():
             rq = forward_counted(res, x.bfloat16(), rbq, RES_DEPTH)
+        check_routes("[3] ResMLP-S24 int8 kernel-path forward", rq0, rbq.routes(),
+                     BLOCK_PRODUCTS["resmlp_block_int8"][1] * RES_DEPTH, route="sm90_s8")
         rp = res_plain.forward(x.bfloat16()).float()
         with config.parity_mode():
             rf = res_f32.forward(x)
@@ -1260,6 +1313,43 @@ def _gmlp_bf16_floor(B, N, D, F):
         nbytes
 
 
+def _resmlp_bf16_floor(B, N, D, F):
+    """The bf16 ResMLP block's data flow (csrc/resmlp_block.cu's Work): each
+    pass reads what it consumes and writes what it makes once; the weights
+    once."""
+    M, Np = B * N, -(-N // 8) * 8
+    nbytes = (M * D * 2                # x read by the affine
+              + 3 * M * D * 2          # h written, read by the token product and its epilogue
+              + 2 * M * D * 4          # h2 (f32) written, read by FF2's residual
+              + 2 * M * D * 2          # h2b written, read by FF1
+              + 2 * M * F * 2          # c written and read
+              + M * D * 2              # out
+              + 2 * (2 * N * Np + N * N)  # Wt copied into rows of Np, then read
+              + 2 * (2 * F * D + N + F + 7 * D))  # W1, W2, biases, affines, gammas
+    return "the data flow's bytes (h three passes, h2 f32 and h2b each way, c each way, x, out)", \
+        nbytes
+
+
+def _resmlp_int8_floor(B, N, D, F):
+    """The W8A8 ResMLP block's data flow (csrc/resmlp_block_int8.cu's Work):
+    each pass reads what it consumes and writes what it makes once; the
+    weights once."""
+    M, Np, Dp = B * N, -(-N // 32) * 32, -(-D // 32) * 32
+    ck = F // 4 if F % 4 == 0 and F >= 2048 else F
+    ckp, nch = -(-ck // 32) * 32, F // ck
+    nbytes = (2 * M * D * 2            # x: the token quantize pass and the token epilogue
+              + 2 * (B * D * Np + B * D * 4)  # qh, sh written and read
+              + 3 * M * D * 4          # h2 (f32) written, read by its quantize pass and FF2's
+              + 2 * (M * Dp + M * 4)   # qhb, shb
+              + 2 * M * F * 4          # c (f32) written and read
+              + 2 * (M * nch * ckp + M * nch * 4)  # qc, sc
+              + M * D * 2              # out
+              + N * Np + F * Dp + D * nch * ckp  # int8 weights
+              + 4 * (N + F + D) + 2 * (N + F + 7 * D))  # scales, biases, affines, gammas
+    return "the data flow's bytes (f32 h2 three passes and c each way, x twice, codes, out)", \
+        nbytes
+
+
 # the data flow's bytes of a block kernel at b256, where they bound it
 # beyond its operations
 FLOORS = {
@@ -1269,6 +1359,8 @@ FLOORS = {
                                                  7 * B * N * F * 4),
     "fused_mixer_block_int8": _mixer_int8_floor,
     "fused_gmlp_block": _gmlp_bf16_floor,
+    "fused_resmlp_block": _resmlp_bf16_floor,
+    "fused_resmlp_block_int8": _resmlp_int8_floor,
 }
 
 
@@ -1535,6 +1627,16 @@ def core_timing(mod, name):
     rows["gemm_bf16_gmlp_sm90"] = _bf16_timing(mod, name, gmlp,
                                                "gMLP-S's three bf16 products")
     del gmlp
+    rows["gemm_s8_resmlp_sm90"] = _s8_timing(mod, name, RES_S8_TIMED,
+                                             "ResMLP-S24's three int8 products")
+    res = []
+    for nz, M, N, K, lda, b_mn in RES_BF16_TIMED:
+        a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=7)
+        res.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
+                    {"b_mn": b_mn}))
+    rows["gemm_bf16_resmlp_sm90"] = _bf16_timing(mod, name, res,
+                                                 "ResMLP-S24's three bf16 products")
+    del res
     bwd = []
     for M, N, K, a_mn, b_mn, slab in CORE_BF16_TIMED:
         a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=7)
@@ -1767,23 +1869,22 @@ def other_families(jt, mods, batch_size=32):
     from jittor_mlp_tpu_torch.parallel import make_train_step
 
     batch = train_batch(batch_size, 6)
-    for tag, build, mod, depth in (
+    for tag, build, lib, depth in (
             ("ResMLP-S24", lambda: jt.ResMLPForImageClassification(**RESMLP_S24)
-             .load_torch_state_dict(resmlp_state_dict(jt)), mods["resmlp_block"], RES_DEPTH),
-            ("gMLP-S", lambda: jt.gMLPForImageClassification(**GMLP_S), mods["gmlp_block"],
+             .load_torch_state_dict(resmlp_state_dict(jt)), "resmlp_block", RES_DEPTH),
+            ("gMLP-S", lambda: jt.gMLPForImageClassification(**GMLP_S), "gmlp_block",
              GMLP_DEPTH)):
+        mod = mods[lib]
         model = build()
         model.use_pallas = False
         _, plain = grads_of(model, batch, torch.bfloat16)
         model.use_pallas = True
-        before = mod.LAUNCHES
-        routes0 = mod.routes() if tag == "gMLP-S" else None
+        before, routes0 = mod.LAUNCHES, mod.routes()
         _, kern = grads_of(model, batch, torch.bfloat16)
         check(mod.LAUNCHES == before + depth,
               f"{tag}: {mod.LAUNCHES - before} forward-kernel launches in a step, want {depth}")
-        if routes0 is not None:  # the block forward's three products, all on wgmma
-            check_routes(f"[6e] {tag} step", routes0, mod.routes(),
-                         BLOCK_PRODUCTS["gmlp_block"][1] * depth)
+        # the block forward's three products, all on wgmma
+        check_routes(f"[6e] {tag} step", routes0, mod.routes(), BLOCK_PRODUCTS[lib][1] * depth)
         err = rel_l2(kern, plain)
         step = make_train_step(model, torch.optim.AdamW(model.parameters(), lr=1e-3,
                                                         weight_decay=1e-4, eps=1e-8),
@@ -1822,16 +1923,15 @@ def train_throughput(jt, name, batch_size=128):
               f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
 
 
-def gmlp_throughput(jt, name, batch_size=128):
-    """(f) gMLP-S bf16 train img/s at b128, kernel path (the block kernel
-    forward, autograd of the plain block backward) and plain path in turns,
-    by CUDA events, with peak memory."""
+def block_throughput(jt, name, tag, model, seed, batch_size=128):
+    """(f) A block family's bf16 train img/s at b128, kernel path (the block
+    kernel forward, autograd of the plain block backward) and plain path in
+    turns, by CUDA events, with peak memory."""
     from jittor_mlp_tpu_torch.parallel import make_train_step
 
-    model = jt.gMLPForImageClassification(**GMLP_S)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
     step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
-    batch = train_batch(batch_size, 11)
+    batch = train_batch(batch_size, seed)
     paths = {"kernel path": True, "plain bf16 path": False}
     times, peak = {k: [] for k in paths}, {}
     for path in list(paths) + list(paths)[::-1]:
@@ -1842,7 +1942,7 @@ def gmlp_throughput(jt, name, batch_size=128):
     model.use_pallas = True
     for path, runs in times.items():
         ms = sum(runs) / len(runs)
-        print(f"[6f] gMLP-S bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
+        print(f"[6f] {tag} bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
               f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
               f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
 
@@ -1947,7 +2047,9 @@ def phase_train(jt, mods, name):
     torch.cuda.empty_cache()
     train_throughput(jt, name)
     torch.cuda.empty_cache()
-    gmlp_throughput(jt, name)
+    block_throughput(jt, name, "gMLP-S", jt.gMLPForImageClassification(**GMLP_S), 11)
+    torch.cuda.empty_cache()
+    block_throughput(jt, name, "ResMLP-S24", jt.ResMLPForImageClassification(**RESMLP_S24), 12)
     torch.cuda.empty_cache()
     as_mlp_grads(jt, mods)
     torch.cuda.empty_cache()
@@ -2012,6 +2114,8 @@ def main():
     sources["gemm_s8_sm90"] = ("gemm_sm90.cuh", S8_REPLACES)
     sources["gemm_s8_mixer_sm90"] = ("gemm_sm90.cuh", MIXER_S8_REPLACES)
     sources["gemm_bf16_gmlp_sm90"] = ("gemm_sm90.cuh", GMLP_BF16_REPLACES)
+    sources["gemm_bf16_resmlp_sm90"] = ("gemm_sm90.cuh", RES_BF16_REPLACES)
+    sources["gemm_s8_resmlp_sm90"] = ("gemm_sm90.cuh", RES_S8_REPLACES)
     sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():

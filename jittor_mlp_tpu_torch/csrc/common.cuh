@@ -52,6 +52,22 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
 }
 
+// p[n .. n+7] of a per-column bf16 vector (n % 8 == 0), packed as in
+// memory: one 16-byte load where p is aligned. Read them with at8, so that
+// a functor can issue every load of a row before it waits on any.
+__device__ __forceinline__ uint4 col8(const bf16* p, int n) {
+  if (aligned16(p)) return *reinterpret_cast<const uint4*>(p + n);
+  uint4 r;
+  bf16* rv = reinterpret_cast<bf16*>(&r);
+  for (int e = 0; e < 8; ++e) rv[e] = p[n + e];
+  return r;
+}
+
+// Element e of eight packed bf16 values, in f32.
+__device__ __forceinline__ float at8(const uint4& r, int e) {
+  return __bfloat162float(reinterpret_cast<const bf16*>(&r)[e]);
+}
+
 __device__ __forceinline__ void store8(float* p, const float* v) {
   reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
   reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);

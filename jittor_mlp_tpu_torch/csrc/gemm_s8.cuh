@@ -1,6 +1,7 @@
 // Batched int8 × int8 → int32 GEMM on the tensor cores (mma.sync m16n8k32),
-// with f32 dequantization and a pluggable epilogue. The W8A8 mixer and
-// ResMLP blocks run all their products through it.
+// with f32 dequantization and a pluggable epilogue. The W8A8 blocks ran
+// their products on it before the s8 wgmma core (gemm_sm90.cuh) took them;
+// it stays as that core's comparison core (Core::Legacy).
 //
 //   acc[z] (M×N) = A[z] (M×K) · B[z]ᵀ         A: M×K, B: N×K, both row-major
 //                                             int8, K-contiguous

@@ -55,7 +55,11 @@
 // (gmlp_block_int8.cu); the four int8 products of mixer_block_int8.py:121
 // fused_mixer_block_int8, the second channel product in the chunked mode
 // (mixer_block_int8.cu); the three bf16 products of gmlp_block.py:57
-// fused_gmlp_block, the token product with an MN-major B (gmlp_block.cu).
+// fused_gmlp_block, the token product with an MN-major B (gmlp_block.cu);
+// the three bf16 products of resmlp_block.py:54 fused_resmlp_block, the
+// token product with an MN-major B (resmlp_block.cu), and the three int8
+// products of resmlp_block_int8.py:69 fused_resmlp_block_int8, the second
+// in the chunked mode where F is chunked (resmlp_block_int8.cu).
 //
 // What bounds it: the Mixer-B/16 channel products at b256 are 236.8 GFLOP
 // each, 0.239 ms at the H100's 989 TFLOP/s dense bf16 peak, against 0.1–0.4

@@ -71,22 +71,22 @@ def mixer_block_int8_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     # token mixes, per image (the weight shared); activation scales per
     # column d, the codes transposed to (B, D, Np) and (B, D, TDp)
     qxn, sxn = quant_act(layer_norm_f32(x, ln1w, ln1b), 1)  # sxn (B, 1, D)
-    t = gemm_s8_ref(qwt1, _pad_last(qxn.transpose(1, 2), Np), swt1, sxn[:, 0])
+    t = gemm_s8_ref(qwt1, pad_last(qxn.transpose(1, 2), Np), swt1, sxn[:, 0])
     t = gelu_tanh(t + bt1.float()[:, None])
     qt, st = quant_act(t, 1)
-    t2 = gemm_s8_ref(qwt2, _pad_last(qt.transpose(1, 2), TDp), swt2, st[:, 0])
+    t2 = gemm_s8_ref(qwt2, pad_last(qt.transpose(1, 2), TDp), swt2, st[:, 0])
     h = (x.float() + t2 + bt2.float()[:, None]).to(dt)
     # channel mixes over all rows; the hidden axis in chunks with
     # per-(row, chunk) activation scales, each chunk's codes padded to ckp
     qhn, shn = quant_act(layer_norm_f32(h, ln2w, ln2b).reshape(B * N, D), 1)
-    c = gelu_tanh(gemm_s8_ref(_pad_last(qhn, Dp), qwc1, shn[:, 0], swc1) + bc1.float())
+    c = gelu_tanh(gemm_s8_ref(pad_last(qhn, Dp), qwc1, shn[:, 0], swc1) + bc1.float())
     qc, sc = quant_act(c.reshape(B * N, nch, ck), 2)
-    acc = gemm_s8_ref(_pad_last(qc, ckp).reshape(B * N, nch * ckp), qwc2, sc[..., 0], swc2,
+    acc = gemm_s8_ref(pad_last(qc, ckp).reshape(B * N, nch * ckp), qwc2, sc[..., 0], swc2,
                       chunk=ckp)
     return (h.float().reshape(B * N, D) + (acc + bc2.float())).reshape(B, N, D).to(dt)
 
 
-def _pad_last(q, width):
+def pad_last(q, width):
     """q with zero codes appended along its last axis up to ``width``."""
     return F.pad(q, (0, width - q.shape[-1]))
 
@@ -101,7 +101,7 @@ def weight_operands(weights, ck):
         q, s = quant_weight(w, 1)
         rows, cols = q.shape
         width = ck if i == len(weights) - 1 else cols
-        q = _pad_last(q.reshape(-1, width), -(-width // 32) * 32).reshape(rows, -1)
+        q = pad_last(q.reshape(-1, width), -(-width // 32) * 32).reshape(rows, -1)
         out += [q.to(torch.int8).contiguous(), s.reshape(-1).contiguous()]
     return out
 

@@ -15,10 +15,18 @@ mix's Conv1d squeezed), w1 (F, D), w2 (D, F); affines and gammas (D,).
 This follows the TPU *kernel*, which keeps h2 in f32 for the last residual;
 the reference's plain block rounds it first.
 
-- ``resmlp_block_ref``: plain PyTorch with the kernel's rounding points.
+- ``resmlp_block_ref``: plain PyTorch with the kernel's rounding points, its
+  three products the core's twin ``ops.products.gemm_bf16_ref`` on the
+  kernel's layouts (Wt in rows of Np = round_up(N, 8) read as its first N
+  columns, shared by every image, and h an N-major B operand an entry an
+  image; h2 and c K-major over all B·N rows).
 - ``fused_resmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
+  the WMMA core (``wmma``), three a launch: the ``wgmma`` core where TMA
+  can load the operands (the token product and FF1 need D, FF2 needs F, a
+  multiple of 8), else WMMA.
 - ``resmlp_block_plain``: the JAX ``_plain_resmlp_block`` (products and bias
   adds in the input dtype), whose autograd is the training backward.
 - ``fused_resmlp_block_trainable``: forward ``fused_resmlp_block``, backward
@@ -32,13 +40,15 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
+from ..products import gemm_bf16_ref
 from ._build import Library
 from .mixer_block import KernelForwardPlainBackward, check_weights, require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("resmlp_block", ["resmlp_block.cu"], {"resmlp_block_bf16": (15, 4)},
-               error="resmlp_error_string", workspace={"resmlp_block_bf16_workspace": 4})
+               error="resmlp_error_string", workspace={"resmlp_block_bf16_workspace": 4},
+               routes="resmlp_gemm_products")
 
 
 def block_dims(x, weights):
@@ -61,13 +71,15 @@ def resmlp_block_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     matmuls) to match."""
     dt = x.dtype
     act = gelu_erf if dt == torch.float32 else gelu_tanh
+    B, N, D = x.shape
     h = (x.float() * a1.float() + b1.float()).to(dt)
-    t = torch.matmul(wt.float(), h.float()) + bt.float()[:, None]
+    wt_rows = torch.nn.functional.pad(wt, (0, -N % 8))  # the kernel's copy: rows of Np
+    t = gemm_bf16_ref(wt_rows[:, :N], h, b_mn=True) + bt.float()[:, None]
     h2 = h.float() + g1.float() * t
-    h2 = h2 * a2.float() + b2.float()
-    c = act(torch.matmul(h2.to(dt).float(), w1.float().t()) + c1.float()).to(dt)
-    f = torch.matmul(c.float(), w2.float().t()) + c2.float()
-    return (h2 + g2.float() * f).to(dt)
+    h2 = (h2 * a2.float() + b2.float()).reshape(B * N, D)
+    c = act(gemm_bf16_ref(h2.to(dt), w1)[0] + c1.float()).to(dt)
+    f = gemm_bf16_ref(c, w2)[0] + c2.float()
+    return (h2 + g2.float() * f).reshape(B, N, D).to(dt)
 
 
 def resmlp_block_plain(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
@@ -89,6 +101,12 @@ def resmlp_block_plain(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90": n, "wmma": n}: the kernel's products so far on each bf16
+    GEMM core (csrc/gemm_sm90.cuh), three a launch."""
+    return _LIB.routes()
 
 
 def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

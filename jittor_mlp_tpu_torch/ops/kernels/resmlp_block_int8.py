@@ -15,10 +15,17 @@ block, nothing is rounded to x's dtype before the output:
     out = dt(h2 + γ2·(Σ_chunks deq(q(gelu_tanh(deq(q(h2)·qW1ᵀ) + c1))·qW2ᵀ) + c2))
 
 - ``resmlp_block_int8_ref``: plain PyTorch with the same quantization
-  arithmetic and chunk rule; its integer products are exact.
+  arithmetic and chunk rule, its three products the s8 core's twin
+  ``ops.products.gemm_s8_ref`` on the kernel's operand layouts (codes
+  zero-padded to 32, the token product's codes transposed and one an image
+  with qWt shared, FF2 in chunks of ckp codes with a row scale a chunk
+  where F ≥ 2048), as the kernel runs them on the s8 ``wgmma`` core; its
+  integer products are exact.
 - ``fused_resmlp_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
-- ``LAUNCHES``: how many times the wrapper launched the kernel.
+- ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
+  the ``mma.sync`` core (``mma_s8``), three a launch.
 """
 
 from __future__ import annotations
@@ -28,17 +35,19 @@ import threading
 import torch
 
 from ...core.nnf import gelu_tanh
-from ...quant import exact_int_matmul, quant_act, quant_weight
-from ._build import Library
+from ...quant import quant_act
+from ..products import gemm_s8_ref
+from ._build import S8_ROUTES, Library
 from .mixer_block import require_bf16_contiguous
-from .mixer_block_int8 import chunk_size, weight_operands
+from .mixer_block_int8 import pad_last, chunk_size, weight_operands
 from .resmlp_block import block_dims
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("resmlp_block_int8", ["resmlp_block_int8.cu"],
                {"resmlp_block_int8": (18, 4)}, error="resmlp_int8_error_string",
-               workspace={"resmlp_block_int8_workspace": 4})
+               workspace={"resmlp_block_int8_workspace": 4},
+               routes="resmlp_int8_gemm_products", route_names=S8_ROUTES)
 
 
 def resmlp_block_int8_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
@@ -47,30 +56,40 @@ def resmlp_block_int8_ref(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     dt = x.dtype
     B, N, D = x.shape
     F = w1.shape[0]
-    qwt, swt = quant_weight(wt, 1)  # (N, N), scales (N, 1)
-    qw1, sw1 = quant_weight(w1, 1)  # (F, D), scales (F, 1)
-    qw2, sw2 = quant_weight(w2, 1)  # (D, F), scales (D, 1)
+    ck = chunk_size(F)
+    nch = F // ck
+    # the kernel's weight operands: (N, Np), (F, Dp), (D, nch·ckp)
+    qwt, swt, qw1, sw1, qw2, sw2 = weight_operands((wt, w1, w2), ck)
+    Np, Dp, ckp = qwt.shape[1], qw1.shape[1], qw2.shape[1] // nch
     h = x.float() * a1.float() + b1.float()
-    # token mix, per image; activation scales per column d
-    qh, sh = quant_act(h, 1)
-    t = exact_int_matmul(qwt, qh) * swt * sh + bt.float()[:, None]
+    # token mix, per image (qWt shared); activation scales per column d, the
+    # codes transposed to (B, D, Np)
+    qh, sh = quant_act(h, 1)  # sh (B, 1, D)
+    t = gemm_s8_ref(qwt, pad_last(qh.transpose(1, 2), Np), swt, sh[:, 0]) + bt.float()[:, None]
     h = h + g1.float() * t
     hb = (h * a2.float() + b2.float()).reshape(B * N, D)
+    # channel FF over all rows; the hidden axis in chunks with per-(row,
+    # chunk) activation scales, each chunk's codes padded to ckp
     qhb, shb = quant_act(hb, 1)
-    ck = chunk_size(F)
-    acc = torch.zeros((B * N, D), dtype=torch.float32, device=x.device)
-    for k0 in range(0, F, ck):
-        c = exact_int_matmul(qhb, qw1[k0:k0 + ck].t()) * shb * sw1[k0:k0 + ck].t()
-        c = gelu_tanh(c + c1.float()[k0:k0 + ck])
-        qc, sc = quant_act(c, 1)
-        acc = acc + exact_int_matmul(qc, qw2[:, k0:k0 + ck].t()) * sc * sw2.t()
-    acc = acc + c2.float()
-    return (hb + g2.float() * acc).reshape(B, N, D).to(dt)
+    c = gelu_tanh(gemm_s8_ref(pad_last(qhb, Dp), qw1, shb[:, 0], sw1) + c1.float())
+    qc, sc = quant_act(c.reshape(B * N, nch, ck), 2)
+    qc = pad_last(qc, ckp).reshape(B * N, nch * ckp)
+    if nch == 1:  # the kernel's unchunked product
+        acc = gemm_s8_ref(qc, qw2, sc[:, 0, 0], sw2)
+    else:
+        acc = gemm_s8_ref(qc, qw2, sc[..., 0], sw2, chunk=ckp)
+    return (hb + g2.float() * (acc + c2.float())).reshape(B, N, D).to(dt)
 
 
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def routes():
+    """{"sm90_s8": n, "mma_s8": n}: the kernel's products so far on each
+    int8 GEMM core (csrc/gemm_sm90.cuh), three a launch."""
+    return _LIB.routes()
 
 
 def fused_resmlp_block_int8(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

@@ -27,20 +27,21 @@ import sys
 
 MUTANTS = {
     "correct": (None, None, None, None),
-    # the mma.sync core's chunk flush: the W8A8 ResMLP block's chunked
-    # shape and the core's legacy chunked cases run it
+    # the mma.sync core's chunk flush: only the core's legacy chunked cases
+    # run it (no block kernel runs mma.sync)
     "M1 chunked flush applies chunk 0's row scales": (
-        "fused_resmlp_block_int8,gemm_core", "csrc/gemm_s8.cuh",
+        "gemm_core", "csrc/gemm_s8.cuh",
         "if (kend % chunk == 0) flush(kend / chunk - 1);", "if (kend % chunk == 0) flush(0);"),
     "M2 second token mix takes image 0's column scales": (
         "fused_mixer_block_int8", "csrc/mixer_block_int8.cu",
         "Scales{f32(swt2), 0, 1, w.st, D}", "Scales{f32(swt2), 0, 1, w.st, 0}"),
-    "M3 bf16 ResMLP output reads gamma2 of the first of 8 columns": (
+    "M3 bf16 ResMLP output reads gamma2 of the first of 8 columns (its 16-byte path)": (
         "fused_resmlp_block", "csrc/resmlp_block.cu",
-        "__fmul_rn(__bfloat162float(g2[n + e]), f)", "__fmul_rn(__bfloat162float(g2[n]), f)"),
-    "M4 W8A8 ResMLP token epilogue reads h1 one column off": (
+        "__fmul_rn(at8(g2v, e), __fadd_rn(v[e], at8(c2v, e)))",
+        "__fmul_rn(at8(g2v, 0), __fadd_rn(v[e], at8(c2v, e)))"),
+    "M4 W8A8 ResMLP token epilogue's row8 reads h1 of the first of its 8 columns": (
         "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
-        "__fadd_rn(h1(z, m, c),", "__fadd_rn(h1(z, m, n),"),
+        "__fmul_rn(at8(xr, e), at8(a1v, e))", "__fmul_rn(at8(xr, 0), at8(a1v, e))"),
     "M5 bf16 gMLP gate reads u at leading dimension F instead of 2F": (
         "fused_gmlp_block", "csrc/gmlp_block.cu", "gate{w.y, F2,", "gate{w.y, F,"),
     "M6 W8A8 gMLP token product takes image 0's column scales for every image": (
@@ -103,6 +104,16 @@ MUTANTS = {
     "M22 the bf16 gMLP token product's TB bit is dropped: vn is read as a K-major B": (
         "fused_gmlp_block", "csrc/gmlp_block.cu",
         "sm90::gemm_bf16<false, true>(s, B, N, F,", "sm90::gemm_bf16<false, false>(s, B, N, F,"),
+    # the ResMLP blocks on the cores
+    "M23 the bf16 ResMLP token product's TB bit is dropped: h is read as a K-major B": (
+        "fused_resmlp_block", "csrc/resmlp_block.cu",
+        "(sm90::gemm_bf16<false, true>(", "(sm90::gemm_bf16<false, false>("),
+    "M24 the W8A8 ResMLP output's row8 reads h2 of the first of its 8 columns": (
+        "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
+        "__fadd_rn(r[e], __fmul_rn(at8(g2v, e),", "__fadd_rn(r[0], __fmul_rn(at8(g2v, e),"),
+    "M25 the bf16 ResMLP's copy of Wt is written at pitch N, not Np": (
+        "fused_resmlp_block", "csrc/resmlp_block.cu",
+        "cudaMemcpy2DAsync(w.wt, sizeof(bf16) * Np,", "cudaMemcpy2DAsync(w.wt, sizeof(bf16) * N,"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
