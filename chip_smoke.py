@@ -30,7 +30,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      gMLP and ResMLP blocks also run at the train step's b128 and at b131;
      there each weight gradient's sum over images has partials of several
      images and a short last one (printed, and checked to occur), and the
-     channel weight backward's twin sums in the kernel's slabs. The axial shift, a copy, equals its twin bit
+     token and channel weight backwards' twins sum in the kernel's groups
+     and slabs. The axial shift, a copy, equals its twin bit
      for bit at every AS-MLP-T stage shape (B=8) and five ragged shapes,
      both axes, both signs, bf16 and float32, and its autograd wrapper's
      backward on a non-contiguous gradient equals the twin at sign -1.
@@ -50,8 +51,17 @@ Phases (each one fails loudly; there is no CPU fallback):
      and b256 and ragged ones, the Mixer's second channel product in the
      chunked mode (4 chunks of 768 codes; and 4 of 544, ending inside a
      128-code K step; one chunk; batched 32-code chunks), on the s8 wgmma
-     core and mma.sync, bit-equal to its twin. Kernel 1, the training
-     forward and the two channel backwards also run at D=36, the bf16 gMLP
+     core and mma.sync, bit-equal to its twin; the dual mode
+     (gemm_bf16_dual: two products of one tile, both stored) at Mixer-B/16's
+     two pairs (the channel data backward's and the token backward's) at
+     B=8 and b256 and ragged shapes, an MN-major A among them, on both
+     cores, and rows 72 bytes apart on the WMMA route; the Group mode
+     (gemm_bf16_group: a sum over images, a group of images in each tile's
+     K loop) at the token backward's dWt2 and dWt1 at B=8, b128 and b131 in
+     its groups (partials of several images and a short last one, printed
+     and checked to occur), a ragged one, the b131 dWt2 on the WMMA core's
+     gemm_sum and rows 72 bytes apart on the WMMA route. Kernel 1 and the
+     four training kernels also run at D=36, the bf16 gMLP
      and ResMLP blocks at D=36 and at D=44, F=100, where their bf16
      products (some or all) take the WMMA route; at every shape the route
      counts of those kernels and of the W8A8 gMLP, Mixer and ResMLP blocks
@@ -97,7 +107,10 @@ Phases (each one fails loudly; there is no CPU fallback):
      products and the W8A8 Mixer block's four (against mma.sync and
      torch._int_mm), gMLP-S's and ResMLP-S24's three bf16 products and
      Mixer-B/16's four channel backward products (against WMMA and
-     torch.matmul); the forwards
+     torch.matmul); the dual mode at the two backward pairs (against WMMA and
+     two torch.matmul calls) and the Group mode at dWt2 and dWt1 (against
+     WMMA's gemm_sum and torch.einsum); rows 6 and 7's data-flow floors
+     before and after their redesign; the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
      bf16 (all four models);
   6. training, bf16 with f32 master weights: (a) all 13 gradients of one
@@ -111,8 +124,10 @@ Phases (each one fails loudly; there is no CPU fallback):
      (c) 10 AdamW steps at b128 on one batch, each route with remat off
      and on: the loss descends, and remat gives the same losses; (d) the
      launches per step, depth × (1, or 2 for a forward kernel under
-     remat), and the products of the block forwards and the channel
-     backwards (2, 2 and 4 a block), all on the wgmma core; (e) one
+     remat), and the products of the block forward and the three backwards
+     (2, 5, 3 and 4 a block: 14), all on the wgmma core, with a dual launch
+     a token or channel data backward and two Group launches a token
+     backward; (e) one
      ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients against their
      plain bf16 paths (≤ 3e-2, as (a)), each forward's 3 x depth products
      on the wgmma core; (f) Mixer-B/16 train img/s at b128 on each route
@@ -321,8 +336,8 @@ TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_blo
                  "chan_data_bwd": "mixer_block_bwd.py:306", "chan_wgt_bwd": "mixer_block_bwd.py:397"}
 # Beyond the shared shapes: chunked CD, the train step's b128, and b131, where
 # the last f32 partial of each weight-gradient sum takes fewer images
-# than the others (on an H100: dWt1/dWt2 in 66 partials of 2 images, the
-# last of 1; dWc1/dWc2 in 2 slabs of 66 images, the last of 65).
+# than the others (on an H100: dWt1/dWt2 in 33 partials of 4 images, the
+# last of 3; dWc1/dWc2 in 2 slabs of 66 images, the last of 65).
 TRAIN_SHAPES = [(2, 33, 136, 50, 2056), (128, 196, 768, 384, 3072), (131, 196, 768, 384, 3072)]
 # argument of the weight that gives the inner width (TD, CD) of a
 # weight-gradient kernel's grouped sums
@@ -343,8 +358,13 @@ ROUTED = {
     # hn·Wc1ᵀ (rows D apart), c·Wc2ᵀ (rows CD apart)
     "fused_mixer_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
     "fwd_with_h": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
-    # hn·Wc1ᵀ; g·Wc2 (g rows D apart, Wc2 rows CD apart)
-    "chan_data_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == s[4] % 8 == 0),
+    # the dual product (two: hn·Wc1ᵀ, g·Wc2 with Wc2ᵀ copied; rows D apart),
+    # then dhn = dcp·Wc1 (dcp rows CD apart)
+    "chan_data_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == 0,
+                                            s[2] % 8 == s[4] % 8 == 0),
+    # the dual product an image (two), dWt2 and dWt1 in image groups, dxn:
+    # xn, dh, t and dtp rows D apart, the weights copied into rows of Np
+    "token_bwd": lambda s: _bf16_routes(*[s[2] % 8 == 0] * 5),
     # the two recompute products, then dcpᵀ·hn and gᵀ·c (rows CD and D apart)
     "chan_wgt_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, *[s[2] % 8 == s[4] % 8 == 0] * 3),
     # xn·W1ᵀ (rows D apart), Wsp·vn (vn rows F apart), g·W2ᵀ (rows F apart)
@@ -360,12 +380,15 @@ ROUTED = {
 # products on the GEMM cores per block of each routed forward kernel at the
 # models' widths (every operand one TMA can load), by library: (route,
 # products a launch); and on the bf16 wgmma core per Mixer-B/16 block of a
-# kernel-route step: the forward's two, the channel data backward's two and
-# the channel weight backward's four
+# kernel-route step: the forward's two, the token backward's five (a dual
+# product counts two), the channel data backward's three and the channel
+# weight backward's four: 14
 BLOCK_PRODUCTS = {"mixer_block": ("sm90", 2), "mixer_block_int8": ("sm90_s8", 4),
                   "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3),
                   "resmlp_block": ("sm90", 3), "resmlp_block_int8": ("sm90_s8", 3)}
-BWD_PRODUCTS = {"fwd_with_h": 2, "chan_data_bwd": 2, "chan_wgt_bwd": 4}
+BWD_PRODUCTS = {"fwd_with_h": 2, "token_bwd": 5, "chan_data_bwd": 3, "chan_wgt_bwd": 4}
+# the wgmma core's dual and Group launches per launch of each backward kernel
+BWD_MODES = {"token_bwd": {"dual": 1, "group": 2}, "chan_data_bwd": {"dual": 1, "group": 0}}
 # the kernels line's rows of a block library's products on the core
 PRODUCT_ROWS = {"mixer_block_int8": "gemm_s8_mixer_sm90", "gmlp_block": "gemm_bf16_gmlp_sm90",
                 "gmlp_block_int8": "gemm_s8_sm90", "resmlp_block": "gemm_bf16_resmlp_sm90",
@@ -384,9 +407,9 @@ GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_bl
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
-    # kernel 1, the training forward and the channel backwards also at
-    # D = 36, CD = 100: rows 72 and 200 bytes apart, which TMA cannot load,
-    # so their bf16 products take the WMMA core (ROUTED)
+    # kernel 1 and the training kernels also at D = 36, CD = 100: rows 72
+    # and 200 bytes apart, which TMA cannot load, so their bf16 products
+    # take the WMMA core (ROUTED)
     fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     # the bf16 ResMLP block also at D = 36 (the token product's h and FF1's
@@ -431,7 +454,7 @@ def kernel_table(mods):
             gmlp_inputs, gmlp_int8_shapes, "gmlp_block_int8.cu", "gmlp_block_int8.py:61",
             GMLP_DEPTH),
         **{k: (mods["mixer_block_bwd"], k, f"{k}_ref", train_inputs(k),
-               (mixer_shapes if k == "token_bwd" else fwd_shapes) + TRAIN_SHAPES,
+               fwd_shapes + TRAIN_SHAPES,
                "mixer_block_bwd.cu", replaced, DEPTH)
            for k, replaced in TRAIN_KERNELS.items()},
     }
@@ -588,8 +611,37 @@ MIXER_S8_REPLACES = PALLAS + "mixer_block_int8.py:121 (the products of fused_mix
 GMLP_BF16_REPLACES = PALLAS + "gmlp_block.py:57 (the products of fused_gmlp_block)"
 RES_BF16_REPLACES = PALLAS + "resmlp_block.py:54 (the products of fused_resmlp_block)"
 RES_S8_REPLACES = PALLAS + "resmlp_block_int8.py:69 (the products of fused_resmlp_block_int8)"
-BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :306, "
-                "the recompute products of _chan_data_bwd)")
+BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :220 "
+                "and :306, the products of _token_bwd and _chan_data_bwd)")
+DUAL_REPLACES = (PALLAS + "mixer_block_bwd.py:220 (_token_bwd's recompute and Wt2ᵀ·dh products) "
+                 "and :306 (_chan_data_bwd's cp and dc products)")
+GROUP_REPLACES = PALLAS + "mixer_block_bwd.py:220 (_token_bwd's dWt1 and dWt2 sums over images)"
+# The core's dual mode alone (gemm_bf16_dual), as (entries, M, N, K, the A
+# operands' row length, a_mn, b_mn, A batched, B batched): Mixer-B/16's two
+# pairs at B = 8, the channel data backward's (hn·Wc1ᵀ, g·Wc2 with Wc2ᵀ
+# K-major; 192×96 tiles) and the token backward's (Wt1·xn_b, Wt2ᵀ·dh_b:
+# the weights shared in rows of Np = 200, xn and dh N-major an entry an
+# image; 192×64 tiles); ragged ones (M, N against the tile, K against the
+# 64-wide step; an MN-major A); rows 72 bytes apart (K = 36), the WMMA
+# route; and b256's two pairs.
+DUAL = [(1, 1568, 3072, 768, 768, False, False, False, False),
+        (8, 384, 768, 196, 200, False, True, False, True),
+        (1, 97, 200, 136, 136, False, False, False, False),
+        (3, 50, 136, 33, 40, False, True, False, True),
+        (2, 200, 72, 40, 200, True, True, False, True)]
+DUAL_WMMA = (1, 36, 40, 36, 36, False, False, False, False)
+DUAL_TIMED = [(1, 256 * 196, 3072, 768, 768, False, False, False, False),
+              (256, 384, 768, 196, 200, False, True, False, True)]
+# The core's Group mode alone (gemm_bf16_group): the token backward's dWt2
+# (M = N tokens, N = TD) and dWt1 (TD, N) over images of K = D, at B = 8,
+# b128 and b131 in the kernel's groups (the token backward's
+# images_per_group), as (images, M, N, K, per or None for the kernel's);
+# a ragged one in groups of 2 (the last of 1); rows 72 bytes apart (K =
+# 36), the WMMA route's gemm_sum; and b256's two for phase 5.
+GROUP = [(B, M, N, 768, None) for B in (8, 128, 131) for M, N in ((196, 384), (384, 196))] + [
+    (5, 33, 50, 136, 2)]
+GROUP_WMMA = (5, 20, 24, 36, 2)
+GROUP_TIMED = [(256, 196, 384, 768, None), (256, 384, 196, 768, None)]
 
 
 def bf16_core_inputs(M, N, K, a_mn, b_mn, seed):
@@ -633,6 +685,38 @@ def s8_core_inputs(nz, M, N, K, a_batched, b_batched, chunk, seed):
     return a, b, rs, cs
 
 
+def dual_core_inputs(nz, M, N, K, lda, a_mn, b_mn, a_batched, b_batched, seed):
+    """bf16 operands of gemm_bf16_dual on the card, O(1) products: a1, a2
+    (M, K) or (K, M), shared views of rows lda long (the columns past them
+    random: the kernel must not read them) or batched; b1, b2 (N, K) or
+    (K, N), scaled by 1/sqrt(K), shared or batched."""
+    rn, _ = _draw(seed)
+
+    def a():
+        rows, cols = (K, M) if a_mn else (M, K)
+        return rn(nz, rows, cols) if a_batched else rn(rows, lda)[:, :cols]
+
+    def b():
+        shape = (K, N) if b_mn else (N, K)
+        return rn(*((nz,) if b_batched else ()), *shape, scale=K ** -0.5)
+
+    return a(), b(), a(), b()
+
+
+def group_inputs(images, M, N, K, seed):
+    """a (images, M, K) and b (images, N, K) bf16 on the card, b scaled by
+    1/sqrt(K)."""
+    rn, _ = _draw(seed)
+    return rn(images, M, K), rn(images, N, K, scale=K ** -0.5)
+
+
+def token_group(bwd, images, M, N, K):
+    """Images per partial of the token backward's dWt1 and dWt2 at images
+    of (tokens, D) = (min(M, N), K) and TD = max(M, N) on this card."""
+    x = torch.empty((images, min(M, N), K), dtype=torch.bfloat16, device="cuda")
+    return bwd.images_per_group("token_bwd", x, max(M, N))
+
+
 def _core_case(mod, tag, call, twin, route_fn, want_moved, exact=False):
     """One core-mode case: launched twice (bit-equal, one launch each, the
     routes moved as wanted), held within TOL of max(1, max|ref|) of its
@@ -660,6 +744,58 @@ def _core_case(mod, tag, call, twin, route_fn, want_moved, exact=False):
         check(torch.equal(got, want), f"{tag} is not bit-equal to its twin: max|d| {err}")
     check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
     return err
+
+
+def phase_modes(mod, bwd):
+    """Phase 2 for the core's two modes of the Mixer backwards alone: the
+    dual mode (gemm_bf16_dual) at DUAL and DUAL_TIMED on the auto route
+    (counted as two products on the wgmma core a call), at the first two on
+    the WMMA core and at DUAL_WMMA on the auto route (the WMMA route); the
+    Group mode (gemm_bf16_group) at GROUP in the token backward's groups on
+    the auto route, at the b131 dWt2 on the WMMA core (gemm_sum in the same
+    groups) and at GROUP_WMMA on the auto route (the WMMA route). Each
+    within TOL of its twin, two calls bit-equal; the Group mode's
+    partials of several images and a short last one must occur. Returns
+    each row's largest max|Δ|."""
+    worst = {"gemm_bf16_dual_sm90": 0.0, "gemm_bf16_group_sm90": 0.0}
+
+    def moved(route, products):
+        return {"sm90": (route == "sm90") * 2 * products, "wmma": (route == "wmma") * 2 * products}
+
+    cases = ([(c, "auto", "sm90") for c in DUAL + DUAL_TIMED]
+             + [(c, "legacy", "wmma") for c in DUAL[:2]] + [(DUAL_WMMA, "auto", "wmma")])
+    for case, core, route in cases:
+        nz, M, N, K, lda, a_mn, b_mn, ab, bb = case
+        a1, b1, a2, b2 = dual_core_inputs(*case, seed=nz + M + N + K)
+        kw = dict(a_mn=a_mn, b_mn=b_mn)
+        tag = (f"gemm_bf16_dual {nz} x (M, N, K) {(M, N, K)} A rows of {lda} a_mn={a_mn} "
+               f"b_mn={b_mn} a_batched={ab} b_batched={bb} core={core}")
+        worst["gemm_bf16_dual_sm90"] = max(worst["gemm_bf16_dual_sm90"], _core_case(
+            mod, tag, lambda: torch.stack(mod.gemm_bf16_dual(a1, b1, a2, b2, core=core, **kw)),
+            lambda: torch.stack(mod.gemm_bf16_dual_ref(a1, b1, a2, b2, **kw)), mod.routes,
+            moved(route, 2)))
+        del a1, b1, a2, b2
+        torch.cuda.empty_cache()
+    groups = []
+    cases = ([(c, "auto", "sm90") for c in GROUP] + [(GROUP[4], "legacy", "wmma")]
+             + [(GROUP_WMMA, "auto", "wmma")])
+    for (images, M, N, K, per), core, route in cases:
+        per = per or token_group(bwd, images, M, N, K)
+        a, b = group_inputs(images, M, N, K, seed=images + M + N + K)
+        n = -(-images // per)
+        last = images - (n - 1) * per
+        if route == "sm90":
+            groups.append((per, n, last))
+        tag = (f"gemm_bf16_group {images} images (M, N, K) {(M, N, K)} in {n} partials of {per} "
+               f"(last {last}) core={core}")
+        worst["gemm_bf16_group_sm90"] = max(worst["gemm_bf16_group_sm90"], _core_case(
+            mod, tag, lambda: mod.gemm_bf16_group(a, b, per, core=core),
+            lambda: mod.gemm_bf16_group_ref(a, b, per), mod.routes, moved(route, 1)))
+        del a, b
+    check(any(per > 1 for per, _, _ in groups) and any(last < per for per, _, last in groups),
+          f"gemm_bf16_group: no case summed several images in a partial and left a short last "
+          f"one: {groups}")
+    return worst
 
 
 def phase_core(mod):
@@ -769,8 +905,9 @@ def phase_kernels(table):
                 groups.append(grouping(mod, fn, x, w))
                 note += (f"; weight gradients in {groups[-1][1]} partials of {groups[-1][0]} "
                          f"images (last {groups[-1][2]})")
-                if fn == "chan_wgt_bwd":  # its twin sums in the kernel's slabs, in order
-                    kw = {"images_per_slab": groups[-1][0]}
+                # each twin sums in the kernel's slabs or groups, in order
+                kw = {"images_per_slab" if fn == "chan_wgt_bwd" else "images_per_group":
+                      groups[-1][0]}
             want = outputs(getattr(mod, ref)(x, *w, **kw))
             check(len(got) == len(want), f"{name}: {len(got)} outputs, twin {len(want)}")
             rels = []
@@ -1350,9 +1487,50 @@ def _resmlp_int8_floor(B, N, D, F):
         nbytes
 
 
+def _token_bwd_floors(B, N, D, TD, CD):
+    """The token backward's data flow (csrc/mixer_block_bwd.cu), each pass
+    reading what it consumes and writing what it makes once, the weights
+    once: the parent design's (f32 tp written by the recompute, read and
+    rewritten by the dtp product, read by dbt1's row sums) and this one's
+    (tp in registers, dbt1's partials of eight columns written and read).
+    E: bytes of a (B, N, D) bf16 tensor; F: of a (B, TD, D) one."""
+    E, F = 2 * B * N * D, 2 * B * TD * D
+    shared = (3 * E                    # x: LN1, the LN backward's rows and columns
+              + 3 * E                  # xn written, read by two products
+              + 3 * E                  # dh read by two products and the LN backward
+              + 2 * F                  # t written and read
+              + 3 * F                  # dtp written, read by dWt1 and dxn
+              + 6 * E                  # dxn (f32) written and read twice
+              + E                      # dx
+              + 2 * 2 * TD * N + 4 * (2 * TD * N + TD + 2 * D))  # weights, gradients
+    parent = shared + 2 * F * 4        # f32 tp: written, read and rewritten, read
+    return [("the parent design's data flow (f32 tp four passes)", parent),
+            ("this design's data flow (tp in registers, dbt1 partials)", shared + F // 2)]
+
+
+def _chan_data_floors(B, N, D, TD, CD):
+    """The channel data backward's data flow, as _token_bwd_floors counts
+    it: the parent design's (f32 cp written by its recompute product and
+    read by the dc product, bf16 dcp written and read) and this one's (cp
+    and dc in registers, dcp written and read). E: bytes of a (B, N, D)
+    bf16 tensor; G: of a (B·N, CD) one."""
+    E, G = 2 * B * N * D, 2 * B * N * CD
+    shared = (3 * E                    # h: LN2, the LN backward's rows and columns
+              + 2 * E                  # hn written and read
+              + 2 * E                  # g read by a product and the LN backward
+              + 2 * G                  # dcp written and read
+              + 6 * E                  # dhn (f32) written and read twice
+              + E                      # dh
+              + 2 * 3 * CD * D + 8 * D)  # Wc1, Wc2 and its copy, LN gradients
+    return [("the parent design's data flow (f32 cp written and read)", shared + 4 * G),
+            ("this design's data flow (cp and dc in registers)", shared)]
+
+
 # the data flow's bytes of a block kernel at b256, where they bound it
-# beyond its operations
+# beyond its operations (rows 6 and 7: before and after their redesign)
 FLOORS = {
+    "token_bwd": _token_bwd_floors,
+    "chan_data_bwd": _chan_data_floors,
     # the f32 intermediates this data flow moves: y (B·N, 2F) written, its v
     # half read twice and its u half once, g (B·N, F) written and read
     "fused_gmlp_block_int8": lambda B, N, D, F: ("the f32 intermediates' bytes",
@@ -1377,8 +1555,8 @@ def phase_timing(jt, table, name):
         bound_ms, bound_by = block_bound(kname, x, w, outs)
         print(f"[5] {kname} b256 {shape}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({bound_by})  [{name}]", flush=True)
-        if kname in FLOORS:
-            what, floor = FLOORS[kname](*shape)
+        floors = FLOORS[kname](*shape) if kname in FLOORS else []
+        for what, floor in floors if isinstance(floors, list) else [floors]:
             print(f"[5] {kname} b256: {what} {floor / 1e9:.4f} GB, "
                   f"{floor / HBM_BYTES_S * 1e3:.4f} ms at the HBM rate (the data flow's floor)  "
                   f"[{name}]", flush=True)
@@ -1594,6 +1772,104 @@ def _bf16_timing(mod, name, cases, what):
           f"{total['bound']:.4f} ms  [{name}]", flush=True)
     return ((total["sm90"], total["twin"], total["bound"],
              "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+
+
+def mode_timing(mod, bwd, name):
+    """Phase 5 for the core's dual and Group modes at b256: DUAL_TIMED (the
+    channel data and token backwards' pairs) on the wgmma core, the WMMA
+    core (two products, v1 through f32) and torch.matmul twice (the pair
+    alone, no epilogue: the yardstick, which the port never calls);
+    GROUP_TIMED (dWt2, dWt1 in the token backward's groups) on the wgmma
+    core, the WMMA core's gemm_sum and torch.einsum over the images (one
+    sum, no partials); in turns, then each twin; then the library's time of
+    all the products of rows 6 and 7 (the pairs, the sums, dxn and dhn).
+    Returns {row: ((ms, twin ms, bound ms, bound_by), library ms)}, each
+    summed over the products."""
+    rows, dual_lib = {}, []
+    total = dict.fromkeys(("sm90", "old", "lib", "twin", "bound", "ops_ms", "bytes_ms"), 0.0)
+    for case in DUAL_TIMED:
+        nz, M, N, K, lda, a_mn, b_mn, ab, bb = case
+        a1, b1, a2, b2 = dual_core_inputs(*case, seed=7)
+        kw = dict(a_mn=a_mn, b_mn=b_mn)
+        out = mod.gemm_bf16_dual(a1, b1, a2, b2, **kw)
+        flop = 2 * 2 * nz * M * N * K
+        nbytes = sum(t.numel() * t.element_size() for t in (a1, b1, a2, b2, *out))
+        at1, at2 = (t.transpose(-1, -2) if a_mn else t for t in (a1, a2))
+        bt1, bt2 = (t if b_mn else t.transpose(-1, -2) for t in (b1, b2))
+        ms, runs = _timed_turns({
+            "sm90": lambda: mod.gemm_bf16_dual(a1, b1, a2, b2, **kw),
+            "old": lambda: mod.gemm_bf16_dual(a1, b1, a2, b2, core="legacy", **kw),
+            "lib": lambda: (torch.matmul(at1, bt1), torch.matmul(at2, bt2))}, 10)
+        dual_lib.append(runs["lib"])
+        twin = cuda_ms(lambda: mod.gemm_bf16_dual_ref(a1, b1, a2, b2, **kw), 2)
+        t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
+        for k in ms:
+            total[k] += ms[k]
+        total["twin"] += twin
+        total["bound"] += max(t_ops, t_bytes) * 1e3
+        total["ops_ms"] += t_ops * 1e3
+        total["bytes_ms"] += t_bytes * 1e3
+        print(f"[5] gemm_bf16_dual b256 {nz} x (M, N, K) {(M, N, K)} b_mn={b_mn}: wgmma core "
+              f"{ms['sm90']:.4f} ms ({flop / ms['sm90'] / 1e9:.1f} TFLOP/s), WMMA core "
+              f"{ms['old']:.4f} ms ({flop / ms['old'] / 1e9:.1f}), torch.matmul x 2 "
+              f"{ms['lib']:.4f} ms ({flop / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
+              f"{max(t_ops, t_bytes) * 1e3:.4f} ms (operations {t_ops * 1e3:.4f}, bytes "
+              f"{t_bytes * 1e3:.4f}) (runs {json.dumps(runs)})  [{name}]", flush=True)
+        del a1, b1, a2, b2, out, at1, at2, bt1, bt2
+        torch.cuda.empty_cache()
+    rows["gemm_bf16_dual_sm90"] = ((total["sm90"], total["twin"], total["bound"],
+                                    "operations" if total["ops_ms"] >= total["bytes_ms"]
+                                    else "bytes"), total["lib"])
+    total = dict.fromkeys(total, 0.0)
+    for images, M, N, K, _ in GROUP_TIMED:
+        per = token_group(bwd, images, M, N, K)
+        a, b = group_inputs(images, M, N, K, seed=7)
+        out = mod.gemm_bf16_group(a, b, per)
+        flop = 2 * images * M * N * K
+        nbytes = sum(t.numel() * t.element_size() for t in (a, b, out))
+        ms, runs = _timed_turns({
+            "sm90": lambda: mod.gemm_bf16_group(a, b, per),
+            "old": lambda: mod.gemm_bf16_group(a, b, per, core="legacy"),
+            "lib": lambda: torch.einsum("bmk,bnk->mn", a, b)}, 20)
+        twin = cuda_ms(lambda: mod.gemm_bf16_group_ref(a, b, per), 2)
+        t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
+        for k in ms:
+            total[k] += ms[k]
+        total["twin"] += twin
+        total["bound"] += max(t_ops, t_bytes) * 1e3
+        total["ops_ms"] += t_ops * 1e3
+        total["bytes_ms"] += t_bytes * 1e3
+        print(f"[5] gemm_bf16_group b256 {images} images (M, N, K) {(M, N, K)} in "
+              f"{out.shape[0]} partials of {per}: wgmma core {ms['sm90']:.4f} ms "
+              f"({flop / ms['sm90'] / 1e9:.1f} TFLOP/s), WMMA core {ms['old']:.4f} ms "
+              f"({flop / ms['old'] / 1e9:.1f}), torch.einsum {ms['lib']:.4f} ms "
+              f"({flop / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
+              f"{max(t_ops, t_bytes) * 1e3:.4f} ms (runs {json.dumps(runs)})  [{name}]",
+              flush=True)
+        del a, b, out
+        torch.cuda.empty_cache()
+    group_lib = total["lib"]
+    rows["gemm_bf16_group_sm90"] = ((total["sm90"], total["twin"], total["bound"],
+                                     "operations" if total["ops_ms"] >= total["bytes_ms"]
+                                     else "bytes"), total["lib"])
+    # the products of rows 6 and 7 beside these, in the library alone: dxn =
+    # Wt1ᵀ·dtp an image and dhn = dcp·Wc1 (torch.matmul, f32 out not asked)
+    rn, _ = _draw(9)
+    wt1, dtp = rn(384, 196), rn(256, 384, 768)
+    dcp, wc1 = rn(256 * 196, 3072), rn(3072, 768)
+    other, _ = _timed_turns({"dxn": lambda: torch.matmul(wt1.t(), dtp),
+                             "dhn": lambda: torch.matmul(dcp, wc1)}, 20)
+    dual = [sum(r) / len(r) for r in dual_lib]
+    token = dual[1] + group_lib + other["dxn"]
+    chan = dual[0] + other["dhn"]
+    print(f"[5] the products of rows 6 and 7 at b256 in the library alone (torch.matmul, "
+          f"torch.einsum; no epilogue): token_bwd {token:.4f} ms (the dual pair "
+          f"{dual[1]:.4f}, dWt2 + dWt1 {group_lib:.4f}, dxn {other['dxn']:.4f}); chan_data_bwd "
+          f"{chan:.4f} ms (the dual pair {dual[0]:.4f}, dhn {other['dhn']:.4f})  [{name}]",
+          flush=True)
+    del wt1, dtp, dcp, wc1
+    torch.cuda.empty_cache()
+    return rows
 
 
 def core_timing(mod, name):
@@ -1828,7 +2104,7 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             config.pallas_bwd = route == "kernel"
             fwd_mod = bwd if route == "kernel" else mb  # the library of the block forward
             reset_counts(mods)  # the training path's run starts here
-            routes0 = fwd_mod.routes()
+            routes0, modes0 = fwd_mod.routes(), bwd.mode_launches()
             with config.remat_mode() if remat else contextlib.nullcontext():
                 losses = [step(batch).item() for _ in range(steps)]
             torch.cuda.synchronize()
@@ -1854,9 +2130,19 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             moved = check_routes(f"[6d] {tag}, block forwards and channel backwards", routes0,
                                  fwd_mod.routes(), products)
             runs[(route, remat)] = losses
+            modes = {k: v - modes0[k] for k, v in bwd.mode_launches().items()}
+            want_modes = {k: sum(BWD_MODES[n].get(k, 0) * counts[n] for n in BWD_MODES)
+                          for k in ("dual", "group")}
+            got_modes = {k: modes[k] for k in want_modes}
+            print(f"[6d] the wgmma core's dual and Group launches, {tag}: "
+                  f"{json.dumps(got_modes)} (want {json.dumps(want_modes)})", flush=True)
+            check(got_modes == want_modes,
+                  f"{tag}: dual and Group launches {got_modes}, want {want_modes}")
             if route == "kernel" and not remat:
                 counted = {k: counts[k] for k in TRAIN_KERNELS}
                 counted["gemm_bwd_sm90"] = moved - BWD_PRODUCTS["fwd_with_h"] * counts["fwd_with_h"]
+                counted["gemm_bf16_dual_sm90"] = modes["dual"]
+                counted["gemm_bf16_group_sm90"] = modes["group"]
         check(runs[(route, True)] == runs[(route, False)],
               f"{route} route: remat changed the losses")
         print(f"[6c] {route} route: remat on gives the same losses, bit for bit", flush=True)
@@ -2090,6 +2376,7 @@ def main():
     errs.update(phase_lab(mods["kernel_lab"]))
     errs["gemm_tn_sm90"] = phase_gemm(mods["gemm_sm90"])
     errs.update(phase_core(mods["gemm_sm90"]))
+    errs.update(phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"]))
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
     del mixer, res, gmlp, as_mlp
@@ -2100,6 +2387,9 @@ def main():
     library = {}
     timings["gemm_tn_sm90"], library["gemm_tn_sm90"] = gemm_timing(mods["gemm_sm90"], name)
     for row, (timing, lib_ms) in core_timing(mods["gemm_sm90"], name).items():
+        timings[row], library[row] = timing, lib_ms
+    for row, (timing, lib_ms) in mode_timing(mods["gemm_sm90"], mods["mixer_block_bwd"],
+                                             name).items():
         timings[row], library[row] = timing, lib_ms
     torch.cuda.empty_cache()
     launches.update(phase_train(jt, mods, name))
@@ -2117,6 +2407,8 @@ def main():
     sources["gemm_bf16_resmlp_sm90"] = ("gemm_sm90.cuh", RES_BF16_REPLACES)
     sources["gemm_s8_resmlp_sm90"] = ("gemm_sm90.cuh", RES_S8_REPLACES)
     sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
+    sources["gemm_bf16_dual_sm90"] = ("gemm_sm90.cuh", DUAL_REPLACES)
+    sources["gemm_bf16_group_sm90"] = ("gemm_sm90.cuh", GROUP_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]

@@ -17,6 +17,13 @@
 //   entries batched or shared, the f32 dequantized product; with a chunk,
 //   the chunked mode (the Mixer's second channel product): per-(row, chunk)
 //   row scales, the chunks' dequantized sums added in order.
+// - gemm_bf16_dual_f32: the dual mode of the Mixer token and channel data
+//   backwards (mixer_block_bwd.py:220 _token_bwd's recompute and Wt2ᵀ·dh,
+//   :306 _chan_data_bwd's hn·Wc1ᵀ and g·Wc2): two products of one tile,
+//   both sums stored in f32.
+// - gemm_bf16_group_f32: the Group mode of the token backward's weight
+//   gradients (_token_bwd's dWt1, dWt2): a sum over images, a group of
+//   images in each tile's K loop, one f32 partial a group.
 // with f32 sums. What bounds it and what the design does about it: see
 // gemm_sm90.cuh. Nothing on the serving or training path calls these
 // entries; the block kernels reach the same core through its templates.
@@ -27,21 +34,17 @@ using namespace jmt;
 
 namespace {
 
-// C[z·M·N + m·N + n] = v, f32.
-struct StoreOut {
-  float* C;
-  int M, N;
+using StoreOut = sm90::StoreEntries;  // out[(z·M + m)·N + n] = v, f32
 
-  __device__ void operator()(long long z, int m, int n, const float* v, int cnt) const {
-    float* o = C + (z * M + m) * (long long)N + n;
-    if (cnt == 8 && aligned16(o)) {
-      store8(o, v);
-    } else {
-      for (int e = 0; e < cnt; ++e) o[e] = v[e];
-    }
+// The dual check's epilogue: v1 to out[0], v2 to out[1], each (nz, M, N).
+struct StoreBoth {
+  StoreOut v1, v2;
+
+  __device__ void operator()(long long z, int m, int n, const float* a, const float* b,
+                             int cnt) const {
+    v1(z, m, n, a, cnt);
+    v2(z, m, n, b, cnt);
   }
-
-  __device__ void row8(long long z, int m, int n, const float* v) const { (*this)(z, m, n, v, 8); }
 };
 
 bool valid_core(int core) { return core >= 0 && core <= 2; }
@@ -127,16 +130,63 @@ extern "C" int gemm_s8_f32(const void* a, const void* b, const void* rs, const v
   return static_cast<int>(sm90::gemm_s8(s, nz, M, N, K, a, K, sA, b, K, sB, sc, epi, which));
 }
 
+// out (2, nz, M, N) f32: out[0] = op(A1_z)·op(B1_z), out[1] = op(A2_z)·op(B2_z)
+// through the core's dual mode (sm90::gemm_bf16_dual; on the WMMA core
+// out[0] is its f32 scratch). a1, a2: bf16 (M, K), or (K, M) with a_mn,
+// rows lda elements apart; b1, b2: (N, K), or (K, N) with b_mn, rows ldb
+// apart; each pair's operands batched (nz matrices one after another) or
+// shared alike. core as gemm_tn_bf16's.
+extern "C" int gemm_bf16_dual_f32(const void* a1, const void* b1, const void* a2, const void* b2,
+                                  void* out, int nz, int M, int N, int K, int lda, int ldb,
+                                  int a_mn, int b_mn, int a_batched, int b_batched, int core,
+                                  void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (!valid_core(core) || nz <= 0 || lda < (a_mn ? M : K) || ldb < (b_mn ? N : K))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const sm90::Core which = static_cast<sm90::Core>(core);
+  const long long sA = a_batched ? (long long)(a_mn ? K : M) * lda : 0;
+  const long long sB = b_batched ? (long long)(b_mn ? K : N) * ldb : 0;
+  const sm90::Operand A1{a1, lda, sA}, B1{b1, ldb, sB}, A2{a2, lda, sA}, B2{b2, ldb, sB};
+  float* o = static_cast<float*>(out);
+  const StoreBoth epi{{o, M, N}, {o + (long long)nz * M * N, M, N}};
+  cudaError_t e;
+  if (a_mn && b_mn)
+    e = sm90::gemm_bf16_dual<true, true>(s, nz, M, N, K, A1, B1, A2, B2, epi, o, which);
+  else if (a_mn)
+    e = sm90::gemm_bf16_dual<true, false>(s, nz, M, N, K, A1, B1, A2, B2, epi, o, which);
+  else if (b_mn)
+    e = sm90::gemm_bf16_dual<false, true>(s, nz, M, N, K, A1, B1, A2, B2, epi, o, which);
+  else
+    e = sm90::gemm_bf16_dual<false, false>(s, nz, M, N, K, A1, B1, A2, B2, epi, o, which);
+  return static_cast<int>(e);
+}
+
+// out (groups, M, N) f32, groups = ceil(images / per): partial g =
+// Σ A_b · B_bᵀ over the images b = g·per .. min((g + 1)·per, images) − 1,
+// a bf16 (images, M, K), b (images, N, K), contiguous, through the core's
+// Group mode (sm90::gemm_bf16_grouped). core as gemm_tn_bf16's.
+extern "C" int gemm_bf16_group_f32(const void* a, const void* b, void* out, int images, int per,
+                                   int M, int N, int K, int core, void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(sm90::gemm_bf16_grouped(
+      s, images, per, M, N, K, a, K, (long long)M * K, b, K, (long long)N * K,
+      StoreOut{static_cast<float*>(out), M, N}, static_cast<sm90::Core>(core)));
+}
+
 // Products this library launched on route 0 (the bf16 wgmma core), 1 (the
 // WMMA core), 2 (the s8 wgmma core) or 3 (the mma.sync core), since it was
 // loaded; -1 for another route.
 extern "C" long long gemm_tn_products(int route) { return sm90::products(route); }
 
 // The core's tile (rows, columns, K step in bf16 values), ring stages and
-// dynamic shared memory in bytes: what = 0, 1, 2, 3, 4; -1 otherwise.
+// dynamic shared memory in bytes, then the dual mode's tile columns (K-major
+// B), stages and shared memory: what = 0 .. 7; -1 otherwise.
 extern "C" long long gemm_sm90_config(int what) {
-  const long long v[] = {sm90::BM, sm90::BN, sm90::BK, sm90::STAGES, sm90::SMEM_BYTES};
-  return what >= 0 && what < 5 ? v[what] : -1;
+  const long long v[] = {sm90::BM,      sm90::BN,          sm90::BK,
+                         sm90::STAGES,  sm90::SMEM_BYTES,  sm90::BN_DUAL,
+                         sm90::DUAL_STAGES, sm90::DUAL_SMEM_BYTES};
+  return what >= 0 && what < 8 ? v[what] : -1;
 }
 
 extern "C" const char* gemm_error_string(int code) {

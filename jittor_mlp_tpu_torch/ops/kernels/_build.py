@@ -7,7 +7,9 @@ Each library is compiled at first use, from the sources in this checkout, into
          -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so <sources>
 
 The file name carries a hash of the sources, the shared headers (``*.cuh``)
-and the flags, so an edited ``.cu`` or ``.cuh`` is rebuilt. Libraries are
+and the flags, so an edited ``.cu`` or ``.cuh`` is rebuilt; so copies of the
+sources may share one build directory (``JMT_KERNEL_BUILD_DIR``, which
+``tools/mutation_check.py`` sets for its mutant copies). Libraries are
 independent, so several may build at once (one nvcc each). The sources have a plain C interface and include no PyTorch
 header, which keeps a build to seconds. Nothing here runs at import time:
 the CPU-only test environment has no nvcc.
@@ -24,7 +26,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+BUILD_DIR = os.environ.get("JMT_KERNEL_BUILD_DIR") or os.path.join(os.path.dirname(_PKG),
+                                                                    "build", "kernels")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # The GEMM cores a product may take (csrc/gemm_sm90.cuh's routes, in order):
@@ -41,21 +44,27 @@ def _nvcc():
     return path
 
 
-def build(name, sources):
-    """Compile ``sources`` (file names under csrc/) into a shared library
-    and return its path. Raises RuntimeError with nvcc's stderr on failure."""
-    paths = [os.path.join(_CSRC, s) for s in sources]
-    headers = sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC) if f.endswith(".cuh"))
+def library_path(name, sources, csrc=_CSRC, build_dir=None):
+    """The shared library that ``sources`` (file names under ``csrc``) build
+    into: its name carries a hash of them, of every header and of the flags."""
+    paths = [os.path.join(csrc, s) for s in sources]
+    headers = sorted(os.path.join(csrc, f) for f in os.listdir(csrc) if f.endswith(".cuh"))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
-    out = os.path.join(BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+    return os.path.join(build_dir or BUILD_DIR, f"{name}_{h.hexdigest()[:16]}.so")
+
+
+def build(name, sources, csrc=_CSRC, build_dir=None):
+    """Compile ``sources`` (file names under ``csrc``) into a shared library
+    and return its path. Raises RuntimeError with nvcc's stderr on failure."""
+    out = library_path(name, sources, csrc, build_dir)
     if os.path.exists(out):
         return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths]
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(os.path.join(csrc, s) for s in sources)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(

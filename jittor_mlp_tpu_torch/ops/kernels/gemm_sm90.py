@@ -32,6 +32,13 @@ instrument, like ``tools/kernel_lab.py``.
   one product an entry, (entries, M, N). A 2-D operand may be a view whose
   rows lie further apart than their width (the bf16 gMLP block's Wsp, in
   rows of round_up(N, 8)).
+- ``gemm_bf16_dual(a1, b1, a2, b2, a_mn=, b_mn=)``: the dual mode (the
+  Mixer token and channel data backwards): two products of one shape and
+  reading, (v1, v2), each (entries, M, N) f32; each pair's operands batched
+  or shared alike, the A's rows (and the B's) equally far apart.
+- ``gemm_bf16_group(a, b, per)``: the Group mode (the token backward's
+  weight gradients): a (images, M, K), b (images, N, K); one f32 partial
+  a group of ``per`` images, (groups, M, N).
 - ``gemm_s8(a, b, rs, cs, chunk=)``: int8 a (M, K) and b (N, K), each
   shared or one a batch entry (a leading dimension), f32 row scales rs and
   column scales cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the W8A8
@@ -44,8 +51,9 @@ then the epilogue's arithmetic and one rounding to the operands' dtype; it
 also takes ``act="gelu_erf"``, the float32 block's activation, which the
 kernel does not), and from ``ops/products.py``, which the block twins
 share, ``gemm_bf16_ref`` with ``sum_slabs_ref`` (the partials added in slab
-order, as the backward adds them) and ``gemm_s8_ref`` (the exact integer
-product, then the scales in the kernel's order).
+order, as the backward adds them), ``gemm_bf16_dual_ref``,
+``gemm_bf16_group_ref`` and ``gemm_s8_ref`` (the exact integer product, then
+the scales in the kernel's order).
 
 - A CPU tensor goes to the twin; a contiguous CUDA tensor of the kernel's
   dtype launches the kernel on the current stream, on ``core`` ``"auto"``
@@ -55,8 +63,9 @@ product, then the scales in the kernel's order).
   ``"legacy"`` (the core it replaced: WMMA for bf16, mma.sync for int8;
   ``Core::Legacy`` in C); anything else raises.
 - ``LAUNCHES``: how many times the wrappers launched a kernel;
-  ``routes()``: the bf16 products on each core, ``s8_routes()`` the int8
-  ones; ``config()``: the core's tile, ring stages and shared memory.
+  ``routes()``: the bf16 products on each core (a dual launch is two),
+  ``s8_routes()`` the int8 ones; ``config()``: the core's tile, ring stages
+  and shared memory, and the dual mode's.
 """
 
 from __future__ import annotations
@@ -66,14 +75,16 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
-from ..products import bf16_dims, gemm_bf16_ref, gemm_s8_ref, slab_rows, sum_slabs_ref
+from ..products import (bf16_dims, gemm_bf16_dual_ref, gemm_bf16_group_ref, gemm_bf16_ref,
+                        gemm_s8_ref, group_count, slab_rows, sum_slabs_ref)
 from ._build import S8_ROUTES, Library
 from .mixer_block import require_bf16_contiguous
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gemm_sm90", ["gemm_sm90.cu"],
-               {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 12), "gemm_s8_f32": (5, 10)},
+               {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 12), "gemm_s8_f32": (5, 10),
+                "gemm_bf16_dual_f32": (5, 11), "gemm_bf16_group_f32": (3, 6)},
                error="gemm_error_string", queries={"gemm_sm90_config": 1},
                routes="gemm_tn_products")
 CORES = {"auto": 0, "sm90": 1, "legacy": 2}
@@ -99,8 +110,10 @@ def s8_routes():
 
 def config():
     """The wgmma core's block tile, K step, ring stages and dynamic shared
-    memory in bytes, as compiled."""
-    keys = ("tile_m", "tile_n", "tile_k", "stages", "smem_bytes")
+    memory in bytes, then the dual mode's tile width (K-major B), stages and
+    shared memory, as compiled."""
+    keys = ("tile_m", "tile_n", "tile_k", "stages", "smem_bytes", "dual_tile_n", "dual_stages",
+            "dual_smem_bytes")
     return {k: _LIB.query("gemm_sm90_config", i) for i, k in enumerate(keys)}
 
 
@@ -186,17 +199,78 @@ def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):
         return gemm_bf16_ref(a, b, a_mn=a_mn, b_mn=b_mn, slab=slab)
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
-    for t in (a, b):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bf16 operands, got {t.dtype}")
-        if not (t.is_contiguous() or (t.dim() == 2 and t.stride(1) == 1)):
-            raise ValueError(f"want contiguous operands, or 2-D ones with contiguous rows; got "
-                             f"strides {t.stride()}")
+    _bf16_kernel_operands(a, b)
     parts, step = slab_rows(K, slab)
     out = torch.empty((max(parts, nb), M, N), dtype=torch.float32, device=a.device)
     _LIB.launch("gemm_bf16_f32", a.device, (a, b, out),
                 (nb, M, N, K, a.stride(-2), b.stride(-2), step, int(a_mn), int(b_mn),
                  int(a.dim() == 3), int(b.dim() == 3), CORES[core]))
+    _count()
+    return out
+
+
+def _bf16_kernel_operands(*ts):
+    for t in ts:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the kernel takes bf16 operands, got {t.dtype}")
+        if not (t.is_contiguous() or (t.dim() == 2 and t.stride(1) == 1)):
+            raise ValueError(f"want contiguous operands, or 2-D ones with contiguous rows; got "
+                             f"strides {t.stride()}")
+
+
+def gemm_bf16_dual(a1, b1, a2, b2, *, a_mn=False, b_mn=False, core="auto"):
+    """The core's dual mode: (v1, v2), v1 = op(a1)·op(b1) and v2 =
+    op(a2)·op(b2), each (entries, M, N) f32. CPU: the plain twin. CUDA: the
+    kernel (bf16; both A's, and both B's, of one layout: batched or shared
+    alike, rows equally far apart) on ``core``, launched on the current
+    stream; it raises on anything it does not take and never falls back to
+    the twin."""
+    nb, M, N, K = bf16_dims(a1, b1, a_mn, b_mn, None)
+    if bf16_dims(a2, b2, a_mn, b_mn, None) != (nb, M, N, K):
+        raise ValueError("the two products differ in shape")
+    for x, y, name in ((a1, a2, "A"), (b1, b2, "B")):
+        if x.shape != y.shape or x.stride() != y.stride() or x.device != y.device:
+            raise ValueError(f"the two {name} operands differ in shape, strides or device")
+    _check_core(core)
+    if a1.device.type == "cpu":
+        return gemm_bf16_dual_ref(a1, b1, a2, b2, a_mn=a_mn, b_mn=b_mn)
+    if a1.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a1.device}")
+    _bf16_kernel_operands(a1, b1, a2, b2)
+    out = torch.empty((2, nb, M, N), dtype=torch.float32, device=a1.device)
+    _LIB.launch("gemm_bf16_dual_f32", a1.device, (a1, b1, a2, b2, out),
+                (nb, M, N, K, a1.stride(-2), b1.stride(-2), int(a_mn), int(b_mn),
+                 int(a1.dim() == 3), int(b1.dim() == 3), CORES[core]))
+    _count()
+    return out[0], out[1]
+
+
+def gemm_bf16_group(a, b, per, *, core="auto"):
+    """The core's Group mode: (groups, M, N) f32, partial g the sum over
+    images g·per .. of a[i]·b[i]ᵀ, a (images, M, K), b (images, N, K). CPU:
+    the plain twin. CUDA: the kernel (bf16, contiguous) on ``core``,
+    launched on the current stream; it raises on anything it does not take
+    and never falls back to the twin."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[2]:
+        raise ValueError(f"want a (images, M, K) and b (images, N, K), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    if b.device != a.device:
+        raise ValueError(f"operands on {b.device} and {a.device}")
+    if b.dtype != a.dtype or not a.is_floating_point():
+        raise TypeError(f"want floating-point operands of one dtype, got {a.dtype}, {b.dtype}")
+    images, M, K = a.shape
+    groups = group_count(images, per)
+    _check_core(core)
+    if a.device.type == "cpu":
+        return gemm_bf16_group_ref(a, b, per)
+    if a.device.type != "cuda":
+        raise ValueError(f"no GEMM kernel for device {a.device}")
+    _bf16_kernel_operands(a, b)
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("the Group mode takes contiguous operands")
+    out = torch.empty((groups, M, b.shape[1]), dtype=torch.float32, device=a.device)
+    _LIB.launch("gemm_bf16_group_f32", a.device, (a, b, out),
+                (images, per, M, b.shape[1], K, CORES[core]))
     _count()
     return out
 

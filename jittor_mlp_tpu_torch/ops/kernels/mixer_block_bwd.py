@@ -27,12 +27,20 @@ dwc1 (CD, D), dwc2 (D, CD)).
 - A CPU tensor runs the twin; a CUDA bf16 contiguous tensor launches the
   kernel; anything else raises.
 - ``LAUNCHES``: launches per wrapper, by name; ``routes()``: the products
-  on each bf16 GEMM core of the forward (two a launch), the channel data
-  backward (two) and the channel weight backward (four).
+  on each bf16 GEMM core of the forward (two a launch), the token backward
+  (five: a dual product, two group sums, dxn), the channel data backward
+  (three: a dual product, dhn) and the channel weight backward (four);
+  ``mode_launches()``: the wgmma core's launches by mode.
 - ``images_per_group``: how many images each f32 partial of a weight
   gradient sums on the card (set by the device's multiprocessor count).
-  ``chan_wgt_bwd_ref`` takes it as ``images_per_slab`` and adds its slab
-  partials in order, as the kernel does; by default one slab.
+  ``token_bwd_ref`` takes it as ``images_per_group`` and
+  ``chan_wgt_bwd_ref`` as ``images_per_slab``, and each adds its partials
+  in order, as the kernels do; by default one partial.
+- The twins of the token and channel data backwards are built from the
+  core's twins (``ops/products.py``) on the kernels' layouts: the dual
+  product's ``gemm_bf16_dual_ref`` with the kernel's epilogue (dbt1 summed
+  from partials of eight columns, as the kernel sums it), the group sums'
+  ``gemm_bf16_group_ref``.
 - ``fused_mixer_block_train``: the kernel route's ``autograd.Function``,
   the JAX ``_train_fwd`` / ``_train_bwd``: ``fwd_with_h`` forward saving x
   and h; backward ``chan_data_bwd``, ``chan_wgt_bwd``, ``token_bwd``, with
@@ -49,7 +57,7 @@ import threading
 import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
-from ..products import gemm_bf16_ref, sum_slabs_ref
+from ..products import gemm_bf16_dual_ref, gemm_bf16_group_ref, gemm_bf16_ref, sum_slabs_ref
 from ._build import Library
 from .mixer_block import block_dims, check_weights, mixer_block_ref, require_bf16_contiguous
 
@@ -63,7 +71,8 @@ _LIB = Library(
     workspace={"mixer_token_bwd_workspace": 5, "mixer_chan_data_bwd_workspace": 4,
                "mixer_chan_wgt_bwd_workspace": 5, "mixer_token_bwd_images_per_group": 5,
                "mixer_chan_wgt_bwd_images_per_group": 5},
-    routes="mixer_bwd_gemm_products")
+    queries={"mixer_bwd_mode_launches": 1}, routes="mixer_bwd_gemm_products")
+MODES = {"plain": 0, "dual": 2, "group": 3}  # the wgmma core's launch modes this library runs
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _TANH_C = math.sqrt(2.0 / math.pi)
@@ -107,22 +116,41 @@ def fwd_with_h_ref(x, *weights):
     return mixer_block_ref(x, *weights, with_h=True)
 
 
-def token_bwd_ref(x, dh, ln1w, ln1b, wt1, bt1, wt2):
-    """Twin of ``token_bwd`` (the Pallas ``_token_bwd_kernel``)."""
+def _run_sums(d):
+    """Partials of a (..., D) tensor: the sums of its runs of eight columns
+    (the last run may be shorter), each in column order, (..., ceil(D/8))."""
+    D = d.shape[-1]
+    d = torch.nn.functional.pad(d, (0, -D % 8))
+    out = d[..., 0::8]
+    for e in range(1, 8):
+        out = out + d[..., e::8]
+    return out
+
+
+def token_bwd_ref(x, dh, ln1w, ln1b, wt1, bt1, wt2, images_per_group=None):
+    """Twin of ``token_bwd`` (the Pallas ``_token_bwd_kernel``), on the
+    kernel's layout: one dual product an image (Wt1 and Wt2ᵀ shared, xn and
+    dh N-major) with the epilogue tp = v1 + bt1, t = act(tp), d =
+    v2·act'(tp) and dbt1's partials of eight columns; dWt2 and dWt1 summed
+    over images in groups of ``images_per_group`` (all by default), the
+    partials added in order; dxn = Wt1ᵀ·dtp an image."""
     dt = x.dtype
     act, act_grad = _act(dt)
     xhat, inv = _ln_stats(x)
-    xn = (xhat * ln1w.float() + ln1b.float()).to(dt).float()
-    tp = torch.matmul(wt1.float(), xn) + bt1.float()[:, None]
-    t = act(tp).to(dt).float()
-    dhf = dh.to(dt).float()
-    dwt2 = torch.einsum("bnd,btd->nt", dhf, t)
-    dtp = torch.matmul(wt2.float().t(), dhf) * act_grad(tp)
-    dbt1 = dtp.sum((0, 2))
-    dtp = dtp.to(dt).float()
-    dwt1 = torch.einsum("btd,bnd->tn", dtp, xn)
-    dxn = torch.matmul(wt1.float().t(), dtp)
-    dx = (dhf + _ln_bwd(dxn, xhat, inv, ln1w)).to(dt)
+    xn = (xhat * ln1w.float() + ln1b.float()).to(dt)
+    dh = dh.to(dt)
+
+    def epi(v1, v2):
+        tp = v1 + bt1.float()[:, None]
+        d = v2 * act_grad(tp)
+        return act(tp).to(dt), d.to(dt), _run_sums(d).sum(-1).sum(0)
+
+    t, dtp, dbt1 = gemm_bf16_dual_ref(wt1, xn, wt2.t(), dh, epi, b_mn=True)
+    per = images_per_group or x.shape[0]
+    dwt2 = sum_slabs_ref(gemm_bf16_group_ref(dh, t, per))
+    dwt1 = sum_slabs_ref(gemm_bf16_group_ref(dtp, xn, per))
+    dxn = gemm_bf16_ref(wt1, dtp, a_mn=True, b_mn=True)
+    dx = (dh.float() + _ln_bwd(dxn, xhat, inv, ln1w)).to(dt)
     return dx, dwt1, dwt2, dbt1, (dxn * xhat).sum((0, 1)), dxn.sum((0, 1))
 
 
@@ -141,10 +169,20 @@ def _chan_recompute(h, g, ln2w, ln2b, bc1, wc1, wc2):
 
 def chan_data_bwd_ref(h, g, ln2w, ln2b, bc1, wc1, wc2):
     """Twin of ``chan_data_bwd`` (the Pallas ``_chan_data_kernel``; its
-    chunking of CD only fits VMEM: one product here)."""
-    xhat, inv, _, _, gf, dcp = _chan_recompute(h, g, ln2w, ln2b, bc1, wc1, wc2)
-    dhn = torch.matmul(dcp.to(h.dtype).float(), wc1.float())
-    dh = (gf + _ln_bwd(dhn, xhat, inv, ln2w)).to(h.dtype)
+    chunking of CD only fits VMEM: one product here), on the kernel's
+    layout: one dual product over the B·N rows, v1 = hn·Wc1ᵀ and v2 = g·Wc2
+    (Wc2ᵀ K-major), dcp = v2·act'(v1 + bc1) in the input dtype; then dhn =
+    dcp·Wc1 (Wc1 N-major) and the LayerNorm backward."""
+    dt = h.dtype
+    _, act_grad = _act(dt)
+    B, N, D = h.shape
+    xhat, inv = _ln_stats(h)
+    hn = (xhat * ln2w.float() + ln2b.float()).to(dt).reshape(B * N, D)
+    gr = g.to(dt).reshape(B * N, D)
+    dcp = gemm_bf16_dual_ref(hn, wc1, gr, wc2.t(),
+                             lambda v1, v2: (v2 * act_grad(v1 + bc1.float())).to(dt))
+    dhn = gemm_bf16_ref(dcp[0], wc1, b_mn=True)[0].reshape(B, N, D)
+    dh = (gr.float().reshape(B, N, D) + _ln_bwd(dhn, xhat, inv, ln2w)).to(dt)
     return dh, (dhn * xhat).sum((0, 1)), dhn.sum((0, 1))
 
 
@@ -176,9 +214,19 @@ def build():
 
 def routes():
     """{"sm90": n, "wmma": n}: the products so far on each bf16 GEMM core
-    (csrc/gemm_sm90.cuh) of ``fwd_with_h`` (two a launch), ``chan_data_bwd``
-    (two) and ``chan_wgt_bwd`` (four)."""
+    (csrc/gemm_sm90.cuh) of ``fwd_with_h`` (two a launch), ``token_bwd``
+    (five), ``chan_data_bwd`` (three) and ``chan_wgt_bwd`` (four); a dual
+    product counts as two."""
     return _LIB.routes()
+
+
+def mode_launches():
+    """{mode: n}: the wgmma core's launches so far by mode ("plain": one
+    product, "dual": the dual mode, "group": the Group mode); zeros if the
+    library is not loaded."""
+    if not _LIB.loaded:
+        return dict.fromkeys(MODES, 0)
+    return {k: _LIB.query("mixer_bwd_mode_launches", v) for k, v in MODES.items()}
 
 
 def _device(x, what):

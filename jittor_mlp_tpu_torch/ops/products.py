@@ -10,6 +10,13 @@ core's checking entry (``ops/kernels/gemm_sm90.py``), share these:
   (the other operand shared), (entries, M, N).
 - ``sum_slabs_ref(partials)``: the partials added in slab order, as the
   channel weight backward's ``sum_groups`` adds them.
+- ``gemm_bf16_dual_ref(a1, b1, a2, b2, epi, a_mn=, b_mn=)``: the dual mode,
+  two products of the same shape, ``epi(v1, v2)`` of their f32 results
+  (each as ``gemm_bf16_ref``'s, (entries, M, N)); by default the pair.
+- ``gemm_bf16_group_ref(a, b, per)``: the Group mode, a (images, M, K) and
+  b (images, N, K) K-major; one f32 partial a group of ``per`` images (the
+  last may hold fewer), its images' products added in order, (groups, M,
+  N); ``sum_slabs_ref`` adds the partials.
 - ``gemm_s8_ref(a, b, rs, cs, chunk=)``: ``(f32(a · bᵀ) · rs) · cs``, the
   W8A8 dequantization: the integer product exact and rounded once to f32,
   then the row scale, then the column scale; with ``chunk``, K in pieces of
@@ -89,6 +96,44 @@ def sum_slabs_ref(partials):
     for p in partials[1:]:
         out = out + p
     return out
+
+
+def gemm_bf16_dual_ref(a1, b1, a2, b2, epi=None, *, a_mn=False, b_mn=False):
+    """``epi(v1, v2)`` with v1 = gemm_bf16_ref(a1, b1) and v2 =
+    gemm_bf16_ref(a2, b2), both (entries, M, N) f32 with the same (TA, TB)
+    reading; by default the pair (v1, v2). The two products must have one
+    shape."""
+    v1 = gemm_bf16_ref(a1, b1, a_mn=a_mn, b_mn=b_mn)
+    v2 = gemm_bf16_ref(a2, b2, a_mn=a_mn, b_mn=b_mn)
+    if v1.shape != v2.shape:
+        raise ValueError(f"the two products differ in shape: {tuple(v1.shape)} and "
+                         f"{tuple(v2.shape)}")
+    return (v1, v2) if epi is None else epi(v1, v2)
+
+
+def group_count(images, per):
+    """Groups of a sum over ``images`` images, ``per`` a group."""
+    if not isinstance(per, int) or per <= 0:
+        raise ValueError(f"per must be a positive int, got {per!r}")
+    return -(-images // per)
+
+
+def gemm_bf16_group_ref(a, b, per):
+    """(groups, M, N) f32: partial g is the sum, in image order, of the f32
+    products a[i] · b[i]ᵀ over the images i = g·per .. min((g+1)·per,
+    images) − 1; a (images, M, K), b (images, N, K)."""
+    if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] or a.shape[2] != b.shape[2]:
+        raise ValueError(f"want a (images, M, K) and b (images, N, K), got {tuple(a.shape)} "
+                         f"and {tuple(b.shape)}")
+    images = a.shape[0]
+    parts = []
+    for g in range(group_count(images, per)):
+        out = None
+        for i in range(g * per, min((g + 1) * per, images)):
+            p = torch.matmul(a[i].float(), b[i].float().t())
+            out = p if out is None else out + p
+        parts.append(out)
+    return torch.stack(parts)
 
 
 def gemm_s8_ref(a, b, rs, cs, *, chunk=None):

@@ -8,8 +8,10 @@ of the kernels (the kernel lab's and the GEMM core's modes among them).
 Run from the repository root on a machine with the card. Each mutant is a
 copy of the port and chip_smoke.py under ``build/mutants/`` (listed in
 .gitignore) with one line of a CUDA source changed; the checkout itself is
-not touched.
-For each copy it builds the kernels and prints phase 2's
+not touched. The copies' libraries build first, ``--jobs`` nvcc at a time,
+into one shared directory (a library is named by a hash of its sources and
+headers, so one a mutant leaves unchanged builds once).
+For each copy it prints phase 2's
 max|Δ|/max(1, max|ref|) per shape (the shift: bit-equal or not, per
 shape, axis, sign and dtype), the 6b or 6g gradient errors where a
 training kernel or the shift is broken, and "would FAIL" where the check
@@ -20,10 +22,13 @@ runs the unchanged copy and the mutants named (by their "M<n>" tag).
 from __future__ import annotations
 
 import argparse
+import importlib
 import os
 import shutil
 import subprocess
 import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 MUTANTS = {
     "correct": (None, None, None, None),
@@ -47,15 +52,15 @@ MUTANTS = {
     "M6 W8A8 gMLP token product takes image 0's column scales for every image": (
         "fused_gmlp_block_int8", "csrc/gmlp_block_int8.cu",
         "Scales{f32(swsp), 0, 1, w.sv, F}", "Scales{f32(swsp), 0, 1, w.sv, 0}"),
-    "M7 act' dropped from the GELU-grad epilogue of the channel data grad (and the others)": (
-        "chan_data_bwd", "csrc/mixer_block_bwd.cu",
+    "M7 act' dropped from the GELU-grad epilogue of the channel weight grad's recompute": (
+        "chan_wgt_bwd", "csrc/mixer_block_bwd.cu",
         "d[e] = v[e] * gelu_tanh_grad(d[e]);", "d[e] = v[e];"),
     "M8 the m2·x̂ term dropped from the LayerNorm backward": (
         "chan_data_bwd", "csrc/mixer_block_bwd.cu",
         "inv * (dy - m1 - xhat * m2)", "inv * (dy - m1)"),
-    "M9 each weight-gradient partial sums only the first image of its group": (
-        "token_bwd,chan_wgt_bwd", "csrc/gemm_bf16.cuh",
-        "steps = (nimg - 1) * KT + (int)((k_last + BK - 1) / BK);", "steps = KT;"),
+    "M9 the Group mode's partials sum only the first image of their group": (
+        "token_bwd,gemm_core", "csrc/gemm_sm90.cuh",
+        "return left < per ? left : per;", "return 1;"),
     "M10 the shift's sign is not flipped: the backward shifts like the forward": (
         "axial_shift", "csrc/axial_shift.cu",
         "return sign * (half - c / group);", "return half - c / group;"),
@@ -114,6 +119,27 @@ MUTANTS = {
     "M25 the bf16 ResMLP's copy of Wt is written at pitch N, not Np": (
         "fused_resmlp_block", "csrc/resmlp_block.cu",
         "cudaMemcpy2DAsync(w.wt, sizeof(bf16) * Np,", "cudaMemcpy2DAsync(w.wt, sizeof(bf16) * N,"),
+    # the core's dual and Group modes under the Mixer token and channel data
+    # backwards
+    "M26 act' dropped from the channel data backward's dual epilogue": (
+        "chan_data_bwd", "csrc/mixer_block_bwd.cu",
+        "d[e] = v2[e] * gelu_tanh_grad(v1[e] + at8(bv, e));", "d[e] = v2[e];"),
+    "M27 act' dropped from the token backward's dual epilogue": (
+        "token_bwd", "csrc/mixer_block_bwd.cu",
+        "d[e] = v2[e] * gelu_tanh_grad(tp);", "d[e] = v2[e];"),
+    "M28 the dual epilogue reads v1 for v2 in each tile's first 32-column run": (
+        "gemm_core,token_bwd,chan_data_bwd", "csrc/gemm_sm90.cuh",
+        "quad_run(acc2, g, i, q, v2);",
+        "quad_run(acc2, g, i, q, v2); if (g == 0) quad_run(acc, g, i, q, v2);"),
+    "M29 the copies of Wt2ᵀ and Wc2ᵀ are not transposed": (
+        "token_bwd,chan_data_bwd", "csrc/mixer_block_bwd.cu",
+        "in[(size_t)r * C + c]", "in[(size_t)c * R + r]"),
+    "M30 the Group mode's short last group skips its last image": (
+        "token_bwd,gemm_core", "csrc/gemm_sm90.cuh",
+        "return left < per ? left : per;", "return left < per ? left - 1 : per;"),
+    "M31 the WMMA core's grouped sum takes only the first image of each group": (
+        "gemm_core", "csrc/gemm_bf16.cuh",
+        "steps = (nimg - 1) * KT + (int)((k_last + BK - 1) / BK);", "steps = KT;"),
 }
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
@@ -133,6 +159,7 @@ if "gemm_tn" in names:
     cs.phase_gemm(mods["gemm_sm90"])
 if "gemm_core" in names:
     cs.phase_core(mods["gemm_sm90"])
+    cs.phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"])
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
 if "bands" in sys.argv[2].split(","):
@@ -142,16 +169,87 @@ if "shift_bands" in sys.argv[2].split(","):
 """
 
 
+# the kernel modules (ops/kernels) that phase 2 and the bands of each kernel
+# name run, beyond the name's own module in chip_smoke's kernel table
+MODULES = {"gemm_tn": ("gemm_sm90",), "gemm_core": ("gemm_sm90", "mixer_block_bwd"),
+           "axial_shift": ("axial_shift",), "bands": ("mixer_block", "mixer_block_bwd"),
+           "shift_bands": ("axial_shift",)}
+
+
+def _modules(names, bands, cs):
+    """The kernel modules a copy's run builds, in chip_smoke's names."""
+    table = {k: v[0].__name__.rsplit(".", 1)[1] for k, v in cs.kernel_table(
+        {m: importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{m}")
+         for m in cs.KERNEL_MODULES}).items()}
+    mods = set()
+    for n in list(names) + bands.split(","):
+        mods.update(MODULES.get(n, ()))
+        if n in table:
+            mods.add(table[n])
+        if n in cs.LAB_KERNELS:
+            mods.add("kernel_lab")
+    return mods
+
+
+def _libraries(mod):
+    """The kernel libraries a module of ops/kernels holds (one, or a table
+    of them)."""
+    from jittor_mlp_tpu_torch.ops.kernels import _build
+
+    libs = []
+    for value in vars(mod).values():
+        found = value.values() if isinstance(value, dict) else [value]
+        libs += [lib for lib in found if isinstance(lib, _build.Library)]
+    return libs
+
+
+def _prebuild(jobs, build_dir, workers):
+    """Build every (copy, module) library once, several nvcc at a time, into
+    the shared build directory: a library whose sources and headers a
+    mutant leaves unchanged has the same name in every copy."""
+    from jittor_mlp_tpu_torch.ops.kernels import _build
+
+    todo = {}
+    for dst, mod in jobs:
+        csrc = os.path.join(dst, "jittor_mlp_tpu_torch", "csrc")
+        for lib in _libraries(importlib.import_module(f"jittor_mlp_tpu_torch.ops.kernels.{mod}")):
+            todo.setdefault(_build.library_path(lib.name, lib.sources, csrc, build_dir),
+                            (lib.name, lib.sources, csrc))
+    t0 = time.perf_counter()
+
+    def one(args):
+        name, sources, csrc = args
+        try:
+            _build.build(name, sources, csrc, build_dir)
+            return None
+        except RuntimeError as e:  # a mutant that does not compile shows in its own run
+            return f"{name} in {csrc}: {str(e)[-2000:]}"
+
+    with ThreadPoolExecutor(workers) as pool:
+        errors = [e for e in pool.map(one, todo.values()) if e]
+    print(f"=== built {len(todo)} libraries in {time.perf_counter() - t0:.1f} s "
+          f"({workers} at a time); {len(errors)} failed", flush=True)
+    for e in errors:
+        print(e, flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=None, help="comma-separated mutant tags, e.g. M10,M11")
+    ap.add_argument("--jobs", type=int, default=os.cpu_count() or 4,
+                    help="nvcc processes at a time while the copies' libraries build")
     args = ap.parse_args()
     only = set(args.only.split(",")) if args.only else None
     repo = os.getcwd()
     if not os.path.exists(os.path.join(repo, "chip_smoke.py")):
         raise SystemExit("run from the repository root")
+    sys.path.insert(0, repo)
+    import chip_smoke as cs
+
     root = os.path.join(repo, "build", "mutants")
+    build_dir = os.path.join(root, "kernels")
     shutil.rmtree(root, ignore_errors=True)
+    runs, jobs = [], []
     for i, (label, (kernel, path, old, new)) in enumerate(MUTANTS.items()):
         if only is not None and path and label.split()[0] not in only:
             continue
@@ -170,11 +268,16 @@ def main():
             with open(src, "w") as f:
                 f.write(text.replace(old, new))
         kernels = kernel or ",".join(dict.fromkeys(k for k, *_ in MUTANTS.values() if k))
-        print(f"=== {label} ({kernels})", flush=True)
         names = set(kernels.split(","))
         bands = ",".join(["-"] + ["bands"] * bool(TRAIN_KERNELS & names)
                          + ["shift_bands"] * ("axial_shift" in names))
-        res = subprocess.run([sys.executable, "-c", RUN, kernels, bands], cwd=dst,
+        runs.append((label, dst, kernels, bands))
+        jobs += [(dst, m) for m in sorted(_modules(names, bands, cs))]
+    _prebuild(jobs, build_dir, args.jobs)
+    env = dict(os.environ, JMT_KERNEL_BUILD_DIR=build_dir)
+    for label, dst, kernels, bands in runs:
+        print(f"=== {label} ({kernels})", flush=True)
+        res = subprocess.run([sys.executable, "-c", RUN, kernels, bands], cwd=dst, env=env,
                              capture_output=True, text=True, timeout=900)
         print(res.stdout, res.stderr[-3000:], flush=True)
     shutil.rmtree(root, ignore_errors=True)

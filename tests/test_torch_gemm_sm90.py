@@ -388,3 +388,101 @@ def test_core_wrappers_reject_bad_inputs(case):
         with pytest.raises(err):
             tg.gemm_bf16(a, b, **kw)
     assert tg.LAUNCHES == 0
+
+
+# ---- the core's dual and Group modes (the Mixer backwards'): plain twins ----
+
+
+def _bf16_t(r, *shape):
+    return torch.from_numpy(r.standard_normal(shape).astype(np.float32)).bfloat16()
+
+
+@pytest.mark.parametrize("layout", ["k_major", "b_mn_batched", "a_mn", "both_batched"])
+def test_dual_ref_is_two_products_under_one_epilogue(layout):
+    """gemm_bf16_dual_ref: epi(v1, v2) with v1 and v2 the two gemm_bf16_ref
+    products, bit for bit (by default the pair), for the channel data
+    backward's layout (K-major), the token backward's (a shared A, an
+    N-major B an entry an image), an MN-major A and both operands batched."""
+    r = np.random.default_rng(21)
+    nz, M, N, K = 3, 13, 24, 19
+    a_mn, b_mn = layout == "a_mn", layout == "b_mn_batched"
+    ab, bb = layout == "both_batched", layout in ("b_mn_batched", "both_batched")
+
+    def a():
+        shape = (K, M) if a_mn else (M, K)
+        return _bf16_t(r, nz, *shape) if ab else _bf16_t(r, *shape)
+
+    def b():
+        shape = (K, N) if b_mn else (N, K)
+        return _bf16_t(r, nz, *shape) if bb else _bf16_t(r, *shape)
+
+    a1, b1, a2, b2 = a(), b(), a(), b()
+    kw = dict(a_mn=a_mn, b_mn=b_mn)
+
+    def epi(v1, v2):
+        return (v2 * torch.tanh(v1 + 0.5)).bfloat16()
+
+    got = tg.gemm_bf16_dual_ref(a1, b1, a2, b2, epi, **kw)
+    want = epi(tg.gemm_bf16_ref(a1, b1, **kw), tg.gemm_bf16_ref(a2, b2, **kw))
+    assert got.dtype == torch.bfloat16 and got.shape == ((nz if ab or bb else 1), M, N)
+    assert torch.equal(got, want)
+    v1, v2 = tg.gemm_bf16_dual_ref(a1, b1, a2, b2, **kw)
+    assert torch.equal(v1, tg.gemm_bf16_ref(a1, b1, **kw))
+    assert torch.equal(v2, tg.gemm_bf16_ref(a2, b2, **kw))
+
+
+@pytest.mark.parametrize("images,per", [(5, 2), (4, 4), (3, 1)],
+                         ids=["short_last", "one_group", "one_image_each"])
+def test_group_ref_adds_each_groups_images_in_order(images, per):
+    """gemm_bf16_group_ref: partial g is the per-image products a_i·b_iᵀ of
+    its images added in image order (the last group may hold fewer), bit
+    for bit; the partials added in order are the einsum over all images
+    within f32 rounding."""
+    r = np.random.default_rng(images * 10 + per)
+    M, N, K = 11, 7, 30
+    a, b = _bf16_t(r, images, M, K), _bf16_t(r, images, N, K)
+    got = tg.gemm_bf16_group_ref(a, b, per)
+    groups = -(-images // per)
+    assert got.dtype == torch.float32 and got.shape == (groups, M, N)
+    for g in range(groups):
+        want = None
+        for i in range(g * per, min((g + 1) * per, images)):
+            p = torch.einsum("mk,nk->mn", a[i].float(), b[i].float())
+            want = p if want is None else want + p
+        assert torch.equal(got[g], want), g
+    full = torch.einsum("bmk,bnk->mn", a.double(), b.double())
+    err = (tg.sum_slabs_ref(got).double() - full).abs().max().item()
+    assert err <= 1e-5 * max(1.0, full.abs().max().item())
+
+
+def test_cpu_mode_wrappers_run_twins_without_launch():
+    r = np.random.default_rng(22)
+    w1, w2 = _bf16_t(r, 6, 9), _bf16_t(r, 6, 9)
+    x1, x2 = _bf16_t(r, 2, 9, 16), _bf16_t(r, 2, 9, 16)
+    got = tg.gemm_bf16_dual(w1, x1, w2, x2, b_mn=True)
+    want = tg.gemm_bf16_dual_ref(w1, x1, w2, x2, b_mn=True)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    a, b = _bf16_t(r, 5, 4, 8), _bf16_t(r, 5, 3, 8)
+    assert torch.equal(tg.gemm_bf16_group(a, b, 2), tg.gemm_bf16_group_ref(a, b, 2))
+    assert tg.LAUNCHES == 0
+    assert not tg._LIB.loaded
+
+
+@pytest.mark.parametrize("case", ["dual_shapes", "dual_strides", "group_k", "group_per",
+                                  "group_core"])
+def test_mode_wrappers_reject_bad_inputs(case):
+    r = np.random.default_rng(23)
+    w, x = _bf16_t(r, 6, 9), _bf16_t(r, 2, 9, 16)
+    a, b = _bf16_t(r, 5, 4, 8), _bf16_t(r, 5, 3, 8)
+    with pytest.raises(ValueError):
+        if case == "dual_shapes":  # the second product one column narrower
+            tg.gemm_bf16_dual(w, x, w, x[..., :-1], b_mn=True)
+        elif case == "dual_strides":  # the second A a view of rows 12 long
+            tg.gemm_bf16_dual(w, x, _bf16_t(r, 6, 12)[:, :9], x, b_mn=True)
+        elif case == "group_k":
+            tg.gemm_bf16_group(a, b[..., :-1], 2)
+        elif case == "group_per":
+            tg.gemm_bf16_group(a, b, 0)
+        else:
+            tg.gemm_bf16_group(a, b, 2, core="cublas")
+    assert tg.LAUNCHES == 0

@@ -114,3 +114,14 @@ def test_channel_product_libraries_count_their_routes():
         if uses and lib.name != "gemm_sm90":  # the checking library runs both types
             want = _build.S8_ROUTES if s8 else _build.BF16_ROUTES
             assert lib.route_names == want, (lib.name, lib.route_names)
+
+
+def test_mode_entries_and_queries_are_in_the_tables():
+    # the core's dual and Group modes: the checking entries of gemm_sm90 and
+    # the Mixer backward library's launch count per mode, each listed (and
+    # so held against its C parameters by the tests above)
+    core, bwd = LIBRARIES["gemm_sm90"], LIBRARIES["mixer_block_bwd"]
+    assert core.functions["gemm_bf16_dual_f32"] == (5, 11)
+    assert core.functions["gemm_bf16_group_f32"] == (3, 6)
+    assert bwd.queries["mixer_bwd_mode_launches"] == 1
+    assert "mixer_token_bwd_images_per_group" in bwd.workspace_fns

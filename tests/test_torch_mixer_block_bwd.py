@@ -195,3 +195,52 @@ def test_chan_wgt_twin_in_slabs_matches_pallas_kernel(dtype):
         # the slab cut changes only the f32 order of the sum
         assert (a - c).abs().max().item() <= 1e-5 * max(1.0, c.abs().max().item()), i
     assert torch.equal(got[2], whole[2])  # dbc1 is not cut in slabs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_token_twin_in_groups_matches_pallas_kernel(dtype):
+    """token_bwd_ref sums dWt2 = Σ dh_b·t_bᵀ and dWt1 = Σ dtp_b·xn_bᵀ in
+    groups of whole images (the core's Group mode twin, its partials added
+    in order), as the kernel does on the card: at B = 5 in groups of 2
+    (2, 2 and a short last 1) it matches the Pallas _token_bwd within the
+    tolerances above, and differs from one group only in f32 order."""
+    x, weights, g = _inputs(5, 20, 32, 24, 64, seed=8)
+    args = _call_args("token_bwd", x, weights, g)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    with jconfig.parity_mode():
+        want = _interpret(jbwd._token_bwd, *(jnp.asarray(a, jdt) for a in args), bt=1)
+    targs = [torch.from_numpy(a).to(tdt) for a in args]
+    got = tbwd.token_bwd_ref(*targs, images_per_group=2)
+    whole = tbwd.token_bwd_ref(*targs)
+    for i, (a, b, c) in enumerate(zip(got, want, whole)):
+        b = np.asarray(jnp.asarray(b).astype(jnp.float32))
+        err = np.abs(a.float().numpy() - b).max()
+        assert err <= TOL[dtype] * max(1.0, np.abs(b).max()), (i, err)
+        assert (a.float() - c.float()).abs().max().item() <= 1e-5 * max(
+            1.0, c.float().abs().max().item()), i
+    for i in (0, 3, 4, 5):  # dx, dbt1 and the LN1 gradients are not cut in groups
+        assert torch.equal(got[i], whole[i]), i
+
+
+@pytest.mark.parametrize("D", [32, 36, 5])
+def test_dbt1_partials_sum_runs_of_eight_columns_in_order(D):
+    """The token kernel's dbt1 partials: each run of eight columns (the
+    last may be shorter) summed in column order from its first, bit for
+    bit a numpy float32 loop."""
+    d = np.random.default_rng(D).standard_normal((3, 4, D)).astype(np.float32)
+    got = tbwd._run_sums(torch.from_numpy(d))
+    want = np.zeros((3, 4, -(-D // 8)), np.float32)
+    for c in range(0, D, 8):
+        acc = d[..., c]
+        for e in range(c + 1, min(c + 8, D)):
+            acc = acc + d[..., e]
+        want[..., c // 8] = acc
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_routes_and_mode_launches_read_without_loading_the_library():
+    if tbwd._LIB.loaded:
+        pytest.fail("the CPU tests must not load the kernel library")
+    assert tbwd.routes() == {"sm90": 0, "wmma": 0}
+    assert tbwd.mode_launches() == {"plain": 0, "dual": 0, "group": 0}
+    assert not tbwd._LIB.loaded
