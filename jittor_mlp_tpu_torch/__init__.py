@@ -13,16 +13,29 @@ at import time.
 from . import config
 from .core.model import Model
 from .models.as_mlp import AS_MLP
+from .models.dyna_mlp import DynaMixer
 from .models.g_mlp import gMLPForImageClassification
 from .models.mlp_mixer import MLPMixerForImageClassification
+from .models.raft_mlp import RaftMLP
 from .models.res_mlp import ResMLPForImageClassification
+from .models.s2_mlp_v1 import S2MLPv1_deep, S2MLPv1_wide
+from .models.s2_mlp_v2 import S2MLPv2
+from .models.swin_mlp import SwinMLP
+from .models.vip import ViP
 from .serving import MicroBatcher, Predictor
 
 __all__ = [
     "AS_MLP",
+    "DynaMixer",
     "Model",
     "MicroBatcher",
     "Predictor",
+    "RaftMLP",
+    "S2MLPv1_deep",
+    "S2MLPv1_wide",
+    "S2MLPv2",
+    "SwinMLP",
+    "ViP",
     "config",
     "MLPMixerForImageClassification",
     "ResMLPForImageClassification",

@@ -58,6 +58,12 @@ def gelu(x):
     return gelu_erf(x)
 
 
+def softmax(x, dim=-1):
+    """Softmax over ``dim`` (``jax.nn.softmax``), in x's dtype; torch
+    accumulates a bf16 input in float32 and rounds once."""
+    return torch.softmax(x, dim)
+
+
 def _dense(x, wt):
     """x @ wt: a plain matmul, or dynamic W8A8 int8 under int8_mode()."""
     if config.int8_enabled():

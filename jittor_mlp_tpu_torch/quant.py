@@ -6,12 +6,16 @@ Two schemes, both symmetric:
   weight is stored as int8 with f32 per-channel scales and dequantized once,
   at build, to the compute dtype. ``quantize_state_dict`` applies the JAX
   package's rule to the leaves as *it* holds them: the blocks of a model
-  (of each stage, in AS-MLP) are one stacked leaf of shape (depth, *shape)
-  there, so eligibility (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale
-  axes are decided on the stacked shape. A stacked bias (depth, O) is
-  therefore quantized with one scale per layer, a stacked token-mix weight
-  (depth, O, I, 1) with one scale per (layer, out-channel). The dequantized weights equal the JAX
-  package's ``dequantize_tree(quantize_tree(params))`` bit for bit.
+  (of each stage, in AS-MLP, S2-MLP and DynaMixer) are one stacked leaf of
+  shape (depth, *shape) there, DynaMixer's per-segment projections one of
+  (depth, seg, *shape); RaftMLP's and SwinMLP's blocks stay apart. So
+  eligibility (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale axes are
+  decided on the stacked shape. A stacked bias (depth, O) is therefore
+  quantized with one scale per layer, a stacked token-mix weight
+  (depth, O, I, 1) with one scale per (layer, out-channel), a DynaMixer
+  projection (depth, seg, hidden, C) with one per (layer, segment). The
+  dequantized weights equal the JAX package's
+  ``dequantize_tree(quantize_tree(params))`` bit for bit.
 - **Dynamic W8A8** (``int8_mode()``, ``Predictor(compute="int8")``):
   ``dynamic_int8_matmul`` quantizes the live activation per token and the
   weight per output channel and contracts the int8 values exactly.
@@ -95,25 +99,27 @@ def _eligible(x, min_size):
 
 
 def _leaves(name, sd):
-    """Group a torch state dict into the JAX package's leaves: keys
-    ``{prefix}.{i}.{rest}`` of the model's stacked group
-    (``convert.split_stacked``: ``model.{i}.…``, or AS-MLP's
-    ``layers.{s}.blocks.{i}.…``) with the same prefix and ``rest`` form one
-    leaf, layers in order. Yields (list of torch keys, leaf tensor,
+    """Group a torch state dict into the JAX package's leaves
+    (``convert.leaf_of``): keys of a stacked group (``model.{i}.…``, AS-MLP's
+    ``layers.{s}.blocks.{i}.…``) with the same prefix and rest form one
+    leaf, layers in order; DynaMixer's ``Wd.{k}`` of every layer of a stage
+    form one (layer, segment) leaf. Yields (list of torch keys, leaf tensor,
     stacked?)."""
-    from .convert import split_stacked
+    from .convert import leaf_of
 
     groups = {}
     for key in sd:
-        split = split_stacked(name, key)
-        if split is None:
+        leaf, idx = leaf_of(name, key)
+        if not idx:
             yield [key], sd[key], False
         else:
-            prefix, idx, rest = split
-            groups.setdefault((prefix, rest), []).append((idx, key))
-    for keys in groups.values():
-        keys = [k for _, k in sorted(keys)]
-        yield keys, torch.stack([sd[k] for k in keys]), True
+            groups.setdefault(leaf, []).append((idx, key))
+    for members in groups.values():
+        members.sort()
+        keys = [k for _, k in members]
+        leaf = torch.stack([sd[k] for k in keys])
+        shape = [len({idx[a] for idx, _ in members}) for a in range(len(members[0][0]))]
+        yield keys, leaf.reshape(*shape, *leaf.shape[1:]), True
 
 
 def quantize_state_dict(name, sd, min_size=2048):
@@ -128,8 +134,11 @@ def quantize_state_dict(name, sd, min_size=2048):
         elif not stacked:
             q, scale = _quantize_leaf(leaf)
             out[keys[0]] = {"q": q, "scale": scale}
-        else:
+        else:  # a key for each index of the leading (layer[, segment]) axes, in order
             q, scale = _quantize_leaf(leaf)
+            kdim = sd[keys[0]].dim()
+            q = q.reshape(len(keys), *q.shape[leaf.dim() - kdim:])
+            scale = scale.reshape(len(keys), *scale.shape[leaf.dim() - kdim:])
             out.update((k, {"q": q[i], "scale": scale[i]}) for i, k in enumerate(keys))
     return out
 

@@ -1,18 +1,20 @@
 """Where the time goes on the card: torch.profiler over the serving paths
 at batch 256, or over a bf16 train step at batch 128.
 
-    python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3] [--model M]
-    python -m jittor_mlp_tpu_torch.tools.profile_blocks --train [--batch 128] [--model M]
+    python -m jittor_mlp_tpu_torch.tools.profile_blocks [--batch 256] [--iters 3] [--model M ...]
+    python -m jittor_mlp_tpu_torch.tools.profile_blocks --train [--batch 128] [--model M ...]
 
 For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
 (d_model 384, depth 24), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30)
-and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5) in bf16 and
-int8, it profiles ``iters`` forwards after a warm-up; with ``--train``,
+AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5), and the families
+without a kernel of their own at compare.py's widths (ViP, S2-MLP-wide,
+S2-MLPv2, RaftMLP, Swin-MLP-T, DynaMixer-T) in bf16 and int8, it profiles ``iters`` forwards after a warm-up; with ``--train``,
 ``iters`` bf16 mixed-precision train steps (AdamW): Mixer-B/16 on each
 route, the kernel route (``config.pallas_bwd``) and the recompute route,
 and AS-MLP-T (drop-path 0.1 from a seeded generator) on the kernel path
-and the plain path. ``--model`` picks one model (mixer, res_mlp, g_mlp,
-as_mlp; by default all of them, and for ``--train`` the Mixer and AS-MLP-T).
+and the plain path. ``--model`` picks one model or several (the keys of
+``MODELS``; by default all of them, and for ``--train`` the Mixer and
+AS-MLP-T).
 It prints the device time per forward or step by kind of kernel (the
 port's kernels, library products, reductions, elementwise passes), each
 CUDA kernel's device time and share of the device time, the device-busy
@@ -41,6 +43,17 @@ MODELS = {  # --model key: (title, factory, arguments)
     "g_mlp": ("gMLP-S", jt.gMLPForImageClassification,
               dict(image_size=224, d_model=256, d_ffn=1536, depth=30)),
     "as_mlp": ("AS-MLP-T", jt.AS_MLP, {}),
+    "vip": ("ViP", jt.ViP, dict(image_size=224, patch_size=14, d_model=256, depth=30,
+                                segments=16, weighted=True)),
+    "s2_mlp_v1": ("S2-MLP-wide", jt.S2MLPv1_wide, {}),
+    "s2_mlp_v2": ("S2-MLPv2", jt.S2MLPv2, dict(image_size=224, patch_size=[7, 2],
+                                               d_model=[192, 384], depth=[4, 14],
+                                               expansion_factor=[3, 3])),
+    "raft_mlp": ("RaftMLP", jt.RaftMLP, dict(layers=[
+        {"depth": 2, "dim": 64, "patch_size": 4, "raft_size": 2},
+        {"depth": 2, "dim": 128, "patch_size": 2, "raft_size": 2}])),
+    "swin_mlp": ("Swin-MLP-T", jt.SwinMLP, dict(drop_path_rate=0.0)),
+    "dyna_mlp": ("DynaMixer-T", jt.DynaMixer, dict(model_name="T")),
 }
 
 
@@ -144,7 +157,7 @@ def main():
     ap.add_argument("--train", action="store_true", help="profile train steps, not forwards")
     ap.add_argument("--batch", type=int, default=None, help="256 (serving) or 128 (--train)")
     ap.add_argument("--iters", type=int, default=3)
-    ap.add_argument("--model", choices=["all", *MODELS], default="all")
+    ap.add_argument("--model", nargs="+", choices=["all", *MODELS], default=["all"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_blocks needs a CUDA card")
@@ -152,11 +165,11 @@ def main():
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(f"card: {card}")
+    every = "all" in args.model
     if args.train:
-        keys = ["mixer", "as_mlp"] if args.model == "all" else [args.model]
-        training(args.batch or 128, args.iters, keys)
+        training(args.batch or 128, args.iters, ["mixer", "as_mlp"] if every else args.model)
     else:
-        serving(args.batch or 256, args.iters, list(MODELS) if args.model == "all" else [args.model])
+        serving(args.batch or 256, args.iters, list(MODELS) if every else args.model)
 
 
 if __name__ == "__main__":

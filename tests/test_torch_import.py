@@ -16,6 +16,9 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "import jittor_mlp_tpu_torch.parallel\n"
         "import jittor_mlp_tpu_torch.tools.profile_blocks\n"
         "import jittor_mlp_tpu_torch.tools.kernel_lab\n"
+        "from jittor_mlp_tpu_torch.models import (\n"
+        "    dyna_mlp, raft_mlp, s2_mlp_v1, s2_mlp_v2, swin_mlp, vip)\n"
+        "from jittor_mlp_tpu_torch.ops import shift, window\n"
         "from jittor_mlp_tpu_torch.ops.kernels import (\n"
         "    axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, kernel_lab, mixer_block,\n"
         "    mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8)\n"
@@ -23,6 +26,9 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "assert 'jittor_mlp_tpu' not in sys.modules, 'JAX package imported'\n"
         "assert 'triton' not in sys.modules, 'triton imported'\n"
         "assert hasattr(jt, 'gMLPForImageClassification') and hasattr(jt, 'AS_MLP')\n"
+        "for f in ('ViP', 'S2MLPv1_deep', 'S2MLPv1_wide', 'S2MLPv2', 'RaftMLP', 'SwinMLP',\n"
+        "          'DynaMixer'):\n"
+        "    assert hasattr(jt, f), f\n"
         "for m in (axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, mixer_block,\n"
         "          mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
         "    assert not m._LIB.loaded, f'{m.__name__}: kernel library loaded at import'\n"
