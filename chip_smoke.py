@@ -9,7 +9,7 @@ steps through ``make_train_step`` on both Mixer routes (the forward kernel
 with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
 drop-path; then runs the port's kernel lab over the Mixer-B/16 stack, and
-serves the six families that have no kernel of their own. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+serves the ten families that have no kernel of their own. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -18,8 +18,10 @@ weights from seed 0; and in phase 8, at the widths of compare.py's CONFIGS
 and full depth: ViP (patch 14, d_model 256, depth 30, segments 16,
 weighted), S2-MLP-wide (S2MLPv1_wide), S2-MLPv2 (patches [7, 2], d_model
 [192, 384], depths [4, 14]), RaftMLP (two levels of dims 64 and 128),
-Swin-MLP-T and DynaMixer-T. Run from the repository root, with
-no arguments:
+Swin-MLP-T, DynaMixer-T, MS-MLP-T (embed 96, depths [2, 2, 6, 2], shift
+5), Hire-MLP-Tiny (the factory's defaults), CycleMLP-B2 and ActiveMLP-xT
+(depths [2, 2, 4, 2], share [2, 4, 4, 8], intv 2). Run from the repository
+root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -153,9 +155,10 @@ Phases (each one fails loudly; there is no CPU fallback):
      on the wgmma core. Phase 2 also holds the four lab
      kernels against their twins at every bt and mode the lab uses, at b8,
      the stack's b256 and two ragged shapes, and phase 5 times them at b256;
-  8. the six families without a kernel (plain PyTorch, cuBLAS products),
-     each built by its factory on the card: float32 logits on the card (TF32
-     off) against the same state dict on the CPU at b2, within 1e-3 of
+  8. the ten families without a kernel (plain PyTorch: cuBLAS products,
+     cuDNN convolutions, gathers), each built by its factory on the card:
+     float32 logits on the card (TF32 off) against the same state dict on
+     the CPU at b2, within 1e-3 of
      max|logit|; bf16 against card f32 on 64 images within 5e-2 of
      max|logit| and 90% top-1, compute="int8" within 0.1 (its top-1
      agreement printed: near ties of random-init logits); the
@@ -163,7 +166,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      move the bf16 logits at least 10x the bf16 deviation from f32; bf16
      and weights="int8" Predictors answer 16 images batched as they answer
      each alone; b256 img/s in bf16 and int8 (CUDA events) and peak memory.
-     No port kernel launches in this run.
+     No port kernel launches in this run. ViP's and S2-MLPv2's gates read
+     the mean over their tokens (``mean_gate``), and MS-MLP-T's layer scale
+     is 0.5 (``layer_scale``), as state-dict edits of the seed's draw.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -2027,10 +2032,24 @@ def mean_gate(tokens):
     return edit
 
 
+def layer_scale(value):
+    """A state-dict edit for MS-MLP: every block's ``gamma`` layer scale
+    set to ``value``. The factory's 1e-6 makes each block add next to
+    nothing, so neither the bf16 band nor the blocks-move check would see
+    a wrong block."""
+    def edit(sd):
+        for k in sd:
+            if k.endswith(".gamma"):
+                sd[k] = torch.full_like(sd[k], value)
+    return edit
+
+
 # Phase 8: the families ported without a kernel of their own, at the full
-# widths of compare.py's CONFIGS: (title, factory, arguments, the modules
-# whose weights zeroed make every block the identity: each residual
-# branch's last layer, an edit of the seed-0 state dict or None)
+# widths of compare.py's CONFIGS: (title, factory (a name in the package,
+# dotted where it is reached through models, as compare.py reaches
+# ActivexTiny), arguments, the modules whose weights zeroed make every block
+# the identity: each residual branch's last layer, an edit of the seed-0
+# state dict or None)
 FAMILIES = {
     "vip": ("ViP (patch 14, d_model 256, depth 30, segments 16)", "ViP",
             dict(image_size=224, patch_size=14, d_model=256, depth=30, segments=16,
@@ -2058,6 +2077,23 @@ FAMILIES = {
     "dyna_mlp": ("DynaMixer-T", "DynaMixer", dict(model_name="T"),
                  lambda m: [layer for st in m.stages for blk in st[1].layers
                             for layer in (blk[0].fn.proj_o, blk[1].fn.net[3])], None),
+    "ms_mlp": ("MS-MLP-T (embed 96, depths [2, 2, 6, 2], shift 5)", "MS_MLP",
+               dict(drop_path_rate=0.0),
+               lambda m: [blk.pwconv2 for layer in m.layers for blk in layer.blocks],
+               layer_scale(0.5)),
+    "hire_mlp": ("Hire-MLP-Tiny (d_model [64, 128, 320, 512], depths [4, 6, 24, 3])",
+                 "HireMLP", {},
+                 lambda m: [layer for st in m.layers for blk in st.model
+                            for layer in (blk[0].fn[0].proj_c, blk[0].fn[0].proj_h.net[2],
+                                          blk[0].fn[0].proj_w.net[2], blk[1].fn[3])], None),
+    "cycle_mlp": ("CycleMLP-B2 (layers [2, 3, 10, 3], dims [64, 128, 320, 512])",
+                  "CycleMLP_B2", {},
+                  lambda m: [layer for slot in m.network if isinstance(slot, torch.nn.ModuleList)
+                             for blk in slot for layer in (blk.attn.proj, blk.mlp.fc2)], None),
+    "active_mlp": ("ActiveMLP-xT (depths [2, 2, 4, 2], share [2, 4, 4, 8], intv 2)",
+                   "models.active_mlp.ActivexTiny", {},
+                   lambda m: [layer for st in m.blocks for blk in st
+                              for layer in (blk.atm.proj, blk.mlp.fc2)], None),
 }
 # f32 logits on the card (TF32 off) against the CPU on the same weights:
 # two libraries' summation orders through up to 30 blocks
@@ -2084,7 +2120,9 @@ def family_phase(jt, key, name, x64, imgs):
     from jittor_mlp_tpu_torch import config
 
     title, factory_name, kw, branch_ends, edit = FAMILIES[key]
-    factory = getattr(jt, factory_name)
+    factory = jt
+    for part in factory_name.split("."):
+        factory = getattr(factory, part)
     tag = f"[8] {title}"
     sd = factory(**kw, device="cpu").export_torch_state_dict()  # seed 0
     if edit is not None:
@@ -2158,10 +2196,11 @@ def family_phase(jt, key, name, x64, imgs):
 
 
 def phase_families(jt, mods, name):
-    """Phase 8: ViP, S2-MLP v1 and v2, RaftMLP, Swin-MLP-T and DynaMixer-T
-    at full width, on the serving path a user calls (factory, bf16 or
-    int8 forward, Predictor). They run no kernel of the port: every count
-    is set to 0 just before and must read 0 after."""
+    """Phase 8: ViP, S2-MLP v1 and v2, RaftMLP, Swin-MLP-T, DynaMixer-T,
+    MS-MLP-T, Hire-MLP-Tiny, CycleMLP-B2 and ActiveMLP-xT at full width, on
+    the serving path a user calls (factory, bf16 or int8 forward,
+    Predictor). They run no kernel of the port: every count is set to 0
+    just before and must read 0 after."""
     x64 = images(64, 0)
     imgs = np.random.default_rng(8).integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)
     reset_counts(mods)  # the families' run starts here

@@ -12,10 +12,14 @@ at import time.
 
 from . import config
 from .core.model import Model
+from .models.active_mlp import ActiveBase, ActiveLarge, ActiveSmall
 from .models.as_mlp import AS_MLP
+from .models.cycle_mlp import CycleMLP_B1, CycleMLP_B2, CycleMLP_B3, CycleMLP_B4, CycleMLP_B5
 from .models.dyna_mlp import DynaMixer
 from .models.g_mlp import gMLPForImageClassification
+from .models.hire_mlp import HireMLP
 from .models.mlp_mixer import MLPMixerForImageClassification
+from .models.ms_mlp import MS_MLP
 from .models.raft_mlp import RaftMLP
 from .models.res_mlp import ResMLPForImageClassification
 from .models.s2_mlp_v1 import S2MLPv1_deep, S2MLPv1_wide
@@ -26,7 +30,17 @@ from .serving import MicroBatcher, Predictor
 
 __all__ = [
     "AS_MLP",
+    "ActiveBase",
+    "ActiveLarge",
+    "ActiveSmall",
+    "CycleMLP_B1",
+    "CycleMLP_B2",
+    "CycleMLP_B3",
+    "CycleMLP_B4",
+    "CycleMLP_B5",
     "DynaMixer",
+    "HireMLP",
+    "MS_MLP",
     "Model",
     "MicroBatcher",
     "Predictor",

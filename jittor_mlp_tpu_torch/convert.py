@@ -16,6 +16,20 @@ per-block drop-path rates ``_dpr``) are dropped. Leaves are given as numpy
 arrays (e.g. ``jax.tree.map(np.asarray, model.params)``); this module
 imports no JAX.
 
+Before that, a model's ``_PREPARE`` step puts back what the JAX
+``_structure`` took apart: CycleMLP's stages and transitions go back into
+the reference's ``network`` slots (a transition's ``proj`` sits in a slot
+of the stacked list, so ``_NOT_STACKED`` names it), and each CycleFC gets
+its ``offset`` buffer again, made from the weight's width. Hire-MLP's
+``_step`` is dropped as a non-parameter leaf.
+
+Some keys of a reference state dict are not in the JAX params at all
+(``jax_dropped``): the CycleFC offsets, and Hire-MLP's last
+``patch_merge``, which the reference holds and never runs. JAX's export
+takes them from its init template; ``state_dict_from_jax`` makes the
+offsets again and takes the others from its ``template`` argument, and
+``quant`` keeps them out of int8, as JAX never quantizes them.
+
 ``leaf_of`` maps a torch key back to the JAX leaf that holds it (and its
 place there), which ``quant.quantize_state_dict`` groups by.
 """
@@ -44,8 +58,16 @@ _LAYOUT = {
     "swin_mlp": {"patch_embed": "patch_embed", "layers": "layers", "norm": "norm",
                  "head": "head", "absolute_pos_embed": "absolute_pos_embed"},
     "dyna_mlp": {"stages": "stages", "head": "mlp_head.1"},
+    "ms_mlp": {"patch_embed": "patch_embed", "layers": "layers", "norm": "norm", "head": "head"},
+    "hire_mlp": {"patcher": "patcher.reduction.0", "patcher_norm": "patcher.reduction.1.1",
+                 "stages": "layers", "head_norm": "mlp_head.0", "head": "mlp_head.2"},
+    "cycle_mlp": {"patch_embed": "patch_embed.proj", "network": "network", "norm": "norm",
+                  "head": "head"},
+    "active_mlp": {"patch_embed": "patch_embed.proj", "blocks": "blocks",
+                   "pos_blocks": "pos_blocks", "norm": "norm", "head": "head"},
 }
-_OPTIONAL = {"swin_mlp": {"absolute_pos_embed"}}  # groups a model has only with an option
+# groups a model has only with an option
+_OPTIONAL = {"swin_mlp": {"absolute_pos_embed"}, "hire_mlp": {"patcher_norm"}}
 _STAGES = [(r"^stages\.(\d+)\.patch\.", r"stages.\1.0.")]
 # per model: (pattern, replacement) applied in turn to each key after the
 # group's prefix, before unstacking
@@ -58,17 +80,25 @@ _RENAME = {
     "dyna_mlp": _STAGES + [(r"^stages\.(\d+)\.blocks\.", r"stages.\1.1.layers."),
                            (r"\.op_([hw])\.", r".DynaMixerOp_\1."),
                            (r"\.attend\.", ".attend.1.")],
+    "hire_mlp": [(r"^layers\.(\d+)\.blocks\.", r"layers.\1.model."),
+                 (r"^layers\.(\d+)\.merge\.", r"layers.\1.patch_merge.1.reduction.0.")],
+    "active_mlp": [(r"^pos_blocks\.(\d+)\.", r"pos_blocks.\1.proj.")],
 }
 # per model: the torch prefix whose numbered children the JAX package stacks
 # into one leaf per parameter ("*" stands for any stage index)
 _STACKED = {"mlp_mixer": "model", "res_mlp": "model", "g_mlp": "model",
             "as_mlp": "layers.*.blocks", "vip": "blocks.model",
             "s2_mlp_v1": "stages.*.1.model", "s2_mlp_v2": "stages.*.1.model",
-            "dyna_mlp": "stages.*.1.layers"}  # RaftMLP and SwinMLP keep per-block lists
+            "dyna_mlp": "stages.*.1.layers", "ms_mlp": "layers.*.blocks",
+            "hire_mlp": "layers.*.model", "cycle_mlp": "network.*"}
+# RaftMLP, SwinMLP and ActiveMLP keep per-block lists
+# per model: keys under a stacked prefix that are not stacked (CycleMLP's
+# transitions, in the slots between its stages)
+_NOT_STACKED = {"cycle_mlp": "network.*.proj"}
 # per model: a leaf of each stacked layer that stacks a numbered group again
 # (DynaMixer's per-segment projections): JAX name → torch name, {} the index
 _SEGMENTED = {"dyna_mlp": {"wd_w": "Wd.{}.weight", "wd_b": "Wd.{}.bias"}}
-_NON_PARAMS = {"_dpr"}
+_NON_PARAMS = {"_dpr", "_step"}
 
 
 def _check(name):
@@ -76,18 +106,25 @@ def _check(name):
         raise ValueError(f"no JAX→torch layout for model {name!r}")
 
 
-def _stacked_len(name, parts):
-    """The number of leading key parts that form model ``name``'s stacked
-    prefix, or 0 where the key does not start with it."""
-    if name not in _STACKED:
-        return 0
-    pattern = _STACKED[name].split(".")
+def _prefix_len(pattern, parts):
+    """The number of parts of ``pattern`` ("*" for any index) where the key
+    ``parts`` starts with it and goes on, else 0."""
+    pattern = pattern.split(".")
     if len(parts) <= len(pattern):
         return 0
     for p, q in zip(pattern, parts):
         if p != q and not (p == "*" and q.isdigit()):
             return 0
     return len(pattern)
+
+
+def _stacked_len(name, parts):
+    """The number of leading key parts that form model ``name``'s stacked
+    prefix, or 0 where the key does not start with it."""
+    if name not in _STACKED or (name in _NOT_STACKED
+                                and _prefix_len(_NOT_STACKED[name], parts)):
+        return 0
+    return _prefix_len(_STACKED[name], parts)
 
 
 def split_stacked(name, key):
@@ -146,9 +183,69 @@ def _flatten(tree, prefix):
             yield key, np.asarray(v)
 
 
-def state_dict_from_jax(name, params):
-    """Flat torch-named ``state_dict`` (CPU tensors) of JAX ``params``."""
+def _cycle_network(params):
+    """CycleMLP's JAX stages → the reference's ``network``: stage i's
+    stacked blocks in a slot, its transition ``{"proj": conv}`` in the next
+    where it has one; each CycleFC (stacked weight (depth, C, C, 1, 1))
+    with its ``offset`` buffer again."""
+    from .ops.deform import cycle_offset
+
+    net = {}
+    for st in params["stages"]:
+        blocks = dict(st["blocks"])
+        attn = dict(blocks["attn"])
+        for sfc, (kh, kw) in (("sfc_h", (1, 3)), ("sfc_w", (3, 1))):
+            depth, c = np.shape(attn[sfc]["weight"])[:3:2]
+            attn[sfc] = {**attn[sfc], "offset": np.stack([cycle_offset(c, kh, kw)] * depth)}
+        blocks["attn"] = attn
+        net[str(len(net))] = blocks
+        if "down" in st:
+            net[str(len(net))] = {"proj": st["down"]}
+    return {**{g: v for g, v in params.items() if g != "stages"}, "network": net}
+
+
+# per model: JAX params → params in the reference's groups
+_PREPARE = {"cycle_mlp": _cycle_network}
+# per model: what of ``jax_dropped`` only a template can give
+_NEEDS_TEMPLATE = {"hire_mlp": "the last stage's patch_merge"}
+
+
+def jax_dropped(name, keys):
+    """The keys among ``keys`` (a torch state dict's) of model ``name``
+    that the JAX params do not hold: each CycleFC's ``offset`` buffer, and
+    Hire-MLP's last ``patch_merge`` (the reference's, never run)."""
     _check(name)
+    if name == "cycle_mlp":
+        return {k for k in keys if k.endswith(".offset")}
+    if name == "hire_mlp":
+        last = max(int(m[1]) for k in keys if (m := re.match(r"layers\.(\d+)\.", k)))
+        return {k for k in keys if k.startswith(f"layers.{last}.patch_merge.")}
+    return set()
+
+
+def state_dict_from_jax(name, params, template=None):
+    """Flat torch-named ``state_dict`` (CPU tensors) of JAX ``params``.
+    The keys that the JAX params do not hold and that cannot be made again
+    (Hire-MLP's last ``patch_merge``; ``jax_dropped``) come from
+    ``template``, a state dict of the same model (JAX's export takes them
+    from its init template): without one they raise."""
+    _check(name)
+    if name in _PREPARE:
+        params = _PREPARE[name](params)
+    sd = _from_params(name, params)
+    if template is None:
+        if name in _NEEDS_TEMPLATE:
+            raise ValueError(f"{name}: the JAX params do not hold {_NEEDS_TEMPLATE[name]}; "
+                             f"pass template=, a state dict of the model")
+        return sd
+    for k in sorted(jax_dropped(name, template) - set(sd)):
+        v = template[k]
+        sd[k] = v.detach().cpu().clone() if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+    return sd
+
+
+def _from_params(name, params):
     layout = _LAYOUT[name]
     required = set(layout) - _OPTIONAL.get(name, set())
     if not required <= set(params) <= set(layout):

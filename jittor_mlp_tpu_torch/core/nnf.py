@@ -5,7 +5,8 @@ tensors, in the style of ``torch.nn.functional``:
 
 - Linear:    weight (out, in)        — applied as x @ W^T (+ b)
 - Conv1d k1: weight (out, in, 1)     — token mixing over axis -2
-- Conv2d:    weight (O, I, kh, kw)   — patch embedding of NHWC activations
+- Conv2d:    weight (O, I/g, kh, kw) — ``conv2d`` and patch embedding of
+  NHWC activations
 - Norms:     weight/bias (C,)        — channel-last
 
 The rounding points are those of the JAX package, so the two agree on the
@@ -14,8 +15,9 @@ and LayerNorm takes its statistics in float32 and casts to the input dtype
 before the affine.
 
 Under ``config.int8_mode()`` (this thread), ``linear``, ``conv1d_token``,
-``conv1x1`` and ``patch_embed`` run their contraction through
-``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense`` does.
+``conv1x1``, ``patch_embed`` and a 1×1 ``conv2d`` run their contraction
+through ``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense``
+does.
 
 ``group_norm`` (NHWC) has the JAX package's hand-written backward for bf16
 activations (``GroupNormAffine``); ``drop_path`` draws its per-sample masks
@@ -32,6 +34,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import config
@@ -103,6 +106,50 @@ def conv1x1(x, weight, bias=None):
     if bias is not None:
         y = y + bias
     return y
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def _conv_pads(padding, hw, kernel, stride, dilation):
+    """((top, bottom), (left, right)) of ``padding``: an int, a pair, a pair
+    of pairs, or "same" as XLA reads it (output ceil(n / stride), the total
+    pad split with the extra one after)."""
+    if padding == "same":
+        pads = []
+        for n, k, s, d in zip(hw, kernel, stride, dilation):
+            total = max((-(-n // s) - 1) * s + (k - 1) * d + 1 - n, 0)
+            pads.append((total // 2, total - total // 2))
+        return tuple(pads)
+    if isinstance(padding, int):
+        return ((padding, padding), (padding, padding))
+    ph, pw = padding
+    if isinstance(ph, int):
+        return ((ph, ph), (pw, pw))
+    return (tuple(ph), tuple(pw))
+
+
+def conv2d(x, weight, bias=None, stride=1, padding=0, groups=1, dilation=1):
+    """torch nn.Conv2d on NHWC x with an OIHW weight (O, I/groups, kh, kw),
+    the JAX ``nnf.conv2d``. A 1×1, groups-1, stride-1 conv with padding 0 or
+    "same" is the dense product (int8 under ``int8_mode()``, as JAX sends it
+    to ``_dense``); every other conv is ``F.conv2d`` (cuDNN on the card) on
+    the channels-last view, and never int8."""
+    stride, dilation = _pair(stride), _pair(dilation)
+    if (weight.shape[2] == weight.shape[3] == 1 and groups == 1 and stride == (1, 1)
+            and padding in (0, (0, 0), "same")):
+        y = _dense(x, weight[:, :, 0, 0].t().to(x.dtype))
+        return y if bias is None else y + bias
+    (pt, pb), (pl, pr) = _conv_pads(padding, x.shape[1:3], weight.shape[2:], stride, dilation)
+    xc = x.permute(0, 3, 1, 2)  # NCHW view of the NHWC tensor: channels-last strides
+    if pt == pb and pl == pr:
+        pad = (pt, pl)
+    else:
+        xc, pad = F.pad(xc, (pl, pr, pt, pb)), 0
+    y = F.conv2d(xc, weight.to(x.dtype), None if bias is None else bias.to(x.dtype),
+                 stride, pad, dilation, groups)
+    return y.permute(0, 2, 3, 1)
 
 
 def patch_embed(x, weight, bias, patch_size):

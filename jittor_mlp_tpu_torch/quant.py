@@ -8,7 +8,8 @@ Two schemes, both symmetric:
   package's rule to the leaves as *it* holds them: the blocks of a model
   (of each stage, in AS-MLP, S2-MLP and DynaMixer) are one stacked leaf of
   shape (depth, *shape) there, DynaMixer's per-segment projections one of
-  (depth, seg, *shape); RaftMLP's and SwinMLP's blocks stay apart. So
+  (depth, seg, *shape); RaftMLP's, SwinMLP's and ActiveMLP's blocks stay
+  apart. So
   eligibility (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale axes are
   decided on the stacked shape. A stacked bias (depth, O) is therefore
   quantized with one scale per layer, a stacked token-mix weight
@@ -126,10 +127,15 @@ def quantize_state_dict(name, sd, min_size=2048):
     """int8 state dict of model ``name`` (a zoo key such as "mlp_mixer"):
     key → {"q": int8 tensor, "scale": f32 tensor} for quantized weights,
     else the tensor unchanged. Eligibility and scale axes follow the JAX
-    package's stacked leaves; each key keeps its own layer's slice."""
+    package's stacked leaves; each key keeps its own layer's slice. Keys
+    the JAX params do not hold (``convert.jax_dropped``: CycleFC offsets,
+    Hire-MLP's unused last merge) are never quantized, as in JAX."""
+    from .convert import jax_dropped
+
+    dropped = jax_dropped(name, sd)
     out = {}
     for keys, leaf, stacked in _leaves(name, sd):
-        if not _eligible(leaf, min_size):
+        if keys[0] in dropped or not _eligible(leaf, min_size):
             out.update((k, sd[k]) for k in keys)
         elif not stacked:
             q, scale = _quantize_leaf(leaf)

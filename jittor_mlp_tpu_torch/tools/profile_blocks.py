@@ -8,7 +8,9 @@ For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
 (d_model 384, depth 24), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30)
 AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5), and the families
 without a kernel of their own at compare.py's widths (ViP, S2-MLP-wide,
-S2-MLPv2, RaftMLP, Swin-MLP-T, DynaMixer-T) in bf16 and int8, it profiles ``iters`` forwards after a warm-up; with ``--train``,
+S2-MLPv2, RaftMLP, Swin-MLP-T, DynaMixer-T, MS-MLP-T, Hire-MLP-Tiny,
+CycleMLP-B2, ActiveMLP-xT) in bf16 and int8, it profiles ``iters``
+forwards after a warm-up; with ``--train``,
 ``iters`` bf16 mixed-precision train steps (AdamW): Mixer-B/16 on each
 route, the kernel route (``config.pallas_bwd``) and the recompute route,
 and AS-MLP-T (drop-path 0.1 from a seeded generator) on the kernel path
@@ -54,6 +56,10 @@ MODELS = {  # --model key: (title, factory, arguments)
         {"depth": 2, "dim": 128, "patch_size": 2, "raft_size": 2}])),
     "swin_mlp": ("Swin-MLP-T", jt.SwinMLP, dict(drop_path_rate=0.0)),
     "dyna_mlp": ("DynaMixer-T", jt.DynaMixer, dict(model_name="T")),
+    "ms_mlp": ("MS-MLP-T", jt.MS_MLP, dict(drop_path_rate=0.0)),
+    "hire_mlp": ("Hire-MLP-Tiny", jt.HireMLP, {}),
+    "cycle_mlp": ("CycleMLP-B2", jt.CycleMLP_B2, {}),
+    "active_mlp": ("ActiveMLP-xT", jt.models.active_mlp.ActivexTiny, {}),
 }
 
 
@@ -88,7 +94,10 @@ KINDS = (  # (kind, substrings of the kernel names), first match wins
     ("axial shift", ("axial_shift",)),
     ("port kernels", ("jmt::", "layer_norm_kernel", "affine_kernel", "quant_rows", "row_stats",
                       "row_sum", "col_sum", "sum_groups", "ln_bwd", "ln_grad")),
+    # cuDNN's implicit-GEMM convolutions carry "gemm" and "xmma" in their names too
+    ("convolutions", ("fprop", "cudnn", "conv2d", "conv_depthwise", "convolution")),
     ("library products", ("gemm", "nvjet", "xmma", "cutlass", "gemv", "dot_kernel")),
+    ("gathers", ("gather", "indexSelect", "index_elementwise", "scatter")),
     ("reductions", ("reduce_kernel",)),
     ("elementwise and copies", ("elementwise", "copy")),
 )

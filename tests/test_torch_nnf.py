@@ -232,3 +232,89 @@ def test_drop_path_keep_rate_and_scale(dtype):
     assert torch.equal(y, again) and not torch.equal(y, other)
     mask = tnnf.drop_path_mask(n, rate, torch.Generator().manual_seed(7), "cpu")
     assert torch.equal(tnnf.drop_path(x, rate, True, mask=mask), y)
+
+
+# (kernel, stride, padding, groups ("dw": depthwise), dilation)
+CONV_CASES = [
+    (1, 1, 0, 1, 1),  # the dense product
+    (1, 1, "same", 1, 1),  # the dense product
+    (1, 1, 0, "dw", 1),  # 1×1 depthwise: groups ≠ 1, so F.conv2d
+    (3, 1, 1, 1, 1),
+    (3, 2, 1, 1, 1),  # CycleMLP's and Hire-MLP's stride-2 transitions
+    (7, 4, 2, 1, 1),  # CycleMLP's and ActiveMLP's stem
+    (7, 4, 3, 1, 1),  # Hire-MLP's stem
+    (5, 1, (2, 1), 1, 1),  # a pair
+    (3, 1, ((1, 0), (2, 1)), 1, 1),  # a pair of pairs
+    (5, 2, ((2, 2), (1, 2)), 1, 1),
+    (3, 1, "same", "dw", 1),
+    (7, 1, 3, "dw", 1),  # MS-MLP's widest depthwise conv
+    (3, 1, 2, 1, 2),  # dilation 2
+    (3, 1, "same", 1, 2),
+    (3, 2, "same", 1, 1),  # XLA's "SAME" at stride 2
+    (4, 1, "same", 1, 1),  # an even kernel: the extra pad after
+]
+
+
+def _conv_id(case):
+    k, s, p, g, d = case
+    return f"k{k}_s{s}_p{str(p).replace(' ', '')}_g{g}_d{d}"
+
+
+@pytest.mark.parametrize("case", CONV_CASES, ids=[_conv_id(c) for c in CONV_CASES])
+def test_conv2d_f32(case):
+    """nnf.conv2d against JAX's on NHWC x and an OIHW weight, within 1e-5
+    of max|ref|."""
+    k, stride, padding, groups, dilation = case
+    r = _rng()
+    C = 6
+    groups = C if groups == "dw" else groups
+    O = C if groups == C else 10
+    x = r.standard_normal((2, 13, 11, C)).astype(np.float32)
+    w = r.standard_normal((O, C // groups, k, k)).astype(np.float32)
+    b = r.standard_normal((O,)).astype(np.float32)
+    kw = dict(stride=stride, padding=padding, groups=groups, dilation=dilation)
+    with jconfig.parity_mode():
+        want = np.asarray(jnnf.conv2d({"weight": _j(w), "bias": _j(b)}, _j(x), **kw))
+    got = _np(tnnf.conv2d(_t(x), _t(w), _t(b), **kw))
+    assert got.shape == want.shape
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def test_conv2d_int8_only_on_the_dense_path():
+    """Under int8_mode() a 1×1 conv (groups 1, stride 1, padding 0) is
+    JAX's int8 _dense; a 3×3 conv is never int8, in either package."""
+    from jittor_mlp_tpu_torch import config as tconfig
+
+    r = _rng()
+    x = r.standard_normal((2, 5, 6, 16)).astype(np.float32)
+    w1 = r.standard_normal((24, 16, 1, 1)).astype(np.float32)
+    w3 = r.standard_normal((24, 16, 3, 3)).astype(np.float32)
+    b = r.standard_normal((24,)).astype(np.float32)
+    with jconfig.parity_mode():
+        exact1 = np.asarray(jnnf.conv2d({"weight": _j(w1), "bias": _j(b)}, _j(x)))
+    with jconfig.int8_mode():
+        want1 = np.asarray(jnnf.conv2d({"weight": _j(w1), "bias": _j(b)}, _j(x)))
+    with tconfig.int8_mode():
+        got1 = tnnf.conv2d(_t(x), _t(w1), _t(b))
+        got3 = tnnf.conv2d(_t(x), _t(w3), _t(b), padding=1)
+    _f32_close(got1, want1)
+    assert np.abs(want1 - exact1).max() > 1e-4  # int8 really ran
+    with tconfig.parity_mode():
+        assert torch.equal(got3, tnnf.conv2d(_t(x), _t(w3), _t(b), padding=1))
+
+
+def test_conv2d_bf16_within_band():
+    """bf16 x and weights: within two bf16 ulps of max|ref| of the JAX
+    float32 conv on the same bf16 values (cuDNN or oneDNN against XLA, each
+    rounding its sum once)."""
+    r = _rng()
+    x = r.standard_normal((2, 9, 9, 8)).astype(np.float32)
+    w = r.standard_normal((8, 1, 3, 3)).astype(np.float32)
+    b = r.standard_normal((8,)).astype(np.float32)
+    xb, wb, bb = (_t(a, torch.bfloat16) for a in (x, w, b))
+    with jconfig.parity_mode():
+        want = np.asarray(jnnf.conv2d({"weight": _j(_np(wb)), "bias": _j(_np(bb))},
+                                      _j(_np(xb)), padding=1, groups=8))
+    got = tnnf.conv2d(xb, wb, bb, padding=1, groups=8)
+    assert got.dtype == torch.bfloat16
+    assert np.abs(_np(got) - want).max() <= 2 * 2.0**-7 * np.abs(want).max()

@@ -22,6 +22,9 @@ the JAX package:
 
 The small configurations are those of ``tools/parity_report.py``'s case
 list, copied here (its ``build_cases()`` loads the torch reference).
+``state_dict_from_jax`` takes the keys the JAX params do not hold
+(``convert.jax_dropped``) from the JAX model's init template, as JAX's
+export does; every other key must come from the params.
 ``dyna_xs`` adds its "XS" DynaMixer setting to both packages.
 """
 
@@ -54,6 +57,15 @@ SWIN = dict(img_size=32, patch_size=4, num_classes=10, embed_dim=16, depths=[2, 
             num_heads=[2, 4], window_size=4, drop_path_rate=0.0)
 DYNA = dict(model_name="XS", image_size=32, num_classes=10)
 DYNA_XS = [[4, 2], [16, 32], [2, 2], [2, 4], 2, 0.0, 2]
+HIRE = dict(patch_size=4, num_classes=10, d_model=[16, 32], h=[4, 3], w=[4, 3],
+            cross_region_step=[2, 1], cross_region_interval=2, depth=[2, 3],
+            expansion_factor=2)
+CYCLE = dict(layers=[1, 2], embed_dims=[16, 32], transitions=[True, True], mlp_ratios=[2, 2],
+             num_classes=10)
+MS = dict(img_size=32, patch_size=4, num_classes=10, embed_dim=16, depths=[2, 2], shift_size=3,
+          shift_dist=[-1, 0, 1], mix_size=[[1, 3, 5], [1, 3, 3]], drop_path_rate=0.0)
+ACTIVE = dict(depths=[2, 2], embed_dims=[16, 32], mlp_ratios=[2, 2], share_dims=[2, 4], intv=2,
+              num_classes=10)
 
 
 @contextlib.contextmanager
@@ -86,7 +98,8 @@ def check_same_seed(jax_factory, port_factory, kwargs):
 
 def check_convert(name, jax_factory, port_factory, kwargs):
     jmodel = jax_factory(**kwargs)
-    sd = state_dict_from_jax(name, jax.tree.map(np.asarray, jmodel.params))
+    sd = state_dict_from_jax(name, jax.tree.map(np.asarray, jmodel.params),
+                             template=jmodel._init_sd)
     want = jmodel.export_torch_state_dict(tensors=False)
     assert sorted(sd) == sorted(want)
     for k in want:
@@ -147,8 +160,10 @@ def check_int8_state_dict(name, jax_factory, port_factory, kwargs, dtype="float3
     jmodel = jax_factory(**kwargs)
     jdq = jquant.dequantize_tree(
         jquant.quantize_tree(jax.tree.map(np.asarray, jmodel.params)), getattr(jnp, dtype))
+    template = {k: np.asarray(jnp.asarray(v, getattr(jnp, dtype)), np.float32)
+                for k, v in jmodel._init_sd.items()}  # as dequantize_tree casts a kept leaf
     want = state_dict_from_jax(name, jax.tree.map(
-        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jdq))
+        lambda a: np.asarray(jnp.asarray(a, jnp.float32)), jdq), template=template)
     q = tquant.quantize_state_dict(name, port_factory(**kwargs, **CPU).state_dict())
     got = tquant.dequantize_state_dict(q, getattr(torch, dtype))
     assert sorted(got) == sorted(want)
