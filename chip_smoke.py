@@ -9,7 +9,7 @@ steps through ``make_train_step`` on both Mixer routes (the forward kernel
 with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
 drop-path; then runs the port's kernel lab over the Mixer-B/16 stack, and
-serves the ten families that have no kernel of their own. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+serves the sixteen families that have no kernel of their own. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -19,9 +19,11 @@ and full depth: ViP (patch 14, d_model 256, depth 30, segments 16,
 weighted), S2-MLP-wide (S2MLPv1_wide), S2-MLPv2 (patches [7, 2], d_model
 [192, 384], depths [4, 14]), RaftMLP (two levels of dims 64 and 128),
 Swin-MLP-T, DynaMixer-T, MS-MLP-T (embed 96, depths [2, 2, 6, 2], shift
-5), Hire-MLP-Tiny (the factory's defaults), CycleMLP-B2 and ActiveMLP-xT
-(depths [2, 2, 4, 2], share [2, 4, 4, 8], intv 2). Run from the repository
-root, with no arguments:
+5), Hire-MLP-Tiny (the factory's defaults), CycleMLP-B2, ActiveMLP-xT
+(depths [2, 2, 4, 2], share [2, 4, 4, 8], intv 2), and the BatchNorm
+families ConvMixer-768/32 (kernel 7, patch 7), SparseMLP (the factory's
+defaults), RepMLPNet-B224, WaveMLP-T, MorphMLP-T and ConvMLP-M. Run from
+the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -155,8 +157,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      on the wgmma core. Phase 2 also holds the four lab
      kernels against their twins at every bt and mode the lab uses, at b8,
      the stack's b256 and two ragged shapes, and phase 5 times them at b256;
-  8. the ten families without a kernel (plain PyTorch: cuBLAS products,
-     cuDNN convolutions, gathers), each built by its factory on the card:
+  8. the sixteen families without a kernel (plain PyTorch: cuBLAS
+     products, cuDNN convolutions, gathers), each built by its factory on
+     the card (the six BatchNorm families in f32 first, their running
+     statistics recalibrated there with the port's recalibrate_bn on four
+     seeded batches of 32, then exported: at the seed's mean 0 and var 1
+     the eval forward grows without bound and no band would measure
+     anything):
      float32 logits on the card (TF32 off) against the same state dict on
      the CPU at b2, within 1e-3 of
      max|logit|; bf16 against card f32 on 64 images within 5e-2 of
@@ -169,6 +176,17 @@ Phases (each one fails loudly; there is no CPU fallback):
      No port kernel launches in this run. ViP's and S2-MLPv2's gates read
      the mean over their tokens (``mean_gate``), and MS-MLP-T's layer scale
      is 0.5 (``layer_scale``), as state-dict edits of the seed's draw.
+     A branch that ends in a bias-free conv is zeroed through the
+     BatchNorm after it. For the BatchNorm families it prints the running
+     variances that weights="int8" rounds to 0; RepMLPNet-B224's folded
+     form (locality_injection()) keeps the f32 logits within 1e-3 of
+     max|logit| of the unfolded model. Recalibrated, ConvMixer-768/32's
+     and RepMLPNet-B224's random draws amplify rounding through their
+     depth (the JAX package's bf16 forward as much as the port's), so
+     their bands run each block on the f32 model's input to it (every
+     block within 5e-2 in bf16 and 0.1 in int8 of its f32 output, and the
+     logits after it in the bands above); their free-running deviations
+     are printed.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -2094,7 +2112,45 @@ FAMILIES = {
                    "models.active_mlp.ActivexTiny", {},
                    lambda m: [layer for st in m.blocks for blk in st
                               for layer in (blk.atm.proj, blk.mlp.fc2)], None),
+    # ConvMixer's blocks have no outer residual: zeroed pointwise convs make
+    # each block's output a constant map
+    "conv_mixer": ("ConvMixer-768/32 (kernel 7, patch 7)", "ConvMixer",
+                   dict(dim=768, depth=32, kernel_size=7, patch_size=7),
+                   lambda m: [blk[1] for blk in m.blocks], None),
+    "sparse_mlp": ("SparseMLP (d_model 96, depths [2, 10, 24, 2])", "SparseMLP", {},
+                   lambda m: [layer for st in m.layers for blk in st.model
+                              for layer in (blk[0].fn[0], blk[1].fn[0].fuse, blk[3].fn[3])], None),
+    "repmlpnet": ("RepMLPNet-B224 (channels 96-768, blocks [2, 2, 12, 2])",
+                  "create_RepMLPNet_B224", {},
+                  lambda m: [layer for st in m.stages for u in st
+                             for layer in (u.repmlp_block.fc3, u.repmlp_block.fc3_bn,
+                                           u.repmlp_block.repconv1.bn, u.repmlp_block.repconv3.bn,
+                                           u.ffn_block.ffn_fc2.bn)], None),
+    "wave_mlp": ("WaveMLP-T (layers [2, 2, 4, 2])", "WaveMLP", dict(model_name="T"),
+                 lambda m: [layer for slot in m.network if isinstance(slot, torch.nn.ModuleList)
+                            for blk in slot for layer in (blk.attn.proj, blk.mlp.fc2)], None),
+    "morph_mlp": ("MorphMLP-T (layers [3, 4, 7, 3], dims [84, 168, 336, 588])", "MorphMLP",
+                  dict(model_name="T"),
+                  lambda m: [layer for slot in m.network if isinstance(slot, torch.nn.ModuleList)
+                             for blk in slot for layer in (blk.attn.fc_h, blk.attn.fc_w,
+                                                           blk.attn.fc_c, blk.mlp.fc2)], None),
+    "conv_mlp": ("ConvMLP-M (depths [3, 6, 3], d_model [128, 256, 512])", "convmlp_m", {},
+                 lambda m: [blk[7] for blk in m.conv_stages.conv_blocks]
+                 + [layer for st in m.stages for blk in st.blocks
+                    for layer in (blk.channel_mlp1.fc2, blk.channel_mlp2.fc2)], None),
 }
+# the families with BatchNorm: recalibrated on the card before their bands
+BN_FAMILIES = ("conv_mixer", "sparse_mlp", "repmlpnet", "wave_mlp", "morph_mlp", "conv_mlp")
+# Recalibrated, the random draws of these two amplify rounding through their
+# depth: on the CPU (port and JAX package alike, the same state dict, 16
+# images) bf16 read 0.177 (JAX 0.235) of max|logit| for ConvMixer-768/32 and
+# 0.0610 (JAX 0.0602) for RepMLPNet-B224; a 1e-3 input perturbation moves
+# ConvMixer's f32 logits by 0.017 at width 256. Left free-running, their
+# bands would measure the draw, not the port: each block's bf16 and int8
+# outputs are held against the f32 block on the same input instead (and
+# the logits that follow), the free-running numbers printed
+TEACHER_FORCED = ("conv_mixer", "repmlpnet")
+RECAL_BATCHES = 4  # seeded batches of 32 images for recalibrate_bn
 # f32 logits on the card (TF32 off) against the CPU on the same weights:
 # two libraries' summation orders through up to 30 blocks
 CARD_VS_CPU = 1e-3  # of max|logit|
@@ -2124,7 +2180,17 @@ def family_phase(jt, key, name, x64, imgs):
     for part in factory_name.split("."):
         factory = getattr(factory, part)
     tag = f"[8] {title}"
-    sd = factory(**kw, device="cpu").export_torch_state_dict()  # seed 0
+    if key in BN_FAMILIES:
+        from jittor_mlp_tpu_torch.core.train_utils import recalibrate_bn
+
+        t0 = time.perf_counter()
+        sd = recalibrate_bn(factory(**kw), (images(32, 40 + i) for i in range(RECAL_BATCHES))
+                            ).export_torch_state_dict()
+        print(f"{tag}: running statistics recalibrated on the card in f32 "
+              f"({RECAL_BATCHES} x 32 images): {time.perf_counter() - t0:.2f} s", flush=True)
+        bn_int8_zeros(tag, key, sd)
+    else:
+        sd = factory(**kw, device="cpu").export_torch_state_dict()  # seed 0
     if edit is not None:
         edit(sd)
 
@@ -2142,6 +2208,8 @@ def family_phase(jt, key, name, x64, imgs):
           f"max|dlogit|/max|logit|={dev:.6g} (limit {CARD_VS_CPU})", flush=True)
     check(lc.shape == (2, 1000) and dev <= CARD_VS_CPU, f"{tag}: card vs CPU {dev}")
     del cpu
+    if key == "repmlpnet":
+        fold_check(tag, f32, build, x64)
     model = build().to_bf16().eval()
     with torch.inference_mode():
         with config.parity_mode():
@@ -2150,11 +2218,24 @@ def family_phase(jt, key, name, x64, imgs):
         with config.int8_mode():
             lq = model.forward(x64.bfloat16()).float()
     check(bool(torch.isfinite(lb).all() and torch.isfinite(lq).all()), f"{tag}: non-finite")
-    compare_logits(f"{title} bf16 vs f32 (TF32 off)", lb, lf, 5e-2, 0.9, phase="8")
+    how = ""
+    if key in TEACHER_FORCED:
+        print(f"{tag}: free-running (not held; the recalibrated random map amplifies "
+              f"rounding): bf16 max|dlogit|/max|logit|={rel_dev(lb, lf):.6g} top1 agreement="
+              f"{(lb.argmax(-1) == lf.argmax(-1)).float().mean().item():.4f}, int8 "
+              f"{rel_dev(lq, lf):.6g}", flush=True)
+        lb, worst_b = teacher_forced(f32, model, x64, contextlib.nullcontext)
+        lq, worst_q = teacher_forced(f32, model, x64, config.int8_mode)
+        print(f"{tag}: each block on the f32 model's input to it: worst block "
+              f"max|d|/max|out| bf16 {worst_b:.6g}, int8 {worst_q:.6g} (limits 0.05, 0.1)",
+              flush=True)
+        check(worst_b <= 5e-2 and worst_q <= 0.1, f"{tag}: block bands {worst_b}, {worst_q}")
+        how = ", blocks on the f32 inputs"
+    compare_logits(f"{title} bf16 vs f32 (TF32 off{how})", lb, lf, 5e-2, 0.9, phase="8")
     # int8: the 0.1 band only. Random-init logits over 1,000 classes have near
     # ties: RaftMLP's int8 top-1 agreement read 0.8906 at 0.027 of max|logit|
     # on an H100, its classifier's 100,352-wide rows quantized per row
-    compare_logits(f"{title} int8 vs f32 (TF32 off)", lq, lf, 0.1, None, phase="8")
+    compare_logits(f"{title} int8 vs f32 (TF32 off{how})", lq, lf, 0.1, None, phase="8")
     del f32
 
     p16 = jt.Predictor(model, batch_size=32)
@@ -2185,7 +2266,8 @@ def family_phase(jt, key, name, x64, imgs):
     with torch.no_grad():  # every residual branch's last layer zeroed: identity blocks
         for layer in branch_ends(model):
             layer.weight.zero_()
-            layer.bias.zero_()
+            if layer.bias is not None:
+                layer.bias.zero_()
     with torch.inference_mode():
         lz = model.forward(x64.bfloat16()).float()
     moved, bdev = rel_dev(lb, lz), rel_dev(lb, lf)
@@ -2195,9 +2277,85 @@ def family_phase(jt, key, name, x64, imgs):
     return rates
 
 
+def teacher_forced(f32, model, x, mode):
+    """(logits, worst block deviation) of ``model`` (bf16, under the context
+    ``mode``) on x with every block run on the f32 model's input to that
+    block, cast to bf16: max|d|/max|out| of each block's output against
+    the f32 block's. The models' block loops go through nnf.run_blocks,
+    which this swaps for the run."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.core import nnf
+
+    real, seen, devs = nnf.run_blocks, [], []
+
+    def record(blocks, h, fn, remat=False):
+        for blk in blocks:
+            y = fn(blk, h)
+            seen.append((h, y))
+            h = y
+        return h
+
+    def forced(blocks, h, fn, remat=False):
+        for blk in blocks:
+            h_in, want = seen[len(devs)]
+            h = fn(blk, h_in.to(h.dtype))
+            devs.append(rel_dev(h.float(), want))
+        return h
+
+    try:
+        nnf.run_blocks = record
+        with torch.inference_mode(), config.parity_mode():
+            f32.forward(x)
+        nnf.run_blocks = forced
+        with torch.inference_mode(), mode():
+            logits = model.forward(x.bfloat16()).float()
+    finally:
+        nnf.run_blocks = real
+    check(len(devs) == len(seen) > 0, f"teacher forcing ran {len(devs)} of {len(seen)} blocks")
+    return logits, max(devs)
+
+
+def bn_int8_zeros(tag, key, sd):
+    """Print how many running variances weights="int8" rounds to 0: the
+    port quantizes a stacked BatchNorm leaf as JAX's quantize_tree does,
+    one scale per layer, so a variance below its layer's absmax/254 reads
+    0 and its channel is divided by sqrt(eps) alone."""
+    from jittor_mlp_tpu_torch.quant import quantize_state_dict
+
+    q = quantize_state_dict(key, sd)
+    var = [k for k in q if k.endswith("running_var")]
+    quantized = [k for k in var if isinstance(q[k], dict)]
+    zeros = sum(int((q[k]["q"] == 0).sum()) for k in quantized)
+    print(f"{tag}: weights=int8 quantizes {len(quantized)} of {len(var)} running_var "
+          f"tensors; {zeros} of their "
+          f"{sum(q[k]['q'].numel() for k in quantized)} variances round to 0", flush=True)
+
+
+def fold_check(tag, f32, build, x64):
+    """RepMLPNet-B224: locality_injection() in place on a copy on the card,
+    f32 logits within 1e-3 of max|logit| of the unfolded model."""
+    from jittor_mlp_tpu_torch import config
+
+    folded = build().eval()
+    t0 = time.perf_counter()
+    folded.locality_injection()
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    with torch.inference_mode(), config.parity_mode():
+        lu = f32.forward(x64[:8])
+        lf = folded.forward(x64[:8])
+    dev = rel_dev(lf, lu)
+    print(f"{tag}: locality_injection() in {fold_s:.2f} s (stage 0's fc3 "
+          f"{tuple(folded.stages[0][0].repmlp_block.fc3.weight.shape)}); folded vs unfolded "
+          f"f32 at b8: max|dlogit|/max|logit|={dev:.6g} (limit {CARD_VS_CPU})", flush=True)
+    check(folded.deploy and dev <= CARD_VS_CPU, f"{tag}: folded vs unfolded {dev}")
+
+
 def phase_families(jt, mods, name):
     """Phase 8: ViP, S2-MLP v1 and v2, RaftMLP, Swin-MLP-T, DynaMixer-T,
-    MS-MLP-T, Hire-MLP-Tiny, CycleMLP-B2 and ActiveMLP-xT at full width, on
+    MS-MLP-T, Hire-MLP-Tiny, CycleMLP-B2, ActiveMLP-xT and the BatchNorm
+    families ConvMixer-768/32, SparseMLP, RepMLPNet-B224, WaveMLP-T,
+    MorphMLP-T and ConvMLP-M at full width, on
     the serving path a user calls (factory, bf16 or int8 forward,
     Predictor). They run no kernel of the port: every count is set to 0
     just before and must read 0 after."""

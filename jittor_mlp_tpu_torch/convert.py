@@ -17,18 +17,22 @@ arrays (e.g. ``jax.tree.map(np.asarray, model.params)``); this module
 imports no JAX.
 
 Before that, a model's ``_PREPARE`` step puts back what the JAX
-``_structure`` took apart: CycleMLP's stages and transitions go back into
-the reference's ``network`` slots (a transition's ``proj`` sits in a slot
-of the stacked list, so ``_NOT_STACKED`` names it), and each CycleFC gets
-its ``offset`` buffer again, made from the weight's width. Hire-MLP's
-``_step`` is dropped as a non-parameter leaf.
+``_structure`` took apart: the stages and transitions of CycleMLP,
+MorphMLP and WaveMLP go back into the reference's ``network`` slots (a
+transition's ``proj`` and ``norm`` sit in slots of the stacked list, so
+``_NOT_STACKED`` names them), each CycleFC gets its ``offset`` buffer
+again, made from the weight's width, and RepMLPNet's ``deploy`` flag leaf
+goes. Hire-MLP's ``_step`` and ConvMLP's ``_dpr`` are dropped as
+non-parameter leaves.
 
 Some keys of a reference state dict are not in the JAX params at all
-(``jax_dropped``): the CycleFC offsets, and Hire-MLP's last
-``patch_merge``, which the reference holds and never runs. JAX's export
-takes them from its init template; ``state_dict_from_jax`` makes the
-offsets again and takes the others from its ``template`` argument, and
-``quant`` keeps them out of int8, as JAX never quantizes them.
+(``jax_dropped``): every BatchNorm's ``num_batches_tracked``, the CycleFC
+offsets, and the last ``patch_merge`` of Hire-MLP and SparseMLP, which the
+reference holds and never runs. JAX's export makes the first again (int64
+0) and takes the others from its init template; ``state_dict_from_jax``
+makes the counters and offsets again and takes the others from its
+``template`` argument, and ``quant`` keeps them out of int8, as JAX never
+quantizes them.
 
 ``leaf_of`` maps a torch key back to the JAX leaf that holds it (and its
 place there), which ``quant.quantize_state_dict`` groups by.
@@ -65,9 +69,21 @@ _LAYOUT = {
                   "head": "head"},
     "active_mlp": {"patch_embed": "patch_embed.proj", "blocks": "blocks",
                    "pos_blocks": "pos_blocks", "norm": "norm", "head": "head"},
+    "conv_mixer": {"embedding": "embedding", "blocks": "blocks", "head": "classifier.2"},
+    "sparse_mlp": {"patcher": "patcher.0", "patcher_norm": "patcher.1.1", "stages": "layers",
+                   "head_norm": "mlp_head.1", "head": "mlp_head.3"},
+    "morph_mlp": {"patch_embed": "patch_embed", "network": "network", "norm": "norm",
+                  "head": "head"},
+    "wave_mlp": {"patch_embed": "patch_embed", "network": "network", "norm": "norm",
+                 "head": "head"},
+    "conv_mlp": {"tokenizer": "tokenizer", "conv_stages": "conv_stages", "stages": "stages",
+                 "norm": "norm", "head": "head"},
+    "repmlpnet": {"conv_embedding": "conv_embedding", "stages": "stages", "embeds": "embeds",
+                  "head_norm": "head_norm", "head": "head"},
 }
 # groups a model has only with an option
-_OPTIONAL = {"swin_mlp": {"absolute_pos_embed"}, "hire_mlp": {"patcher_norm"}}
+_OPTIONAL = {"swin_mlp": {"absolute_pos_embed"}, "hire_mlp": {"patcher_norm"},
+             "sparse_mlp": {"patcher_norm"}, "conv_mlp": {"norm", "head"}}
 _STAGES = [(r"^stages\.(\d+)\.patch\.", r"stages.\1.0.")]
 # per model: (pattern, replacement) applied in turn to each key after the
 # group's prefix, before unstacking
@@ -83,6 +99,10 @@ _RENAME = {
     "hire_mlp": [(r"^layers\.(\d+)\.blocks\.", r"layers.\1.model."),
                  (r"^layers\.(\d+)\.merge\.", r"layers.\1.patch_merge.1.reduction.0.")],
     "active_mlp": [(r"^pos_blocks\.(\d+)\.", r"pos_blocks.\1.proj.")],
+    "sparse_mlp": [(r"^layers\.(\d+)\.blocks\.", r"layers.\1.model."),
+                   (r"^layers\.(\d+)\.merge\.", r"layers.\1.patch_merge.1.")],
+    "conv_mlp": [(r"^stages\.(\d+)\.downsample\.", r"stages.\1.downsample_mlp.downsample.")],
+    "repmlpnet": [(r"^stages\.(\d+)\.blocks\.", r"stages.\1.")],
 }
 # per model: the torch prefix whose numbered children the JAX package stacks
 # into one leaf per parameter ("*" stands for any stage index)
@@ -90,11 +110,16 @@ _STACKED = {"mlp_mixer": "model", "res_mlp": "model", "g_mlp": "model",
             "as_mlp": "layers.*.blocks", "vip": "blocks.model",
             "s2_mlp_v1": "stages.*.1.model", "s2_mlp_v2": "stages.*.1.model",
             "dyna_mlp": "stages.*.1.layers", "ms_mlp": "layers.*.blocks",
-            "hire_mlp": "layers.*.model", "cycle_mlp": "network.*"}
+            "hire_mlp": "layers.*.model", "cycle_mlp": "network.*", "conv_mixer": "blocks",
+            "sparse_mlp": "layers.*.model", "morph_mlp": "network.*", "wave_mlp": "network.*",
+            "conv_mlp": "stages.*.blocks", "repmlpnet": "stages.*"}
 # RaftMLP, SwinMLP and ActiveMLP keep per-block lists
-# per model: keys under a stacked prefix that are not stacked (CycleMLP's
-# transitions, in the slots between its stages)
-_NOT_STACKED = {"cycle_mlp": "network.*.proj"}
+# per model: keys under a stacked prefix that are not stacked (the
+# transitions of CycleMLP, MorphMLP and WaveMLP, in the slots between their
+# stages)
+_NOT_STACKED = {"cycle_mlp": ("network.*.proj",),
+                "morph_mlp": ("network.*.proj", "network.*.norm"),
+                "wave_mlp": ("network.*.proj", "network.*.norm")}
 # per model: a leaf of each stacked layer that stacks a numbered group again
 # (DynaMixer's per-segment projections): JAX name → torch name, {} the index
 _SEGMENTED = {"dyna_mlp": {"wd_w": "Wd.{}.weight", "wd_b": "Wd.{}.bias"}}
@@ -121,8 +146,7 @@ def _prefix_len(pattern, parts):
 def _stacked_len(name, parts):
     """The number of leading key parts that form model ``name``'s stacked
     prefix, or 0 where the key does not start with it."""
-    if name not in _STACKED or (name in _NOT_STACKED
-                                and _prefix_len(_NOT_STACKED[name], parts)):
+    if name not in _STACKED or any(_prefix_len(p, parts) for p in _NOT_STACKED.get(name, ())):
         return 0
     return _prefix_len(_STACKED[name], parts)
 
@@ -183,56 +207,73 @@ def _flatten(tree, prefix):
             yield key, np.asarray(v)
 
 
-def _cycle_network(params):
-    """CycleMLP's JAX stages → the reference's ``network``: stage i's
-    stacked blocks in a slot, its transition ``{"proj": conv}`` in the next
-    where it has one; each CycleFC (stacked weight (depth, C, C, 1, 1))
-    with its ``offset`` buffer again."""
-    from .ops.deform import cycle_offset
-
+def _network(params, down=lambda d: d):
+    """JAX stages → the reference's ``network``: stage i's stacked blocks in
+    a slot, its transition ``down(st["down"])`` in the next where it has
+    one (MorphMLP, WaveMLP; CycleMLP's)."""
     net = {}
     for st in params["stages"]:
-        blocks = dict(st["blocks"])
-        attn = dict(blocks["attn"])
-        for sfc, (kh, kw) in (("sfc_h", (1, 3)), ("sfc_w", (3, 1))):
-            depth, c = np.shape(attn[sfc]["weight"])[:3:2]
-            attn[sfc] = {**attn[sfc], "offset": np.stack([cycle_offset(c, kh, kw)] * depth)}
-        blocks["attn"] = attn
-        net[str(len(net))] = blocks
+        net[str(len(net))] = st["blocks"]
         if "down" in st:
-            net[str(len(net))] = {"proj": st["down"]}
+            net[str(len(net))] = down(st["down"])
     return {**{g: v for g, v in params.items() if g != "stages"}, "network": net}
 
 
+def _cycle_network(params):
+    """CycleMLP's ``network``: the transition is ``{"proj": conv}``; each
+    CycleFC (stacked weight (depth, C, C, 1, 1)) gets its ``offset`` buffer
+    again."""
+    from .ops.deform import cycle_offset
+
+    stages = []
+    for st in params["stages"]:
+        attn = dict(st["blocks"]["attn"])
+        for sfc, (kh, kw) in (("sfc_h", (1, 3)), ("sfc_w", (3, 1))):
+            depth, c = np.shape(attn[sfc]["weight"])[:3:2]
+            attn[sfc] = {**attn[sfc], "offset": np.stack([cycle_offset(c, kh, kw)] * depth)}
+        stages.append({**st, "blocks": {**st["blocks"], "attn": attn}})
+    return _network({**params, "stages": stages}, lambda d: {"proj": d})
+
+
 # per model: JAX params → params in the reference's groups
-_PREPARE = {"cycle_mlp": _cycle_network}
+_PREPARE = {"cycle_mlp": _cycle_network, "morph_mlp": _network, "wave_mlp": _network,
+            # deploy checkpoints: the presence flag the JAX importer plants
+            "repmlpnet": lambda params: {g: v for g, v in params.items() if g != "deploy"}}
 # per model: what of ``jax_dropped`` only a template can give
-_NEEDS_TEMPLATE = {"hire_mlp": "the last stage's patch_merge"}
+_NEEDS_TEMPLATE = {"hire_mlp": "the last stage's patch_merge",
+                   "sparse_mlp": "the last stage's patch_merge"}
 
 
 def jax_dropped(name, keys):
     """The keys among ``keys`` (a torch state dict's) of model ``name``
-    that the JAX params do not hold: each CycleFC's ``offset`` buffer, and
-    Hire-MLP's last ``patch_merge`` (the reference's, never run)."""
+    that the JAX params do not hold: every BatchNorm's
+    ``num_batches_tracked``, each CycleFC's ``offset`` buffer, and the last
+    ``patch_merge`` of Hire-MLP and SparseMLP (the reference's, never
+    run)."""
     _check(name)
+    dropped = {k for k in keys if k.endswith(".num_batches_tracked")}
     if name == "cycle_mlp":
-        return {k for k in keys if k.endswith(".offset")}
-    if name == "hire_mlp":
+        dropped |= {k for k in keys if k.endswith(".offset")}
+    if name in ("hire_mlp", "sparse_mlp"):
         last = max(int(m[1]) for k in keys if (m := re.match(r"layers\.(\d+)\.", k)))
-        return {k for k in keys if k.startswith(f"layers.{last}.patch_merge.")}
-    return set()
+        dropped |= {k for k in keys if k.startswith(f"layers.{last}.patch_merge.")}
+    return dropped
 
 
 def state_dict_from_jax(name, params, template=None):
     """Flat torch-named ``state_dict`` (CPU tensors) of JAX ``params``.
-    The keys that the JAX params do not hold and that cannot be made again
-    (Hire-MLP's last ``patch_merge``; ``jax_dropped``) come from
-    ``template``, a state dict of the same model (JAX's export takes them
-    from its init template): without one they raise."""
+    Every BatchNorm gets its ``num_batches_tracked`` (int64 0, as JAX's
+    export writes it). The keys that the JAX params do not hold and that
+    cannot be made again (the last ``patch_merge`` of Hire-MLP and
+    SparseMLP; ``jax_dropped``) come from ``template``, a state dict of the
+    same model (JAX's export takes them from its init template): without
+    one they raise."""
     _check(name)
     if name in _PREPARE:
         params = _PREPARE[name](params)
     sd = _from_params(name, params)
+    for k in [k for k in sd if k.endswith(".running_var")]:  # as JAX's export makes it again
+        sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.int64)
     if template is None:
         if name in _NEEDS_TEMPLATE:
             raise ValueError(f"{name}: the JAX params do not hold {_NEEDS_TEMPLATE[name]}; "

@@ -28,12 +28,15 @@ class Model(nn.Module):
     def _load_init(self, sd):
         """Take the SDBuilder state dict as this module's parameters. The
         submodules were built on the meta device, so this is their only
-        initialization (no torch RNG is drawn)."""
+        initialization (no torch RNG is drawn). Each BatchNorm's
+        ``num_batches_tracked``, which SDBuilder does not draw, is int64 0,
+        as the JAX export writes it."""
         self.init_sd = sd
-        self.load_state_dict(
-            {k: torch.from_numpy(v.copy()) for k, v in sd.items()},
-            strict=True, assign=True,
-        )
+        tensors = {k: torch.from_numpy(v.copy()) for k, v in sd.items()}
+        for k in self.state_dict(keep_vars=True):
+            if k.endswith(".num_batches_tracked"):
+                tensors[k] = torch.zeros((), dtype=torch.int64)
+        self.load_state_dict(tensors, strict=True, assign=True)
 
     def place(self, device):
         """Move the model to ``device``. The factories call this with their
@@ -64,11 +67,11 @@ class Model(nn.Module):
         return self
 
     def export_torch_state_dict(self, tensors=True):
-        """The parameters as a torch ``state_dict`` on the CPU; numpy float32
-        arrays with ``tensors=False``."""
+        """The parameters as a torch ``state_dict`` on the CPU; numpy arrays
+        with ``tensors=False`` (float32, and int64 for ``num_batches_tracked``)."""
         sd = {k: v.detach().cpu() for k, v in self.state_dict().items()}
         if not tensors:
-            sd = {k: v.float().numpy() for k, v in sd.items()}
+            sd = {k: (v.float() if v.is_floating_point() else v).numpy() for k, v in sd.items()}
         return sd
 
     def to_bf16(self):

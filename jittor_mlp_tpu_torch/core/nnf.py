@@ -23,6 +23,11 @@ does.
 activations (``GroupNormAffine``); ``drop_path`` draws its per-sample masks
 from an explicit ``torch.Generator``.
 
+``batch_norm`` is a pure function, as in JAX: in train mode it normalizes
+with the batch's statistics and updates no running statistic. Inside
+``bn_stats()`` (the calling thread) each train-mode call also reports its
+site's batch statistics, which ``train_utils.recalibrate_bn`` averages.
+
 ``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
 activation checkpointing under ``config.remat_mode()``.
 """
@@ -30,6 +35,8 @@ activation checkpointing under ``config.remat_mode()``.
 from __future__ import annotations
 
 import math
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -65,6 +72,14 @@ def softmax(x, dim=-1):
     """Softmax over ``dim`` (``jax.nn.softmax``), in x's dtype; torch
     accumulates a bf16 input in float32 and rounds once."""
     return torch.softmax(x, dim)
+
+
+def relu(x):
+    return torch.relu(x)
+
+
+def sigmoid(x):
+    return torch.sigmoid(x)
 
 
 def _dense(x, wt):
@@ -152,6 +167,13 @@ def conv2d(x, weight, bias=None, stride=1, padding=0, groups=1, dilation=1):
     return y.permute(0, 2, 3, 1)
 
 
+def max_pool2d(x, kernel, stride, padding):
+    """torch nn.MaxPool2d on NHWC x (the padding never wins: -inf), as
+    ``F.max_pool2d`` on the channels-last view."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), _pair(kernel), _pair(stride), _pair(padding))
+    return y.permute(0, 2, 3, 1)
+
+
 def patch_embed(x, weight, bias, patch_size):
     """Non-overlapping Conv2d(k=s=patch) as reshape + one matmul.
     x NHWC → (B, H/p, W/p, O)."""
@@ -179,6 +201,55 @@ def layer_norm(x, weight=None, bias=None, eps=1e-5):
         if bias is not None:
             y = y + bias.to(x.dtype)
     return y
+
+
+_bn_local = threading.local()
+
+
+@contextmanager
+def bn_stats():
+    """Collect train-mode BatchNorm statistics on this thread: yields a list
+    to which every train-mode ``batch_norm`` appends (running_mean, batch
+    mean, biased batch variance), float32, in the order the sites ran. The
+    running_mean tensor names the site."""
+    old = getattr(_bn_local, "sink", None)
+    _bn_local.sink = sink = []
+    try:
+        yield sink
+    finally:
+        _bn_local.sink = old
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None, train=False, eps=1e-5,
+               axis=-1):
+    """torch nn.BatchNorm over ``axis`` (channel-last by default), the JAX
+    ``nnf.batch_norm``. Eval normalizes with the running statistics; train
+    with the biased batch statistics over every other axis, and touches no
+    buffer. Statistics, scale and shift in float32, then
+    ``x * scale + shift`` in x's dtype."""
+    axis = axis % x.dim()
+    if train:
+        dims = tuple(d for d in range(x.dim()) if d != axis)
+        var, mean = torch.var_mean(x.float(), dims, correction=0)
+        sink = getattr(_bn_local, "sink", None)
+        if sink is not None:
+            sink.append((running_mean, mean, var))
+    else:
+        mean, var = running_mean.float(), running_var.float()
+    scale = torch.rsqrt(var + eps)
+    if weight is not None:
+        scale = scale * weight.float()
+    shift = -mean * scale
+    if bias is not None:
+        shift = shift + bias.float()
+    shape = [-1 if d == axis else 1 for d in range(x.dim())]
+    return x * scale.to(x.dtype).reshape(shape) + shift.to(x.dtype).reshape(shape)
+
+
+def bn(x, m, train=False, axis=-1):
+    """``batch_norm`` with the tensors of module ``m`` (an nn.BatchNorm*d,
+    which holds them under the reference's names)."""
+    return batch_norm(x, m.running_mean, m.running_var, m.weight, m.bias, train, m.eps, axis)
 
 
 def _group_stats(x, num_groups, eps):

@@ -17,7 +17,9 @@ block-kernel gate picks its training kernels (``config.pallas_bwd``,
 ``config.remat_mode()``). Only parameters are optimized; buffers (the
 JAX ``split_params`` aux leaves) are cast for the forward and never
 updated. The JAX step's sharding helpers and BatchNorm running-statistic
-updates are not ported: none of the ported models has BatchNorm.
+updates are not ported, so ``make_train_step`` refuses a model with
+BatchNorm buffers (ConvMixer, SparseMLP, MorphMLP, WaveMLP, ConvMLP,
+RepMLPNet) rather than train it with its running statistics frozen.
 """
 
 from __future__ import annotations
@@ -80,10 +82,17 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
     ``compute_dtype=torch.bfloat16`` gives mixed precision with f32 master
     weights (see the module docstring). ``generator`` is the random source
     of the model's drop-path sites (the JAX step's ``rng``); models without
-    stochastic layers ignore it. ``bn_momentum`` keeps the JAX signature: the
-    BatchNorm running-statistic update it sets waits for a model with
-    BatchNorm. Raises RuntimeError under ``config.int8_mode()``."""
-    del bn_momentum  # no ported model has BatchNorm
+    stochastic layers ignore it. ``bn_momentum`` keeps the JAX signature:
+    the BatchNorm running-statistic update it sets is not ported, so a
+    model with BatchNorm buffers raises NotImplementedError. The step
+    raises RuntimeError under ``config.int8_mode()``."""
+    del bn_momentum  # the running-statistic update is not ported
+    bn = [n for n, _ in model.named_buffers() if n.endswith("running_mean")]
+    if bn:
+        raise NotImplementedError(
+            f"{type(model).__name__} has {len(bn)} BatchNorm layers ({bn[0]}, ...): the "
+            f"train step's running-statistic update (the JAX apply_bn_updates, bn_momentum) "
+            f"is not ported, and without it the running statistics would stay frozen")
 
     def step(batch, generator=None):
         if config.int8_enabled():  # the W8A8 path's rounding has a zero gradient

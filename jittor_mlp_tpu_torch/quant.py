@@ -12,7 +12,10 @@ Two schemes, both symmetric:
   apart. So
   eligibility (``ndim ≥ 2`` and ``size ≥ 2048``) and the scale axes are
   decided on the stacked shape. A stacked bias (depth, O) is therefore
-  quantized with one scale per layer, a stacked token-mix weight
+  quantized with one scale per layer, and so is a stacked BatchNorm leaf
+  (depth, C), ``running_mean`` and ``running_var`` included, as JAX's
+  ``quantize_tree`` does (a variance below its layer's absmax/254 becomes
+  0); a stacked token-mix weight
   (depth, O, I, 1) with one scale per (layer, out-channel), a DynaMixer
   projection (depth, seg, hidden, C) with one per (layer, segment). The
   dequantized weights equal the JAX package's
@@ -128,8 +131,9 @@ def quantize_state_dict(name, sd, min_size=2048):
     key → {"q": int8 tensor, "scale": f32 tensor} for quantized weights,
     else the tensor unchanged. Eligibility and scale axes follow the JAX
     package's stacked leaves; each key keeps its own layer's slice. Keys
-    the JAX params do not hold (``convert.jax_dropped``: CycleFC offsets,
-    Hire-MLP's unused last merge) are never quantized, as in JAX."""
+    the JAX params do not hold (``convert.jax_dropped``: BatchNorm
+    ``num_batches_tracked``, CycleFC offsets, the unused last merge of
+    Hire-MLP and SparseMLP) are never quantized, as in JAX."""
     from .convert import jax_dropped
 
     dropped = jax_dropped(name, sd)

@@ -9,7 +9,10 @@ For Mixer-B/16 (d_model 768, depth 12, token_dim 384), ResMLP-S24
 AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5), and the families
 without a kernel of their own at compare.py's widths (ViP, S2-MLP-wide,
 S2-MLPv2, RaftMLP, Swin-MLP-T, DynaMixer-T, MS-MLP-T, Hire-MLP-Tiny,
-CycleMLP-B2, ActiveMLP-xT) in bf16 and int8, it profiles ``iters``
+CycleMLP-B2, ActiveMLP-xT, and the BatchNorm families ConvMixer-768/32,
+SparseMLP, MorphMLP-T, WaveMLP-T, ConvMLP-M and RepMLPNet-B224, whose
+running statistics are first recalibrated in f32 on four random batches
+of 32) in bf16 and int8, it profiles ``iters``
 forwards after a warm-up; with ``--train``,
 ``iters`` bf16 mixed-precision train steps (AdamW): Mixer-B/16 on each
 route, the kernel route (``config.pallas_bwd``) and the recompute route,
@@ -36,6 +39,7 @@ import torch
 
 import jittor_mlp_tpu_torch as jt
 from jittor_mlp_tpu_torch import config
+from jittor_mlp_tpu_torch.core.train_utils import recalibrate_bn
 from jittor_mlp_tpu_torch.parallel import make_train_step
 
 MODELS = {  # --model key: (title, factory, arguments)
@@ -60,6 +64,13 @@ MODELS = {  # --model key: (title, factory, arguments)
     "hire_mlp": ("Hire-MLP-Tiny", jt.HireMLP, {}),
     "cycle_mlp": ("CycleMLP-B2", jt.CycleMLP_B2, {}),
     "active_mlp": ("ActiveMLP-xT", jt.models.active_mlp.ActivexTiny, {}),
+    "conv_mixer": ("ConvMixer-768/32", jt.ConvMixer,
+                   dict(dim=768, depth=32, kernel_size=7, patch_size=7)),
+    "sparse_mlp": ("SparseMLP", jt.SparseMLP, {}),
+    "repmlpnet": ("RepMLPNet-B224", jt.create_RepMLPNet_B224, {}),
+    "wave_mlp": ("WaveMLP-T", jt.WaveMLP, dict(model_name="T")),
+    "morph_mlp": ("MorphMLP-T", jt.MorphMLP, dict(model_name="T")),
+    "conv_mlp": ("ConvMLP-M", jt.convmlp_m, {}),
 }
 
 
@@ -124,7 +135,8 @@ def serving(batch, iters, keys):
     x = torch.randn(batch, 3, 224, 224, device="cuda").bfloat16()
     for key in keys:
         name, factory, kw = MODELS[key]
-        model = factory(**kw).to_bf16().eval()
+        model = recalibrate_bn(factory(**kw), torch.randn(4, 32, 3, 224, 224, device="cuda"))
+        model = model.to_bf16().eval()
         for int8 in (False, True):
             with torch.inference_mode(), config.int8_mode() if int8 else contextlib.nullcontext():
                 rows, wall = profile(lambda: model.forward(x), iters)

@@ -19,6 +19,10 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "from jittor_mlp_tpu_torch.models import (\n"
         "    dyna_mlp, raft_mlp, s2_mlp_v1, s2_mlp_v2, swin_mlp, vip)\n"
         "from jittor_mlp_tpu_torch.models import active_mlp, cycle_mlp, hire_mlp, ms_mlp\n"
+        "from jittor_mlp_tpu_torch.models import (\n"
+        "    conv_mixer, conv_mlp, morph_mlp, repmlpnet, sparse_mlp, wave_mlp)\n"
+        "from jittor_mlp_tpu_torch.core import train_utils\n"
+        "from jittor_mlp_tpu_torch.utils import checkpoint\n"
         "from jittor_mlp_tpu_torch.ops import deform, shift, window\n"
         "from jittor_mlp_tpu_torch.ops.kernels import (\n"
         "    axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, kernel_lab, mixer_block,\n"
@@ -30,9 +34,14 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "for f in ('ViP', 'S2MLPv1_deep', 'S2MLPv1_wide', 'S2MLPv2', 'RaftMLP', 'SwinMLP',\n"
         "          'DynaMixer', 'MS_MLP', 'HireMLP', 'CycleMLP_B1', 'CycleMLP_B2',\n"
         "          'CycleMLP_B3', 'CycleMLP_B4', 'CycleMLP_B5', 'ActiveSmall', 'ActiveBase',\n"
-        "          'ActiveLarge'):\n"
+        "          'ActiveLarge', 'ConvMixer', 'SparseMLP', 'MorphMLP', 'WaveMLP',\n"
+        "          'convmlp_s', 'convmlp_m', 'convmlp_l', 'create_RepMLPNet_B224',\n"
+        "          'create_RepMLPNet_B256'):\n"
         "    assert hasattr(jt, f), f\n"
         "assert callable(cycle_mlp.CycleNet) and callable(active_mlp.ActivexTiny)\n"
+        "assert callable(conv_mlp.ConvMLP) and callable(repmlpnet.RepMLPNet)\n"
+        "assert callable(train_utils.recalibrate_bn)\n"
+        "assert callable(checkpoint.load_torch_checkpoint)\n"
         "for m in (axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, mixer_block,\n"
         "          mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
         "    assert not m._LIB.loaded, f'{m.__name__}: kernel library loaded at import'\n"

@@ -318,3 +318,81 @@ def test_conv2d_bf16_within_band():
     got = tnnf.conv2d(xb, wb, bb, padding=1, groups=8)
     assert got.dtype == torch.bfloat16
     assert np.abs(_np(got) - want).max() <= 2 * 2.0**-7 * np.abs(want).max()
+
+
+def test_relu_and_sigmoid_f32():
+    x = _rng().standard_normal((3, 5, 17)).astype(np.float32) * 4
+    _f32_close(tnnf.relu(_t(x)), jnnf.relu(_j(x)))
+    _f32_close(tnnf.sigmoid(_t(x)), jnnf.sigmoid(_j(x)))
+
+
+@pytest.mark.parametrize("kernel,stride,padding", [(3, 2, 1), (2, 2, 0), (3, 1, 1), (5, 3, 2)])
+def test_max_pool2d_f32(kernel, stride, padding):
+    """NHWC max pool against JAX's reduce_window with -inf padding; an
+    all-negative input shows that the padding never wins."""
+    x = _rng().standard_normal((2, 11, 9, 5)).astype(np.float32) - 10.0
+    want = np.asarray(jnnf.max_pool2d(_j(x), kernel, stride, padding))
+    got = _np(tnnf.max_pool2d(_t(x), kernel, stride, padding))
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
+def _bn_params(r, C):
+    return {"weight": r.standard_normal(C).astype(np.float32),
+            "bias": r.standard_normal(C).astype(np.float32),
+            "running_mean": r.standard_normal(C).astype(np.float32),
+            "running_var": r.uniform(0.2, 3.0, C).astype(np.float32)}
+
+
+def _t_bn(p, dtype=torch.float32):
+    return [_t(p[k], dtype) for k in ("running_mean", "running_var", "weight", "bias")]
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_batch_norm_f32(train):
+    r = _rng()
+    x = (r.standard_normal((4, 6, 5, 7)) * 3 + 1).astype(np.float32)
+    p = _bn_params(r, 7)
+    with jconfig.parity_mode():
+        want = jnnf.batch_norm({k: _j(v) for k, v in p.items()}, _j(x), train=train)
+    _f32_close(tnnf.batch_norm(_t(x), *_t_bn(p), train=train), want)
+
+
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_batch_norm_bf16_within_one_ulp(train):
+    """bf16 x and parameters: statistics, scale and shift in float32, then
+    x·scale + shift in bf16, as JAX; within one bf16 ulp of the JAX value
+    (or of the result's scale, where the sum cancels)."""
+    r = _rng()
+    x = _np(_t((r.standard_normal((4, 6, 5, 7)) * 3 + 1).astype(np.float32), torch.bfloat16))
+    p = {k: _np(_t(v, torch.bfloat16)) for k, v in _bn_params(r, 7).items()}
+    want = jnnf.batch_norm({k: _j(v, jnp.bfloat16) for k, v in p.items()},
+                           _j(x, jnp.bfloat16), train=train)
+    got = tnnf.batch_norm(_t(x, torch.bfloat16), *_t_bn(p, torch.bfloat16), train=train)
+    assert got.dtype == torch.bfloat16
+    want = np.asarray(want.astype(jnp.float32))
+    _assert_within_bf16_ulp(_np(got), want, atol=2.0**-8 * np.abs(want).max())
+
+
+def test_batch_norm_train_reports_statistics_and_touches_no_buffer():
+    """Train mode normalizes with the biased batch statistics (JAX's
+    jnp.var); inside bn_stats() it reports (running_mean, mean, var);
+    the running tensors are left as they were. ``axis`` picks the channel
+    axis (RepMLPNet's grouped BatchNorms on NCHW partitions)."""
+    r = _rng()
+    x = _t(r.standard_normal((3, 4, 5, 6)).astype(np.float32))
+    rm, rv, w, b = _t_bn(_bn_params(r, 6))
+    rm0, rv0 = rm.clone(), rv.clone()
+    with tnnf.bn_stats() as sink:
+        y = tnnf.batch_norm(x, rm, rv, w, b, train=True)
+    (site, mean, var), = sink
+    assert site is rm
+    _f32_close(mean, x.mean((0, 1, 2)).numpy())
+    _f32_close(var, x.var((0, 1, 2), correction=0).numpy())
+    _f32_close(y, ((x - mean) / torch.sqrt(var + 1e-5) * w + b).numpy())
+    assert torch.equal(rm, rm0) and torch.equal(rv, rv0)
+    with tnnf.bn_stats() as sink:
+        tnnf.batch_norm(x, rm, rv, w, b)  # eval: reports nothing
+    assert sink == []
+    xc = x.permute(0, 3, 1, 2)  # channels on axis 1
+    _f32_close(tnnf.batch_norm(xc, rm, rv, w, b, train=True, axis=1).permute(0, 2, 3, 1), y)

@@ -25,7 +25,10 @@ list, copied here (its ``build_cases()`` loads the torch reference).
 ``state_dict_from_jax`` takes the keys the JAX params do not hold
 (``convert.jax_dropped``) from the JAX model's init template, as JAX's
 export does; every other key must come from the params.
-``dyna_xs`` adds its "XS" DynaMixer setting to both packages.
+``dyna_xs``, ``wave_xs`` and ``morph_xs`` add the "XS" settings of
+DynaMixer, WaveMLP and MorphMLP to both packages. ``calibrated`` gives
+the BatchNorm families' factories the running statistics of the JAX
+``recalibrate_bn`` on seeded batches, on both sides.
 """
 
 import contextlib
@@ -66,31 +69,98 @@ MS = dict(img_size=32, patch_size=4, num_classes=10, embed_dim=16, depths=[2, 2]
           shift_dist=[-1, 0, 1], mix_size=[[1, 3, 5], [1, 3, 3]], drop_path_rate=0.0)
 ACTIVE = dict(depths=[2, 2], embed_dims=[16, 32], mlp_ratios=[2, 2], share_dims=[2, 4], intv=2,
               num_classes=10)
+CONV_MIXER = dict(dim=32, depth=3, kernel_size=5, patch_size=4, n_classes=10)
+CONV_MLP = dict(depth=[1, 2], d_model=[32, 64], expansion_factor=[2, 2], channels=16,
+                n_conv_blocks=2, num_classes=10)
+SPARSE = dict(image_size=32, patch_size=4, num_classes=10, d_model=16, depth=[2, 2],
+              expansion_factor=2)
+REPMLP = dict(in_channels=3, num_class=10, patch_size=(2, 2), num_blocks=(1, 2), channels=(8, 16),
+              hs=(4, 2), ws=(4, 2), sharesets_nums=(2, 4), reparam_conv_k=(1, 3))
+WAVE = dict(model_name="XS", num_classes=10)
+WAVE_XS = [[1, 1, 1, 1], [2, 2, 2, 2]]
+MORPH = dict(model_name="XS", num_classes=10)
+MORPH_XS = [[2, 2], [2, 2], [16, 32], [4, 4], [0.0, 0.0]]
 
 
 @contextlib.contextmanager
-def dyna_xs():
-    """The "XS" DynaMixer setting in both packages' ``dynamlp_settings``."""
-    from jittor_mlp_tpu.models import dyna_mlp as jdyna
-    from jittor_mlp_tpu_torch.models import dyna_mlp as tdyna
+def _xs(module, table, setting):
+    """``setting`` as "XS" in the settings ``table`` of model ``module`` in
+    both packages."""
+    import importlib
 
-    for settings in (jdyna.dynamlp_settings, tdyna.dynamlp_settings):
-        settings["XS"] = DYNA_XS
+    tables = [getattr(importlib.import_module(f"{pkg}.models.{module}"), table)
+              for pkg in ("jittor_mlp_tpu", "jittor_mlp_tpu_torch")]
+    old = [settings.get("XS") for settings in tables]  # another test may have set one
+    for settings in tables:
+        settings["XS"] = setting
     try:
         yield
     finally:
-        for settings in (jdyna.dynamlp_settings, tdyna.dynamlp_settings):
-            settings.pop("XS", None)
+        for settings, value in zip(tables, old):
+            if value is None:
+                settings.pop("XS", None)
+            else:
+                settings["XS"] = value
+
+
+def dyna_xs():
+    """The "XS" DynaMixer setting in both packages' ``dynamlp_settings``."""
+    return _xs("dyna_mlp", "dynamlp_settings", DYNA_XS)
+
+
+def wave_xs():
+    """The "XS" WaveMLP setting (tools/parity_report.py) in both packages."""
+    return _xs("wave_mlp", "wavemlp_settings", WAVE_XS)
+
+
+def morph_xs():
+    """The "XS" MorphMLP setting (tools/parity_report.py) in both packages."""
+    return _xs("morph_mlp", "morphmlp_settings", MORPH_XS)
 
 
 def images(shape, seed=0):
     return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
 
 
+_CALIBRATED = {}
+
+
+def calibrated(jax_factory, port_factory, shape, n_batches=2):
+    """(JAX factory, port factory) whose models carry the running
+    statistics that the JAX ``recalibrate_bn`` gives on ``n_batches``
+    seeded batches of ``shape``, for the BatchNorm families (at seed 0's
+    mean 0 and var 1 their eval forward grows without bound, and a band
+    would measure nothing). The statistics are made once per
+    configuration and loaded into either side through the JAX export."""
+    from jittor_mlp_tpu.core.train_utils import recalibrate_bn
+
+    def state(kw):
+        kw = {k: v for k, v in kw.items() if k not in ("seed", "device")}
+        key = (jax_factory, repr(sorted(kw.items())))
+        if key not in _CALIBRATED:
+            jmodel = recalibrate_bn(jax_factory(**kw), [images(shape, seed=20 + i)
+                                                        for i in range(n_batches)])
+            _CALIBRATED[key] = jmodel.export_torch_state_dict(tensors=False)
+        return _CALIBRATED[key]
+
+    def jax_f(**kw):
+        return jax_factory(**kw).load_torch_state_dict(state(kw))
+
+    def port_f(**kw):
+        return port_factory(**kw).load_torch_state_dict(state(kw))
+
+    return jax_f, port_f
+
+
 def check_same_seed(jax_factory, port_factory, kwargs):
+    """The keys both sides hold: the JAX init template has no BatchNorm
+    ``num_batches_tracked``, which the port holds as int64 0."""
     want = jax_factory(**kwargs)._init_sd
     got = port_factory(**kwargs, **CPU).export_torch_state_dict(tensors=False)
-    assert sorted(got) == sorted(want)
+    counters = {k for k in got if k.endswith(".num_batches_tracked")}
+    assert sorted(set(got) - counters) == sorted(want)
+    for k in counters:
+        assert got[k].dtype == np.int64 and got[k] == 0, k
     for k in want:
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     return got
@@ -128,7 +198,11 @@ def check_port_parity(jax_factory, port_factory, kwargs, shape, tol=1e-4, name="
     return got.numpy()
 
 
-def check_bf16(jax_factory, port_factory, kwargs, shape):
+def check_bf16(jax_factory, port_factory, kwargs, shape, exempt_ties=False):
+    """With ``exempt_ties``, an image whose two top float32 logits lie
+    closer than twice the measured deviation may change its top-1 (the
+    band allows it; the JAX bf16 forward flips such near ties too); the
+    rest must keep theirs."""
     x = images(shape, seed=1)
     with jconfig.parity_mode():
         want = np.asarray(jax_factory(**kwargs)(x))
@@ -137,8 +211,12 @@ def check_bf16(jax_factory, port_factory, kwargs, shape):
         got = tmodel(x)
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
-    assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
-    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+    dev = np.abs(got - want).max()
+    assert dev <= 5e-2 * np.abs(want).max()
+    top2 = np.sort(want, -1)[:, -2:]
+    decided = top2[:, 1] - top2[:, 0] > 2 * dev if exempt_ties else np.ones(len(want), bool)
+    assert decided.mean() >= 0.75, f"{(~decided).sum()} of {len(want)} images are near ties"
+    np.testing.assert_array_equal(got.argmax(-1)[decided], want.argmax(-1)[decided])
 
 
 def check_int8(jax_factory, port_factory, kwargs, shape):
@@ -168,8 +246,10 @@ def check_int8_state_dict(name, jax_factory, port_factory, kwargs, dtype="float3
     got = tquant.dequantize_state_dict(q, getattr(torch, dtype))
     assert sorted(got) == sorted(want)
     for k in want:
-        assert got[k].dtype == getattr(torch, dtype), k
-        np.testing.assert_array_equal(got[k].float().numpy(), want[k].numpy(), err_msg=k)
+        # num_batches_tracked stays int64, as in JAX's export
+        assert got[k].dtype == (getattr(torch, dtype) if want[k].is_floating_point()
+                                else torch.int64), k
+        np.testing.assert_array_equal(got[k].float().numpy(), want[k].float().numpy(), err_msg=k)
     return q
 
 
