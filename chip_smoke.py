@@ -8,8 +8,9 @@ kernels against plain versions, and trains: bf16 mixed-precision train
 steps through ``make_train_step`` on both Mixer routes (the forward kernel
 with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
-drop-path; then runs the port's kernel lab over the Mixer-B/16 stack, and
-serves the sixteen families that have no kernel of their own. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+drop-path; then runs the port's kernel lab over the Mixer-B/16 stack,
+serves the eighteen families that have no kernel of their own (nineteen
+models), and checks the DCN ops. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -22,8 +23,10 @@ Swin-MLP-T, DynaMixer-T, MS-MLP-T (embed 96, depths [2, 2, 6, 2], shift
 5), Hire-MLP-Tiny (the factory's defaults), CycleMLP-B2, ActiveMLP-xT
 (depths [2, 2, 4, 2], share [2, 4, 4, 8], intv 2), and the BatchNorm
 families ConvMixer-768/32 (kernel 7, patch 7), SparseMLP (the factory's
-defaults), RepMLPNet-B224, WaveMLP-T, MorphMLP-T and ConvMLP-M. Run from
-the repository root, with no arguments:
+defaults), RepMLPNet-B224, WaveMLP-T, MorphMLP-T and ConvMLP-M, and GFNet
+(the factory's defaults: embed 768, depth 12, patch 16), GFNet-H-B
+(GFNetPyramid, embed [96, 192, 384, 768], depths [3, 3, 27, 3]) and
+Sequencer2D-S. Run from the repository root, with no arguments:
 
     python3 chip_smoke.py
 
@@ -157,8 +160,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      on the wgmma core. Phase 2 also holds the four lab
      kernels against their twins at every bt and mode the lab uses, at b8,
      the stack's b256 and two ragged shapes, and phase 5 times them at b256;
-  8. the sixteen families without a kernel (plain PyTorch: cuBLAS
-     products, cuDNN convolutions, gathers), each built by its factory on
+  8. the eighteen families without a kernel, in nineteen models (plain
+     PyTorch: cuBLAS products, cuDNN convolutions, gathers, cuFFT, cuDNN's
+     LSTM), each built by its factory on
      the card (the six BatchNorm families in f32 first, their running
      statistics recalibrated there with the port's recalibrate_bn on four
      seeded batches of 32, then exported: at the seed's mean 0 and var 1
@@ -174,8 +178,16 @@ Phases (each one fails loudly; there is no CPU fallback):
      and weights="int8" Predictors answer 16 images batched as they answer
      each alone; b256 img/s in bf16 and int8 (CUDA events) and peak memory.
      No port kernel launches in this run. ViP's and S2-MLPv2's gates read
-     the mean over their tokens (``mean_gate``), and MS-MLP-T's layer scale
-     is 0.5 (``layer_scale``), as state-dict edits of the seed's draw.
+     the mean over their tokens (``mean_gate``), and MS-MLP-T's and
+     GFNet-H-B's layer scales are 0.5 (``layer_scale``), as state-dict edits
+     of the seed's draw. Before the families: ``ops/lstm.bilstm`` (cuDNN)
+     against ``bilstm_plain`` (the step loop) at Sequencer2D-S's stage-1
+     shape (8192 sequences of 32 steps, C 192, H 48) in float32 (TF32 off,
+     within 1e-4 of max|ref|) and in bf16, cuDNN's RNN kernels seen in
+     the profiler (within 5e-2 of max|ref| of the float32 loop on the same
+     bf16 values), no weight-compaction warning; GFNet's float32 filter
+     (cuFFT) against a float64 CPU ``torch.fft`` of the same input at
+     56 × 56 × 96 (within 1e-5 of max|ref|); their ms.
      A branch that ends in a bias-free conv is zeroed through the
      BatchNorm after it. For the BatchNorm families it prints the running
      variances that weights="int8" rounds to 0; RepMLPNet-B224's folded
@@ -186,18 +198,28 @@ Phases (each one fails loudly; there is no CPU fallback):
      their bands run each block on the f32 model's input to it (every
      block within 5e-2 in bf16 and 0.1 in int8 of its f32 output, and the
      logits after it in the bands above); their free-running deviations
-     are printed.
+     are printed;
+  9. the DCN ops (``ops/dcn.py``; no model of the zoo calls them): DCN(256,
+     256, 3, stride 1, padding 1) on (16, 256, 64, 64), its
+     ``conv_offset_mask`` drawn so that offsets reach past the map's edges,
+     and DCNPooling(1/16, pooled 7, output 256, trans, 4 samples a bin,
+     trans_std 0.1; ``offset_mask_fc`` drawn so that trans and the mask
+     vary) over 128 RoIs on (2, 256, 50, 50): card float32 (TF32 off)
+     against the CPU within 1e-4 of max|ref|, bf16 against card float32
+     within 5e-2; their ms. No port kernel launches in this run.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import copy
 import json
 import subprocess
 import sys
 import threading
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -2051,10 +2073,10 @@ def mean_gate(tokens):
 
 
 def layer_scale(value):
-    """A state-dict edit for MS-MLP: every block's ``gamma`` layer scale
-    set to ``value``. The factory's 1e-6 makes each block add next to
-    nothing, so neither the bf16 band nor the blocks-move check would see
-    a wrong block."""
+    """A state-dict edit for MS-MLP and GFNet-H-B: every block's ``gamma``
+    layer scale set to ``value``. The factories' 1e-6 makes each block add
+    next to nothing, so neither the bf16 band nor the blocks-move check
+    would see a wrong block."""
     def edit(sd):
         for k in sd:
             if k.endswith(".gamma"):
@@ -2138,6 +2160,18 @@ FAMILIES = {
                  lambda m: [blk[7] for blk in m.conv_stages.conv_blocks]
                  + [layer for st in m.stages for blk in st.blocks
                     for layer in (blk.channel_mlp1.fc2, blk.channel_mlp2.fc2)], None),
+    # one residual wraps each block's filter and MLP: fc2 zeroed is the identity
+    "gfnet": ("GFNet (embed 768, depth 12, patch 16)", "GFNet", {},
+              lambda m: [blk.mlp.fc2 for blk in m.blocks], None),
+    "gfnet_pyramid": ("GFNet-H-B (embed [96, 192, 384, 768], depths [3, 3, 27, 3])",
+                      "GFNetPyramid", dict(embed_dim=[96, 192, 384, 768], depth=[3, 3, 27, 3],
+                                           init_values=1e-6),
+                      lambda m: [blk.mlp.fc2 for st in m.blocks for blk in st],
+                      layer_scale(0.5)),
+    "sequencer": ("Sequencer2D-S (depths [4, 3, 8, 3], dims [192, 384, 384, 384])",
+                  "Sequencer2D", dict(model_name="S"),
+                  lambda m: [layer for st in m.stages for blk in st[1].model
+                             for layer in (blk[0].fn[0].fc, blk[1].fn[3])], None),
 }
 # the families with BatchNorm: recalibrated on the card before their bands
 BN_FAMILIES = ("conv_mixer", "sparse_mlp", "repmlpnet", "wave_mlp", "morph_mlp", "conv_mlp")
@@ -2351,17 +2385,93 @@ def fold_check(tag, f32, build, x64):
     check(folded.deploy and dev <= CARD_VS_CPU, f"{tag}: folded vs unfolded {dev}")
 
 
+def special_ops(name):
+    """Sequencer's BiLSTM and GFNet's filter on the card, each against its
+    plain version: ``bilstm`` (cuDNN) against ``bilstm_plain`` (the step
+    loop) at Sequencer2D-S's stage-1 shape, in float32 and in bf16 (the
+    serving dtype; cuDNN's RNN must run it, with the weights compacted:
+    no warning); ``global_filter`` (cuFFT, float32) against a float64 CPU
+    ``torch.fft`` at 56 × 56 × 96. Returns {check: max|d|/max|ref|}."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.models.gfnet import global_filter
+    from jittor_mlp_tpu_torch.ops.lstm import LSTM, bilstm, bilstm_plain
+
+    devs = {}
+    torch.manual_seed(0)
+    lstm = LSTM(192, 48).cuda()
+    x = torch.randn(8192, 32, 192, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+    with torch.inference_mode(), config.parity_mode():
+        got = bilstm(lstm, x)
+        ref = bilstm_plain(dict(lstm.state_dict()), x)
+        cudnn_ms, plain_ms = cuda_ms(lambda: bilstm(lstm, x), 5), cuda_ms(
+            lambda: bilstm_plain(dict(lstm.state_dict()), x), 3)
+    devs["bilstm_f32"] = rel_dev(got, ref)
+    print(f"[8] bilstm (8192 x 32 steps, C 192, H 48) f32 cuDNN vs the step loop (TF32 off): "
+          f"max|d|/max|ref|={devs['bilstm_f32']:.6g} (limit 1e-4); cuDNN {cudnn_ms:.4f} ms, "
+          f"step loop {plain_ms:.4f} ms  [{name}]", flush=True)
+    check(got.shape == (8192, 32, 96) and devs["bilstm_f32"] <= 1e-4,
+          f"bilstm f32: {devs['bilstm_f32']}")
+    lstm_b = copy.deepcopy(lstm).bfloat16()
+    xb = x.bfloat16()
+    with torch.inference_mode(), warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        acts = [torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            got = bilstm(lstm_b, xb)
+            torch.cuda.synchronize()
+        bf16_ms = cuda_ms(lambda: bilstm(lstm_b, xb), 5)
+    rnn = sorted({e.key for e in prof.key_averages() if "RNN" in e.key})
+    compacted = [str(w.message)[:80] for w in caught if "contiguous chunk" in str(w.message)]
+    with torch.inference_mode(), config.parity_mode():
+        params = {k: v.float() for k, v in lstm_b.state_dict().items()}
+        ref = bilstm_plain(params, xb.float())
+        loop_b = bilstm_plain(dict(lstm_b.state_dict()), xb).float()
+    devs["bilstm_bf16"] = rel_dev(got.float(), ref)
+    print(f"[8] bilstm bf16 cuDNN vs the f32 step loop on the same bf16 values: "
+          f"max|d|/max|ref|={devs['bilstm_bf16']:.6g} (limit 5e-2; the bf16 step loop, h and "
+          f"c in bf16: {rel_dev(loop_b, ref):.6g}); {bf16_ms:.4f} ms; cuDNN RNN kernels "
+          f"{[k[:60] for k in rnn]}; weight-compaction warnings {compacted}  [{name}]",
+          flush=True)
+    check(got.dtype == torch.bfloat16 and devs["bilstm_bf16"] <= 5e-2,
+          f"bilstm bf16: {got.dtype}, {devs['bilstm_bf16']}")
+    check(bool(rnn), "the bf16 LSTM ran no cuDNN RNN kernel")
+    check(not compacted, f"cuDNN compacted the bf16 LSTM weights at the call: {compacted}")
+    del lstm, lstm_b, x, xb, got, ref, loop_b
+
+    g = np.random.default_rng(2)
+    x = torch.from_numpy(g.standard_normal((8, 56 * 56, 96), np.float32))
+    w = torch.from_numpy(g.standard_normal((56, 29, 96, 2), np.float32))
+    want = torch.fft.irfft2(
+        torch.fft.rfft2(x.double().reshape(8, 56, 56, 96), dim=(1, 2), norm="ortho")
+        * torch.view_as_complex(w.double()), s=(56, 56), dim=(1, 2), norm="ortho"
+    ).reshape(8, 56 * 56, 96)
+    xc, wc = x.cuda(), w.cuda()
+    with torch.inference_mode():
+        got = global_filter(xc, wc, 56, 56)
+        x256 = xc.repeat(32, 1, 1)
+        fft_ms = cuda_ms(lambda: global_filter(x256, wc, 56, 56), 5)
+        fft_bf16_ms = cuda_ms(lambda: global_filter(x256.bfloat16(), wc.bfloat16(), 56, 56), 5)
+    devs["global_filter"] = rel_dev(got.double().cpu(), want)
+    print(f"[8] global_filter f32 (cuFFT) vs float64 CPU torch.fft at 8 x 56 x 56 x 96: "
+          f"max|d|/max|ref|={devs['global_filter']:.6g} (limit 1e-5); at b256: "
+          f"{fft_ms:.4f} ms f32, {fft_bf16_ms:.4f} ms from bf16 (cast up and back)  [{name}]",
+          flush=True)
+    check(devs["global_filter"] <= 1e-5, f"global_filter: {devs['global_filter']}")
+    return devs
+
+
 def phase_families(jt, mods, name):
     """Phase 8: ViP, S2-MLP v1 and v2, RaftMLP, Swin-MLP-T, DynaMixer-T,
-    MS-MLP-T, Hire-MLP-Tiny, CycleMLP-B2, ActiveMLP-xT and the BatchNorm
+    MS-MLP-T, Hire-MLP-Tiny, CycleMLP-B2, ActiveMLP-xT, the BatchNorm
     families ConvMixer-768/32, SparseMLP, RepMLPNet-B224, WaveMLP-T,
-    MorphMLP-T and ConvMLP-M at full width, on
-    the serving path a user calls (factory, bf16 or int8 forward,
-    Predictor). They run no kernel of the port: every count is set to 0
-    just before and must read 0 after."""
+    MorphMLP-T and ConvMLP-M, and GFNet, GFNet-H-B and Sequencer2D-S at
+    full width, on the serving path a user calls (factory, bf16 or int8
+    forward, Predictor), after ``special_ops``. They run no kernel of the
+    port: every count is set to 0 just before and must read 0 after."""
     x64 = images(64, 0)
     imgs = np.random.default_rng(8).integers(0, 256, (16, 224, 224, 3), dtype=np.uint8)
     reset_counts(mods)  # the families' run starts here
+    special_ops(name)
     rates = {}
     for key in FAMILIES:
         rates[key] = family_phase(jt, key, name, x64, imgs)
@@ -2372,6 +2482,89 @@ def phase_families(jt, mods, name):
           flush=True)
     check(not any(launched.values()), f"the families' run launched port kernels: {launched}")
     print(f"[8] b256 img/s: {json.dumps(rates)}  [{name}]", flush=True)
+
+
+DCN_ROIS = 128
+
+
+def dcn_rois(n, seed):
+    """n RoIs [batch index, x1, y1, x2, y2] on two 800 × 800 images (the
+    maps are 1/16 of that), 16 to 400 pixels a side."""
+    g = np.random.default_rng(seed)
+    xy = g.uniform(0, 700, (n, 2))
+    wh = g.uniform(16, 400, (n, 2))
+    return torch.from_numpy(np.concatenate(
+        [g.integers(0, 2, (n, 1)), xy, np.minimum(xy + wh, 799)], 1).astype(np.float32))
+
+
+def _dcn_case(tag, module, args, name):
+    """One DCN op: card f32 (TF32 off) against the CPU within 1e-4 of
+    max|ref|, bf16 against card f32 within 5e-2; ms of each on the card."""
+    from jittor_mlp_tpu_torch import config
+
+    check(next(module.parameters()).is_cuda, f"{tag}: not built on the card")
+    cpu = copy.deepcopy(module).cpu()
+    with torch.inference_mode(), config.parity_mode():
+        t0 = time.perf_counter()
+        ref = cpu(*(a.cpu() for a in args))
+        cpu_s = time.perf_counter() - t0
+        got = module(*args)
+        f32_ms = cuda_ms(lambda: module(*args), 5)
+    dev = rel_dev(got.cpu(), ref)
+    bf = copy.deepcopy(module).bfloat16()
+    bargs = [a.bfloat16() if a.dtype == torch.float32 and i == 0 else a
+             for i, a in enumerate(args)]  # the map in bf16, the RoIs in float32
+    with torch.inference_mode():
+        gb = bf(*bargs)
+        bf16_ms = cuda_ms(lambda: bf(*bargs), 5)
+    bdev = rel_dev(gb.float(), got)
+    print(f"[9] {tag}: out {tuple(got.shape)}; f32 card (TF32 off) vs CPU "
+          f"max|d|/max|ref|={dev:.6g} (limit 1e-4; CPU {cpu_s:.2f} s); bf16 vs card f32 "
+          f"{bdev:.6g} (limit 5e-2); {f32_ms:.4f} ms f32 (TF32 off), {bf16_ms:.4f} ms bf16  "
+          f"[{name}]", flush=True)
+    check(bool(torch.isfinite(got).all() and torch.isfinite(gb).all()), f"{tag}: non-finite")
+    check(dev <= 1e-4 and bdev <= 5e-2, f"{tag}: f32 {dev}, bf16 {bdev}")
+
+
+def phase_dcn(mods, name):
+    """Phase 9: the DCN ops at a detection head's sizes (no model of the
+    zoo calls them); no port kernel launches."""
+    from jittor_mlp_tpu_torch.ops import dcn
+
+    reset_counts(mods)
+    g = np.random.default_rng(9)
+    m = dcn.DCN(256, 256, 3, stride=1, padding=1)  # on the card; seed-0 weight
+    com = m.conv_offset_mask
+    with torch.no_grad():  # offsets ±6 px from the bias, so taps leave the map
+        com.weight.copy_(torch.from_numpy(g.standard_normal(com.weight.shape) * 0.01))
+        com.bias.copy_(torch.from_numpy(np.concatenate(
+            [g.standard_normal(18) * 6.0, g.standard_normal(9)])))
+        m.bias.copy_(torch.from_numpy(g.standard_normal(256)))
+    x = torch.from_numpy(g.standard_normal((16, 256, 64, 64), np.float32)).cuda()
+    _dcn_case("DCN(256, 256, 3, stride 1, padding 1) on (16, 256, 64, 64)", m, [x], name)
+    with torch.inference_mode():
+        om = com(x)
+        rows = torch.arange(64, device="cuda").reshape(1, 1, 64, 1)
+        taps = torch.arange(9, device="cuda").reshape(1, 9, 1, 1) // 3 - 1
+        pos = rows + taps + om[:, 0:18:2]  # the rows sampled, per tap
+        off_map = ((pos < 0) | (pos > 63)).float().mean().item()
+    print(f"[9] DCN: {off_map:.4f} of the sampled rows lie off the map", flush=True)
+    check(off_map > 0.01, f"DCN offsets hardly leave the map: {off_map}")
+    del x, m, om, pos
+
+    m = dcn.DCNPooling(spatial_scale=1 / 16, pooled_size=7, output_dim=256, no_trans=False,
+                       sample_per_part=4, trans_std=0.1)
+    last = m.offset_mask_fc[4]
+    with torch.no_grad():  # the last Linear is zeros at first: trans 0, mask 0.5
+        last.weight.copy_(torch.from_numpy(g.standard_normal(last.weight.shape) * 0.05))
+        last.bias.copy_(torch.from_numpy(g.standard_normal(last.bias.shape)))
+    fmap = torch.from_numpy(g.standard_normal((2, 256, 50, 50), np.float32)).cuda()
+    rois = dcn_rois(DCN_ROIS, 10).cuda()
+    _dcn_case(f"DCNPooling(1/16, pooled 7, output 256, trans_std 0.1) over {DCN_ROIS} RoIs "
+              f"on (2, 256, 50, 50)", m, [fmap, rois], name)
+    launched = {m: (sum(mod.LAUNCHES.values()) if isinstance(mod.LAUNCHES, dict)
+                    else mod.LAUNCHES) for m, mod in mods.items()}
+    check(not any(launched.values()), f"the DCN run launched port kernels: {launched}")
 
 
 def grads_of(model, batch, dtype):
@@ -2778,6 +2971,8 @@ def main():
     launches.update(phase_lab_stack(mods, name))
     torch.cuda.empty_cache()
     phase_families(jt, mods, name)
+    torch.cuda.empty_cache()
+    phase_dcn(mods, name)
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}

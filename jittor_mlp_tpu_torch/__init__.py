@@ -18,6 +18,7 @@ from .models.conv_mixer import ConvMixer
 from .models.conv_mlp import convmlp_l, convmlp_m, convmlp_s
 from .models.cycle_mlp import CycleMLP_B1, CycleMLP_B2, CycleMLP_B3, CycleMLP_B4, CycleMLP_B5
 from .models.dyna_mlp import DynaMixer
+from .models.gfnet import GFNet, GFNetPyramid
 from .models.g_mlp import gMLPForImageClassification
 from .models.hire_mlp import HireMLP
 from .models.mlp_mixer import MLPMixerForImageClassification
@@ -28,6 +29,7 @@ from .models.repmlpnet import create_RepMLPNet_B224, create_RepMLPNet_B256
 from .models.res_mlp import ResMLPForImageClassification
 from .models.s2_mlp_v1 import S2MLPv1_deep, S2MLPv1_wide
 from .models.s2_mlp_v2 import S2MLPv2
+from .models.sequencer import Sequencer2D
 from .models.sparse_mlp import SparseMLP
 from .models.swin_mlp import SwinMLP
 from .models.vip import ViP
@@ -46,6 +48,8 @@ __all__ = [
     "CycleMLP_B4",
     "CycleMLP_B5",
     "DynaMixer",
+    "GFNet",
+    "GFNetPyramid",
     "HireMLP",
     "MS_MLP",
     "Model",
@@ -56,6 +60,7 @@ __all__ = [
     "S2MLPv1_deep",
     "S2MLPv1_wide",
     "S2MLPv2",
+    "Sequencer2D",
     "SparseMLP",
     "SwinMLP",
     "ViP",

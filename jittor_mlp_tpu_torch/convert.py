@@ -6,10 +6,12 @@ are stacked on a leading layer axis (``jittor_mlp_tpu/core/pytree.py``,
 it renames the top-level groups back to the torch module names, numbers the
 entries of a list (AS-MLP's per-stage ``layers``, RaftMLP's per-block
 lists), renames what a model's ``_structure`` renamed inside its groups
-(``_RENAME``: S2-MLP's and DynaMixer's ``patch`` and ``blocks``, RaftMLP's
-``embed`` and block ``j`` = ``fn.{2+j}``, DynaMixer's ``op_h`` and
-``attend``), unstacks each stacked group into ``{prefix}.{i}.…``
-(``model.{i}.…``, or AS-MLP's ``layers.{s}.blocks.{i}.…``) and, inside a
+(``_RENAME``: S2-MLP's, DynaMixer's and Sequencer's ``patch`` and
+``blocks``, RaftMLP's ``embed`` and block ``j`` = ``fn.{2+j}``,
+DynaMixer's ``op_h`` and ``attend``, GFNetPyramid's ``patch_embed.{i}``
+= ``patch_embed.{i}.proj``), unstacks each stacked group into
+``{prefix}.{i}.…`` (``model.{i}.…``, or AS-MLP's
+``layers.{s}.blocks.{i}.…``, GFNetPyramid's ``blocks.{s}.{j}.…``) and, inside a
 DynaMixer block, the per-segment projections stacked as ``wd_w`` / ``wd_b``
 (seg, …) into ``Wd.{s}.weight`` / ``.bias``. Non-parameter leaves (AS-MLP's
 per-block drop-path rates ``_dpr``) are dropped. Leaves are given as numpy
@@ -80,10 +82,16 @@ _LAYOUT = {
                  "norm": "norm", "head": "head"},
     "repmlpnet": {"conv_embedding": "conv_embedding", "stages": "stages", "embeds": "embeds",
                   "head_norm": "head_norm", "head": "head"},
+    "gfnet": {"patch_embed": "patch_embed.proj", "pos_embed": "pos_embed", "blocks": "blocks",
+              "norm": "norm", "pre_logits": "pre_logits", "head": "head"},
+    "gfnet_pyramid": {"patch_embed": "patch_embed", "pos_embed": "pos_embed", "blocks": "blocks",
+                      "norm": "norm", "head": "head"},
+    "sequencer": {"stages": "stages", "head": "mlp_head.1"},
 }
 # groups a model has only with an option
 _OPTIONAL = {"swin_mlp": {"absolute_pos_embed"}, "hire_mlp": {"patcher_norm"},
-             "sparse_mlp": {"patcher_norm"}, "conv_mlp": {"norm", "head"}}
+             "sparse_mlp": {"patcher_norm"}, "conv_mlp": {"norm", "head"},
+             "gfnet": {"pre_logits"}}
 _STAGES = [(r"^stages\.(\d+)\.patch\.", r"stages.\1.0.")]
 # per model: (pattern, replacement) applied in turn to each key after the
 # group's prefix, before unstacking
@@ -103,6 +111,8 @@ _RENAME = {
                    (r"^layers\.(\d+)\.merge\.", r"layers.\1.patch_merge.1.")],
     "conv_mlp": [(r"^stages\.(\d+)\.downsample\.", r"stages.\1.downsample_mlp.downsample.")],
     "repmlpnet": [(r"^stages\.(\d+)\.blocks\.", r"stages.\1.")],
+    "gfnet_pyramid": [(r"^patch_embed\.(\d+)\.", r"patch_embed.\1.proj.")],
+    "sequencer": _STAGES + [(r"^stages\.(\d+)\.blocks\.", r"stages.\1.1.model.")],
 }
 # per model: the torch prefix whose numbered children the JAX package stacks
 # into one leaf per parameter ("*" stands for any stage index)
@@ -112,7 +122,8 @@ _STACKED = {"mlp_mixer": "model", "res_mlp": "model", "g_mlp": "model",
             "dyna_mlp": "stages.*.1.layers", "ms_mlp": "layers.*.blocks",
             "hire_mlp": "layers.*.model", "cycle_mlp": "network.*", "conv_mixer": "blocks",
             "sparse_mlp": "layers.*.model", "morph_mlp": "network.*", "wave_mlp": "network.*",
-            "conv_mlp": "stages.*.blocks", "repmlpnet": "stages.*"}
+            "conv_mlp": "stages.*.blocks", "repmlpnet": "stages.*", "gfnet": "blocks",
+            "gfnet_pyramid": "blocks.*", "sequencer": "stages.*.1.model"}
 # RaftMLP, SwinMLP and ActiveMLP keep per-block lists
 # per model: keys under a stacked prefix that are not stacked (the
 # transitions of CycleMLP, MorphMLP and WaveMLP, in the slots between their

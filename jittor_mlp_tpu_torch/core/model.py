@@ -17,6 +17,19 @@ from torch import nn
 from .. import config
 
 
+def place(module, device):
+    """Move ``module`` to ``device``. The factories call this with their
+    ``device`` argument ("cuda" unless the caller asks for the CPU); a CUDA
+    device with no card raises instead of falling back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{type(module).__name__}: device {str(device)!r} asked for, but "
+            f"torch.cuda.is_available() is false; pass device='cpu' to "
+            f"build the model on the CPU")
+    return module.to(device)
+
+
 class Model(nn.Module):
     name = None  # zoo key, e.g. "mlp_mixer" (tuned.serve_settings looks it up)
     stochastic = False  # True: the train forward takes a drop-path `generator`
@@ -39,16 +52,8 @@ class Model(nn.Module):
         self.load_state_dict(tensors, strict=True, assign=True)
 
     def place(self, device):
-        """Move the model to ``device``. The factories call this with their
-        ``device`` argument ("cuda" unless the caller asks for the CPU); a
-        CUDA device with no card raises instead of falling back."""
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"{type(self).__name__}: device {str(device)!r} asked for, but "
-                f"torch.cuda.is_available() is false; pass device='cpu' to "
-                f"build the model on the CPU")
-        return self.to(device)
+        """Move the model to ``device`` (``place``)."""
+        return place(self, device)
 
     @property
     def device(self):

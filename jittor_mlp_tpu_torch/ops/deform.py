@@ -1,5 +1,6 @@
-"""The deformable 1×1 ops of CycleMLP and ActiveMLP on NHWC tensors
-(counterpart of ``jittor_mlp_tpu/ops/deform.py``'s model ops).
+"""The deformable ops on NHWC tensors (counterpart of
+``jittor_mlp_tpu/ops/deform.py``): CycleMLP's and ActiveMLP's 1×1 ops and
+the general modulated deformable convolution.
 
 - ``cycle_fc`` (CycleMLP's CycleFC): channel i reads the input shifted by
   δᵢ = (i + start) % K − K//2 along the kernel's long axis, start =
@@ -15,9 +16,17 @@
   ±band and then samples exactly. The JAX hat-matrix contraction and its
   banded sampler are TPU lowerings and are not ported.
 
-The products of both ops are plain ``torch.matmul``: the JAX package
-writes them as ``jnp.matmul``, outside ``nnf._dense``, so they stay out of
-int8 under ``int8_mode()``.
+- ``deform_conv2d`` (DCNv1/v2, the op under ``ops/dcn.py``): each kernel
+  tap of each output pixel samples the input at its grid position plus a
+  learned (Δy, Δx), bilinearly from four corners, each zero outside the
+  map, times an optional modulation mask; then one grouped product with
+  the OIHW weight. The sampling positions and corner weights are float32
+  for every input dtype (the JAX package builds the positions in x's
+  dtype, so in bf16 a position at row 64 moves in steps of 0.25).
+
+The products of these ops are plain ``torch.matmul`` / ``torch.einsum``:
+the JAX package writes them as ``jnp.matmul`` / ``jnp.einsum``, outside
+``nnf._dense``, so they stay out of int8 under ``int8_mode()``.
 """
 
 from __future__ import annotations
@@ -105,3 +114,64 @@ def atm_op(x, offset, weight, bias, dimension, share=1, band=None):
     y = atm_sample(x, offset, 1 if dimension == "h" else 2, share=share, band=band)
     y = torch.matmul(y, weight[:, :, 0, 0].t().to(x.dtype))
     return y if bias is None else y + bias
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def sample_positions(base, off):
+    """A tap's sampling positions: the grid position ``base`` plus the
+    offset ``off``, in float32 whatever the offset's dtype."""
+    return base.float() + off.float()
+
+
+def deform_conv2d(x, offset, weight, bias=None, stride=(1, 1), padding=(0, 0),
+                  dilation=(1, 1), mask=None):
+    """Modulated deformable convolution on NHWC x (B, H, W, Cin).
+
+    offset: (B, Ho, Wo, 2·G·kh·kw), (Δy, Δx) interleaved per offset group g
+    and tap k (channels 2(g·kh·kw + k) and 2(g·kh·kw + k) + 1); mask: (B, Ho,
+    Wo, G·kh·kw) or None; weight: (Cout, Cin/wg, kh, kw), wg weight groups;
+    bias: (Cout,) or None. Channel c of the input belongs to offset group
+    c // (Cin/G). Returns (B, Ho, Wo, Cout) in x's dtype. Each tap is four
+    row gathers of the (B, H·W, G, Cin/G) input and a float32 weighted sum,
+    rounded once to x's dtype; the sampled columns (c·kh·kw + k, the OIHW
+    order) go through one ``torch.einsum`` per weight group."""
+    B, H, W, Cin = x.shape
+    Cout, Cin_g, kh, kw = weight.shape
+    (sh, sw), (ph, pw), (dh, dw) = _pair(stride), _pair(padding), _pair(dilation)
+    Ho = (H + 2 * ph - dh * (kh - 1) - 1) // sh + 1
+    Wo = (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1
+    K = kh * kw
+    G = offset.shape[-1] // (2 * K)
+    off = offset.reshape(B, Ho, Wo, G, K, 2)
+    msk = None if mask is None else mask.reshape(B, Ho, Wo, G, K).float()
+    ys = (torch.arange(Ho, device=x.device) * sh - ph).reshape(1, Ho, 1, 1)
+    xs = (torch.arange(Wo, device=x.device) * sw - pw).reshape(1, 1, Wo, 1)
+    flat = x.reshape(B, H * W, G, Cin // G)
+    bi = torch.arange(B, device=x.device).reshape(B, 1, 1)
+    gi = torch.arange(G, device=x.device).reshape(1, 1, G)
+    cols = []
+    for k in range(K):
+        i, j = divmod(k, kw)
+        py = sample_positions(ys + i * dh, off[..., k, 0])  # (B, Ho, Wo, G)
+        px = sample_positions(xs + j * dw, off[..., k, 1])
+        y0, x0 = torch.floor(py), torch.floor(px)
+        wy1, wx1 = py - y0, px - x0
+        y0, x0 = y0.long(), x0.long()
+        acc = 0.0
+        for yy, wy in ((y0, 1.0 - wy1), (y0 + 1, wy1)):
+            for xx, wx in ((x0, 1.0 - wx1), (x0 + 1, wx1)):
+                valid = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+                idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1)).reshape(B, Ho * Wo, G)
+                v = flat[bi, idx, gi].reshape(B, Ho, Wo, G, Cin // G)
+                acc = acc + v.float() * torch.where(valid, wy * wx, 0.0)[..., None]
+        if msk is not None:
+            acc = acc * msk[..., k, None]
+        cols.append(acc.to(x.dtype).reshape(B, Ho, Wo, Cin))
+    wg = Cin // Cin_g
+    col = torch.stack(cols, -1).reshape(B, Ho, Wo, wg, Cin_g * K)
+    wmat = weight.to(x.dtype).reshape(wg, Cout // wg, Cin_g * K)
+    out = torch.einsum("bhwgc,goc->bhwgo", col, wmat).reshape(B, Ho, Wo, Cout)
+    return out if bias is None else out + bias.to(x.dtype)

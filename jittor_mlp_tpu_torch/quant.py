@@ -17,7 +17,10 @@ Two schemes, both symmetric:
   ``quantize_tree`` does (a variance below its layer's absmax/254 becomes
   0); a stacked token-mix weight
   (depth, O, I, 1) with one scale per (layer, out-channel), a DynaMixer
-  projection (depth, seg, hidden, C) with one per (layer, segment). The
+  projection (depth, seg, hidden, C) with one per (layer, segment), a
+  GFNet ``complex_weight`` (depth, a, b, C, 2) with one per (layer, grid
+  row), a Sequencer LSTM weight (depth, 4H, C) with one per (layer, gate
+  row). The
   dequantized weights equal the JAX package's
   ``dequantize_tree(quantize_tree(params))`` bit for bit.
 - **Dynamic W8A8** (``int8_mode()``, ``Predictor(compute="int8")``):

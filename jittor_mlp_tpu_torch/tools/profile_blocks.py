@@ -12,7 +12,8 @@ S2-MLPv2, RaftMLP, Swin-MLP-T, DynaMixer-T, MS-MLP-T, Hire-MLP-Tiny,
 CycleMLP-B2, ActiveMLP-xT, and the BatchNorm families ConvMixer-768/32,
 SparseMLP, MorphMLP-T, WaveMLP-T, ConvMLP-M and RepMLPNet-B224, whose
 running statistics are first recalibrated in f32 on four random batches
-of 32) in bf16 and int8, it profiles ``iters``
+of 32, and GFNet, GFNet-H-B and Sequencer2D-S) in bf16 and int8, it
+profiles ``iters``
 forwards after a warm-up; with ``--train``,
 ``iters`` bf16 mixed-precision train steps (AdamW): Mixer-B/16 on each
 route, the kernel route (``config.pallas_bwd``) and the recompute route,
@@ -21,7 +22,10 @@ and the plain path. ``--model`` picks one model or several (the keys of
 ``MODELS``; by default all of them, and for ``--train`` the Mixer and
 AS-MLP-T).
 It prints the device time per forward or step by kind of kernel (the
-port's kernels, library products, reductions, elementwise passes), each
+port's kernels, library products, reductions, elementwise passes; the
+kernels that ``torch.fft``'s and ``nn.LSTM``'s ops launch, the cuFFT
+transforms with their copies and cuDNN's RNN with its products, count as
+kinds of their own, "FFTs (cuFFT)" and "LSTM (cuDNN RNN)"), each
 CUDA kernel's device time and share of the device time, the device-busy
 share of the wall time, and the card's name and power limit. Needs a CUDA
 card.
@@ -71,6 +75,10 @@ MODELS = {  # --model key: (title, factory, arguments)
     "wave_mlp": ("WaveMLP-T", jt.WaveMLP, dict(model_name="T")),
     "morph_mlp": ("MorphMLP-T", jt.MorphMLP, dict(model_name="T")),
     "conv_mlp": ("ConvMLP-M", jt.convmlp_m, {}),
+    "gfnet": ("GFNet", jt.GFNet, {}),
+    "gfnet_h_b": ("GFNet-H-B", jt.GFNetPyramid, dict(embed_dim=[96, 192, 384, 768],
+                                                     depth=[3, 3, 27, 3], init_values=1e-6)),
+    "sequencer": ("Sequencer2D-S", jt.Sequencer2D, dict(model_name="S")),
 }
 
 
@@ -81,9 +89,40 @@ def _device_us(e):
     return 0.0
 
 
+# kinds of their own, by the op that launched the kernel (an op of the list
+# at or above it)
+OP_KINDS = (("LSTM (cuDNN RNN)", ("aten::lstm",)),
+            ("FFTs (cuFFT)", ("aten::fft_rfft2", "aten::fft_irfft2", "aten::_fft_r2c",
+                              "aten::_fft_c2r")))
+
+
+def _op_kind(name):
+    return next((k for k, ops in OP_KINDS if name in ops), None)
+
+
+def op_kernels(events, iters):
+    """{(kernel, kind): device ms per call} of the kernels launched inside
+    an op of OP_KINDS. Each kernel is read off the ``aten::`` op it is
+    correlated with (``torch.profiler``'s CPU events carry the kernels
+    their op launched); a runtime event under it (``cuLaunchKernel``,
+    "Command Buffer Full") can carry the same kernel again and is skipped."""
+    out = {}
+    for e in events:
+        if not e.name.startswith("aten::") or not e.kernels:
+            continue
+        k, node = None, e
+        while node is not None:
+            k = _op_kind(node.name) or k
+            node = node.cpu_parent
+        for kern in e.kernels if k else ():
+            out[(kern.name, k)] = out.get((kern.name, k), 0.0) + kern.duration / 1e3 / iters
+    return out
+
+
 def profile(run, iters):
     """Profile ``iters`` calls of run() after one warm-up call; returns
-    ([(kernel, device ms per call, launches per call)], wall ms per call)."""
+    ([(kernel, device ms per call, launches per call)], wall ms per call,
+    ``op_kernels``)."""
     run()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -98,7 +137,7 @@ def profile(run, iters):
     rows = [(e.key, _device_us(e) / 1e3 / iters, e.count // iters)
             for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and _device_us(e) > 0]
-    return sorted(rows, key=lambda r: -r[1]), wall_ms / iters
+    return sorted(rows, key=lambda r: -r[1]), wall_ms / iters, op_kernels(prof.events(), iters)
 
 
 KINDS = (  # (kind, substrings of the kernel names), first match wins
@@ -118,11 +157,16 @@ def kind(key):
     return next((k for k, marks in KINDS if any(m in key for m in marks)), "other")
 
 
-def report(title, rows, wall, top):
+def report(title, rows, wall, top, by_op=None):
+    """``by_op`` (``op_kernels``): the kernels' time inside those ops goes
+    to the op's kind, the rest of each kernel's time to its own."""
     busy = sum(r[1] for r in rows)
     print(f"\n{title}: wall {wall:.3f} ms, device busy {busy:.3f} ms ({100 * busy / wall:.1f}%)")
-    by_kind = {}
+    by_op, by_kind = by_op or {}, {}
+    for (_, k), ms in by_op.items():
+        by_kind[k] = by_kind.get(k, 0.0) + ms
     for key, ms, _ in rows:
+        ms -= sum(v for (kern, _), v in by_op.items() if kern == key)
         by_kind[kind(key)] = by_kind.get(kind(key), 0.0) + ms
     print("  by kind: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in
                                     sorted(by_kind.items(), key=lambda kv: -kv[1])))
@@ -139,8 +183,8 @@ def serving(batch, iters, keys):
         model = model.to_bf16().eval()
         for int8 in (False, True):
             with torch.inference_mode(), config.int8_mode() if int8 else contextlib.nullcontext():
-                rows, wall = profile(lambda: model.forward(x), iters)
-            report(f"{name} b{batch} {'int8' if int8 else 'bf16'} forward", rows, wall, 14)
+                rows, wall, by_op = profile(lambda: model.forward(x), iters)
+            report(f"{name} b{batch} {'int8' if int8 else 'bf16'} forward", rows, wall, 14, by_op)
         del model
         torch.cuda.empty_cache()
 
@@ -157,17 +201,17 @@ def training(batch, iters, keys):
         if key == "mixer":
             for route, pallas_bwd in (("kernel route", True), ("recompute route", False)):
                 config.pallas_bwd = pallas_bwd
-                rows, wall = profile(lambda: step(data), iters)
+                rows, wall, _ = profile(lambda: step(data), iters)
                 report(f"{name} b{batch} bf16 train step, {route}", rows, wall, 24)
             config.pallas_bwd = False
         elif key == "as_mlp":
             gen = torch.Generator(device="cuda").manual_seed(0)
             for path, use_pallas in (("kernel path", True), ("plain path", False)):
                 model.use_pallas = use_pallas
-                rows, wall = profile(lambda: step(data, gen), iters)
+                rows, wall, _ = profile(lambda: step(data, gen), iters)
                 report(f"{name} b{batch} bf16 train step, {path}", rows, wall, 24)
         else:
-            rows, wall = profile(lambda: step(data), iters)
+            rows, wall, _ = profile(lambda: step(data), iters)
             report(f"{name} b{batch} bf16 train step", rows, wall, 24)
         del model, opt, step
         torch.cuda.empty_cache()

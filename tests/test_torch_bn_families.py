@@ -270,14 +270,17 @@ def test_pretrained_path_loads_into_wave_and_morph(tmp_path):
 
 def test_jax_and_port_settings_tables_agree():
     from jittor_mlp_tpu.models import morph_mlp as jmorph
+    from jittor_mlp_tpu.models import sequencer as jseq
     from jittor_mlp_tpu.models import wave_mlp as jwave
     from jittor_mlp_tpu_torch.models import morph_mlp as tmorph
+    from jittor_mlp_tpu_torch.models import sequencer as tseq
     from jittor_mlp_tpu_torch.models import wave_mlp as twave
 
     # other tests may add settings to the JAX tables: each of the port's
     # settings is JAX's, and the published ones are there
     for port, ref, names in ((tmorph.morphmlp_settings, jmorph.morphmlp_settings, "TSBL"),
-                             (twave.wavemlp_settings, jwave.wavemlp_settings, "TSM")):
+                             (twave.wavemlp_settings, jwave.wavemlp_settings, "TSM"),
+                             (tseq.sequencer_settings, jseq.sequencer_settings, "SML")):
         assert set(names) <= set(port)
         for k, v in port.items():
             assert ref[k] == v, k

@@ -21,6 +21,8 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "from jittor_mlp_tpu_torch.models import active_mlp, cycle_mlp, hire_mlp, ms_mlp\n"
         "from jittor_mlp_tpu_torch.models import (\n"
         "    conv_mixer, conv_mlp, morph_mlp, repmlpnet, sparse_mlp, wave_mlp)\n"
+        "from jittor_mlp_tpu_torch.models import gfnet, sequencer\n"
+        "from jittor_mlp_tpu_torch.ops import dcn, lstm\n"
         "from jittor_mlp_tpu_torch.core import train_utils\n"
         "from jittor_mlp_tpu_torch.utils import checkpoint\n"
         "from jittor_mlp_tpu_torch.ops import deform, shift, window\n"
@@ -36,12 +38,19 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "          'CycleMLP_B3', 'CycleMLP_B4', 'CycleMLP_B5', 'ActiveSmall', 'ActiveBase',\n"
         "          'ActiveLarge', 'ConvMixer', 'SparseMLP', 'MorphMLP', 'WaveMLP',\n"
         "          'convmlp_s', 'convmlp_m', 'convmlp_l', 'create_RepMLPNet_B224',\n"
-        "          'create_RepMLPNet_B256'):\n"
+        "          'create_RepMLPNet_B256', 'GFNet', 'GFNetPyramid', 'Sequencer2D'):\n"
         "    assert hasattr(jt, f), f\n"
         "assert callable(cycle_mlp.CycleNet) and callable(active_mlp.ActivexTiny)\n"
         "assert callable(conv_mlp.ConvMLP) and callable(repmlpnet.RepMLPNet)\n"
         "assert callable(train_utils.recalibrate_bn)\n"
         "assert callable(checkpoint.load_torch_checkpoint)\n"
+        "assert callable(checkpoint.resize_pos_embed)\n"
+        "assert callable(checkpoint.gfnet_checkpoint_filter)\n"
+        "assert callable(deform.deform_conv2d) and callable(lstm.bilstm)\n"
+        "assert callable(gfnet.global_filter) and 'S' in sequencer.sequencer_settings\n"
+        "for n in ('Registry', 'HEADS', 'dcn_v2_conv', 'deform_conv2d_jt', 'dcn_v2_pooling',\n"
+        "          'DeformConv', 'DCNv2', 'DCN', 'DCNv2Pooling', 'DCNPooling'):\n"
+        "    assert hasattr(dcn, n), n\n"
         "for m in (axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, mixer_block,\n"
         "          mixer_block_bwd, mixer_block_int8, resmlp_block, resmlp_block_int8):\n"
         "    assert not m._LIB.loaded, f'{m.__name__}: kernel library loaded at import'\n"

@@ -25,8 +25,9 @@ list, copied here (its ``build_cases()`` loads the torch reference).
 ``state_dict_from_jax`` takes the keys the JAX params do not hold
 (``convert.jax_dropped``) from the JAX model's init template, as JAX's
 export does; every other key must come from the params.
-``dyna_xs``, ``wave_xs`` and ``morph_xs`` add the "XS" settings of
-DynaMixer, WaveMLP and MorphMLP to both packages. ``calibrated`` gives
+``dyna_xs``, ``wave_xs``, ``morph_xs`` and ``sequencer_xs`` add the "XS"
+settings of DynaMixer, WaveMLP, MorphMLP and Sequencer2D to both
+packages. ``calibrated`` gives
 the BatchNorm families' factories the running statistics of the JAX
 ``recalibrate_bn`` on seeded batches, on both sides.
 """
@@ -80,6 +81,8 @@ WAVE = dict(model_name="XS", num_classes=10)
 WAVE_XS = [[1, 1, 1, 1], [2, 2, 2, 2]]
 MORPH = dict(model_name="XS", num_classes=10)
 MORPH_XS = [[2, 2], [2, 2], [16, 32], [4, 4], [0.0, 0.0]]
+SEQ = dict(model_name="XS", num_classes=10)
+SEQ_XS = [[1, 1], [16, 32], [8, 8], 2]
 
 
 @contextlib.contextmanager
@@ -116,6 +119,12 @@ def wave_xs():
 def morph_xs():
     """The "XS" MorphMLP setting (tools/parity_report.py) in both packages."""
     return _xs("morph_mlp", "morphmlp_settings", MORPH_XS)
+
+
+def sequencer_xs():
+    """The "XS" Sequencer2D setting (tools/parity_report.py) in both
+    packages."""
+    return _xs("sequencer", "sequencer_settings", SEQ_XS)
 
 
 def images(shape, seed=0):
