@@ -10,7 +10,7 @@ with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
 drop-path; then runs the port's kernel lab over the Mixer-B/16 stack,
 serves the eighteen families that have no kernel of their own (nineteen
-models), and checks the DCN ops. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+models), checks the DCN ops, and trains the nineteen. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -206,7 +206,22 @@ Phases (each one fails loudly; there is no CPU fallback):
      trans_std 0.1; ``offset_mask_fc`` drawn so that trans and the mask
      vary) over 128 RoIs on (2, 256, 50, 50): card float32 (TF32 off)
      against the CPU within 1e-4 of max|ref|, bf16 against card float32
-     within 5e-2; their ms. No port kernel launches in this run.
+     within 5e-2; their ms. No port kernel launches in this run;
+ 10. the nineteen models of phase 8 train through ``make_train_step``, at
+     the same widths and edits, drop-path at the factory's default rate
+     (0.1 where that is 0): (a) at b2 in float32 (TF32 off), drop-path
+     off, the loss and every gradient on the card against the CPU
+     (within 1e-4 relative and 1e-3 global relative L2), and the bf16
+     gradients against the card's float32 ones (within 5e-2; printed only
+     for ConvMixer-768/32, RepMLPNet-B224 and ConvMLP-M); (b) one bf16
+     AdamW step on 8 images with a cuda generator: a finite loss, every
+     parameter with a gradient moved, every running statistic moved, and
+     in each drop-path family the train forward with a generator away
+     from the one without; (c) b128 bf16 train img/s (1 warm-up and 3
+     timed steps, CUDA events) and peak memory, under remat or at b64
+     where b128 does not fit; then the bf16 BiLSTM's cost on the step's
+     cast copies against cuDNN's buffer. No port kernel launches in this
+     run.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -2919,6 +2934,207 @@ def phase_train(jt, mods, name):
     return counted
 
 
+# Phase 10: one train step of each of phase 8's models at the same widths.
+# The drop-path families train at their factories' default rates, and at
+# 0.1 where that default is 0 (TRAIN_RATE), so that drop-path runs on the card
+DROP_PATH_FAMILIES = ("raft_mlp", "swin_mlp", "dyna_mlp", "ms_mlp", "cycle_mlp", "active_mlp",
+                      "morph_mlp", "conv_mlp", "gfnet", "gfnet_pyramid")
+TRAIN_RATE = {"raft_mlp": 0.1, "cycle_mlp": 0.1, "active_mlp": 0.1, "gfnet": 0.1,
+              "gfnet_pyramid": 0.1}
+TRAIN_LOSS = 1e-4  # f32 card (TF32 off) vs CPU, relative
+TRAIN_GRAD = 1e-3  # f32 card vs CPU, global relative L2 of the gradients
+TRAIN_BF16 = 5e-2  # bf16 gradients vs card f32, global relative L2
+# printed, not held: TEACHER_FORCED's draws amplify rounding (phase 8), and
+# ConvMLP-M's bf16 conv-BatchNorm stem at b2 is as far from f32 in the JAX
+# package itself: on the CPU, the same weights and batch, JAX's bf16
+# gradients read 0.0765 from its f32 ones, the port's 0.0768 (its f32
+# gradients within 4.2e-4 of JAX's)
+BF16_GRADS_FREE = TEACHER_FORCED + ("conv_mlp",)
+TRAIN_BATCH = 128
+TRAIN_ITERS = 3  # timed b128 steps, after one warm-up step
+
+
+def lstm_copies(caught):
+    return [str(w.message)[:80] for w in caught if "contiguous chunk" in str(w.message)]
+
+
+def train_zoo_case(jt, key, name):
+    """(a) f32 gradients on the card against the CPU at b2; (b) one bf16
+    make_train_step step with AdamW and a cuda generator; (c) b128 bf16
+    train img/s and peak memory (under remat, or at b64, where a b128 step
+    does not fit). Returns (img/s, how, cuDNN weight-compaction warnings
+    seen)."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    title, factory_name, kw, _ends, edit = FAMILIES[key]
+    factory = jt
+    for part in factory_name.split("."):
+        factory = getattr(factory, part)
+    kw = {k: v for k, v in kw.items() if k != "drop_path_rate"}  # the factory's default
+    kw.update({"drop_path_rate": TRAIN_RATE[key]} if key in TRAIN_RATE else {})
+    tag = f"[10] {title}"
+    sd = factory(**kw, device="cpu").export_torch_state_dict()  # seed 0
+    if edit is not None:
+        edit(sd)
+
+    def build(**where):
+        return factory(**kw, **where).load_torch_state_dict(sd)
+
+    # (a) f32: card against CPU, the same weights and batch, drop-path off
+    b2 = train_batch(2, 100)
+    card_m = build()
+    with config.parity_mode():
+        lc, gc = grads_of(card_m, b2, None)
+        t0 = time.perf_counter()
+        lcpu, gcpu = grads_of(build(device="cpu"), {k: v.cpu() for k, v in b2.items()}, None)
+        cpu_s = time.perf_counter() - t0
+    loss_dev = abs(lc - lcpu) / abs(lcpu)
+    grad_dev = rel_l2({k: v.cpu() for k, v in gc.items()}, gcpu)
+    check(gc.keys() == gcpu.keys(), f"{tag}: gradients of {sorted(set(gc) ^ set(gcpu))[:3]}")
+    # the bf16 gradients of the same batch (cast at the loss boundary)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, gb = grads_of(card_m, b2, torch.bfloat16)
+    bf16_dev = rel_l2(gb, gc)
+    held = key not in BF16_GRADS_FREE
+    print(f"{tag}: f32 b2 card (TF32 off) vs CPU: loss {lc:.6f} rel dev {loss_dev:.3g} "
+          f"(limit {TRAIN_LOSS}), gradients rel L2 {grad_dev:.3g} (limit {TRAIN_GRAD}; CPU "
+          f"{cpu_s:.2f} s); bf16 gradients vs card f32 rel L2 {bf16_dev:.4g} "
+          f"({'limit ' + str(TRAIN_BF16) if held else 'printed only'})", flush=True)
+    check(loss_dev <= TRAIN_LOSS and grad_dev <= TRAIN_GRAD,
+          f"{tag}: f32 card vs CPU loss {loss_dev}, gradients {grad_dev}")
+    check(not held or bf16_dev <= TRAIN_BF16,
+          f"{tag}: bf16 gradients {bf16_dev}")
+    del card_m, gc, gcpu, gb
+
+    # (b) one bf16 step with AdamW and a generator on the card
+    model = build()
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.05)
+    step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b8 = train_batch(8, 101)
+    with warnings.catch_warnings(record=True) as caught_step:
+        warnings.simplefilter("always")
+        loss = float(step(b8, gen))
+    params = dict(model.named_parameters())
+    trained = {k for k, p in params.items() if p.grad is not None}
+    moved = {k for k in trained if not torch.equal(params[k].detach(), before[k])}
+    stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
+    stats_moved = sum(not torch.equal(model.state_dict()[k], before[k]) for k in stats)
+    dp = ""
+    if key in DROP_PATH_FAMILIES:
+        rates = [m.drop_path_rate for m in model.modules() if hasattr(m, "drop_path_rate")]
+        with torch.no_grad():
+            x = b8["image"].bfloat16()
+            model.to_bf16()
+            plain = model.train().forward(x)
+            dropped = model.forward(x, torch.Generator(device="cuda").manual_seed(1))
+            evaled = model.eval().forward(x)
+        dp_dev, eval_dev = rel_dev(dropped.float(), plain.float()), rel_dev(dropped.float(),
+                                                                             evaled.float())
+        dp = (f"; drop-path rates {min(rates):.3g}..{max(rates):.3g} over {len(rates)} sites: "
+              f"train forward with a generator vs without {dp_dev:.4g}, vs eval {eval_dev:.4g}")
+        check(model.stochastic and dp_dev > 0 and eval_dev > 0,
+              f"{tag}: drop-path does not move the train forward ({dp_dev}, {eval_dev})")
+    print(f"{tag}: bf16 step (AdamW, cuda generator): loss {loss:.4f}; {len(moved)} of "
+          f"{len(trained)} trained parameters moved ({len(params) - len(trained)} without a "
+          f"gradient); {stats_moved} of {len(stats)} running statistics moved{dp}", flush=True)
+    check(np.isfinite(loss) and moved == trained and stats_moved == len(stats),
+          f"{tag}: step loss {loss}, moved {len(moved)}/{len(trained)}, stats "
+          f"{stats_moved}/{len(stats)}")
+    del model, opt, step, before
+
+    # (c) b128 bf16 train img/s and peak memory (1 warm-up, 3 timed steps)
+    for attempt in ("b128", "b128 remat", "b64 remat"):
+        model = build()
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=0.05)
+        step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+        batch = 64 if attempt.startswith("b64") else TRAIN_BATCH
+        data = train_batch(batch, 102)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            with (config.remat_mode() if "remat" in attempt else contextlib.nullcontext()), \
+                    warnings.catch_warnings(record=True) as caught_tp:
+                warnings.simplefilter("always")
+                ms = cuda_ms(lambda: step(data, gen), TRAIN_ITERS, warmup=1)
+            how = attempt
+            break
+        except torch.cuda.OutOfMemoryError:
+            print(f"{tag}: {attempt} train step does not fit in "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.1f} GiB",
+                  flush=True)
+            del model, opt, step, data
+            torch.cuda.empty_cache()
+    else:
+        fail(f"{tag}: no train step fits on the card")
+    rate = batch * 1e3 / ms
+    copies = lstm_copies(caught) + lstm_copies(caught_step) + lstm_copies(caught_tp)
+    lstm = f"; cuDNN weight-compaction warnings {len(copies)}" if key == "sequencer" else ""
+    print(f"{tag} bf16 train step {how}: {ms:.4f} ms, {rate:.1f} img/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB{lstm}  [{name}]", flush=True)
+    del model, opt, step, data
+    return rate, how, len(copies)
+
+
+def lstm_copy_cost(name):
+    """Sequencer2D-S's stage-1 BiLSTM (8192 x 32 x 192, H 48) forward and
+    backward in bf16 as the train step calls it, on bf16 cast copies of
+    float32 weights (outside cuDNN's buffer), against the same LSTM with
+    its bf16 weights in cuDNN's buffer: what the copies cost a call.
+    Returns ms each."""
+    from jittor_mlp_tpu_torch.ops.lstm import LSTM, bilstm
+    from jittor_mlp_tpu_torch.parallel.train import cast_floating
+
+    torch.manual_seed(0)
+    lstm = LSTM(192, 48).cuda()
+    flat = copy.deepcopy(lstm).bfloat16()
+    x = torch.randn(8192, 32, 192, device="cuda", dtype=torch.bfloat16, requires_grad=True)
+
+    def cast_call():
+        tensors = cast_floating(dict(lstm.named_parameters()), torch.bfloat16)
+        torch.func.functional_call(lstm, tensors, (x,))[0].sum().backward()
+
+    def flat_call():
+        bilstm(flat, x).sum().backward()
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        cast_ms = cuda_ms(cast_call, 5)
+    flat_ms = cuda_ms(flat_call, 5)
+    print(f"[10] bilstm bf16 forward+backward at 8192 x 32 x 192: on cast copies "
+          f"{cast_ms:.4f} ms ({len(lstm_copies(caught))} compaction warnings), on cuDNN's "
+          f"buffer {flat_ms:.4f} ms: the copy costs {cast_ms - flat_ms:.4f} ms a call  "
+          f"[{name}]", flush=True)
+    return cast_ms, flat_ms
+
+
+def phase_train_zoo(jt, mods, name):
+    """Phase 10: each of phase 8's models trains on the card through
+    make_train_step (drop-path, BatchNorm running statistics); no port
+    kernel launches in it."""
+    reset_counts(mods)
+    t0 = time.perf_counter()
+    rates, copies = {}, 0
+    for key in FAMILIES:
+        rate, how, n_copies = train_zoo_case(jt, key, name)
+        rates[key] = round(rate, 1) if how == "b128" else f"{rate:.1f} ({how})"
+        copies += n_copies
+        torch.cuda.empty_cache()
+    if "sequencer" in FAMILIES:
+        lstm_copy_cost(name)
+    print(f"[10] cuDNN weight-compaction warnings in the train run: {copies}", flush=True)
+    launched = {m: (sum(mod.LAUNCHES.values()) if isinstance(mod.LAUNCHES, dict)
+                    else mod.LAUNCHES) for m, mod in mods.items()}
+    print(f"[10] port kernel launches in the train run: {json.dumps(launched)} (want 0)",
+          flush=True)
+    check(not any(launched.values()), f"the train run launched port kernels: {launched}")
+    print(f"[10] bf16 train img/s: {json.dumps(rates)}; phase 10 in "
+          f"{time.perf_counter() - t0:.1f} s  [{name}]", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -2973,6 +3189,8 @@ def main():
     phase_families(jt, mods, name)
     torch.cuda.empty_cache()
     phase_dcn(mods, name)
+    torch.cuda.empty_cache()
+    phase_train_zoo(jt, mods, name)
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}

@@ -6,6 +6,14 @@ reference's; the factories build it on the card by default (``place``).
 state-dict import/export by those names, ``to_bf16``, ``param_count`` and a
 ``__call__`` that also takes a numpy NCHW batch and casts it to
 ``config.compute_dtype`` (as the JAX ``Model.__call__`` does).
+
+Drop-path: a submodule with a float attribute ``drop_path_rate`` (its
+rate, the JAX model's ``_dpr`` leaf or setting) owns ``drop_paths``
+residual branches that stochastic depth may drop (1 unless the class says
+otherwise). A model with such modules sets ``stochastic = True``, takes
+``forward(x, generator=None)`` and draws every mask up front with
+``drop_path_masks``, so that a checkpointed block recomputes with the
+masks of its forward.
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ import torch
 from torch import nn
 
 from .. import config
+from . import nnf
 
 
 def place(module, device):
@@ -58,6 +67,18 @@ class Model(nn.Module):
     @property
     def device(self):
         return next(self.parameters()).device
+
+    def drop_path_masks(self, x, generator):
+        """module → a tuple of its ``drop_paths`` per-sample keep masks
+        (``nnf.drop_path_mask``), drawn from ``generator`` in module order
+        for each module whose ``drop_path_rate`` is above 0; empty in eval
+        or without a generator. ``x``: the activation, for its batch and
+        device."""
+        if not self.training or generator is None:
+            return {}
+        return {m: tuple(nnf.drop_path_mask(x.shape[0], m.drop_path_rate, generator, x.device)
+                         for _ in range(getattr(m, "drop_paths", 1)))
+                for m in self.modules() if getattr(m, "drop_path_rate", 0) > 0}
 
     # -- torch-compat surface -------------------------------------------------
 

@@ -26,7 +26,9 @@ from an explicit ``torch.Generator``.
 ``batch_norm`` is a pure function, as in JAX: in train mode it normalizes
 with the batch's statistics and updates no running statistic. Inside
 ``bn_stats()`` (the calling thread) each train-mode call also reports its
-site's batch statistics, which ``train_utils.recalibrate_bn`` averages.
+site's batch statistics and count, which ``train_utils.recalibrate_bn``
+averages and the train step folds into the running statistics
+(``train_utils.apply_bn_updates``).
 
 ``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
 activation checkpointing under ``config.remat_mode()``.
@@ -210,8 +212,11 @@ _bn_local = threading.local()
 def bn_stats():
     """Collect train-mode BatchNorm statistics on this thread: yields a list
     to which every train-mode ``batch_norm`` appends (running_mean, batch
-    mean, biased batch variance), float32, in the order the sites ran. The
-    running_mean tensor names the site."""
+    mean, biased batch variance, n), the statistics float32 and detached,
+    n the count of elements reduced per channel (B·H·W, or B·N on a token
+    axis: the JAX sink's n, for the unbiased n/(n−1) of the running
+    variance), in the order the sites ran. The running_mean tensor (the
+    one the forward read) names the site."""
     old = getattr(_bn_local, "sink", None)
     _bn_local.sink = sink = []
     try:
@@ -233,7 +238,7 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, train=False
         var, mean = torch.var_mean(x.float(), dims, correction=0)
         sink = getattr(_bn_local, "sink", None)
         if sink is not None:
-            sink.append((running_mean, mean, var))
+            sink.append((running_mean, mean.detach(), var.detach(), x.numel() // x.shape[axis]))
     else:
         mean, var = running_mean.float(), running_var.float()
     scale = torch.rsqrt(var + eps)
@@ -323,8 +328,10 @@ def global_avg_pool_tokens(x):
 
 
 def _keep(rate):
-    """1 - rate in float32, as the JAX package computes it."""
-    return float(np.float32(1) - np.float32(rate))
+    """1 - rate rounded to float32, as the JAX package computes it: a
+    Python float rate in float64, then cast (a float32 rate's difference is
+    exact in float64, so this is also JAX's float32 subtraction)."""
+    return float(np.float32(1.0 - float(rate)))
 
 
 def drop_path_mask(batch, rate, generator, device):

@@ -1,5 +1,6 @@
-"""BatchNorm running-statistic recalibration (counterpart of
-``jittor_mlp_tpu/core/train_utils.py::recalibrate_bn``).
+"""BatchNorm running statistics (counterpart of
+``jittor_mlp_tpu/core/train_utils.py``): recalibration and the train
+step's EMA.
 
 ``recalibrate_bn(model, batches)`` runs one train-mode forward per batch,
 collects every BatchNorm site's batch statistics through ``nnf.bn_stats()``
@@ -8,12 +9,16 @@ biased batch variances into ``running_mean`` and ``running_var``. A site is
 named by its ``running_mean`` tensor, so no site tagging is needed. The
 train-mode forward itself updates no buffer (``nnf.batch_norm`` is pure).
 
-The running-statistic EMA of a train step (the JAX ``apply_bn_updates`` and
-``execution_order_ids``) is not ported.
+``apply_bn_updates(sites, stats, momentum)`` is the train step's EMA (the
+JAX ``apply_bn_updates``), torch's train-mode BatchNorm update. A site is
+named by the running_mean tensor the forward read, so the JAX
+``tag_bn_sites`` and ``execution_order_ids`` (which number the sites of a
+params tree for a jitted step) have no counterpart here.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import nnf
@@ -35,7 +40,7 @@ def recalibrate_bn(model, batches):
             for xb in batches:
                 with nnf.bn_stats() as sink:
                     model(xb)
-                for rm, mean, var in sink:
+                for rm, mean, var, _n in sink:
                     acc = sums.setdefault(id(rm), [0.0, 0.0])
                     acc[0] = acc[0] + mean
                     acc[1] = acc[1] + var
@@ -48,3 +53,30 @@ def recalibrate_bn(model, batches):
             m.running_mean.copy_(mean / counts[key])
             m.running_var.copy_(var / counts[key])
     return model
+
+
+def apply_bn_updates(sites, stats, momentum=0.1):
+    """Fold one forward's batch statistics into the running statistics, in
+    place, as the JAX ``apply_bn_updates`` and torch's train-mode
+    BatchNorm do:
+
+        running_mean ← (1 − m)·running_mean + m·batch_mean
+        running_var  ← (1 − m)·running_var  + m·batch_var·n/(n − 1)
+
+    with m = ``momentum``, the biased batch variance made unbiased (n − 1
+    at least 1), in float32, under ``no_grad``. ``stats``: the
+    ``nnf.bn_stats()`` entries (running_mean as read, mean, var, n) of the
+    forward; ``sites``: {id of the running_mean tensor the forward read:
+    (the model's own running_mean, running_var)}, so that a forward that
+    read cast copies (a bf16 step) updates the float32 buffers. A site the
+    forward ran twice takes its last statistics, as in JAX.
+    ``num_batches_tracked`` is left as it is: the JAX package keeps no
+    counter, and a fixed momentum never reads it."""
+    last = {id(rm): (mean, var, n) for rm, mean, var, n in stats}
+    with torch.no_grad():
+        for key, (mean, var, n) in last.items():
+            rm, rv = sites[key]
+            ratio = float(np.float32(n) / np.float32(max(n - 1, 1)))  # JAX's float32 n/(n-1)
+            rm.copy_(((1.0 - momentum) * rm.float() + momentum * mean.float()).to(rm.dtype))
+            rv.copy_(((1.0 - momentum) * rv.float() + momentum * (var.float() * ratio))
+                     .to(rv.dtype))

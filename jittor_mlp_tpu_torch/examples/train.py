@@ -3,6 +3,14 @@
     python -m jittor_mlp_tpu_torch.examples.train --model MLPMixerForImageClassification \
         --image-size 64 --batch 64 --steps 50 [--mixed-precision] [--remat on]
 
+``--model`` is any factory the package exports, sized to ``--image-size``
+and ``--classes`` through ``utils.sized_kwargs`` as the JAX example does
+(a factory with no image-size argument, as CycleMLP or ConvMixer, takes
+its own defaults and any image size its stem accepts); the Mixer keeps
+the example's small configuration (patch 8, width 128, depth 6), and the
+two factories whose widths have no default take compare.py's:
+ConvMixer-768/32 and RaftMLP's two levels of 64 and 128.
+
 The synthetic path of the JAX package's ``examples/train.py``: one random
 prototype image per class, and each step's batch is the prototypes of its
 labels plus 0.5·N(0, 1) noise, from numpy seeds (prototypes seed 0, step
@@ -10,8 +18,9 @@ labels plus 0.5·N(0, 1) noise, from numpy seeds (prototypes seed 0, step
 and eps 1e-8 (optax ``adamw``'s defaults). ``--mixed-precision`` trains
 in bf16 with f32 master weights; in bf16 the blocks run in the
 hand-written kernels (``config.pallas_bwd`` picks the Mixer's backward).
-AS-MLP's drop-path draws from a generator seeded with 0 (the JAX example's
-``PRNGKey(0)``). Runs on the card unless ``--device cpu``.
+Drop-path draws from a generator seeded with 0 (the JAX example's
+``PRNGKey(0)``); BatchNorm running statistics update every step. Runs on
+the card unless ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,9 +36,14 @@ import jittor_mlp_tpu_torch as jt
 from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch.parallel import make_train_step
 from jittor_mlp_tpu_torch.tuned import train_settings
+from jittor_mlp_tpu_torch.utils import sized_kwargs
 
-MODELS = ("MLPMixerForImageClassification", "ResMLPForImageClassification",
-          "gMLPForImageClassification", "AS_MLP")
+MODELS = tuple(n for n in jt.__all__ if n not in ("Model", "MicroBatcher", "Predictor", "config"))
+REQUIRED = {  # compare.py's widths for the factories that have none by default
+    "ConvMixer": dict(dim=768, depth=32, kernel_size=7, patch_size=7),
+    "RaftMLP": dict(layers=[{"depth": 2, "dim": 64, "patch_size": 4, "raft_size": 2},
+                            {"depth": 2, "dim": 128, "patch_size": 2, "raft_size": 2}]),
+}
 
 
 def main(argv=None):
@@ -49,14 +63,14 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
+    factory = getattr(jt, args.model)
     if args.model == "MLPMixerForImageClassification":
         kwargs = dict(image_size=args.image_size, patch_size=8, d_model=128, depth=6,
                       num_classes=args.classes)
-    elif args.model == "AS_MLP":
-        kwargs = dict(img_size=args.image_size, num_classes=args.classes)
     else:
-        kwargs = dict(image_size=args.image_size, num_classes=args.classes)
-    model = getattr(jt, args.model)(**kwargs, device=args.device)
+        kwargs = {**REQUIRED.get(args.model, {}),
+                  **sized_kwargs(factory, image_size=args.image_size, num_classes=args.classes)}
+    model = factory(**kwargs, device=args.device)
     print(f"{args.model}: {model.param_count():,} params on {model.device}")
 
     if args.remat == "auto":

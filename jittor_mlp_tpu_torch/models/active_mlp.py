@@ -3,8 +3,8 @@
 A hierarchy on NHWC activations: a 7×7 stride-4 Conv2d stem (padding 2)
 and stages of blocks
 
-    h = h + atm(LN(h), offsets)
-    h = h + fc2(GELU(fc1(LN(h))))
+    h = h + drop_path(atm(LN(h), offsets))
+    h = h + drop_path(fc2(GELU(fc1(LN(h)))))
 
 with a 3×3 stride-2 Conv2d (padding 1), ``downsample``, on the last block
 of each stage but the last, and at the end LayerNorm, a token mean and the
@@ -29,8 +29,9 @@ lowering to pick, so its "auto" is exact whatever the weights become.
 The ATM products stay out of int8 (``jnp.matmul`` in JAX); ``atm_c``,
 ``fusion``, ``proj``, ``offset_layer.1``, the MLP and the head run as
 dynamic W8A8 under ``config.int8_mode()``; the stem, the PEG and the
-downsamples are ``F.conv2d``. Drop-path (training) is not ported: the
-train-mode forward applies none.
+downsamples are ``F.conv2d``. Drop-path (training, with a generator)
+follows the JAX stochastic depth rule: one float32 linspace from 0 to
+``drop_path_rate`` over all blocks.
 
 Parameter names are the torch reference's (``patch_embed.proj``,
 ``blocks.{i}.{j}.{norm1,norm2,atm.{atm_c,atm_h,atm_w,fusion.{fc1,fc2},proj},
@@ -40,6 +41,7 @@ mlp.{fc1,fc2},offset_layer.{0,1},downsample.proj}``, ``pos_blocks.{i}.proj``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -128,8 +130,11 @@ class Proj(nn.Module):
 
 
 class ActiveBlock(nn.Module):
-    def __init__(self, dim, mlp_ratio, share, makes_offsets, down):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, mlp_ratio, share, makes_offsets, down, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm1 = nn.LayerNorm(dim)
         self.atm = ATMLayer(dim)
         self.norm2 = nn.LayerNorm(dim)
@@ -142,15 +147,18 @@ class ActiveBlock(nn.Module):
 
 class ActiveMLPModel(Model):
     name = "active_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, in_chans, num_classes, depths, embed_dims, mlp_ratios, share_dims,
-                 intv, offset_band, seed):
+                 intv, offset_band, drop_path_rate, seed):
         super().__init__()
         if not (offset_band in ("auto", None) or isinstance(offset_band, int)):
             raise ValueError(f"offset_band {offset_band!r}: 'auto', None or an int")
         n_stages = len(depths)
         self.share_dims = list(share_dims)
         self.band = offset_band if isinstance(offset_band, int) else None
+        # stochastic-depth decay rule (the JAX factory's linspace, in float32)
+        dpr = np.linspace(0, drop_path_rate, sum(depths), dtype=np.float32)
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = Proj(in_chans, embed_dims[0], 7, 4, 2)
             self.blocks = nn.ModuleList(
@@ -158,7 +166,7 @@ class ActiveMLPModel(Model):
                     ActiveBlock(embed_dims[i], mlp_ratios[i], share_dims[i],
                                 _makes_offsets(j, depths[i], intv),
                                 embed_dims[i + 1] if i < n_stages - 1 and j == depths[i] - 1
-                                else None)
+                                else None, float(dpr[sum(depths[:i]) + j]))
                     for j in range(depths[i]))
                 for i in range(n_stages))
             self.pos_blocks = nn.ModuleList(Proj(d, d, 3, 1, 1, groups=d) for d in embed_dims)
@@ -168,21 +176,27 @@ class ActiveMLPModel(Model):
             seed, in_chans=in_chans, depths=depths, embed_dims=embed_dims,
             mlp_ratios=mlp_ratios, share_dims=share_dims, intv=intv, num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         pe = self.patch_embed.proj
         x = nnf.conv2d(x.permute(0, 2, 3, 1), pe.weight, pe.bias, stride=4, padding=2)
+        masks = self.drop_path_masks(x, generator)
         offset = None
         for i, stage in enumerate(self.blocks):
             for blk in stage:
+                m1, m2 = masks.get(blk, (None, None))
+                train, rate = blk in masks, blk.drop_path_rate
                 if hasattr(blk, "offset_layer"):  # PEG, then new offsets
                     peg = self.pos_blocks[i].proj
                     x = nnf.conv2d(x, peg.weight, peg.bias, padding=1, groups=peg.groups) + x
                     norm, lin = blk.offset_layer
                     offset = _linear(nnf.layer_norm(x, norm.weight, norm.bias), lin)
                 y = nnf.layer_norm(x, blk.norm1.weight, blk.norm1.bias)
-                x = x + blk.atm(y, offset, self.share_dims[i], self.band)
-                x = x + blk.mlp(nnf.layer_norm(x, blk.norm2.weight, blk.norm2.bias))
+                x = x + nnf.drop_path(blk.atm(y, offset, self.share_dims[i], self.band), rate,
+                                      train, mask=m1)
+                y = blk.mlp(nnf.layer_norm(x, blk.norm2.weight, blk.norm2.bias))
+                x = x + nnf.drop_path(y, rate, train, mask=m2)
                 if hasattr(blk, "downsample"):
                     ds = blk.downsample.proj
                     x = nnf.conv2d(x, ds.weight, ds.bias, stride=2, padding=1)
@@ -211,13 +225,12 @@ def ActiveMLP(
     "cuda" raises). offset_band: an int D clamps the offsets to ±D; "auto"
     and None sample exactly. As in JAX, the stem is always 7×7 stride 4,
     img_size, patch_size and other keyword arguments are accepted and
-    unused; drop_path_rate has no effect in eval, and training is not
-    ported yet."""
-    del img_size, patch_size, drop_path_rate, kwargs  # see the docstring
+    unused."""
+    del img_size, patch_size, kwargs  # see the docstring
     return ActiveMLPModel(
         in_chans=in_chans, num_classes=num_classes, depths=list(depths),
         embed_dims=list(embed_dims), mlp_ratios=list(mlp_ratios), share_dims=list(share_dims),
-        intv=intv, offset_band=offset_band, seed=seed,
+        intv=intv, offset_band=offset_band, drop_path_rate=drop_path_rate, seed=seed,
     ).place(device)
 
 

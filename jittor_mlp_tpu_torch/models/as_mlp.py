@@ -107,6 +107,8 @@ class Mlp(nn.Module):
 
 
 class AxialShiftedBlock(nn.Module):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
     def __init__(self, dim, shift_size, mlp_ratio, as_bias, drop_path_rate):
         super().__init__()
         self.drop_path_rate = drop_path_rate  # a float, not a parameter
@@ -184,16 +186,6 @@ class ASMLP(Model):
             as_bias=as_bias, patch_norm=patch_norm, patch_size=self.patch_size,
             num_classes=num_classes,
         ))
-
-    def drop_path_masks(self, x, generator):
-        """block → its two per-sample drop-path masks, drawn from
-        ``generator`` in block order; empty in eval or without a generator.
-        Blocks at rate 0 draw none."""
-        if not self.training or generator is None:
-            return {}
-        return {blk: tuple(nnf.drop_path_mask(x.shape[0], blk.drop_path_rate, generator,
-                                              x.device) for _ in range(2))
-                for layer in self.layers for blk in layer.blocks if blk.drop_path_rate > 0}
 
     def forward(self, x, generator=None):
         """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the

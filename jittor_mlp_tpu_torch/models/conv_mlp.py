@@ -9,17 +9,18 @@ On NHWC activations:
   stride-2 downsample conv;
 - MLP stages of blocks
 
-      h = h + channel_mlp1(LN(h))
+      h = h + drop_path(channel_mlp1(LN(h)))
       h = connect(connect_norm(h))        # 3×3 depthwise, no bias; no residual
-      h = h + channel_mlp2(norm2(h))
+      h = h + drop_path(channel_mlp2(norm2(h)))
 
   with a 3×3 stride-2 conv (``downsample_mlp.downsample``) between stages;
 - LayerNorm, the token mean and the head; with ``classifier_head=False``
   the model returns the final (B, H, W, C) map instead, as JAX does.
 
 The 1×1 convs, the channel MLPs and the head run as dynamic W8A8 under
-``config.int8_mode()``; every other conv is ``F.conv2d``. Drop-path (the
-per-stage linspace 0–0.1) is not applied in training.
+``config.int8_mode()``; every other conv is ``F.conv2d``. In training with
+a generator, drop-path takes the JAX rates, fixed by the code: a float32
+linspace from 0 to 0.1 over each stage's blocks.
 
 Parameter names are the torch reference's (``tokenizer.block.{0,1,3,4,6,7}``,
 ``conv_stages.conv_blocks.{j}.{0,1,3,4,6,7}``, ``conv_stages.downsample``,
@@ -32,6 +33,7 @@ and never downloads.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -112,8 +114,11 @@ class Mlp(nn.Module):
 
 
 class ConvMLPBlock(nn.Module):
-    def __init__(self, dim, ff):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, ff, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm1 = nn.LayerNorm(dim)
         self.channel_mlp1 = Mlp(dim, ff)
         self.norm2 = nn.LayerNorm(dim)
@@ -131,7 +136,8 @@ class ConvDownsample(nn.Module):
 class ConvMLPStage(nn.Module):
     def __init__(self, dim, ff, depth, out=None):
         super().__init__()
-        self.blocks = nn.ModuleList(ConvMLPBlock(dim, ff) for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            ConvMLPBlock(dim, ff, float(r)) for r in np.linspace(0, 0.1, depth, dtype=np.float32))
         if out is not None:
             self.downsample_mlp = ConvDownsample(dim, out)
 
@@ -147,6 +153,7 @@ def _ln(x, m):
 
 class ConvMLPModel(Model):
     name = "conv_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, depth, d_model, expansion_factor, channels, n_conv_blocks,
                  classifier_head, num_classes, seed):
@@ -168,9 +175,10 @@ class ConvMLPModel(Model):
             channels=channels, n_conv_blocks=n_conv_blocks, classifier_head=classifier_head,
             num_classes=num_classes))
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         """x: (B, 3, H, W) → logits (B, num_classes), or the final (B, H', W',
-        C) map without the classifier head."""
+        C) map without the classifier head. ``generator``: the drop-path
+        random source in training."""
         train = self.training
         x = x.permute(0, 2, 3, 1)  # NCHW → NHWC
         tk = self.tokenizer.block
@@ -185,11 +193,16 @@ class ConvMLPModel(Model):
         ds = self.conv_stages.downsample
         x = nnf.conv2d(x, ds.weight, ds.bias, stride=2, padding=1)
 
+        masks = self.drop_path_masks(x, generator)
+
         def block(blk, h):
-            h = h + _mlp(blk.channel_mlp1, _ln(h, blk.norm1))
+            m1, m2 = masks.get(blk, (None, None))
+            dp, rate = blk in masks, blk.drop_path_rate
+            h = h + nnf.drop_path(_mlp(blk.channel_mlp1, _ln(h, blk.norm1)), rate, dp, mask=m1)
             h = nnf.conv2d(_ln(h, blk.connect_norm), blk.connect.weight, padding=1,
                            groups=h.shape[-1])
-            return h + _mlp(blk.channel_mlp2, _ln(h, blk.norm2))
+            return h + nnf.drop_path(_mlp(blk.channel_mlp2, _ln(h, blk.norm2)), rate, dp,
+                                     mask=m2)
 
         for stage in self.stages:
             x = nnf.run_blocks(stage.blocks, x, block)

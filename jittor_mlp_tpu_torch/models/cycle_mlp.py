@@ -3,8 +3,8 @@
 A hierarchy on NHWC activations: a 7×7 stride-4 Conv2d stem (padding 2),
 stages of blocks
 
-    h = h + attn(LN(h)) / skip_lam
-    h = h + fc2(GELU(fc1(LN(h)))) / skip_lam
+    h = h + drop_path(attn(LN(h))) / skip_lam
+    h = h + drop_path(fc2(GELU(fc1(LN(h))))) / skip_lam
 
 with a 3×3 stride-2 Conv2d (padding 1) after each stage that has a
 transition, and at the end LayerNorm, a token mean and the head. ``attn``
@@ -22,7 +22,9 @@ so the buffer is not a parameter: it is not counted, trained or quantized.
 CycleFC's products stay out of int8 (``jnp.matmul`` in JAX); ``mlp_c``,
 ``reweight``, ``proj``, the MLP and the head run as dynamic W8A8 under
 ``config.int8_mode()``; the stem and the transitions are ``F.conv2d``.
-Drop-path (training) is not ported: the train-mode forward applies none.
+Drop-path (training, with a generator) follows the JAX decay rule
+(``_block_dpr``: ``drop_path_rate`` · global block index / (blocks − 1),
+rounded to float32); the branch is divided by ``skip_lam`` after it.
 
 Parameter names are the torch reference's (``patch_embed.proj``,
 ``network.{k}.{j}.{norm1,norm2,attn.{mlp_c,sfc_h,sfc_w,reweight.{fc1,fc2},
@@ -31,6 +33,7 @@ proj},mlp.{fc1,fc2}}``, ``network.{k}.proj``, ``norm``, ``head``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -127,17 +130,25 @@ class CycleMLPBranches(nn.Module):
 
 
 class CycleBlock(nn.Module):
-    def __init__(self, dim, mlp_ratio, qkv_bias, skip_lam):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, mlp_ratio, qkv_bias, skip_lam, drop_path_rate):
         super().__init__()
         self.skip_lam = skip_lam
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm1 = nn.LayerNorm(dim)
         self.attn = CycleMLPBranches(dim, qkv_bias)
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, h):
-        h = h + self.attn(nnf.layer_norm(h, self.norm1.weight, self.norm1.bias)) / self.skip_lam
-        return h + self.mlp(nnf.layer_norm(h, self.norm2.weight, self.norm2.bias)) / self.skip_lam
+    def forward(self, h, masks=None):
+        """masks: this block's two drop-path masks, or None (no drop-path)."""
+        m1, m2 = masks or (None, None)
+        train, rate = masks is not None, self.drop_path_rate
+        y = self.attn(nnf.layer_norm(h, self.norm1.weight, self.norm1.bias))
+        h = h + nnf.drop_path(y, rate, train, mask=m1) / self.skip_lam
+        y = self.mlp(nnf.layer_norm(h, self.norm2.weight, self.norm2.bias))
+        return h + nnf.drop_path(y, rate, train, mask=m2) / self.skip_lam
 
 
 class Downsample(nn.Module):
@@ -155,18 +166,28 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_chans, dim, 7, 4, 2)
 
 
+def block_rates(layers, drop_path_rate):
+    """Each block's drop-path rate, stage by stage (the JAX ``_block_dpr``:
+    computed in float64, stored as float32)."""
+    total = sum(layers)
+    return [float(np.float32(drop_path_rate * (j + sum(layers[:i])) / max(total - 1, 1)))
+            for i in range(len(layers)) for j in range(layers[i])]
+
+
 class CycleMLPModel(Model):
     name = "cycle_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, layers, in_chans, num_classes, embed_dims, transitions, mlp_ratios,
-                 skip_lam, qkv_bias, seed):
+                 skip_lam, qkv_bias, drop_path_rate, seed):
         super().__init__()
         net = []
+        rates = iter(block_rates(layers, drop_path_rate))
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = PatchEmbed(in_chans, embed_dims[0])
             for i, depth in enumerate(layers):
                 net.append(nn.ModuleList(
-                    CycleBlock(embed_dims[i], mlp_ratios[i], qkv_bias, skip_lam)
+                    CycleBlock(embed_dims[i], mlp_ratios[i], qkv_bias, skip_lam, next(rates))
                     for _ in range(depth)))
                 if _has_transition(i, layers, embed_dims, transitions):
                     net.append(Downsample(embed_dims[i], embed_dims[i + 1]))
@@ -178,15 +199,17 @@ class CycleMLPModel(Model):
             transitions=transitions, mlp_ratios=mlp_ratios, qkv_bias=qkv_bias,
             num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         pe = self.patch_embed.proj
         x = nnf.conv2d(x.permute(0, 2, 3, 1), pe.weight, pe.bias, stride=4, padding=2)
+        masks = self.drop_path_masks(x, generator)
         for slot in self.network:
             if isinstance(slot, Downsample):
                 x = slot(x)
             else:
-                x = nnf.run_blocks(slot, x, lambda blk, h: blk(h))
+                x = nnf.run_blocks(slot, x, lambda blk, h: blk(h, masks.get(blk)))
         x = nnf.layer_norm(x, self.norm.weight, self.norm.bias).mean((1, 2))
         return _linear(x, self.head)
 
@@ -213,13 +236,13 @@ def CycleNet(
     the model is built, the card unless the caller asks for the CPU; with no
     card, "cuda" raises). As in JAX, the stem is always 7×7 stride 4, and
     img_size, patch_size, segment_dim, fork_feat and other keyword arguments
-    are accepted and unused; drop_path_rate has no effect in eval, and
-    training is not ported yet."""
-    del img_size, patch_size, segment_dim, drop_path_rate, fork_feat, kwargs  # see above
+    are accepted and unused."""
+    del img_size, patch_size, segment_dim, fork_feat, kwargs  # see above
     return CycleMLPModel(
         layers=list(layers), in_chans=in_chans, num_classes=num_classes,
         embed_dims=list(embed_dims), transitions=list(transitions),
-        mlp_ratios=list(mlp_ratios), skip_lam=skip_lam, qkv_bias=qkv_bias, seed=seed,
+        mlp_ratios=list(mlp_ratios), skip_lam=skip_lam, qkv_bias=qkv_bias,
+        drop_path_rate=drop_path_rate, seed=seed,
     ).place(device)
 
 

@@ -3,8 +3,8 @@
 Two stages of a patchify Conv2d(k=s=patch) as one matmul on NHWC
 activations and blocks of
 
-    y = LN(h);  h = h + proj_o(op_h(y) + op_w(y) + proj_c(y))
-    h = h + fc3(GELU(fc0(LN(h))))
+    y = LN(h);  h = h + drop_path(proj_o(op_h(y) + op_w(y) + proj_c(y)))
+    h = h + drop_path(fc3(GELU(fc0(LN(h)))))
 
 then a spatial mean and a Linear head. A DynaMixer operation mixes the
 tokens along one axis with content-dependent weights: the channels split
@@ -22,8 +22,8 @@ VPU unroll of that product is a TPU lowering and is not ported). Under
 ``config.int8_mode()`` the Linear layers (``proj_c``, ``proj_o``,
 ``attend``, ``proc``, the FF) and the patch embedding run as dynamic
 W8A8; the ``Wd`` projection and the mixing product stay in the compute
-dtype, as in the JAX package. DynaMLPBlock's drop-path is applied in
-neither eval nor training (the training path is not ported yet).
+dtype, as in the JAX package. In training with a generator both residual
+branches of every block take drop-path at the setting's rate, as in JAX.
 
 ``dynamlp_settings`` holds the T, M and L configurations as (patch sizes,
 dims, depths, segments, mlp ratio, drop-path rate, hidden); a caller may
@@ -131,34 +131,50 @@ class FeedForward(nn.Module):
                                  nn.Linear(hidden, dim), nn.Identity())
 
 
+class Layer(nn.Sequential):
+    """One block: the mixer (0) and the feed-forward (1), each a residual
+    branch with drop-path at ``drop_path_rate``."""
+
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, length, segment, hidden, mlp_ratio, drop_path_rate):
+        super().__init__(PreNorm(dim, DynaMixerBlock(dim, length, segment, hidden)),
+                         PreNorm(dim, FeedForward(dim, dim * mlp_ratio)))
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
+
+
 class Stage(nn.Module):
-    def __init__(self, dim, depth, length, segment, hidden, mlp_ratio):
+    def __init__(self, dim, depth, length, segment, hidden, mlp_ratio, drop_path_rate):
         super().__init__()
         self.layers = nn.ModuleList(
-            nn.Sequential(PreNorm(dim, DynaMixerBlock(dim, length, segment, hidden)),
-                          PreNorm(dim, FeedForward(dim, dim * mlp_ratio)))
+            Layer(dim, length, segment, hidden, mlp_ratio, drop_path_rate)
             for _ in range(depth))
 
 
-def dyna_block(blk, h):
+def dyna_block(blk, h, masks=None):
+    """One ``Layer`` on h; masks: its two drop-path masks, or None."""
+    m1, m2 = masks or (None, None)
+    train, rate = masks is not None, blk.drop_path_rate
     t, c = blk[0], blk[1]
     y = nnf.layer_norm(h, t.norm.weight, t.norm.bias)
     fn = t.fn
     y = fn.DynaMixerOp_h(y, 1) + fn.DynaMixerOp_w(y, 2) + _linear(y, fn.proj_c)
-    h = h + _linear(y, fn.proj_o)
+    h = h + nnf.drop_path(_linear(y, fn.proj_o), rate, train, mask=m1)
     y = nnf.layer_norm(h, c.norm.weight, c.norm.bias)
     net = c.fn.net
-    return h + _linear(nnf.gelu(_linear(y, net[0])), net[3])
+    return h + nnf.drop_path(_linear(nnf.gelu(_linear(y, net[0])), net[3]), rate, train,
+                             mask=m2)
 
 
 class DynaMixerModel(Model):
     name = "dyna_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, model_name, image_size, in_channels, num_classes, seed):
         super().__init__()
         if model_name not in dynamlp_settings:
             raise ValueError(f"model_name {model_name!r} not in {sorted(dynamlp_settings)}")
-        patch_size, embed_dims, depths, segment, mlp_ratio, _drop_path, hidden = (
+        patch_size, embed_dims, depths, segment, mlp_ratio, drop_path, hidden = (
             dynamlp_settings[model_name])
         res, cur = [], image_size
         for ps in patch_size:
@@ -170,7 +186,7 @@ class DynaMixerModel(Model):
                 nn.Sequential(
                     nn.Conv2d(in_channels if si == 0 else embed_dims[si - 1], d,
                               patch_size[si], stride=patch_size[si]),
-                    Stage(d, depths[si], res[si], segment[si], hidden, mlp_ratio))
+                    Stage(d, depths[si], res[si], segment[si], hidden, mlp_ratio, drop_path))
                 for si, d in enumerate(embed_dims))
             self.mlp_head = nn.Sequential(nn.Identity(), nn.Linear(embed_dims[-1], num_classes))
         self._load_init(_init_state_dict(
@@ -178,13 +194,16 @@ class DynaMixerModel(Model):
             depths=depths, segment=segment, mlp_ratio=mlp_ratio, hidden=hidden, res=res,
             num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         x = x.permute(0, 2, 3, 1)  # NCHW → NHWC
+        masks = self.drop_path_masks(x, generator)
         for stage, patch in zip(self.stages, self.patch_sizes):
             conv = stage[0]
             x = nnf.patch_embed(x, conv.weight, conv.bias, patch)
-            x = nnf.run_blocks(stage[1].layers, x, dyna_block)
+            x = nnf.run_blocks(stage[1].layers, x,
+                               lambda blk, h: dyna_block(blk, h, masks.get(blk)))
         return _linear(x.mean((1, 2)), self.mlp_head[1])
 
 

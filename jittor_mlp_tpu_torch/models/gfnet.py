@@ -2,7 +2,7 @@
 
 A block wraps one residual around the global filter and the MLP:
 
-    x = x + γ · fc2(GELU(fc1(LN2(filter(LN1(x))))))      (LN eps 1e-6)
+    x = x + drop_path(γ · fc2(GELU(fc1(LN2(filter(LN1(x)))))))      (LN eps 1e-6)
 
 with γ, the layer scale, only in GFNetPyramid (unless ``no_layerscale``).
 The global filter takes the tokens of an a × b grid to the frequency
@@ -28,8 +28,11 @@ ValueError (the JAX forward fails on its reshape there).
 
 Under ``config.int8_mode()`` the patch embeddings, the MLPs, pre_logits
 and the head run as dynamic W8A8; the filter never does. ``drop_rate``,
-``dropcls``, ``drop_path_rate``, ``uniform_drop`` and ``norm_layer`` are
-accepted and unused: the port's forward is the eval forward.
+``dropcls`` and ``norm_layer`` are accepted and unused, as in JAX.
+Drop-path (training, with a generator) takes the JAX rates: GFNet's
+``drop_path_rate`` for every block with ``uniform_drop``, else a float32
+linspace from 0 to it; GFNetPyramid's one float32 linspace over all
+blocks, sliced per stage.
 
 Parameter names are the torch reference's (``patch_embed.proj`` or
 ``patch_embed.{i}.proj``, ``pos_embed``, ``blocks.{i}`` or
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 from collections import OrderedDict
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -74,8 +78,9 @@ class Mlp(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, dim, mlp_ratio, h, layer_scale):
+    def __init__(self, dim, mlp_ratio, h, layer_scale, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm1 = nn.LayerNorm(dim, eps=1e-6)
         self.filter = GlobalFilter(dim, h, h // 2 + 1)
         self.norm2 = nn.LayerNorm(dim, eps=1e-6)
@@ -90,8 +95,9 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(cin, dim, patch, stride=patch)
 
 
-def gf_block(grid):
-    """The block function of one grid side (``nnf.run_blocks``)."""
+def gf_block(grid, masks):
+    """The block function of one grid side (``nnf.run_blocks``); ``masks``:
+    the blocks' drop-path masks (``Model.drop_path_masks``)."""
     def block(blk, x):
         y = nnf.layer_norm(x, blk.norm1.weight, blk.norm1.bias, eps=1e-6)
         y = global_filter(y, blk.filter.complex_weight, grid, grid)
@@ -100,7 +106,8 @@ def gf_block(grid):
         y = nnf.linear(y, blk.mlp.fc2.weight, blk.mlp.fc2.bias)
         if hasattr(blk, "gamma"):
             y = blk.gamma * y
-        return x + y
+        mask = masks[blk][0] if blk in masks else None
+        return x + nnf.drop_path(y, blk.drop_path_rate, mask is not None, mask=mask)
     return block
 
 
@@ -118,19 +125,22 @@ def _add_block(b, pre, dim, h, mlp_ratio, gamma=None):
 
 class GFNetModel(Model):
     name = "gfnet"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, img_size, patch_size, in_chans, num_classes, embed_dim, depth,
-                 mlp_ratio, representation_size, seed):
+                 mlp_ratio, representation_size, uniform_drop, drop_path_rate, seed):
         super().__init__()
         img_size, patch_size = pair(img_size), pair(patch_size)
         self.grid = img_size[0] // patch_size[0]
         self.patch_size = patch_size
         num_patches = self.grid * (img_size[1] // patch_size[1])
+        dpr = (np.full(depth, drop_path_rate, dtype=np.float32) if uniform_drop
+               else np.linspace(0, drop_path_rate, depth, dtype=np.float32))
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = PatchEmbed(in_chans, embed_dim, patch_size)
             self.pos_embed = nn.Parameter(torch.empty(1, num_patches, embed_dim))
-            self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio, self.grid, False)
-                                        for _ in range(depth))
+            self.blocks = nn.ModuleList(Block(embed_dim, mlp_ratio, self.grid, False, float(r))
+                                        for r in dpr)
             self.norm = nn.LayerNorm(embed_dim, eps=1e-6)
             if representation_size:
                 self.pre_logits = nn.Sequential(OrderedDict(
@@ -147,12 +157,14 @@ class GFNetModel(Model):
         b.linear("head", representation_size or embed_dim, num_classes)
         self._load_init(b.sd)
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         proj = self.patch_embed.proj
         x = nnf.patch_embed(x.permute(0, 2, 3, 1), proj.weight, proj.bias, self.patch_size)
         x = x.reshape(x.shape[0], -1, x.shape[-1]) + self.pos_embed
-        x = nnf.run_blocks(self.blocks, x, gf_block(self.grid))
+        x = nnf.run_blocks(self.blocks, x, gf_block(self.grid,
+                                                    self.drop_path_masks(x, generator)))
         x = nnf.layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6).mean(1)
         if hasattr(self, "pre_logits"):
             fc = self.pre_logits.fc
@@ -168,9 +180,10 @@ def pyramid_sizes(img_size):
 
 class GFNetPyramidModel(Model):
     name = "gfnet_pyramid"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, img_size, patch_size, num_classes, embed_dim, depth, mlp_ratio,
-                 init_values, no_layerscale, seed):
+                 init_values, no_layerscale, drop_path_rate, seed):
         super().__init__()
         sizes = pyramid_sizes(img_size)
         if any(s % 2 or s // 2 != t for s, t in zip(sizes, sizes[1:])):
@@ -178,14 +191,16 @@ class GFNetPyramidModel(Model):
                              f"2x2 downsample needs an even grid of twice the next")
         self.sizes, self.patch_size = sizes, patch_size
         gamma = None if no_layerscale else init_values
+        dpr = np.linspace(0, drop_path_rate, sum(depth), dtype=np.float32)
+        offsets = np.cumsum([0, *depth])
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = nn.ModuleList(
                 [PatchEmbed(3, embed_dim[0], patch_size)]
                 + [PatchEmbed(embed_dim[i], embed_dim[i + 1], 2) for i in range(3)])
             self.pos_embed = nn.Parameter(torch.empty(1, sizes[0] ** 2, embed_dim[0]))
             self.blocks = nn.ModuleList(
-                nn.ModuleList(Block(embed_dim[i], mlp_ratio[i], sizes[i], gamma is not None)
-                              for _ in range(depth[i]))
+                nn.ModuleList(Block(embed_dim[i], mlp_ratio[i], sizes[i], gamma is not None,
+                                    float(r)) for r in dpr[offsets[i]:offsets[i + 1]])
                 for i in range(4))
             self.norm = nn.LayerNorm(embed_dim[-1], eps=1e-6)
             self.head = nn.Linear(embed_dim[-1], num_classes)
@@ -201,10 +216,12 @@ class GFNetPyramidModel(Model):
         b.linear("head", embed_dim[-1], num_classes)
         self._load_init(b.sd)
 
-    def forward(self, x):
-        """x: (B, 3, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, 3, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         x = x.permute(0, 2, 3, 1)  # NCHW → NHWC
         B = x.shape[0]
+        masks = self.drop_path_masks(x, generator)
         for i, (embed, blocks, s) in enumerate(zip(self.patch_embed, self.blocks, self.sizes)):
             if i:
                 x = x.reshape(B, self.sizes[i - 1], self.sizes[i - 1], -1)
@@ -213,7 +230,7 @@ class GFNetPyramidModel(Model):
             x = x.reshape(B, s * s, -1)
             if i == 0:
                 x = x + self.pos_embed
-            x = nnf.run_blocks(blocks, x, gf_block(s))
+            x = nnf.run_blocks(blocks, x, gf_block(s, masks))
         x = nnf.layer_norm(x, self.norm.weight, self.norm.bias, eps=1e-6).mean(1)
         return nnf.linear(x, self.head.weight, self.head.bias)
 
@@ -223,11 +240,12 @@ def GFNet(img_size=224, patch_size=16, in_chans=3, num_classes=1000, embed_dim=7
           drop_path_rate=0.0, norm_layer=None, dropcls=0, seed=0, device="cuda"):
     """GFNet; the JAX factory's signature, plus device (where the model is
     built, the card unless the caller asks for the CPU; with no card,
-    "cuda" raises). The dropout and drop-path arguments are accepted and
-    unused."""
+    "cuda" raises). drop_rate, norm_layer and dropcls are accepted and
+    unused, as in JAX."""
     return GFNetModel(img_size=img_size, patch_size=patch_size, in_chans=in_chans,
                       num_classes=num_classes, embed_dim=embed_dim, depth=depth,
                       mlp_ratio=mlp_ratio, representation_size=representation_size,
+                      uniform_drop=uniform_drop, drop_path_rate=drop_path_rate,
                       seed=seed).place(device)
 
 
@@ -235,9 +253,10 @@ def GFNetPyramid(img_size=224, patch_size=4, num_classes=1000, embed_dim=(64, 12
                  depth=(2, 2, 10, 4), mlp_ratio=(4, 4, 4, 4), drop_rate=0.0,
                  drop_path_rate=0.0, norm_layer=None, init_values=0.001, no_layerscale=False,
                  dropcls=0, seed=0, device="cuda"):
-    """GFNetPyramid; the JAX factory's signature, plus device. The dropout
-    and drop-path arguments are accepted and unused."""
+    """GFNetPyramid; the JAX factory's signature, plus device. drop_rate,
+    norm_layer and dropcls are accepted and unused, as in JAX."""
     return GFNetPyramidModel(img_size=img_size, patch_size=patch_size, num_classes=num_classes,
                              embed_dim=list(embed_dim), depth=list(depth),
                              mlp_ratio=list(mlp_ratio), init_values=init_values,
-                             no_layerscale=no_layerscale, seed=seed).place(device)
+                             no_layerscale=no_layerscale, drop_path_rate=drop_path_rate,
+                             seed=seed).place(device)

@@ -3,8 +3,8 @@
 On NHWC activations: a 7×7 stride-4 conv stem (padding 2) and BatchNorm,
 stages of BN-prenorm residual blocks
 
-    h = h + morph_fc(BN(h))
-    h = h + fc2(GELU(fc1(BN(h))))            # 1×1 convs
+    h = h + drop_path(morph_fc(BN(h)))
+    h = h + drop_path(fc2(GELU(fc1(BN(h)))))            # 1×1 convs
 
 with a 3×3 stride-2 conv (padding 1) and BatchNorm between stages, and at
 the end BatchNorm, a spatial mean and the head. ``morph_fc`` sums three
@@ -16,7 +16,8 @@ the whole of it; the port does them literally, as the JAX package does.
 
 Every 1×1 conv and the head run as dynamic W8A8 under
 ``config.int8_mode()``; the stem and the downsamples are ``F.conv2d``.
-Drop-path (``stoch_drop``) is not applied in training.
+In training with a generator both residual branches of every block of
+stage s take drop-path at the setting's ``stoch_drop[s]``, as in JAX.
 
 Parameter names are the torch reference's (``patch_embed.{proj,norm}``,
 ``network.{2s}.{j}.{norm1,attn.fc_{h,w,c},norm2,mlp.fc{1,2}}``,
@@ -97,8 +98,11 @@ class Mlp(nn.Module):
 
 
 class MorphBlock(nn.Module):
-    def __init__(self, dim, mlp_ratio):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, mlp_ratio, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm1 = nn.BatchNorm2d(dim)
         self.attn = MorphFC(dim)
         self.norm2 = nn.BatchNorm2d(dim)
@@ -124,20 +128,22 @@ def morph_fc(m, x, L):
 
 class MorphMLPModel(Model):
     name = "morph_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, model_name, num_classes, seed):
         super().__init__()
         if model_name not in morphmlp_settings:
             raise ValueError(f"model_name {model_name!r} not in {sorted(morphmlp_settings)}")
-        layers, mlp_ratios, embed_dims, chunk_len, _stoch_drop = morphmlp_settings[model_name]
+        layers, mlp_ratios, embed_dims, chunk_len, stoch_drop = morphmlp_settings[model_name]
         self.chunk_len = list(chunk_len)
         n_stages = len(layers)
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = ConvBN(3, embed_dims[0], 7, 4, 2)
             net = []
             for si in range(n_stages):
-                net.append(nn.ModuleList(MorphBlock(embed_dims[si], mlp_ratios[si])
-                                         for _ in range(layers[si])))
+                net.append(nn.ModuleList(
+                    MorphBlock(embed_dims[si], mlp_ratios[si], stoch_drop[si])
+                    for _ in range(layers[si])))
                 if si + 1 < n_stages:
                     net.append(ConvBN(embed_dims[si], embed_dims[si + 1], 3, 2, 1))
             self.network = nn.ModuleList(net)
@@ -146,19 +152,24 @@ class MorphMLPModel(Model):
         self._load_init(_init_state_dict(seed, layers=layers, mlp_ratios=mlp_ratios,
                                          embed_dims=embed_dims, num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, 3, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, 3, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         train = self.training
         x = self.patch_embed(x.permute(0, 2, 3, 1), train)  # NCHW → NHWC
+        masks = self.drop_path_masks(x, generator)
         for si in range(len(self.chunk_len)):
             L = self.chunk_len[si]
 
             def block(blk, h, L=L):
-                h = h + morph_fc(blk.attn, nnf.bn(h, blk.norm1, train), L)
+                m1, m2 = masks.get(blk, (None, None))
+                dp, rate = blk in masks, blk.drop_path_rate
+                y = morph_fc(blk.attn, nnf.bn(h, blk.norm1, train), L)
+                h = h + nnf.drop_path(y, rate, dp, mask=m1)
                 y = nnf.bn(h, blk.norm2, train)
                 y = nnf.conv1x1(nnf.gelu(nnf.conv1x1(y, blk.mlp.fc1.weight, blk.mlp.fc1.bias)),
                                 blk.mlp.fc2.weight, blk.mlp.fc2.bias)
-                return h + y
+                return h + nnf.drop_path(y, rate, dp, mask=m2)
 
             x = nnf.run_blocks(self.network[2 * si], x, block)
             if 2 * si + 1 < len(self.network):

@@ -5,7 +5,7 @@ A Swin-style hierarchy on NHWC activations: patch embedding (Conv2d
 k=s=patch as one matmul) and LayerNorm (eps 1e-6), then stages of blocks
 
     y = Σ_k dwconv_lr.k(roll_W(h_k)) ⧺ Σ_k dwconv_td.k(roll_H(h_k))
-    h = h + gamma · pwconv2(GELU(pwconv1(LN(y))))
+    h = h + drop_path(gamma · pwconv2(GELU(pwconv1(LN(y)))))
 
 where h_k is the k-th of ``shift_size`` channel chunks (sized as
 ``torch.chunk`` sizes them: ceil, the last possibly smaller), rolled **with
@@ -18,8 +18,9 @@ spatial mean, LayerNorm and the head.
 The depthwise convs are ``nnf.conv2d`` (``F.conv2d``; a 1×1 one too, since
 its groups are not 1) and stay out of int8; ``pwconv1``/``pwconv2``, the
 patch embeddings and the head run as dynamic W8A8 under
-``config.int8_mode()``, as in the JAX package. Drop-path (training) is not
-ported: the train-mode forward applies none.
+``config.int8_mode()``, as in the JAX package. Drop-path (training, with a
+generator) follows the JAX stochastic depth rule: one float32 linspace
+from 0 to ``drop_path_rate`` over all blocks.
 
 Parameter names are the torch reference's (``patch_embed.{proj,norm}``,
 ``layers.{i}.blocks.{j}.{dwconv_lr.{k},dwconv_td.{k},norm,pwconv1,pwconv2,
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -75,8 +77,9 @@ def _init_state_dict(seed, *, in_chans, embed_dim, depths, shift_size, mix_size,
 
 
 class MixShiftBlock(nn.Module):
-    def __init__(self, dim, shift_size, shift_dist, mix_size, mlp_ratio):
+    def __init__(self, dim, shift_size, shift_dist, mix_size, mlp_ratio, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.chunks = _chunk_sizes(dim, shift_size)
         self.shift_dist = list(shift_dist)
         self.mix_size = list(mix_size)
@@ -89,7 +92,8 @@ class MixShiftBlock(nn.Module):
         self.pwconv2 = nn.Linear(int(mlp_ratio * dim), dim)
         self.gamma = nn.Parameter(torch.empty(dim))
 
-    def forward(self, h):
+    def forward(self, h, masks=None):
+        """masks: this block's drop-path mask (a 1-tuple), or None."""
         lr, td = [], []
         for k, xc in enumerate(torch.split(h, self.chunks, dim=-1)):
             d, pad = self.shift_dist[k], self.mix_size[k] // 2
@@ -101,7 +105,8 @@ class MixShiftBlock(nn.Module):
         y = nnf.layer_norm(y, self.norm.weight, self.norm.bias, eps=1e-6)
         y = nnf.gelu(nnf.linear(y, self.pwconv1.weight, self.pwconv1.bias))
         y = nnf.linear(y, self.pwconv2.weight, self.pwconv2.bias)
-        return h + self.gamma * y
+        mask = masks[0] if masks else None
+        return h + nnf.drop_path(self.gamma * y, self.drop_path_rate, mask is not None, mask=mask)
 
 
 class PatchEmbed(nn.Module):
@@ -118,29 +123,34 @@ class PatchEmbed(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, dim, depth, shift_size, shift_dist, mix_size, mlp_ratio, downsample):
+    def __init__(self, dim, rates, shift_size, shift_dist, mix_size, mlp_ratio, downsample):
         super().__init__()
         self.blocks = nn.ModuleList(
-            MixShiftBlock(dim, shift_size, shift_dist, mix_size, mlp_ratio)
-            for _ in range(depth))
+            MixShiftBlock(dim, shift_size, shift_dist, mix_size, mlp_ratio, float(r))
+            for r in rates)
         self.downsample = PatchEmbed(dim, 2 * dim, 2, True) if downsample else None
 
 
 class MSMLP(Model):
     name = "ms_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, img_size, patch_size, in_chans, num_classes, embed_dim, depths,
-                 shift_size, shift_dist, mix_size, mlp_ratio, patch_norm, use_checkpoint,
-                 seed):
+                 shift_size, shift_dist, mix_size, mlp_ratio, drop_path_rate, patch_norm,
+                 use_checkpoint, seed):
         super().__init__()
         del img_size  # the patch embedding follows the input, as in JAX
         n_layers = len(depths)
         self.patch_size = pair(patch_size)
         self.use_checkpoint = use_checkpoint
+        # stochastic-depth decay rule (the JAX factory's linspace, in float32)
+        dpr = np.linspace(0, drop_path_rate, sum(depths), dtype=np.float32)
+        offsets = np.cumsum([0, *depths])
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = PatchEmbed(in_chans, embed_dim, self.patch_size, patch_norm)
             self.layers = nn.ModuleList(
-                BasicLayer(int(embed_dim * 2 ** i), depths[i], shift_size, shift_dist,
+                BasicLayer(int(embed_dim * 2 ** i), dpr[offsets[i]:offsets[i + 1]], shift_size,
+                           shift_dist,
                            mix_size[i], mlp_ratio, i < n_layers - 1)
                 for i in range(n_layers))
             num_features = int(embed_dim * 2 ** (n_layers - 1))
@@ -151,11 +161,13 @@ class MSMLP(Model):
             shift_size=shift_size, mix_size=mix_size, mlp_ratio=mlp_ratio,
             patch_norm=patch_norm, patch_size=self.patch_size, num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         x = self.patch_embed(x.permute(0, 2, 3, 1), self.patch_size)  # NCHW → NHWC
+        masks = self.drop_path_masks(x, generator)
         for layer in self.layers:
-            x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h),
+            x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h, masks.get(blk)),
                                remat=self.use_checkpoint)
             if layer.downsample is not None:
                 x = layer.downsample(x, 2)
@@ -185,13 +197,13 @@ def MS_MLP(
     """MS-MLP; the defaults are MS-MLP-T @224. The JAX factory's signature,
     plus device (where the model is built, the card unless the caller asks
     for the CPU; with no card, "cuda" raises). drop_rate is accepted and
-    unused and other keyword arguments are ignored, as in JAX;
-    drop_path_rate has no effect in eval, and training is not ported yet.
+    unused and other keyword arguments are ignored, as in JAX.
     use_checkpoint checkpoints every block."""
-    del drop_rate, drop_path_rate, kwargs  # see the docstring
+    del drop_rate, kwargs  # see the docstring
     return MSMLP(
         img_size=img_size, patch_size=patch_size, in_chans=in_chans, num_classes=num_classes,
         embed_dim=embed_dim, depths=list(depths), shift_size=shift_size,
         shift_dist=list(shift_dist), mix_size=[list(m) for m in mix_size],
-        mlp_ratio=mlp_ratio, patch_norm=patch_norm, use_checkpoint=use_checkpoint, seed=seed,
+        mlp_ratio=mlp_ratio, drop_path_rate=drop_path_rate, patch_norm=patch_norm,
+        use_checkpoint=use_checkpoint, seed=seed,
     ).place(device)

@@ -11,7 +11,9 @@ Four token mixing types (``token_mixing_type``):
 - 'sep_ln_ch_tm': axis mixers with a LayerNorm over the channels only;
 - 'original_tm': MLP-Mixer's token mixer over all H·W tokens.
 
-Each mixer is LN → Linear → GELU → Linear plus the residual. A level whose
+Each mixer is LN → Linear → GELU → Linear, through drop-path at the
+constant ``drop_path_rate`` in training (with a generator), plus the
+residual. A level whose
 image size is not a multiple of its patch first resizes its NCHW input
 bilinearly (half-pixel centres, an upsample) to ``ceil(img/p)·p``. The
 levels keep the reference's NCHW layout between them. With ``shortcut``
@@ -22,8 +24,7 @@ the last head too, else the classifier reads the flattened last level.
 
 Every einops Rearrange is a reshape and a permute; each LayerNorm over a
 non-last axis normalizes that axis in place (``_ln_axes``). ``dropout`` is
-accepted and unused, as in the JAX package. Drop-path is applied in
-neither eval nor training (the training path is not ported yet).
+accepted and unused, as in the JAX package.
 
 Parameter names are the torch reference's (``levels.{i}.fn.1`` the embed,
 ``levels.{i}.fn.{2+j}.{1,3,5}.{norm,norm.1,fn.0,fn.3}`` block j,
@@ -127,20 +128,27 @@ def _ln_axes(norm, x, axes, wshape):
     return y * norm.weight.reshape(bshape).to(x.dtype) + norm.bias.reshape(bshape).to(x.dtype)
 
 
-def _token_block(blk, x):
+def _dp(blk, y, masks):
+    """y through the drop-path of mixer ``blk``: its mask in ``masks``
+    (``Model.drop_path_masks``), or none."""
+    mask = masks[blk][0] if blk in masks else None
+    return nnf.drop_path(y, blk.drop_path_rate, mask is not None, mask=mask)
+
+
+def _token_block(blk, x, masks):
     """TokenBlock on (B, K, o): LN over K, FF over o, residual."""
-    return _ff(blk.fn, _ln_axes(blk.norm[1], x, (1,), (x.shape[1],))) + x
+    return _dp(blk, _ff(blk.fn, _ln_axes(blk.norm[1], x, (1,), (x.shape[1],))), masks) + x
 
 
-def _sep_token_block(blk, x, channels, dim):
+def _sep_token_block(blk, x, channels, dim, masks):
     """SpatiallySeparatedTokenBlock on (B, C·o1, o2): LN over C only."""
     B = x.shape[0]
     o1 = x.shape[1] // channels
     y = _ln_axes(blk.norm[1], x.reshape(B, channels, o1, dim), (1,), (channels,))
-    return _ff(blk.fn, y.reshape(B, channels * o1, dim)) + x
+    return _dp(blk, _ff(blk.fn, y.reshape(B, channels * o1, dim)), masks) + x
 
 
-def _permuted_block(blk, x, spatial, channels, raft):
+def _permuted_block(blk, x, spatial, channels, raft, masks):
     """PermutedBlock on (B, co·o1, r·spatial): LN over the channels in
     (c1 c2) order, the (co, r) axes of the 5-d view jointly; FF over
     r·spatial."""
@@ -148,11 +156,12 @@ def _permuted_block(blk, x, spatial, channels, raft):
     co = channels // raft
     o1 = x.shape[1] // co
     y = _ln_axes(blk.norm[1], x.reshape(B, co, o1, raft, spatial), (1, 3), (co, raft))
-    return _ff(blk.fn, y.reshape(B, co * o1, raft * spatial)) + x
+    return _dp(blk, _ff(blk.fn, y.reshape(B, co * o1, raft * spatial)), masks) + x
 
 
-def _channel_block(blk, x):
-    return _ff(blk.fn, nnf.layer_norm(x, blk.norm.weight, blk.norm.bias)) + x
+def _channel_block(blk, x, masks):
+    y = _ff(blk.fn, nnf.layer_norm(x, blk.norm.weight, blk.norm.bias))
+    return _dp(blk, y, masks) + x
 
 
 def _mlp(dim, hidden):
@@ -164,53 +173,57 @@ def _mlp(dim, hidden):
 class TokenBlock(nn.Module):
     """norm.1: the LayerNorm (norm.0 is a parameter-free Rearrange)."""
 
-    def __init__(self, norm_dim, dim, hidden):
+    def __init__(self, norm_dim, dim, hidden, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm = nn.Sequential(nn.Identity(), nn.LayerNorm(norm_dim))
         self.fn = _mlp(dim, hidden)
 
 
 class ChannelBlock(nn.Module):
-    def __init__(self, dim, hidden):
+    def __init__(self, dim, hidden, drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.norm = nn.LayerNorm(dim)
         self.fn = _mlp(dim, hidden)
 
 
-def _block(g, token_mixing_type, tef, cef):
+def _block(g, token_mixing_type, tef, cef, dpr):
     """One block of a level: indices 1, 3 (and 5) hold the mixers; the
     others are parameter-free Rearranges."""
     h = w = g["hw"]
     Co = g["out"]
-    channel = ChannelBlock(Co, Co * cef)
+    channel = ChannelBlock(Co, Co * cef, dpr)
     if token_mixing_type == "original_tm":
-        return nn.Sequential(nn.Identity(), TokenBlock(Co, h * w, h * w * tef), nn.Identity(),
-                             channel)
+        return nn.Sequential(nn.Identity(), TokenBlock(Co, h * w, h * w * tef, dpr),
+                             nn.Identity(), channel)
     r = g["raft"] if token_mixing_type == "ser_pm" else 1
     codim = token_mixing_type == "sep_ln_codim_tm"
     return nn.Sequential(
-        nn.Identity(), TokenBlock(Co * w if codim else Co, h * r, h * r * tef),
-        nn.Identity(), TokenBlock(Co * h if codim else Co, w * r, w * r * tef),
+        nn.Identity(), TokenBlock(Co * w if codim else Co, h * r, h * r * tef, dpr),
+        nn.Identity(), TokenBlock(Co * h if codim else Co, w * r, w * r * tef, dpr),
         nn.Identity(), channel)
 
 
 class Level(nn.Module):
     """fn.1: the patch embedding (a Linear, or none); fn.{2+j}: block j."""
 
-    def __init__(self, g, token_mixing_type, tef, cef):
+    def __init__(self, g, token_mixing_type, tef, cef, dpr):
         super().__init__()
         embed = (nn.Linear(g["patch"] ** 2 * g["in"], g["out"])
                  if _has_embed(g, token_mixing_type) else nn.Identity())
         self.fn = nn.Sequential(nn.Identity(), embed,
-                                *(_block(g, token_mixing_type, tef, cef)
+                                *(_block(g, token_mixing_type, tef, cef, dpr)
                                   for _ in range(g["depth"])))
 
 
 class RaftMLPModel(Model):
     name = "raft_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, layers, in_channels, image_size, num_classes, token_expansion_factor,
-                 channel_expansion_factor, token_mixing_type, shortcut, gap, seed):
+                 channel_expansion_factor, token_mixing_type, shortcut, gap, drop_path_rate,
+                 seed):
         super().__init__()
         if token_mixing_type not in TOKEN_MIXING_TYPES:
             raise ValueError(f"token_mixing_type {token_mixing_type!r} not in "
@@ -223,7 +236,8 @@ class RaftMLPModel(Model):
         last_dim = self.geo[-1]["out"]
         tef, cef = token_expansion_factor, channel_expansion_factor
         with torch.device("meta"):  # weights come from SDBuilder below
-            self.levels = nn.ModuleList(Level(g, token_mixing_type, tef, cef) for g in self.geo)
+            self.levels = nn.ModuleList(Level(g, token_mixing_type, tef, cef, drop_path_rate)
+                                        for g in self.geo)
             self.heads = nn.ModuleList(
                 nn.Sequential(nn.Identity(), nn.LayerNorm(g["out"]),
                               *((nn.Identity(), nn.Identity(), nn.Linear(g["out"], last_dim * 2))
@@ -236,8 +250,9 @@ class RaftMLPModel(Model):
             token_expansion_factor=tef, channel_expansion_factor=cef, shortcut=shortcut,
             gap=gap, num_classes=num_classes))
 
-    def level_forward(self, level, x, g):
-        """x: (B, C_in, H, W) NCHW → (B, C_out, hw, hw)."""
+    def level_forward(self, level, x, g, masks):
+        """x: (B, C_in, H, W) NCHW → (B, C_out, hw, hw); ``masks``: the
+        mixers' drop-path masks (``Model.drop_path_masks``)."""
         h = w = g["hw"]
         p, Co, r = g["patch"], g["out"], g["raft"]
         if g["bhw"] != g["hw"]:
@@ -251,31 +266,31 @@ class RaftMLPModel(Model):
         mix = self.token_mixing_type
         for blk in level.fn[2:]:
             if mix == "original_tm":
-                y = _token_block(blk[1], y.transpose(1, 2)).transpose(1, 2)  # b c (h w)
-                y = _channel_block(blk[3], y)
+                y = _token_block(blk[1], y.transpose(1, 2), masks).transpose(1, 2)  # b c (h w)
+                y = _channel_block(blk[3], y, masks)
                 continue
             if mix == "ser_pm":
                 co = Co // r
                 # 'b (h w) (chw co) -> b (co w) (chw h)'
                 t = y.reshape(B, h, w, r, co).permute(0, 4, 2, 3, 1).reshape(B, co * w, r * h)
-                t = _permuted_block(blk[1], t, h, Co, r)
+                t = _permuted_block(blk[1], t, h, Co, r, masks)
                 # 'b (co w) (chw h) -> b (co h) (chw w)'
                 t = t.reshape(B, co, w, r, h).permute(0, 1, 4, 3, 2).reshape(B, co * h, r * w)
-                t = _permuted_block(blk[3], t, w, Co, r)
+                t = _permuted_block(blk[3], t, w, Co, r, masks)
                 # 'b (co h) (chw w) -> b (h w) (chw co)'
                 y = t.reshape(B, co, h, r, w).permute(0, 2, 4, 3, 1).reshape(B, h * w, r * co)
             else:
                 # 'b (h w) c -> b (c w) h'
                 t = y.reshape(B, h, w, Co).permute(0, 3, 2, 1).reshape(B, Co * w, h)
-                t = (_token_block(blk[1], t) if mix == "sep_ln_codim_tm"
-                     else _sep_token_block(blk[1], t, Co, h))
+                t = (_token_block(blk[1], t, masks) if mix == "sep_ln_codim_tm"
+                     else _sep_token_block(blk[1], t, Co, h, masks))
                 # 'b (c w) h -> b (c h) w'
                 t = t.reshape(B, Co, w, h).permute(0, 1, 3, 2).reshape(B, Co * h, w)
-                t = (_token_block(blk[3], t) if mix == "sep_ln_codim_tm"
-                     else _sep_token_block(blk[3], t, Co, w))
+                t = (_token_block(blk[3], t, masks) if mix == "sep_ln_codim_tm"
+                     else _sep_token_block(blk[3], t, Co, w, masks))
                 # 'b (c h) w -> b (h w) c'
                 y = t.reshape(B, Co, h, w).permute(0, 2, 3, 1).reshape(B, h * w, Co)
-            y = _channel_block(blk[5], y)
+            y = _channel_block(blk[5], y, masks)
         # 'b (h w) c -> b c h w'
         return y.reshape(B, h, w, Co).permute(0, 3, 1, 2)
 
@@ -289,12 +304,14 @@ class RaftMLPModel(Model):
             y = nnf.linear(y, head[4].weight, head[4].bias)
         return y
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         last = len(self.geo) - 1
         outputs = []
+        masks = self.drop_path_masks(x, generator)
         for i, (level, g) in enumerate(zip(self.levels, self.geo)):
-            x = self.level_forward(level, x, g)
+            x = self.level_forward(level, x, g, masks)
             if self.shortcut:
                 outputs.append(self.head_forward(self.heads[i], x, i == last))
         if not self.shortcut:
@@ -330,12 +347,12 @@ def RaftMLP(
     """RaftMLP; the JAX factory's signature, plus device (where the model is
     built, the card unless the caller asks for the CPU; with no card,
     "cuda" raises). dropout is accepted and unused, as in the JAX package;
-    drop_path_rate is accepted, and the port applies no drop-path (its
-    training path is not ported yet)."""
-    del dropout, drop_path_rate  # see the docstring
+    drop_path_rate is every mixer's drop-path rate in training."""
+    del dropout  # unused, as in the JAX factory
     return RaftMLPModel(
         layers=layers, in_channels=in_channels, image_size=image_size,
         num_classes=num_classes, token_expansion_factor=token_expansion_factor,
         channel_expansion_factor=channel_expansion_factor,
-        token_mixing_type=token_mixing_type, shortcut=shortcut, gap=gap, seed=seed,
+        token_mixing_type=token_mixing_type, shortcut=shortcut, gap=gap,
+        drop_path_rate=drop_path_rate, seed=seed,
     ).place(device)

@@ -4,8 +4,8 @@ A Swin hierarchy whose window attention is a spatial MLP: patch embedding
 (Conv2d k=s=patch as one matmul) and LayerNorm, an optional absolute
 position embedding (``ape``), then stages of blocks
 
-    h = h + reverse(spatial_mlp(partition(pad(LN(h)))))   (cropped)
-    h = h + fc2(GELU(fc1(LN(h))))
+    h = h + drop_path(reverse(spatial_mlp(partition(pad(LN(h))))))   (cropped)
+    h = h + drop_path(fc2(GELU(fc1(LN(h)))))
 
 with Swin's patch merging between stages (the four 2×2 phases concatenated,
 H index first, then LN and a bias-free Linear to twice the width), and LN,
@@ -23,8 +23,10 @@ reverse (no roll). The window is clamped to min(res), and blocks shift
 Under ``config.int8_mode()`` the Linear layers and the patch embedding run
 as dynamic W8A8; the spatial MLP's product stays in the compute dtype, as
 in the JAX package. ``drop_rate`` is accepted and unused, as in the JAX
-package; drop-path is applied in neither eval nor training (the training
-path is not ported yet). ``use_checkpoint`` checkpoints every block.
+package. Drop-path (training, with a generator) follows the JAX stochastic
+depth rule: one float32 linspace from 0 to ``drop_path_rate`` over all
+blocks, the same rate on both branches of a block. ``use_checkpoint``
+checkpoints every block.
 
 Parameter names are the torch reference's (``patch_embed.{proj,norm}``,
 ``absolute_pos_embed``, ``layers.{i}.blocks.{j}.{norm1,spatial_mlp,norm2,
@@ -34,6 +36,7 @@ mlp.fc1,mlp.fc2}``, ``layers.{i}.downsample.{norm,reduction}``, ``norm``,
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -100,8 +103,12 @@ class Mlp(nn.Module):
 
 
 class SwinMLPBlock(nn.Module):
-    def __init__(self, dim, res, num_heads, window_size, shift_size, mlp_ratio):
+    drop_paths = 2  # Model.drop_path_masks: one mask per residual branch
+
+    def __init__(self, dim, res, num_heads, window_size, shift_size, mlp_ratio,
+                 drop_path_rate):
         super().__init__()
+        self.drop_path_rate = drop_path_rate  # a float, not a parameter
         self.res, self.num_heads = res, num_heads
         self.window_size, self.shift_size = window_size, shift_size
         ws2 = window_size * window_size
@@ -110,8 +117,11 @@ class SwinMLPBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio))
 
-    def forward(self, x):
-        """x: (B, H·W, C)."""
+    def forward(self, x, masks=None):
+        """x: (B, H·W, C); masks: this block's two drop-path masks, or None
+        (no drop-path)."""
+        m1, m2 = masks or (None, None)
+        train, rate = masks is not None, self.drop_path_rate
         (H, W), ws, s = self.res, self.window_size, self.shift_size
         B, _, C = x.shape
         y = _ln(x, self.norm1).reshape(B, H, W, C)
@@ -123,8 +133,9 @@ class SwinMLPBlock(nn.Module):
         y = window_reverse(win.reshape(-1, ws, ws, C), ws, Hp, Wp)
         if s > 0:
             y = y[:, ws - s:Hp - s, ws - s:Wp - s, :]
-        x = x + y.reshape(B, H * W, C)
-        return x + _linear(nnf.gelu(_linear(_ln(x, self.norm2), self.mlp.fc1)), self.mlp.fc2)
+        x = x + nnf.drop_path(y.reshape(B, H * W, C), rate, train, mask=m1)
+        y = _linear(nnf.gelu(_linear(_ln(x, self.norm2), self.mlp.fc1)), self.mlp.fc2)
+        return x + nnf.drop_path(y, rate, train, mask=m2)
 
 
 class PatchMerging(nn.Module):
@@ -143,12 +154,12 @@ class PatchMerging(nn.Module):
 
 
 class BasicLayer(nn.Module):
-    def __init__(self, dim, res, depth, num_heads, window_size, shift, mlp_ratio, downsample):
+    def __init__(self, dim, res, rates, num_heads, window_size, shift, mlp_ratio, downsample):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinMLPBlock(dim, res, num_heads, window_size, 0 if j % 2 == 0 else shift,
-                         mlp_ratio)
-            for j in range(depth))
+                         mlp_ratio, float(r))
+            for j, r in enumerate(rates))
         self.downsample = PatchMerging(res, dim) if downsample else None
 
 
@@ -161,9 +172,11 @@ class PatchEmbed(nn.Module):
 
 class SwinMLPModel(Model):
     name = "swin_mlp"
+    stochastic = True  # drop-path: the train forward takes a generator
 
     def __init__(self, *, img_size, patch_size, in_chans, num_classes, embed_dim, depths,
-                 num_heads, window_size, mlp_ratio, ape, patch_norm, use_checkpoint, seed):
+                 num_heads, window_size, mlp_ratio, drop_path_rate, ape, patch_norm,
+                 use_checkpoint, seed):
         super().__init__()
         ih, iw = pair(img_size)
         ph, pw = pair(patch_size)
@@ -177,13 +190,16 @@ class SwinMLPModel(Model):
             shift = ws // 2 if min(res) > window_size else 0
             stages.append((int(embed_dim * 2 ** i), res, ws, shift))
         num_features = int(embed_dim * 2 ** (len(depths) - 1))
+        # stochastic-depth decay rule (the JAX factory's linspace, in float32)
+        dpr = np.linspace(0, drop_path_rate, sum(depths), dtype=np.float32)
+        offsets = np.cumsum([0, *depths])
         with torch.device("meta"):  # weights come from SDBuilder below
             self.patch_embed = PatchEmbed(in_chans, embed_dim, self.patch_size, patch_norm)
             self.absolute_pos_embed = (
                 nn.Parameter(torch.empty(1, res0[0] * res0[1], embed_dim)) if ape else None)
             self.layers = nn.ModuleList(
-                BasicLayer(dim, res, depths[i], num_heads[i], ws, shift, mlp_ratio,
-                           i < len(depths) - 1)
+                BasicLayer(dim, res, dpr[offsets[i]:offsets[i + 1]], num_heads[i], ws, shift,
+                           mlp_ratio, i < len(depths) - 1)
                 for i, (dim, res, ws, shift) in enumerate(stages))
             self.norm = nn.LayerNorm(num_features)
             self.head = nn.Linear(num_features, num_classes)
@@ -192,8 +208,9 @@ class SwinMLPModel(Model):
             depths=depths, num_heads=num_heads, windows=[ws for *_, ws, _ in stages],
             mlp_ratio=mlp_ratio, patch_norm=patch_norm, ape=ape, num_classes=num_classes))
 
-    def forward(self, x):
-        """x: (B, C, H, W) → logits (B, num_classes)."""
+    def forward(self, x, generator=None):
+        """x: (B, C, H, W) → logits (B, num_classes). ``generator``: the
+        drop-path random source in training."""
         x = x.permute(0, 2, 3, 1)  # NCHW → NHWC
         pe = self.patch_embed
         x = nnf.patch_embed(x, pe.proj.weight, pe.proj.bias, self.patch_size)
@@ -202,8 +219,10 @@ class SwinMLPModel(Model):
             x = _ln(x, pe.norm)
         if self.absolute_pos_embed is not None:
             x = x + self.absolute_pos_embed
+        masks = self.drop_path_masks(x, generator)
         for layer in self.layers:
-            x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h), remat=self.use_checkpoint)
+            x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h, masks.get(blk)),
+                               remat=self.use_checkpoint)
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return _linear(_ln(x, self.norm).mean(1), self.head)
@@ -231,17 +250,16 @@ def SwinMLP(
     """SwinMLP; the defaults are Swin-MLP-T @224. The JAX factory's
     signature, plus device (where the model is built, the card unless the
     caller asks for the CPU; with no card, "cuda" raises). drop_rate is
-    accepted and unused, as in JAX; drop_path_rate is accepted, and the
-    port applies no drop-path (its training path is not ported yet). Other
-    keyword arguments are ignored, as in JAX, except that block_runner must
-    be None: the parallel runners are not ported yet. use_checkpoint
-    checkpoints every block."""
-    del drop_rate, drop_path_rate  # see the docstring
+    accepted and unused, as in JAX. Other keyword arguments are ignored, as
+    in JAX, except that block_runner must be None: the parallel runners are
+    not ported yet. use_checkpoint checkpoints every block."""
+    del drop_rate  # unused, as in the JAX factory
     if kwargs.get("block_runner") is not None:
         raise NotImplementedError("block_runner is not supported by the port yet")
     return SwinMLPModel(
         img_size=img_size, patch_size=patch_size, in_chans=in_chans, num_classes=num_classes,
         embed_dim=embed_dim, depths=list(depths), num_heads=list(num_heads),
-        window_size=window_size, mlp_ratio=mlp_ratio, ape=ape, patch_norm=patch_norm,
+        window_size=window_size, mlp_ratio=mlp_ratio, drop_path_rate=drop_path_rate, ape=ape,
+        patch_norm=patch_norm,
         use_checkpoint=use_checkpoint, seed=seed,
     ).place(device)

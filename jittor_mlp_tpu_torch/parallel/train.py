@@ -15,11 +15,17 @@ boundary (``torch.func.functional_call`` with the cast tensors), so
 autograd brings f32 gradients back through the casts. In bf16 the model's
 block-kernel gate picks its training kernels (``config.pallas_bwd``,
 ``config.remat_mode()``). Only parameters are optimized; buffers (the
-JAX ``split_params`` aux leaves) are cast for the forward and never
-updated. The JAX step's sharding helpers and BatchNorm running-statistic
-updates are not ported, so ``make_train_step`` refuses a model with
-BatchNorm buffers (ConvMixer, SparseMLP, MorphMLP, WaveMLP, ConvMLP,
-RepMLPNet) rather than train it with its running statistics frozen.
+JAX ``split_params`` aux leaves) are cast for the forward and not
+trained.
+
+BatchNorm running statistics update every step with torch's train-mode
+EMA, as in the JAX step: the forward (and only the forward: a checkpointed
+block's recompute in the backward adds nothing) reports each site's batch
+statistics to ``nnf.bn_stats()``, and after ``optimizer.step()``
+``train_utils.apply_bn_updates`` folds them into the model's float32
+buffers, each site found by the tensor the forward read (in bf16, its
+cast copy). ``bn_momentum=None`` leaves them as they are. The JAX step's
+sharding helpers are not ported.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from .. import config
+from ..core import nnf, train_utils
 
 
 def cross_entropy_loss(logits, labels):
@@ -59,19 +66,29 @@ class _Forward(nn.Module):
         return self.model.forward(x)
 
 
+def _loss_and_sites(model, batch, compute_dtype, generator):
+    """``loss_fn``'s loss, and {id of each running_mean tensor the forward
+    reads: (the model's running_mean, running_var)} for
+    ``train_utils.apply_bn_updates``."""
+    fwd = _Forward(model.train())
+    x = batch["image"].to(model.device)
+    buffers = dict(fwd.named_buffers())
+    tensors = {**dict(fwd.named_parameters()), **buffers}
+    if compute_dtype is not None:
+        tensors = cast_floating(tensors, compute_dtype)
+        x = x.to(compute_dtype)
+    sites = {id(tensors[k]): (buffers[k], buffers[k[:-len("mean")] + "var"])
+             for k in buffers if k.endswith("running_mean")}
+    logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
+    return cross_entropy_loss(logits, batch["label"].to(logits.device)), sites
+
+
 def loss_fn(model, batch, compute_dtype=None, generator=None):
     """The f32 cross-entropy of ``model`` in train mode on ``batch``,
     differentiable in the model's parameters; with ``compute_dtype`` the
     parameters, buffers and images are cast to it at this boundary.
     ``generator`` goes to the model's drop-path sites."""
-    fwd = _Forward(model.train())
-    x = batch["image"].to(model.device)
-    tensors = {**dict(fwd.named_parameters()), **dict(fwd.named_buffers())}
-    if compute_dtype is not None:
-        tensors = cast_floating(tensors, compute_dtype)
-        x = x.to(compute_dtype)
-    logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
-    return cross_entropy_loss(logits, batch["label"].to(logits.device))
+    return _loss_and_sites(model, batch, compute_dtype, generator)[0]
 
 
 def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
@@ -82,17 +99,10 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
     ``compute_dtype=torch.bfloat16`` gives mixed precision with f32 master
     weights (see the module docstring). ``generator`` is the random source
     of the model's drop-path sites (the JAX step's ``rng``); models without
-    stochastic layers ignore it. ``bn_momentum`` keeps the JAX signature:
-    the BatchNorm running-statistic update it sets is not ported, so a
-    model with BatchNorm buffers raises NotImplementedError. The step
-    raises RuntimeError under ``config.int8_mode()``."""
-    del bn_momentum  # the running-statistic update is not ported
-    bn = [n for n, _ in model.named_buffers() if n.endswith("running_mean")]
-    if bn:
-        raise NotImplementedError(
-            f"{type(model).__name__} has {len(bn)} BatchNorm layers ({bn[0]}, ...): the "
-            f"train step's running-statistic update (the JAX apply_bn_updates, bn_momentum) "
-            f"is not ported, and without it the running statistics would stay frozen")
+    stochastic layers ignore it. ``bn_momentum``: the momentum of the
+    BatchNorm running-statistic EMA applied after each optimizer step
+    (None: no update). The step raises RuntimeError under
+    ``config.int8_mode()``."""
 
     def step(batch, generator=None):
         if config.int8_enabled():  # the W8A8 path's rounding has a zero gradient
@@ -101,9 +111,12 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
                 "dense path has zero gradient. Exit the context before "
                 "tracing a train step.")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, batch, compute_dtype, generator)
+        with nnf.bn_stats() as stats:  # the forward's statistics only
+            loss, sites = _loss_and_sites(model, batch, compute_dtype, generator)
         loss.backward()
         optimizer.step()
+        if bn_momentum is not None and stats:
+            train_utils.apply_bn_updates(sites, stats, bn_momentum)
         return loss.detach()
 
     return step

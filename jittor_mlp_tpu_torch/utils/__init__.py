@@ -1,3 +1,3 @@
-from .tools import check_sizes, pair
+from .tools import check_sizes, pair, sized_kwargs
 
-__all__ = ["check_sizes", "pair"]
+__all__ = ["check_sizes", "pair", "sized_kwargs"]

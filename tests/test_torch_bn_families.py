@@ -13,8 +13,8 @@ int8_mode() within their bands, weights="int8" bit-equal to JAX's and
 Predictor's batched answers equal single ones; the port's
 ``recalibrate_bn`` gives JAX's running statistics within 1e-5 at every
 site and then the eval logits within 1e-4; the train-mode forward equals
-JAX ``apply(train=True, rng=None)`` within 1e-4 and changes no buffer;
-``make_train_step`` refuses the model. Also: weights="int8" quantizes a
+JAX ``apply(train=True, rng=None)`` within 1e-4 and changes no buffer
+(training: test_torch_train_bn.py). Also: weights="int8" quantizes a
 ConvMixer's stacked BatchNorm leaves as JAX does (width 256, depth 8),
 WaveMLP's token-fuse conv against the JAX ``_tfc`` and its channel
 grouping, MorphMLP's pad and crop where the side is no multiple of the
@@ -37,7 +37,6 @@ from jittor_mlp_tpu.models import conv_mlp as jconv_mlp
 from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch.core.train_utils import recalibrate_bn
 from jittor_mlp_tpu_torch.models import conv_mlp as tconv_mlp
-from jittor_mlp_tpu_torch.parallel import make_train_step
 
 FAMILIES = {  # name: (JAX factory, port factory, kwargs, image size, settings context)
     "conv_mixer": (jm.ConvMixer, jt.ConvMixer, tp.CONV_MIXER, 32, contextlib.nullcontext),
@@ -137,13 +136,6 @@ def test_train_forward_equals_jax_and_changes_no_buffer(fam):
     assert np.abs(evaluated - got).max() > 1e-3  # the train forward used the batch's statistics
     for k, v in port.named_buffers():
         assert torch.equal(v, before[k]), k
-
-
-def test_make_train_step_refuses_a_batchnorm_model(fam):
-    model = fam.port(**fam.kw, **tp.CPU)
-    opt = torch.optim.SGD(model.parameters(), lr=0.1)
-    with pytest.raises(NotImplementedError, match="running-statistic update"):
-        make_train_step(model, opt)
 
 
 def test_factory_device(fam):

@@ -109,7 +109,7 @@ def test_chunk_sizes_as_torch_chunk(dim, n):
 def test_factory_options():
     tp.check_factory_device(jt.MS_MLP, tp.MS)
     m = jt.MS_MLP(**tp.MS, **tp.CPU)
-    assert m.name == "ms_mlp" and not m.stochastic
+    assert m.name == "ms_mlp" and m.stochastic  # drop-path: the train forward takes a generator
     # the reference's parameters (JAX's count adds its per-block drop-path rates)
     assert m.param_count() == sum(v.size for v in jm.MS_MLP(**tp.MS)._init_sd.values())
     remat = jt.MS_MLP(**tp.MS, use_checkpoint=True, **tp.CPU).eval()

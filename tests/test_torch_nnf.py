@@ -376,8 +376,9 @@ def test_batch_norm_bf16_within_one_ulp(train):
 
 def test_batch_norm_train_reports_statistics_and_touches_no_buffer():
     """Train mode normalizes with the biased batch statistics (JAX's
-    jnp.var); inside bn_stats() it reports (running_mean, mean, var);
-    the running tensors are left as they were. ``axis`` picks the channel
+    jnp.var); inside bn_stats() it reports (running_mean, mean, var, n),
+    n the elements reduced per channel (JAX's sink's n); the running
+    tensors are left as they were. ``axis`` picks the channel
     axis (RepMLPNet's grouped BatchNorms on NCHW partitions)."""
     r = _rng()
     x = _t(r.standard_normal((3, 4, 5, 6)).astype(np.float32))
@@ -385,8 +386,8 @@ def test_batch_norm_train_reports_statistics_and_touches_no_buffer():
     rm0, rv0 = rm.clone(), rv.clone()
     with tnnf.bn_stats() as sink:
         y = tnnf.batch_norm(x, rm, rv, w, b, train=True)
-    (site, mean, var), = sink
-    assert site is rm
+    (site, mean, var, n), = sink
+    assert site is rm and n == 3 * 4 * 5
     _f32_close(mean, x.mean((0, 1, 2)).numpy())
     _f32_close(var, x.var((0, 1, 2), correction=0).numpy())
     _f32_close(y, ((x - mean) / torch.sqrt(var + 1e-5) * w + b).numpy())

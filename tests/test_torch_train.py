@@ -13,7 +13,9 @@ ResMLP and gMLP against their JAX custom VJPs, on the CPU.
 - ResMLP and gMLP: ``fused_*_block_trainable`` against the JAX wrappers
   (Pallas forward in interpret mode, XLA backward) for every argument, in
   float32 within 1e-4.
-- ``remat_mode()``, the int8 refusal, buffers and the train example.
+- ``remat_mode()``, the int8 refusal, buffers and the train example (also
+  a BatchNorm family and a drop-path family through ``sized_kwargs``,
+  which equals the JAX ``sized_kwargs`` on every exported factory).
 """
 
 import functools
@@ -40,11 +42,13 @@ from jittor_mlp_tpu import config as jconfig
 from jittor_mlp_tpu.parallel.train import make_train_step as jax_train_step
 from jittor_mlp_tpu.parallel.train import split_params
 from jittor_mlp_tpu_torch import config
+from jittor_mlp_tpu_torch.examples import train as train_example
 from jittor_mlp_tpu_torch.ops.kernels import gmlp_block as tgb
 from jittor_mlp_tpu_torch.ops.kernels import mixer_block as tmb
 from jittor_mlp_tpu_torch.ops.kernels import mixer_block_bwd as tbwd
 from jittor_mlp_tpu_torch.ops.kernels import resmlp_block as trb
 from jittor_mlp_tpu_torch.parallel import cross_entropy_loss, loss_fn, make_train_step
+from jittor_mlp_tpu_torch.utils import sized_kwargs
 
 TINY = dict(d_model=32, depth=2, patch_size=8, image_size=16, token_dim=24, num_classes=10,
             seed=11)
@@ -292,6 +296,35 @@ def test_train_example_trains_as_mlp():
     losses = [float(line.split()[-1]) for line in out.splitlines() if line.startswith("step")]
     assert len(losses) == 2 and np.isfinite(losses).all(), out
     assert "AS_MLP: 27,521,386 params" in out  # AS-MLP-T with a 10-class head
+
+
+@pytest.mark.parametrize("model,rate", [("WaveMLP", None), ("MS_MLP", 0.1)],
+                         ids=["batchnorm", "drop_path"])
+def test_train_example_trains_any_factory(model, rate):
+    """WaveMLP-T (BatchNorm, its running statistics updated) and MS-MLP-T
+    (its default drop-path rate, 0.1) at 32 px, two steps of two images."""
+    out = subprocess.run(
+        [sys.executable, "-m", "jittor_mlp_tpu_torch.examples.train", "--device", "cpu",
+         "--model", model, "--steps", "2", "--image-size", "32", "--batch", "2"],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    losses = [float(line.split()[-1]) for line in out.splitlines() if line.startswith("step")]
+    assert len(losses) == 2 and np.isfinite(losses).all(), out
+    built = getattr(jt, model)(**sized_kwargs(getattr(jt, model), 32, 10), device="cpu")
+    assert f"{model}: {built.param_count():,} params" in out
+    assert built.stochastic == (rate is not None)
+
+
+EXPORTED = [n for n in jt.__all__ if n not in ("Model", "MicroBatcher", "Predictor", "config")]
+
+
+@pytest.mark.parametrize("name", EXPORTED)
+def test_sized_kwargs_equals_jax(name):
+    from jittor_mlp_tpu.utils import sized_kwargs as jax_sized_kwargs
+
+    for size, classes in ((32, 10), (None, 7), (64, None)):
+        assert (sized_kwargs(getattr(jt, name), size, classes)
+                == jax_sized_kwargs(getattr(jm, name), size, classes))
+    assert name in train_example.MODELS
 
 
 def test_mixer_train_gate_picks_the_route(monkeypatch):

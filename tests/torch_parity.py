@@ -18,7 +18,13 @@ the JAX package:
 - ``check_int8_state_dict``: the ``weights="int8"`` dequantized state dict
   equals JAX's ``dequantize_tree(quantize_tree(params))`` bit for bit;
 - ``check_predictor``: ``Predictor`` answers, and its batched answers equal
-  single ones, in bf16, with ``compute="int8"`` and with ``weights="int8"``.
+  single ones, in bf16, with ``compute="int8"`` and with ``weights="int8"``;
+- ``check_train_steps``: float32 AdamW steps of the port's
+  ``make_train_step`` against the JAX ``make_train_step`` on the same
+  weights and batch, losses and the whole exported state dict (running
+  statistics included) within 1e-4, both sides under ``parity_mode()``;
+  ``fixed_drop_path_masks`` gives both packages' drop-path one mask
+  pattern, so that a nonzero rate is held too.
 
 The small configurations are those of ``tools/parity_report.py``'s case
 list, copied here (its ``build_cases()`` loads the torch reference).
@@ -27,7 +33,7 @@ list, copied here (its ``build_cases()`` loads the torch reference).
 export does; every other key must come from the params.
 ``dyna_xs``, ``wave_xs``, ``morph_xs`` and ``sequencer_xs`` add the "XS"
 settings of DynaMixer, WaveMLP, MorphMLP and Sequencer2D to both
-packages. ``calibrated`` gives
+packages (DynaMixer's and MorphMLP's with a drop-path rate, if given). ``calibrated`` gives
 the BatchNorm families' factories the running statistics of the JAX
 ``recalibrate_bn`` on seeded batches, on both sides.
 """
@@ -37,6 +43,7 @@ import contextlib
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 from conftest import assert_close
@@ -44,9 +51,13 @@ from conftest import assert_close
 import jittor_mlp_tpu_torch as jt
 from jittor_mlp_tpu import config as jconfig
 from jittor_mlp_tpu import quant as jquant
+from jittor_mlp_tpu.parallel.train import make_train_step as jax_train_step
+from jittor_mlp_tpu.parallel.train import split_params
 from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch import quant as tquant
 from jittor_mlp_tpu_torch.convert import state_dict_from_jax
+from jittor_mlp_tpu_torch.core import nnf as tnnf
+from jittor_mlp_tpu_torch.parallel import make_train_step
 
 CPU = dict(device="cpu")
 
@@ -106,9 +117,10 @@ def _xs(module, table, setting):
                 settings["XS"] = value
 
 
-def dyna_xs():
-    """The "XS" DynaMixer setting in both packages' ``dynamlp_settings``."""
-    return _xs("dyna_mlp", "dynamlp_settings", DYNA_XS)
+def dyna_xs(drop_path=0.0):
+    """The "XS" DynaMixer setting in both packages' ``dynamlp_settings``,
+    its drop-path rate ``drop_path``."""
+    return _xs("dyna_mlp", "dynamlp_settings", DYNA_XS[:5] + [drop_path] + DYNA_XS[6:])
 
 
 def wave_xs():
@@ -116,9 +128,10 @@ def wave_xs():
     return _xs("wave_mlp", "wavemlp_settings", WAVE_XS)
 
 
-def morph_xs():
-    """The "XS" MorphMLP setting (tools/parity_report.py) in both packages."""
-    return _xs("morph_mlp", "morphmlp_settings", MORPH_XS)
+def morph_xs(stoch_drop=0.0):
+    """The "XS" MorphMLP setting (tools/parity_report.py) in both packages,
+    each stage's drop-path rate ``stoch_drop``."""
+    return _xs("morph_mlp", "morphmlp_settings", MORPH_XS[:4] + [[stoch_drop] * 2])
 
 
 def sequencer_xs():
@@ -290,3 +303,67 @@ def check_factory_device(port_factory, kwargs):
             port_factory(**kwargs)
     assert port_factory(**kwargs, **CPU).device.type == "cpu"
 
+
+
+def fixed_drop_path_masks(monkeypatch):
+    """Every drop-path mask of both packages, for the rest of the test: the
+    even samples kept, the odd ones dropped. The JAX ``nnf.drop_path``
+    draws ``jax.random.bernoulli(rng, keep, shape)``: where keep < 1 the
+    pattern, else all kept (a rate-0 site); the port draws through
+    ``nnf.drop_path_mask`` at sites whose rate is above 0 only."""
+    def bernoulli(key, p=0.5, shape=None):
+        keep = (jnp.arange(shape[0]) % 2 == 0).reshape((-1,) + (1,) * (len(shape) - 1))
+        return jnp.where(jnp.asarray(p) < 1, jnp.broadcast_to(keep, shape), True)
+
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    monkeypatch.setattr(tnnf, "drop_path_mask",
+                        lambda batch, rate, generator, device:
+                        torch.arange(batch, device=device) % 2 == 0)
+
+
+def train_batch(shape, num_classes=10, seed=0):
+    r = np.random.default_rng(seed)
+    return {"image": torch.from_numpy(r.standard_normal(shape).astype(np.float32)),
+            "label": torch.from_numpy(r.integers(0, num_classes, shape[0]))}
+
+
+def check_train_steps(jax_factory, port_factory, kwargs, shape, steps=2, lr=1e-2, eps=1e-4):
+    """``steps`` float32 AdamW(lr) steps on one seeded batch of ``shape``:
+    the JAX ``make_train_step`` (optax ``adamw``, rng PRNGKey(s) at step s)
+    against the port's (``torch.optim.AdamW`` with optax's decay 1e-4, a
+    generator seeded s), on the same seed's weights, both under
+    ``parity_mode()``. Losses, and the whole exported state dict (running
+    statistics and ``num_batches_tracked`` included) within atol 1e-4.
+    Both take Adam's ``eps`` 1e-4, not the default 1e-8: a bias that only
+    feeds a train-mode BatchNorm has a zero gradient (the BatchNorm takes
+    its mean out), which float32 leaves at up to 5e-8, and eps 1e-8 turns
+    that rounding into a ±lr step that no two implementations share
+    (MorphMLP's stem bias moved 0.027 apart in two steps; 1.2e-4 at eps
+    1e-5). At 1e-4 such a step is under 5e-4 of lr, and the gradients of
+    these models (median 3e-3) keep Adam's full scale. Returns the port's
+    model and losses."""
+    b = train_batch(shape)
+    jmodel = jax_factory(**kwargs)
+    params = jax.tree.map(jnp.array, jmodel.params)  # the step donates its params
+    opt = optax.adamw(lr, eps=eps)
+    opt_state = opt.init(split_params(params)[0])
+    jstep = jax_train_step(jmodel.apply, opt)
+    batch = {"image": jnp.asarray(b["image"].numpy()), "label": jnp.asarray(b["label"].numpy())}
+    want = []
+    with jconfig.parity_mode():
+        for s in range(steps):
+            params, opt_state, loss = jstep(params, opt_state, batch, jax.random.PRNGKey(s))
+            want.append(float(loss))
+    jmodel.params = params
+    jsd = jmodel.export_torch_state_dict(tensors=False)
+    model = port_factory(**kwargs, **CPU)
+    step = make_train_step(model, torch.optim.AdamW(model.parameters(), lr=lr,
+                                                    weight_decay=1e-4, eps=eps))
+    with config.parity_mode():
+        got = [float(step(b, torch.Generator().manual_seed(s))) for s in range(steps)]
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
+    tsd = model.export_torch_state_dict(tensors=False)
+    assert sorted(tsd) == sorted(jsd)
+    for k in jsd:
+        np.testing.assert_allclose(tsd[k], jsd[k], rtol=0, atol=1e-4, err_msg=k)
+    return model, got
