@@ -10,7 +10,8 @@ with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
 drop-path; then runs the port's kernel lab over the Mixer-B/16 stack,
 serves the eighteen families that have no kernel of their own (nineteen
-models), checks the DCN ops, and trains the nineteen. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+models), checks the DCN ops, trains the nineteen, and drives the serving
+and evaluation layer (folder eval, the HTTP server, deploy, checkpoints). Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -221,7 +222,29 @@ Phases (each one fails loudly; there is no CPU fallback):
      timed steps, CUDA events) and peak memory, under remat or at b64
      where b128 does not fit; then the bf16 BiLSTM's cost on the step's
      cast copies against cuDNN's buffer. No port kernel launches in this
-     run.
+     run;
+ 11. the serving and evaluation layer on Mixer-B/16 @224, seed 0, bf16:
+     (a) the native host libraries (``native_available()`` held,
+     ``decode_available()`` printed), 600 PNGs of 256 × 320 written without
+     PIL in 10 class folders, decoded at 256 equal to the sources' center
+     crops bit for bit (through the native decoder, or PIL where the card
+     has none; the line says which); (b) ``examples/eval.evaluate`` over
+     ``ImageFolderDataset(decode_size=224)`` and ``BatchIterator(256)``:
+     600 counted (the last batch padded from 88), each top-5 equal to a
+     direct forward's on the same decoded batch, the hits recomputed, 36
+     block launches, img/s end to end; (c) ``examples/serve.make_server``
+     at --batch 32 on port 0: 8 clients POST 16 PNGs each, every answer
+     equal to ``Predictor.predict`` on the decoded image, /stats, a
+     malformed body's one-line 400, client p50/p99, launches 12 a
+     forward; (d) ``deploy`` at b32, bf16 and ``int8=True``: 12 op nodes,
+     12 launches a call, logits bit-equal to the eager forward, a b31
+     input raises, ms against eager; (e) ``save_params``/``load_params``
+     bit-equal, ``quantized_nbytes`` against the f32 bytes, an int8
+     checkpoint's Predictor agreeing with bf16 on ≥ 15 of 16 images,
+     ``save_train_state``/``restore_train_state`` around a b32 kernel-route
+     step giving the next loss bit for bit; (f) ``utils.timing.throughput``
+     of the b256 forward within 10% of phase 5's img/s, and the forward
+     through the block op against the direct ctypes launch at b256 and b32.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -1620,6 +1643,9 @@ FLOORS = {
 }
 
 
+FORWARD_IMG_S = {}  # phase 5: (model, path) → b256 forward img/s, which phase 11 reads
+
+
 def phase_timing(jt, table, name):
     from jittor_mlp_tpu_torch import config
 
@@ -1654,6 +1680,7 @@ def phase_timing(jt, table, name):
                     times[which].append(cuda_ms(lambda: model.forward(xb), 5))
         for which, runs in times.items():
             ms = sum(runs) / len(runs)
+            FORWARD_IMG_S[(tag, which)] = 256e3 / ms
             print(f"[5] {tag} forward b256, {which}: {ms:.4f} ms, {256e3 / ms:.1f} img/s "
                   f"(runs {runs})  [{name}]", flush=True)
 
@@ -3135,6 +3162,414 @@ def phase_train_zoo(jt, mods, name):
           f"{time.perf_counter() - t0:.1f} s  [{name}]", flush=True)
 
 
+# Phase 11: the serving and evaluation layer around the Mixer-B/16 kernel
+# path: data pipeline, evaluate, the HTTP server, deploy (torch.export),
+# checkpoints and timing.
+N_FOLDER = 600  # images in phase 11's folder: 10 classes of 60
+FOLDER_HW = (256, 320)  # their height and width
+EVAL_BATCH = 256
+SERVE_CLIENTS, SERVE_EACH = 8, 16  # client threads, PNGs each
+THROUGHPUT_BAND = 0.10  # utils.timing.throughput vs phase 5's img/s, relative
+
+
+def png_bytes(img):
+    """PNG file bytes (8-bit RGB, filter 0 on every row, zlib level 1) of an
+    (H, W, 3) uint8 array: the phase's images are written without PIL."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * 3)], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
+
+
+def write_folder(root, seed=0):
+    """N_FOLDER seeded PNGs of FOLDER_HW in 10 class subfolders under root;
+    returns the source arrays in the dataset's (sorted) order."""
+    import os
+
+    src = np.random.default_rng(seed).integers(0, 256, (N_FOLDER, *FOLDER_HW, 3), dtype=np.uint8)
+    per = N_FOLDER // 10
+    for i, img in enumerate(src):
+        d = os.path.join(root, f"class{i // per}")
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, f"{i % per:03d}.png"), "wb") as f:
+            f.write(png_bytes(img))
+    return src
+
+
+def serving_data(root, name):
+    """(a): the native libraries, the folder, and decoding at the shorter
+    side (256) reproducing the sources' center crops exactly. Returns the
+    sources, and whether PIL is there (the decoder's fallback)."""
+    import importlib.util
+
+    from jittor_mlp_tpu_torch.data import ImageFolderDataset
+    from jittor_mlp_tpu_torch.data.loader import decode_available, native_available
+
+    check(native_available(), "the fastloader library did not build (g++)")
+    native_decode = decode_available()
+    has_pil = importlib.util.find_spec("PIL") is not None
+    print(f"[11a] native_available() True, decode_available() {native_decode} "
+          f"(libjpeg/libpng headers), PIL {'present' if has_pil else 'absent'}", flush=True)
+    t0 = time.perf_counter()
+    src = write_folder(root)
+    print(f"[11a] wrote {N_FOLDER} PNGs of {FOLDER_HW[0]}x{FOLDER_HW[1]} in 10 classes: "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not (native_decode or has_pil):
+        print("[11a] neither the native decoder nor PIL: the folder path cannot run here; "
+              "(b) evaluates an ArrayDataset of the same arrays", flush=True)
+        return src, False
+    ds = ImageFolderDataset(root, decode_size=FOLDER_HW[0])
+    check(len(ds) == N_FOLDER and ds.classes == [f"class{c}" for c in range(10)],
+          f"ImageFolderDataset found {len(ds)} images, classes {ds.classes}")
+    left = (FOLDER_HW[1] - FOLDER_HW[0]) // 2
+    t0 = time.perf_counter()
+    for s in range(0, N_FOLDER, 100):
+        batch, labels = ds.get_batch(list(range(s, s + 100)))
+        check(np.array_equal(batch, src[s:s + 100, :, left:left + FOLDER_HW[0]]),
+              f"decoding at {FOLDER_HW[0]} is not the center crop (images {s}..{s + 99})")
+        check(np.array_equal(labels, np.arange(s, s + 100) // (N_FOLDER // 10)), "labels")
+    path = "native decoder" if native_decode else "PIL fallback (no native decoder)"
+    print(f"[11a] decode at {FOLDER_HW[0]} through the {path}: all {N_FOLDER} equal the "
+          f"sources' center crops bit for bit ({time.perf_counter() - t0:.2f} s)", flush=True)
+    return src, True
+
+
+def serving_eval(jt, mods, mixer, root, src, folder_ok, name):
+    """(b): evaluate over the folder at 224 in bf16, against a direct
+    forward of the same decoded batches."""
+    from jittor_mlp_tpu_torch.data import (ArrayDataset, BatchIterator, ImageFolderDataset,
+                                           make_preprocess)
+    from jittor_mlp_tpu_torch.data.loader import resize_batch
+    from jittor_mlp_tpu_torch.examples.eval import evaluate
+
+    labels_all = np.arange(N_FOLDER) // (N_FOLDER // 10)
+    if folder_ok:
+        ds = ImageFolderDataset(root, decode_size=224)
+    else:  # the same arrays, resized on the host
+        ds = ArrayDataset(resize_batch(src[:, :, 32:288], 224), labels_all)
+
+    def batches():
+        return BatchIterator(ds, EVAL_BATCH, shuffle=False, drop_last=False)
+
+    mb = mods["mixer_block"]
+    top5s = []
+    reset_counts(mods)  # the eval path's run starts here
+    top1, top5, n, img_s = evaluate(mixer, batches(), EVAL_BATCH, torch.bfloat16,
+                                    top5_out=top5s)
+    launched = mb.LAUNCHES
+    want_launches = DEPTH * -(-N_FOLDER // EVAL_BATCH)
+    print(f"[11b] evaluate, {'ImageFolderDataset' if folder_ok else 'ArrayDataset'} -> "
+          f"BatchIterator({EVAL_BATCH}) -> bf16 Mixer-B/16: n {n}, top-1 {top1:.4f}, "
+          f"top-5 {top5:.4f}, {img_s:.1f} img/s end to end (decode included); "
+          f"{launched} fused_mixer_block launches (want {want_launches})  [{name}]", flush=True)
+    check(n == N_FOLDER, f"evaluate counted {n} images, want {N_FOLDER}")
+    check(launched == want_launches, f"{launched} launches in evaluate, want {want_launches}")
+    pre = make_preprocess(224, dtype=torch.bfloat16)
+    hit1 = hit5 = 0
+    with torch.inference_mode():
+        for k, b in enumerate(batches()):
+            valid = len(b["label"])
+            imgs = np.concatenate([b["image"], np.zeros((EVAL_BATCH - valid, 224, 224, 3),
+                                                        np.uint8)])
+            logits = mixer.forward(pre(torch.from_numpy(imgs).cuda())).float()[:valid]
+            got = torch.from_numpy(top5s[k]).cuda()
+            check(torch.equal(torch.topk(logits, 5, dim=-1).indices, got),
+                  f"batch {k}: evaluate's top-5 differ from the direct forward's")
+            check(bool((logits.gather(1, got[:, :1])[:, 0] == logits.max(-1).values).all()),
+                  f"batch {k}: evaluate's top-1 is not the direct forward's argmax")
+            lab = torch.from_numpy(b["label"].astype(np.int64)).cuda()
+            hit1 += int((got[:, 0] == lab).sum())
+            hit5 += int((got == lab[:, None]).any(-1).sum())
+    check(hit1 == round(top1 * n) and hit5 == round(top5 * n),
+          f"hits recomputed {hit1}, {hit5}; evaluate's {top1 * n}, {top5 * n}")
+    print(f"[11b] each image's top-1 is the direct forward's argmax on the same decoded "
+          f"batch; hit@1 {hit1}, hit@5 {hit5} recomputed = evaluate's", flush=True)
+    return img_s
+
+
+def serving_http(jt, mods, mixer, root, name):
+    """(c): examples/serve.make_server at --batch 32 (bf16, MicroBatcher) on
+    127.0.0.1 port 0; 8 clients POST 16 PNGs each."""
+    import http.client
+    import os
+
+    from jittor_mlp_tpu_torch.examples import serve as serve_ex
+
+    files = sorted(os.path.join(dp, f) for dp, _, fs in os.walk(root) for f in fs)
+    bodies = []
+    for path in files[:SERVE_CLIENTS * SERVE_EACH]:
+        with open(path, "rb") as f:
+            bodies.append(f.read())
+    args = serve_ex.parse_args(["--batch", "32", "--port", "0", "--max-delay-ms", "5"])
+    reset_counts(mods)
+    server, pred, batcher = serve_ex.make_server(args, model=mixer)
+    check(pred.dtype == "bf16" and batcher is not None, f"server dtype {pred.dtype}")
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+
+    def post(body):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        try:
+            conn.request("POST", "/classify", body=body)
+            r = conn.getresponse()
+            return r.status, r.reason, r.read()
+        finally:
+            conn.close()
+
+    n = len(bodies)
+    answers, lat, errors = [None] * n, [None] * n, []
+
+    def client(k):
+        try:
+            for i in range(k, n, SERVE_CLIENTS):
+                t0 = time.perf_counter()
+                answers[i] = post(bodies[i])
+                lat[i] = time.perf_counter() - t0
+        except Exception as e:  # reported below, in the main thread
+            errors.append(e)
+
+    mb = mods["mixer_block"]
+    try:
+        workers = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=300)
+            check(not t.is_alive(), "an HTTP client did not finish")
+        check(not errors, f"HTTP request failed: {errors[:1]}")
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        conn.request("GET", "/stats")
+        r = conn.getresponse()
+        stats = json.loads(r.read())
+        conn.close()
+        status, reason, _ = post(b"this is not an image")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+        batcher.close()
+    served, forwards = mb.LAUNCHES, pred.latency_stats()["count"]  # warm-up included
+    check(served == DEPTH * forwards,
+          f"{served} launches for the server's {forwards} forwards, want {DEPTH} each")
+    for i, (st, _reason, blob) in enumerate(answers):
+        check(st == 200, f"request {i}: status {st}")
+        got = json.loads(blob)["top_k"]
+        labels, probs = pred.predict(serve_ex.decode(bodies[i], 224))
+        check([e["label"] for e in got] == labels[0].tolist(),
+              f"request {i}: labels {[e['label'] for e in got]} != predict's {labels[0]}")
+        check(max(abs(e["prob"] - p) for e, p in zip(got, probs[0])) <= 1e-3,
+              f"request {i}: probabilities differ from predict's")
+    check(r.status == 200 and stats.get("batcher", {}).get("requests") == n
+          and stats["batcher"]["batches"] >= 1 and "p50_ms" in stats,
+          f"/stats: {stats}")
+    check(status == 400 and reason == "bad request",
+          f"malformed body: status {status} {reason!r}, want 400 'bad request'")
+    ms = np.sort(np.asarray(lat)) * 1e3
+    print(f"[11c] HTTP /classify, {SERVE_CLIENTS} clients x {SERVE_EACH} PNGs: every top-5 = "
+          f"Predictor.predict on the decoded image; request p50 {np.percentile(ms, 50):.3f} ms, "
+          f"p99 {np.percentile(ms, 99):.3f} ms, max {ms[-1]:.3f} ms (client side)  [{name}]",
+          flush=True)
+    print(f"[11c] /stats: {json.dumps(stats)}", flush=True)
+    print(f"[11c] a malformed body: {status} {reason!r} (one line); the server's "
+          f"{forwards} forwards (warm-up included) launched fused_mixer_block {served} times; "
+          f"shut down", flush=True)
+
+
+def serving_deploy(jt, mods, mixer, tmp, name):
+    """(d): save_exported / load_exported at b32 in bf16 and with int8=True."""
+    import os
+
+    from jittor_mlp_tpu_torch import config, deploy
+
+    x = images(32, seed=11).bfloat16()
+    for int8, mod, op in ((False, mods["mixer_block"], "fused_mixer_block"),
+                          (True, mods["mixer_block_int8"], "fused_mixer_block_int8")):
+        tag = "int8" if int8 else "bf16"
+        mode = config.int8_mode if int8 else contextlib.nullcontext
+        t0 = time.perf_counter()
+        path = deploy.save_exported(mixer, os.path.join(tmp, f"mixer_b16_{tag}.pt2"),
+                                    batch_size=32, dtype=torch.bfloat16, int8=int8)
+        t_export = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fwd = deploy.load_exported(path)
+        t_load = time.perf_counter() - t0
+        nodes = [str(nd.target) for nd in fwd.program.graph.nodes if nd.op == "call_function"
+                 and str(nd.target).startswith("jittor_mlp_tpu_torch.")]
+        check(nodes == [f"jittor_mlp_tpu_torch.{op}.default"] * DEPTH,
+              f"{tag} program's op nodes: {nodes}")
+        with torch.inference_mode(), mode():
+            eager = mixer.forward(x)
+        before = mod.LAUNCHES
+        got = fwd(x)
+        torch.cuda.synchronize()
+        check(mod.LAUNCHES == before + DEPTH,
+              f"{tag} program launched {op} {mod.LAUNCHES - before} times, want {DEPTH}")
+        check(torch.equal(got, eager), f"{tag} program's logits differ from the eager forward")
+        runs = {"eager": [], "exported": []}
+        for which in ("eager", "exported", "exported", "eager"):  # in turns
+            with torch.inference_mode(), mode():
+                call = (lambda: mixer.forward(x)) if which == "eager" else (lambda: fwd(x))
+                runs[which].append(cuda_ms(call, 20))
+        eager_ms, prog_ms = (sum(runs[k]) / 2 for k in ("eager", "exported"))
+        try:
+            fwd(x[:31])
+            raised = None
+        except Exception as e:
+            raised = type(e).__name__
+        check(raised is not None, f"{tag} program took a b31 input")
+        print(f"[11d] deploy {tag} b32: {DEPTH} {op} nodes, {DEPTH} launches a call, logits "
+              f"bit-equal to the eager forward; exported {prog_ms:.4f} ms vs eager "
+              f"{eager_ms:.4f} ms (runs {json.dumps(runs)}); export {t_export:.2f} s, load "
+              f"{t_load:.2f} s, file "
+              f"{os.path.getsize(path) / 2**20:.1f} MiB; b31 raised {raised}  [{name}]",
+              flush=True)
+        del fwd
+        os.remove(path)
+
+
+def serving_checkpoints(jt, mods, mixer, imgs16, tmp, name):
+    """(e): params round trip, int8 checkpoint, train state."""
+    import os
+
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+    from jittor_mlp_tpu_torch.quant import (load_quantized, quantize_state_dict,
+                                            quantized_nbytes, save_quantized)
+    from jittor_mlp_tpu_torch.utils.serialization import (load_params, restore_train_state,
+                                                          save_params, save_train_state)
+
+    x = images(32, seed=12).bfloat16()
+    path = save_params(mixer, os.path.join(tmp, "mixer.npz"))
+    fresh = jt.MLPMixerForImageClassification(**MIXER_B16, seed=1).to_bf16().eval()
+    load_params(fresh, path)
+    with torch.inference_mode():
+        check(torch.equal(fresh.forward(x), mixer.forward(x)),
+              "load_params: logits differ from the saved model's")
+    print(f"[11e] save_params -> fresh model -> load_params: logits bit-equal "
+          f"({os.path.getsize(path) / 2**20:.1f} MiB file)", flush=True)
+    del fresh
+    os.remove(path)
+
+    f32 = jt.MLPMixerForImageClassification(**MIXER_B16).eval()  # seed 0's weights in f32
+    nbytes = quantized_nbytes(quantize_state_dict(f32.name, f32.state_dict()))
+    f32_bytes = sum(v.numel() * 4 for v in f32.state_dict().values())
+    qpath = save_quantized(f32, os.path.join(tmp, "mixer.int8.npz"))
+    del f32
+    qmodel = load_quantized(jt.MLPMixerForImageClassification(**MIXER_B16, seed=2), qpath,
+                            dtype=torch.bfloat16)
+    pq = jt.Predictor(qmodel, batch_size=16)
+    p16 = jt.Predictor(mixer, batch_size=16)
+    lq, _ = pq.predict(imgs16)
+    l16, _ = p16.predict(imgs16)
+    agree = int((lq[:, 0] == l16[:, 0]).sum())
+    print(f"[11e] int8 checkpoint: quantized_nbytes {nbytes / 2**20:.2f} MiB = "
+          f"{nbytes / f32_bytes:.4f} of the f32 bytes; file {os.path.getsize(qpath) / 2**20:.1f}"
+          f" MiB; load_quantized(bf16) Predictor agrees with the bf16 Predictor on {agree} of "
+          f"16 images (top-1)", flush=True)
+    check(agree >= 15, f"int8 checkpoint agrees on {agree} of 16 images, want >= 15")
+    del pq, qmodel
+    os.remove(qpath)
+
+    old = config.pallas_bwd
+    config.pallas_bwd = True  # the Mixer's kernel route
+    try:
+        batches = [train_batch(32, seed=s) for s in (21, 22)]
+
+        def fresh_state(seed):
+            model = jt.MLPMixerForImageClassification(**MIXER_B16, seed=seed)
+            opt = torch.optim.AdamW(model.parameters(), lr=1e-3)
+            return model, opt, make_train_step(model, opt, compute_dtype=torch.bfloat16)
+
+        model, opt, step = fresh_state(0)
+        bwd0 = launches(mods["mixer_block_bwd"], "token_bwd")
+        step(batches[0])
+        spath = save_train_state(os.path.join(tmp, "state.pt"), model, opt, 1)
+        want = step(batches[1])
+        bwd = launches(mods["mixer_block_bwd"], "token_bwd") - bwd0
+        del model, opt, step
+        model, opt, step = fresh_state(3)
+        check(restore_train_state(spath, model, opt) == 1, "restored step")
+        got = step(batches[1])
+        check(torch.equal(got, want), f"resumed loss {got.item()} != uninterrupted {want.item()}")
+        check(bwd == 2 * DEPTH, f"{bwd} token_bwd launches in two kernel-route steps")
+        print(f"[11e] train state after one b32 kernel-route step ({bwd} token_bwd launches "
+              f"over two steps): restored into fresh objects, the next loss "
+              f"{got.item():.6f} bit-equal to the uninterrupted run's "
+              f"({os.path.getsize(spath) / 2**20:.1f} MiB file)", flush=True)
+        del model, opt, step
+        os.remove(spath)
+    finally:
+        config.pallas_bwd = old
+
+
+def op_dispatch_cost(mb, mixer, name):
+    """The Mixer-B/16 bf16 forward with each block through its
+    ``torch.library`` op and with the wrapper calling the ctypes launch
+    directly (the op's CUDA implementation, no dispatcher), in turns."""
+    op = mb.OP
+    variants = {"torch.library op": op, "direct ctypes launch": mb._launch}
+    try:
+        for batch, iters in ((256, 10), (32, 30)):
+            x = images(batch, seed=13).bfloat16()
+            times = {k: [] for k in variants}
+            with torch.inference_mode():
+                for which in (list(variants) + list(variants)[::-1]) * 2:
+                    mb.OP = variants[which]
+                    times[which].append(cuda_ms(lambda: mixer.forward(x), iters))
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            print(f"[11f] Mixer-B/16 bf16 forward b{batch}: through the op "
+                  f"{ms['torch.library op']:.4f} ms, direct launch "
+                  f"{ms['direct ctypes launch']:.4f} ms (runs {json.dumps(times)})  [{name}]",
+                  flush=True)
+    finally:
+        mb.OP = op
+
+
+def phase_serving_layer(jt, mods, name):
+    """Phase 11: the serving and evaluation layer on Mixer-B/16 @224, seed-0
+    weights as phase 5 builds them, bf16."""
+    import tempfile
+
+    from jittor_mlp_tpu_torch.utils.timing import throughput
+
+    t_phase = time.perf_counter()
+    mixer = jt.MLPMixerForImageClassification(**MIXER_B16).to_bf16().eval()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/folder"
+        src, folder_ok = serving_data(root, name)
+        serving_eval(jt, mods, mixer, root, src, folder_ok, name)
+        if folder_ok:
+            serving_http(jt, mods, mixer, root, name)
+        else:
+            print("[11c] no decoder for the HTTP bodies (neither native nor PIL): not run",
+                  flush=True)
+        serving_deploy(jt, mods, mixer, tmp, name)
+        from jittor_mlp_tpu_torch.data.loader import resize_batch
+
+        imgs16 = resize_batch(src[:16, :, 32:288], 224)
+        serving_checkpoints(jt, mods, mixer, imgs16, tmp, name)
+    img_s = throughput(lambda x: mixer.forward(x), (256, 3, 224, 224), dtype=torch.bfloat16)
+    p5 = FORWARD_IMG_S[("Mixer-B/16", "bf16 kernel path")]
+    print(f"[11f] utils.timing.throughput bf16 b256: {img_s:.1f} img/s; phase 5's "
+          f"{p5:.1f} img/s; ratio {img_s / p5:.4f} (band ±{THROUGHPUT_BAND})  [{name}]",
+          flush=True)
+    check(abs(img_s / p5 - 1) <= THROUGHPUT_BAND,
+          f"throughput {img_s} img/s is not within {THROUGHPUT_BAND} of phase 5's {p5}")
+    op_dispatch_cost(mods["mixer_block"], mixer, name)
+    del mixer
+    torch.cuda.empty_cache()
+    print(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -3191,6 +3626,8 @@ def main():
     phase_dcn(mods, name)
     torch.cuda.empty_cache()
     phase_train_zoo(jt, mods, name)
+    torch.cuda.empty_cache()
+    phase_serving_layer(jt, mods, name)
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}

@@ -8,9 +8,11 @@ that). For x (B, H, W, C) and an axis (1 = H, 2 = W), channel group g of
 shift//2), and is zero outside; sign -1 is the gradient.
 
 - ``axial_shift_ref``: the plain twin, ``ops.shift.axial_shift``.
-- ``shift``: one call at a given sign. A CPU tensor goes to the twin; a
-  contiguous CUDA bf16 or float32 tensor launches the kernel; anything else
-  raises. It never falls back to the twin on the card.
+- ``shift``: one call at a given sign, through the op
+  ``jittor_mlp_tpu_torch::axial_shift`` (``_op.register``; ``OP``). A CPU
+  tensor goes to the twin; a contiguous CUDA bf16 or float32 tensor
+  launches the kernel; anything else raises. It never falls back to the
+  twin on the card.
 - ``axial_shift``: the differentiable shift (an ``autograd.Function``): the
   forward is ``shift`` at sign +1, the backward ``shift`` at sign -1 on the
   incoming gradient, as the JAX custom VJP's ``_bwd``.
@@ -26,6 +28,7 @@ import torch
 
 from ..shift import axial_shift as axial_shift_ref
 from ._build import Library
+from ._op import register
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -38,20 +41,9 @@ def build():
     _LIB.load()
 
 
-def shift(x, shift_size, axis, sign=1):
-    """The shift of x (B, H, W, C) at ``sign`` (+1 forward, -1 gradient).
-    CPU: the plain twin. CUDA: the kernel on the current stream (bf16 or
-    float32, contiguous); it raises on anything it does not take."""
+def _launch(x, shift_size, axis, sign):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
-    if x.dim() != 4:
-        raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
-    if axis not in (1, 2) or sign not in (1, -1) or shift_size < 1:
-        raise ValueError(f"axis {axis}, sign {sign}, shift_size {shift_size}: want axis 1 or "
-                         f"2, sign +1 or -1, shift_size >= 1")
-    if x.device.type == "cpu":
-        return axial_shift_ref(x, shift_size, axis, sign)
-    if x.device.type != "cuda":
-        raise ValueError(f"no axial-shift kernel for device {x.device}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the axial-shift kernel takes bf16 or float32, got {x.dtype}")
     if not x.is_contiguous():
@@ -63,6 +55,25 @@ def shift(x, shift_size, axis, sign=1):
         with _COUNT_LOCK:
             LAUNCHES += 1
     return out
+
+
+OP = register("axial_shift", ["Tensor x", "int shift_size", "int axis", "int sign"], _launch,
+              axial_shift_ref)
+
+
+def shift(x, shift_size, axis, sign=1):
+    """The shift of x (B, H, W, C) at ``sign`` (+1 forward, -1 gradient),
+    through the op ``jittor_mlp_tpu_torch::axial_shift``. CPU: the plain
+    twin. CUDA: the kernel on the current stream (bf16 or float32,
+    contiguous); it raises on anything it does not take."""
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, H, W, C), got shape {tuple(x.shape)}")
+    if axis not in (1, 2) or sign not in (1, -1) or shift_size < 1:
+        raise ValueError(f"axis {axis}, sign {sign}, shift_size {shift_size}: want axis 1 or "
+                         f"2, sign +1 or -1, shift_size >= 1")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no axial-shift kernel for device {x.device}")
+    return OP(x, shift_size, axis, sign)
 
 
 class AxialShift(torch.autograd.Function):

@@ -21,7 +21,8 @@ w2 (D, F) [channel_proj2].
   kernel's layouts (xn and g K-major over all B·N rows; Wsp in rows of
   Np = round_up(N, 8) read as its first N columns, shared by every image,
   and vn an N-major B operand an entry an image).
-- ``fused_gmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
+- ``fused_gmlp_block``: the op ``jittor_mlp_tpu_torch::fused_gmlp_block``
+  (``_op.register``; ``OP``): a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
   ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
@@ -42,8 +43,9 @@ import torch
 from ...core.nnf import gelu_erf, gelu_tanh
 from ..products import gemm_bf16_ref
 from ._build import Library
-from .mixer_block import (KernelForwardPlainBackward, check_weights, layer_norm_f32,
-                          require_bf16_contiguous)
+from ._op import register, tensor_args
+from .mixer_block import (KernelForwardPlainBackward, check_block_input, check_weights,
+                          layer_norm_f32, require_bf16_contiguous)
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -111,19 +113,14 @@ def routes():
     return _LIB.routes()
 
 
-def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
-    """One gMLP block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+BLOCK_ARGS = ("x", "ln1w", "ln1b", "w1", "b1", "sgu_w", "sgu_b", "wsp", "bs", "w2", "b2")
+
+
+def _launch(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
     weights = (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
     B, N, D, F = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return gmlp_block_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no gMLP-block kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     ws = torch.empty(_LIB.workspace(B, N, D, F), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
@@ -131,6 +128,20 @@ def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_gmlp_block", tensor_args(BLOCK_ARGS), _launch, gmlp_block_ref)
+
+
+def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """One gMLP block, through the op ``jittor_mlp_tpu_torch::
+    fused_gmlp_block``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2)
+    check_block_input(x, "gMLP-block")
+    block_dims(x, weights)
+    return OP(x, *weights)
 
 
 def fused_gmlp_block_trainable(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

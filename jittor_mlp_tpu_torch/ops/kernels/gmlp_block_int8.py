@@ -19,8 +19,10 @@ Nothing is rounded to x's dtype before the output:
   arithmetic and multiplication order, its three products the s8 core's
   twin ``ops.products.gemm_s8_ref`` (exact integer products, then the row and
   the column scale), as the kernel runs them on the s8 ``wgmma`` core.
-- ``fused_gmlp_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
-  contiguous tensor launches the kernel; anything else raises.
+- ``fused_gmlp_block_int8``: the op ``jittor_mlp_tpu_torch::
+  fused_gmlp_block_int8`` (``_op.register``; ``OP``): a CPU tensor goes to
+  the twin; a CUDA bf16 contiguous tensor launches the kernel; anything
+  else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
   ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
   the ``mma.sync`` core (``mma_s8``), three a launch.
@@ -36,8 +38,9 @@ from ...core.nnf import gelu_tanh
 from ...quant import quant_act, quant_weight
 from ..products import gemm_s8_ref
 from ._build import S8_ROUTES, Library
-from .gmlp_block import block_dims
-from .mixer_block import layer_norm_f32, require_bf16_contiguous
+from ._op import register, tensor_args
+from .gmlp_block import BLOCK_ARGS, block_dims
+from .mixer_block import check_block_input, layer_norm_f32, require_bf16_contiguous
 from .mixer_block_int8 import weight_operands
 
 LAUNCHES = 0
@@ -79,20 +82,11 @@ def routes():
     return _LIB.routes()
 
 
-def fused_gmlp_block_int8(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
-    """One W8A8 gMLP block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+def _launch(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
-    weights = (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
-    B, N, D, F = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return gmlp_block_int8_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no W8A8 gMLP-block kernel for device {x.device}")
-    require_bf16_contiguous((x, *weights))
+    B, N, D, F = block_dims(x, (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2))
+    require_bf16_contiguous((x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2))
     # the last weight's chunk is the whole F: one activation scale per row
     qw1, sw1, qwsp, swsp, qw2, sw2 = weight_operands((w1, wsp, w2), F)
     ws = torch.empty(_LIB.workspace(B, N, D, F), dtype=torch.uint8, device=x.device)
@@ -104,3 +98,17 @@ def fused_gmlp_block_int8(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_gmlp_block_int8", tensor_args(BLOCK_ARGS), _launch, gmlp_block_int8_ref)
+
+
+def fused_gmlp_block_int8(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
+    """One W8A8 gMLP block, through the op ``jittor_mlp_tpu_torch::
+    fused_gmlp_block_int8``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2)
+    check_block_input(x, "W8A8 gMLP-block")
+    block_dims(x, weights)
+    return OP(x, *weights)

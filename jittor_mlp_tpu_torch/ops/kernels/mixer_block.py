@@ -16,8 +16,9 @@ wc1 (CD, D), wc2 (D, CD).
 - ``mixer_block_ref``: plain PyTorch with the same rounding points (bf16
   operands upcast to f32, f32 matmuls, casts where the kernel casts). For
   float32 inputs it uses the exact-erf GELU, as the TPU kernel does.
-- ``fused_mixer_block``: a CPU tensor goes to ``mixer_block_ref``; a CUDA
-  bf16 contiguous tensor launches the kernel; anything else raises.
+- ``fused_mixer_block``: the op ``jittor_mlp_tpu_torch::fused_mixer_block``
+  (``_op.register``; ``OP``): a CPU tensor goes to ``mixer_block_ref``; a
+  CUDA bf16 contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel; ``routes()``:
   its channel products on each GEMM core (the wgmma core where TMA can load
   the operands, else the WMMA core).
@@ -41,6 +42,7 @@ import torch
 
 from ...core.nnf import gelu_erf, gelu_tanh
 from ._build import Library
+from ._op import register, tensor_args
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -148,6 +150,14 @@ def check_weights(x, weights, names, shapes):
             raise ValueError(f"{name} is on {w.device}, x on {x.device}")
 
 
+def check_block_input(x, what):
+    """Raise unless x is floating point and lies on the CPU or a card."""
+    if not x.is_floating_point():
+        raise TypeError(f"x must be floating point, got {x.dtype}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} kernel for device {x.device}")
+
+
 def block_dims(x, weights):
     """Check the block's 12 weights against x (B, N, D) in shape and device;
     return (B, N, D, TD, CD)."""
@@ -164,20 +174,15 @@ def block_dims(x, weights):
     return B, N, D, TD, CD
 
 
-def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
-                      wc1, bc1, wc2, bc2):
-    """One Mixer block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+BLOCK_ARGS = ("x", "ln1w", "ln1b", "wt1", "bt1", "wt2", "bt2", "ln2w", "ln2b",
+              "wc1", "bc1", "wc2", "bc2")
+
+
+def _launch(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
     weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
     B, N, D, TD, CD = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return mixer_block_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no mixer-block kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     xn = torch.empty_like(x)
     t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
@@ -189,6 +194,21 @@ def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_mixer_block", tensor_args(BLOCK_ARGS), _launch, mixer_block_ref)
+
+
+def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                      wc1, bc1, wc2, bc2):
+    """One Mixer block, through the op ``jittor_mlp_tpu_torch::
+    fused_mixer_block``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
+    check_block_input(x, "mixer-block")
+    block_dims(x, weights)
+    return OP(x, *weights)
 
 
 def fused_mixer_block_trainable(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,

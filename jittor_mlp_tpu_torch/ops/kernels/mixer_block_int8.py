@@ -23,8 +23,10 @@ every product is int8 × int8 → int32:
   image, the second channel product in chunks of ckp codes with a row
   scale a chunk), as the kernel runs them on the s8 ``wgmma`` core; its
   integer products are exact.
-- ``fused_mixer_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
-  contiguous tensor launches the kernel; anything else raises.
+- ``fused_mixer_block_int8``: the op ``jittor_mlp_tpu_torch::
+  fused_mixer_block_int8`` (``_op.register``; ``OP``): a CPU tensor goes to
+  the twin; a CUDA bf16 contiguous tensor launches the kernel; anything else
+  raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
   ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
   the ``mma.sync`` core (``mma_s8``), four a launch.
@@ -41,7 +43,9 @@ from ...core.nnf import gelu_tanh
 from ...quant import quant_act, quant_weight
 from ..products import gemm_s8_ref
 from ._build import S8_ROUTES, Library
-from .mixer_block import block_dims, layer_norm_f32, require_bf16_contiguous
+from ._op import register, tensor_args
+from .mixer_block import (BLOCK_ARGS, block_dims, check_block_input, layer_norm_f32,
+                          require_bf16_contiguous)
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -117,20 +121,11 @@ def routes():
     return _LIB.routes()
 
 
-def fused_mixer_block_int8(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
-                           wc1, bc1, wc2, bc2):
-    """One W8A8 Mixer block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+def _launch(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
     weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
     B, N, D, TD, CD = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return mixer_block_int8_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no W8A8 mixer-block kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     qwt1, swt1, qwt2, swt2, qwc1, swc1, qwc2, swc2 = weight_operands(
         (wt1, wt2, wc1, wc2), chunk_size(CD))
@@ -143,3 +138,18 @@ def fused_mixer_block_int8(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_mixer_block_int8", tensor_args(BLOCK_ARGS), _launch, mixer_block_int8_ref)
+
+
+def fused_mixer_block_int8(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
+                           wc1, bc1, wc2, bc2):
+    """One W8A8 Mixer block, through the op ``jittor_mlp_tpu_torch::
+    fused_mixer_block_int8``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
+    check_block_input(x, "W8A8 mixer-block")
+    block_dims(x, weights)
+    return OP(x, *weights)

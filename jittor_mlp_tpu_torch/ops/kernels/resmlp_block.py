@@ -20,7 +20,8 @@ the reference's plain block rounds it first.
   kernel's layouts (Wt in rows of Np = round_up(N, 8) read as its first N
   columns, shared by every image, and h an N-major B operand an entry an
   image; h2 and c K-major over all B·N rows).
-- ``fused_resmlp_block``: a CPU tensor goes to the twin; a CUDA bf16
+- ``fused_resmlp_block``: the op ``jittor_mlp_tpu_torch::fused_resmlp_block``
+  (``_op.register``; ``OP``): a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
   ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
@@ -42,7 +43,9 @@ import torch
 from ...core.nnf import gelu_erf, gelu_tanh
 from ..products import gemm_bf16_ref
 from ._build import Library
-from .mixer_block import KernelForwardPlainBackward, check_weights, require_bf16_contiguous
+from ._op import register, tensor_args
+from .mixer_block import (KernelForwardPlainBackward, check_block_input, check_weights,
+                          require_bf16_contiguous)
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -109,19 +112,14 @@ def routes():
     return _LIB.routes()
 
 
-def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
-    """One ResMLP block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+BLOCK_ARGS = ("x", "a1", "b1", "g1", "wt", "bt", "a2", "b2", "g2", "w1", "c1", "w2", "c2")
+
+
+def _launch(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
     weights = (a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
     B, N, D, F = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return resmlp_block_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ResMLP-block kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     ws = torch.empty(_LIB.workspace(B, N, D, F), dtype=torch.uint8, device=x.device)
     out = torch.empty_like(x)
@@ -129,6 +127,20 @@ def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_resmlp_block", tensor_args(BLOCK_ARGS), _launch, resmlp_block_ref)
+
+
+def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """One ResMLP block, through the op ``jittor_mlp_tpu_torch::
+    fused_resmlp_block``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2)
+    check_block_input(x, "ResMLP-block")
+    block_dims(x, weights)
+    return OP(x, *weights)
 
 
 def fused_resmlp_block_trainable(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

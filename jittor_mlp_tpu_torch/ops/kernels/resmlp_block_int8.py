@@ -21,8 +21,10 @@ block, nothing is rounded to x's dtype before the output:
   with qWt shared, FF2 in chunks of ckp codes with a row scale a chunk
   where F ≥ 2048), as the kernel runs them on the s8 ``wgmma`` core; its
   integer products are exact.
-- ``fused_resmlp_block_int8``: a CPU tensor goes to the twin; a CUDA bf16
-  contiguous tensor launches the kernel; anything else raises.
+- ``fused_resmlp_block_int8``: the op ``jittor_mlp_tpu_torch::
+  fused_resmlp_block_int8`` (``_op.register``; ``OP``): a CPU tensor goes
+  to the twin; a CUDA bf16 contiguous tensor launches the kernel; anything
+  else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
   ``routes()``: its products on the s8 ``wgmma`` core (``sm90_s8``) and on
   the ``mma.sync`` core (``mma_s8``), three a launch.
@@ -38,9 +40,10 @@ from ...core.nnf import gelu_tanh
 from ...quant import quant_act
 from ..products import gemm_s8_ref
 from ._build import S8_ROUTES, Library
-from .mixer_block import require_bf16_contiguous
+from ._op import register, tensor_args
+from .mixer_block import check_block_input, require_bf16_contiguous
 from .mixer_block_int8 import pad_last, chunk_size, weight_operands
-from .resmlp_block import block_dims
+from .resmlp_block import BLOCK_ARGS, block_dims
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -92,19 +95,11 @@ def routes():
     return _LIB.routes()
 
 
-def fused_resmlp_block_int8(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
-    """One W8A8 ResMLP block. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous), launched on the current stream; it raises on anything it
-    does not take and never falls back to the twin."""
+def _launch(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """The op's CUDA implementation: the kernel on the current stream."""
     global LAUNCHES
     weights = (a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2)
-    if not x.is_floating_point():
-        raise TypeError(f"x must be floating point, got {x.dtype}")
     B, N, D, F = block_dims(x, weights)
-    if x.device.type == "cpu":
-        return resmlp_block_int8_ref(x, *weights)
-    if x.device.type != "cuda":
-        raise ValueError(f"no W8A8 ResMLP-block kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     qwt, swt, qw1, sw1, qw2, sw2 = weight_operands((wt, w1, w2), chunk_size(F))
     ws = torch.empty(_LIB.workspace(B, N, D, F), dtype=torch.uint8, device=x.device)
@@ -116,3 +111,18 @@ def fused_resmlp_block_int8(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     with _COUNT_LOCK:
         LAUNCHES += 1
     return out
+
+
+OP = register("fused_resmlp_block_int8", tensor_args(BLOCK_ARGS), _launch,
+              resmlp_block_int8_ref)
+
+
+def fused_resmlp_block_int8(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
+    """One W8A8 ResMLP block, through the op ``jittor_mlp_tpu_torch::
+    fused_resmlp_block_int8``. CPU: the plain twin. CUDA: the kernel (bf16,
+    contiguous), launched on the current stream; it raises on anything it
+    does not take and never falls back to the twin."""
+    weights = (a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2)
+    check_block_input(x, "W8A8 ResMLP-block")
+    block_dims(x, weights)
+    return OP(x, *weights)

@@ -31,12 +31,17 @@ Two schemes, both symmetric:
 ``dynamic_int8_matmul`` and the plain twins of the W8A8 kernels: float32
 while K·127² < 2²⁴ (K ≤ 1040; int8 values and their sums are exact there,
 TF32 included), float64 above.
+
+``save_quantized`` / ``load_quantized`` write and read int8 checkpoints
+(``quantized_nbytes`` counts their payload); ``load_quantized`` also reads
+the JAX package's ``save_quantized`` files.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 _K_F32_EXACT = 1040  # K·127² < 2**24
@@ -168,3 +173,76 @@ def dequantize_state_dict(qsd, dtype):
         else:
             out[k] = v
     return out
+
+
+# -- int8 checkpoints -----------------------------------------------------------
+
+_Q, _S = "::q", "::scale"  # file keys of a quantized tensor's codes and scales
+_JAX_Q, _JAX_S = "__q_int8__", "__q_scale__"  # a JAX quantized leaf's node
+
+
+def quantized_nbytes(qsd):
+    """Total payload bytes of a ``quantize_state_dict`` result (int8 codes +
+    f32 scales + passthrough tensors)."""
+    return sum(sum(t.nbytes for t in v.values()) if isinstance(v, dict) else v.nbytes
+               for v in qsd.values())
+
+
+def save_quantized(model, path, min_size=2048):
+    """Snapshot the model as an int8 ``.npz`` (compressed; about a quarter
+    of the float32 bytes): ``quantize_state_dict``'s codes and scales under
+    ``{key}::q`` and ``{key}::scale``, every other tensor under its key
+    (bf16 as float32, exactly). Returns ``path``."""
+    from .utils.serialization import host_array
+
+    arrays = {}
+    for k, v in quantize_state_dict(model.name, model.state_dict(), min_size).items():
+        if isinstance(v, dict):
+            arrays[k + _Q], arrays[k + _S] = host_array(v["q"]), host_array(v["scale"])
+        else:
+            arrays[k] = host_array(v)
+    np.savez_compressed(path, **arrays)
+    return path
+
+
+def _dequantize_jax(node):
+    """A JAX ``quantize_tree`` (numpy leaves) with each quantized leaf
+    dequantized, per JAX leaf, to float32: q·scale, as ``dequantize_tree``."""
+    if isinstance(node, dict):
+        if _JAX_Q in node:
+            return node[_JAX_Q].astype(np.float32) * node[_JAX_S]
+        return {k: _dequantize_jax(v) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return type(node)(_dequantize_jax(v) for v in node)
+    return node
+
+
+def load_quantized(model, path, dtype=torch.bfloat16):
+    """Restore a ``save_quantized`` snapshot into an identically-built
+    model, whose floating parameters and buffers become ``dtype``.
+
+    The port's file: the int8 codes and f32 scales go to the model's device
+    as they are and are dequantized there (codes·scales → dtype), so the
+    upload is int8. A JAX ``save_quantized`` file: its quantized leaves are
+    dequantized per JAX leaf on the host (q·scale in float32, the JAX
+    ``dequantize_tree`` arithmetic), then named by
+    ``convert.state_dict_from_jax``."""
+    from .utils.serialization import from_jax_tree, is_jax_file, jax_tree
+
+    dev = model.device
+    with np.load(path) as data:
+        if is_jax_file(data):
+            sd = {k: v.to(dev) for k, v in
+                  from_jax_tree(model, _dequantize_jax(jax_tree(data))).items()}
+        else:
+            sd = {}
+            for k in data.files:
+                if k.endswith(_S):
+                    continue
+                if k.endswith(_Q):
+                    sd[k[:-len(_Q)]] = {"q": torch.from_numpy(data[k]).to(dev),
+                                        "scale": torch.from_numpy(data[k[:-len(_Q)] + _S]).to(dev)}
+                else:
+                    sd[k] = torch.from_numpy(data[k]).to(dev)
+    model.to(dtype)
+    return model.load_torch_state_dict(dequantize_state_dict(sd, dtype))
