@@ -10,8 +10,11 @@ with the plain block's backward, and under ``config.pallas_bwd`` the
 backward kernels), ResMLP-S24 and gMLP-S steps, and AS-MLP-T steps with
 drop-path; then runs the port's kernel lab over the Mixer-B/16 stack,
 serves the eighteen families that have no kernel of their own (nineteen
-models), checks the DCN ops, trains the nineteen, and drives the serving
-and evaluation layer (folder eval, the HTTP server, deploy, checkpoints). Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
+models), checks the DCN ops, trains the nineteen, drives the serving
+and evaluation layer (folder eval, the HTTP server, deploy, checkpoints),
+and trains with the recipes (train_recipes: mixup/cutmix, label
+smoothing, EMA, a warmup-cosine schedule) on both Mixer routes, with
+probes, FLOPs and the train example's folder, metrics and checkpoints. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
 config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -244,7 +247,34 @@ Phases (each one fails loudly; there is no CPU fallback):
      ``save_train_state``/``restore_train_state`` around a b32 kernel-route
      step giving the next loss bit for bit; (f) ``utils.timing.throughput``
      of the b256 forward within 10% of phase 5's img/s, and the forward
-     through the block op against the direct ctypes launch at b256 and b32.
+     through the block op against the direct ctypes launch at b256 and b32;
+ 12. the training recipes (``train_recipes``): (a) the recipe step on
+     Mixer-B/16 @224 at b128 bf16 (mixup 0.8, cutmix 1.0, smoothing 0.1,
+     EMA 0.9999, AdamW with a warmup-cosine schedule) on the kernel route,
+     the recompute route and the plain bf16 path from the same weights and
+     generator seed: the first step's gradients between the routes within
+     1.1e-2 and each route against the plain path within 1.5e-2 (phase
+     6b's bands), 12 launches of each of the route's kernels a step, the
+     masters, EMA, Adam state and gradients float32, the EMA within 4
+     float32 ulps of its recurrence recomputed on the CPU, each update's
+     lr equal to the schedule's; on each path, in turns (twice each, one
+     warm-up and 3 timed steps, CUDA events), make_train_step, the recipe
+     step, and the recipe step with its EMA off and with its mix and EMA
+     off: the recipe's img/s beside phase 6f's make_train_step img/s and
+     each variant's ms; the ms of smoothing with the mix (each mode) and
+     of the EMA update alone;
+     (b) ConvMLP-M at b64 bf16 under the recipe: every running statistic
+     moves with the default bn_momentum, none with None; (c)
+     ``utils.probes.capture`` on AS-MLP-T at b8: the card's f32 (TF32 off)
+     and bf16 values at each tag against the CPU's f32 (f32 within 1e-3
+     of max|ref|; bf16 printed), 48 shift launches; (d) ``Model.flops``
+     of Mixer-B/16, AS-MLP-T and GFNet equal on the CPU (f32) and the card
+     (f32, and after to_bf16(): the block ops' flop formulas); (e)
+     ``examples.train.main`` with --data-dir, --mixed-precision,
+     --metrics and --ckpt-dir on 40 seeded PNGs: 4 steps straight, then 2
+     and a resume of 2 (the parameters printed as bit-equal or not, held
+     within 1e-3 of max|param|), one metrics line a step, the last two
+     checkpoints kept.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -2799,6 +2829,9 @@ def other_families(jt, mods, batch_size=32):
         del model
 
 
+TRAIN_IMG_S = {}  # phase 6f: Mixer-B/16 b128 make_train_step img/s per path, which 12a reads
+
+
 def train_throughput(jt, name, batch_size=128):
     """(f) Train img/s at b128 on each path, in turns, by CUDA events."""
     from jittor_mlp_tpu_torch import config
@@ -2820,6 +2853,7 @@ def train_throughput(jt, name, batch_size=128):
     model.use_pallas, config.pallas_bwd = True, False
     for path, runs in times.items():
         ms = sum(runs) / len(runs)
+        TRAIN_IMG_S[path] = batch_size * 1e3 / ms
         print(f"[6f] Mixer-B/16 bf16 train step b{batch_size}, {path}: {ms:.4f} ms, "
               f"{batch_size * 1e3 / ms:.1f} img/s (runs {runs}; peak memory "
               f"{peak[path]:.3f} GiB)  [{name}]", flush=True)
@@ -3189,13 +3223,13 @@ def png_bytes(img):
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1)) + chunk(b"IEND", b""))
 
 
-def write_folder(root, seed=0):
-    """N_FOLDER seeded PNGs of FOLDER_HW in 10 class subfolders under root;
-    returns the source arrays in the dataset's (sorted) order."""
+def write_folder(root, seed=0, n=N_FOLDER, hw=FOLDER_HW):
+    """n seeded PNGs of hw in 10 class subfolders under root; returns the
+    source arrays in the dataset's (sorted) order."""
     import os
 
-    src = np.random.default_rng(seed).integers(0, 256, (N_FOLDER, *FOLDER_HW, 3), dtype=np.uint8)
-    per = N_FOLDER // 10
+    src = np.random.default_rng(seed).integers(0, 256, (n, *hw, 3), dtype=np.uint8)
+    per = n // 10
     for i, img in enumerate(src):
         d = os.path.join(root, f"class{i // per}")
         os.makedirs(d, exist_ok=True)
@@ -3570,6 +3604,331 @@ def phase_serving_layer(jt, mods, name):
     print(f"[11] phase 11 in {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+
+# Phase 12: the training recipes (train_recipes) on both Mixer-B/16 routes,
+# a BatchNorm family under the recipe, probes, FLOPs, and the train
+# example's folder data, metrics and checkpoints.
+RECIPE_BATCH = 128
+RECIPE_STEPS = 3  # timed recipe steps a path, after one warm-up step
+RECIPE_LR = dict(base_lr=1e-3, total_steps=40, warmup_steps=2)  # a warmup-cosine AdamW
+# 12a: the device EMA against its recurrence recomputed on the CPU in float32,
+# elementwise, in float32 ulps of the CPU value (a fused multiply-add on one
+# side and not the other differs by one ulp a step)
+EMA_ULPS = 4
+PROBE_BAND = 1e-3  # 12c: card f32 probes vs CPU f32, of each tag's max|ref|
+EXAMPLE_IMAGES, EXAMPLE_HW = 40, (72, 80)  # 12e: the example's folder
+
+
+def recipe_path_launches(mods, path):
+    """12a: the launches a recipe step runs on ``path``: 12 of each of the
+    route's kernels (the forward kernel on the recompute route, the four
+    training kernels on the kernel route), none on the plain path."""
+    kernel, recompute = path == "kernel route", path == "recompute route"
+    want = {k: DEPTH if kernel else 0 for k in TRAIN_KERNELS}
+    want["fused_mixer_block"] = DEPTH if recompute else 0
+    got = {k: mods["mixer_block_bwd"].LAUNCHES[k] for k in TRAIN_KERNELS}
+    got["fused_mixer_block"] = mods["mixer_block"].LAUNCHES
+    return got, want
+
+
+def ema_ulps(ema, host):
+    """Largest |ema − host| over the tensors, in float32 ulps of |host|."""
+    eps = torch.finfo(torch.float32).eps
+    return max(((ema[k].cpu() - v).abs() / (v.abs() * eps).clamp_min(1e-30)).max().item()
+               for k, v in host.items())
+
+
+def recipe_turns(model, opt, recipe, schedule, batch, gen, step, state):
+    """12a: ms a step, in turns (each variant twice, RECIPE_STEPS timed
+    steps after one warm-up), of make_train_step, the recipe step, and the
+    recipe step with its EMA off and with its mix and EMA off, on the same
+    model and optimizer; the recipe steps carry one state. Returns
+    {variant: [ms, ms], "state": the state after}."""
+    from dataclasses import replace
+
+    from jittor_mlp_tpu_torch import train_recipes as tr
+    from jittor_mlp_tpu_torch.parallel import make_train_step
+
+    holder = [state]
+
+    def recipe_run(r):
+        fn = step if r is recipe else tr.make_recipe_train_step(
+            model, opt, 1000, r, compute_dtype=torch.bfloat16, lr_schedule=schedule)
+
+        def run():
+            holder[0], _ = fn(holder[0], batch, gen)
+
+        return run
+
+    plain = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+    variants = {"make_train_step": lambda: plain(batch, gen),
+                "recipe": recipe_run(recipe),
+                "recipe, EMA off": recipe_run(replace(recipe, ema_decay=0.0)),
+                "recipe, mix and EMA off": recipe_run(replace(recipe, mixup_alpha=0.0,
+                                                              cutmix_alpha=0.0, ema_decay=0.0))}
+    times = {k: [] for k in variants}
+    for k in list(variants) + list(variants)[::-1]:
+        times[k].append(cuda_ms(variants[k], RECIPE_STEPS, warmup=1))
+    times["state"] = holder[0]
+    return times
+
+
+def recipe_routes(jt, mods, name):
+    """12a: the recipe step on Mixer-B/16 @224, b128 bf16 (mixup 0.8, cutmix
+    1.0, smoothing 0.1, EMA 0.9999, warmup-cosine AdamW), on the kernel
+    route, the recompute route and the plain bf16 path from the same
+    weights and generator seed: gradients, launches, f32 state, the EMA's
+    recurrence, each update's lr, ms in turns with make_train_step
+    (``recipe_turns``); then the mix's and the EMA's ms alone.
+    Returns the first kernel-route and recompute-route steps' launches."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch import train_recipes as tr
+
+    recipe = tr.Recipe(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1, ema_decay=0.9999)
+    schedule = tr.make_lr_schedule(**RECIPE_LR)
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(RECIPE_BATCH, 13)
+    paths = {"kernel route": (True, True), "recompute route": (True, False),
+             "plain bf16 path": (False, False)}
+    grads, counted, step_ms = {}, {}, {}
+    for path, (use_pallas, pallas_bwd) in paths.items():
+        model.load_state_dict(init)
+        model.use_pallas, config.pallas_bwd = use_pallas, pallas_bwd
+        opt = torch.optim.AdamW(model.parameters(), lr=RECIPE_LR["base_lr"], weight_decay=0.05)
+        state = tr.init_recipe_state(model, opt, recipe=recipe)
+        step = tr.make_recipe_train_step(model, opt, 1000, recipe, compute_dtype=torch.bfloat16,
+                                         lr_schedule=schedule)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        host = {k: v.cpu() for k, v in state.ema.items()}
+        lrs, worst = [], 0.0
+        for k in range(2):  # checked steps: update 0 at lr 0, update 1 at half the peak
+            if k == 0:
+                reset_counts(mods)  # the recipe step's run starts here
+            state, metrics = step(state, batch, gen)
+            torch.cuda.synchronize()
+            if k == 0:
+                got, want = recipe_path_launches(mods, path)
+                check(got == want, f"[12a] {path}: launches {got}, want {want}")
+                counted[path] = got
+                grads[path] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+                loss0 = metrics["loss"].item()
+            lrs.append(opt.param_groups[0]["lr"])
+            params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+            tr.ema_update(host, params, recipe.ema_decay)
+            worst = max(worst, ema_ulps(state.ema, host))
+        f32 = (all(p.dtype == torch.float32 for p in model.parameters())
+               and all(v.dtype == torch.float32 for v in state.ema.values())
+               and all(t.dtype == torch.float32 for s_ in opt.state.values()
+                       for t in s_.values() if t.is_floating_point())
+               and all(p.grad.dtype == torch.float32 for p in model.parameters()))
+        lag = max((state.ema[n] - p).abs().max().item() for n, p in model.named_parameters())
+        step_ms[path] = recipe_turns(model, opt, recipe, schedule, batch, gen, step, state)
+        state = step_ms[path].pop("state")
+        lrs.append(opt.param_groups[0]["lr"])
+        want_lrs = [schedule(0), schedule(1), schedule(state.step - 1)]
+        print(f"[12a] {path}: launches of the first step {json.dumps(counted[path])}; loss "
+              f"{loss0:.6f}, {state.step} steps; masters, EMA, Adam state and gradients f32: "
+              f"{f32}; EMA vs its recurrence on the CPU (f32) {worst:.3g} ulps (limit "
+              f"{EMA_ULPS}), max|EMA - params| {lag:.3g}; lr of updates 0, 1, "
+              f"{state.step - 1}: {lrs} (schedule {want_lrs})", flush=True)
+        check(f32, f"[12a] {path}: the masters, EMA or optimizer state left float32")
+        check(worst <= EMA_ULPS, f"[12a] {path}: the EMA is {worst} ulps off its recurrence")
+        check(lrs == want_lrs, f"[12a] {path}: lrs {lrs}, schedule {want_lrs}")
+        check(np.isfinite(loss0), f"[12a] {path}: loss {loss0}")
+    model.use_pallas, config.pallas_bwd = True, False
+    errs = {"kernel route vs recompute route":
+            (rel_l2(grads["kernel route"], grads["recompute route"]), GRAD_ROUTES)}
+    for path in ("kernel route", "recompute route"):
+        errs[f"{path} vs plain bf16 path"] = (rel_l2(grads[path], grads["plain bf16 path"]),
+                                              GRAD_PLAIN)
+    for tag, (err, lim) in errs.items():
+        print(f"[12a] recipe step gradients, {tag}: global relative L2 {err:.6g} (limit {lim})",
+              flush=True)
+        check(err <= lim, f"[12a] recipe gradients {tag}: {err} > {lim}")
+    for path, times in step_ms.items():
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        base, recipe_ms = TRAIN_IMG_S[path], ms["recipe"]
+        img_s = RECIPE_BATCH * 1e3 / recipe_ms
+        print(f"[12a] Mixer-B/16 b{RECIPE_BATCH} bf16 recipe step, {path}: {recipe_ms:.4f} ms, "
+              f"{img_s:.1f} img/s; phase 6f make_train_step {base:.1f} img/s (ratio "
+              f"{img_s / base:.4f})  [{name}]", flush=True)
+        print(f"[12a] {path}, in turns, ms a step: " + "; ".join(
+            f"{k} {v:.4f} ({v / ms['make_train_step']:.4f} of make_train_step)"
+            for k, v in ms.items()) + f" (runs {json.dumps(times)})", flush=True)
+    step_ms = {p: sum(t["recipe"]) / len(t["recipe"]) for p, t in step_ms.items()}
+    # the recipe's own work on the card: smoothing and the mix, and the EMA
+    shape = (RECIPE_BATCH, 224, 224)
+    draws = {"mixup": tr.draws_from(False, np.float32(0.7), np.float32(0.7), 112, 112, shape,
+                                    0.8, 1.0),
+             "cutmix": tr.draws_from(True, np.float32(0.7), np.float32(0.7), 112, 112, shape,
+                                     0.8, 1.0)}
+    parts = {f"smooth + {k}": cuda_ms(lambda d=d: tr.mix(
+        batch["image"], tr.smooth_labels(batch["label"], 1000, 0.1), d), 10)
+        for k, d in draws.items()}
+    params = dict(model.named_parameters())
+    parts["ema_update"] = cuda_ms(lambda: tr.ema_update(state.ema, params, 0.9999), 10)
+    t0 = time.perf_counter()
+    for k in range(100):
+        tr.mix_draws(tr.mix_generator(gen, k), *shape)
+    host_ms = (time.perf_counter() - t0) * 10
+    for part, ms in parts.items():
+        shares = ", ".join(f"{ms / t:.4f} of the {p} step" for p, t in step_ms.items())
+        print(f"[12a] {part}: {ms:.4f} ms ({shares})  [{name}]", flush=True)
+    print(f"[12a] mix draws on the host (seeding, five uniforms, betaincinv): {host_ms:.4f} ms",
+          flush=True)
+    del model, state, grads
+    return {"fused_mixer_block": counted["recompute route"]["fused_mixer_block"],
+            **{k: counted["kernel route"][k] for k in TRAIN_KERNELS}}
+
+
+def recipe_bn(jt, batch_size=64):
+    """12b: ConvMLP-M at b64 bf16 under the recipe: one step moves every
+    running statistic with the default bn_momentum, none with None."""
+    from jittor_mlp_tpu_torch import train_recipes as tr
+
+    recipe = tr.Recipe(ema_decay=0.9999)
+    batch = train_batch(batch_size, 14)
+    init = None
+    for momentum in (0.1, None):
+        model = jt.convmlp_m()
+        if init is None:
+            init = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(init)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.05)
+        step = tr.make_recipe_train_step(model, opt, 1000, recipe, compute_dtype=torch.bfloat16,
+                                         bn_momentum=momentum)
+        _, metrics = step(tr.init_recipe_state(model, opt, recipe=recipe), batch,
+                          torch.Generator(device="cuda").manual_seed(0))
+        stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
+        moved = sum(not torch.equal(model.state_dict()[k], init[k]) for k in stats)
+        loss = metrics["loss"].item()
+        print(f"[12b] ConvMLP-M b{batch_size} bf16 recipe step, bn_momentum {momentum}: loss "
+              f"{loss:.6f}; running statistics moved {moved} of {len(stats)}", flush=True)
+        check(np.isfinite(loss) and stats, f"[12b] loss {loss}, {len(stats)} statistics")
+        check(moved == (len(stats) if momentum else 0),
+              f"[12b] bn_momentum {momentum}: {moved} of {len(stats)} statistics moved")
+        del model, opt, step
+
+
+def recipe_probes(jt, mods, batch_size=8):
+    """12c: ``utils.probes.capture`` on AS-MLP-T at b8: the card's f32 (TF32
+    off) and bf16 values at each tag against the CPU's f32."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.utils.probes import capture
+
+    x = images(batch_size, 15)
+    cpu = jt.AS_MLP(**AS_MLP_T, device="cpu")
+    with config.parity_mode():
+        t0 = time.perf_counter()
+        _, ref = capture(cpu, x.cpu())
+        cpu_s = time.perf_counter() - t0
+    model = jt.AS_MLP(**AS_MLP_T)
+    sk = mods["axial_shift"]
+    before = sk.LAUNCHES
+    with config.parity_mode():
+        _, f32 = capture(model, x)
+    _, bf16 = capture(model.to_bf16(), x.bfloat16())
+    torch.cuda.synchronize()
+    tags = [t for t, _ in ref]
+    check([t for t, _ in f32] == [t for t, _ in bf16] == tags
+          == ["patch_embed", "stage0", "stage1", "stage2", "stage3"], f"[12c] tags {tags}")
+    check(sk.LAUNCHES - before == 2 * SHIFTS, f"[12c] {sk.LAUNCHES - before} shift launches")
+    for (tag, r), (_, a), (_, b) in zip(ref, f32, bf16):
+        check(a.is_cuda and b.is_cuda and b.dtype == torch.bfloat16,
+              f"[12c] {tag}: {a.device} {b.dtype}")
+        dev_f32 = rel_dev(a.float().cpu(), r)
+        dev_bf16 = rel_dev(b.float().cpu(), r)
+        print(f"[12c] AS-MLP-T b{batch_size} probe {tag} {tuple(r.shape)}: card f32 vs CPU "
+              f"{dev_f32:.3g} (limit {PROBE_BAND}), card bf16 vs CPU f32 {dev_bf16:.4g} of "
+              f"max|ref| {r.abs().max().item():.4g}", flush=True)
+        check(dev_f32 <= PROBE_BAND, f"[12c] {tag}: card f32 {dev_f32}")
+    print(f"[12c] the CPU capture took {cpu_s:.2f} s; the card's two forwards launched the "
+          f"shift {2 * SHIFTS} times", flush=True)
+    del cpu, model
+
+
+def recipe_flops(jt):
+    """12d: ``Model.flops`` at (1, 3, 224, 224) on the CPU in f32 and on the
+    card in f32 and after to_bf16(), for Mixer-B/16, AS-MLP-T and GFNet."""
+    for tag, build in (("Mixer-B/16", lambda: jt.MLPMixerForImageClassification(
+            **MIXER_B16, device="cpu")), ("AS-MLP-T", lambda: jt.AS_MLP(**AS_MLP_T, device="cpu")),
+            ("GFNet", lambda: jt.GFNet(device="cpu"))):
+        model = build()
+        counts = {"CPU f32": model.flops()}
+        model.place("cuda")
+        counts["card f32"] = model.flops()
+        counts["card bf16"] = model.to_bf16().flops()
+        print(f"[12d] {tag} flops: " + ", ".join(f"{k} {v:.0f} ({v / 1e9:.4f} GFLOPs)"
+                                                  for k, v in counts.items()), flush=True)
+        check(len(set(counts.values())) == 1 and counts["CPU f32"] > 0,
+              f"[12d] {tag}: counts differ: {counts}")
+        del model
+
+
+def recipe_example(mods):
+    """12e: ``examples.train.main`` with --data-dir, --mixed-precision,
+    --metrics and --ckpt-dir on a seeded PNG folder: 4 steps straight, and 2
+    steps then a resume of 2; the losses, the parameters, the metrics lines
+    and the checkpoints kept."""
+    import os
+    import tempfile
+
+    from jittor_mlp_tpu_torch.examples import train as train_ex
+    from jittor_mlp_tpu_torch.utils.metrics import read_metrics
+
+    mb = mods["mixer_block"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "folder")
+        write_folder(root, seed=1, n=EXAMPLE_IMAGES, hw=EXAMPLE_HW)
+
+        def run(tag, steps):
+            return train_ex.main(["--data-dir", root, "--image-size", "64", "--batch", "8",
+                                  "--steps", str(steps), "--mixed-precision",
+                                  "--metrics", os.path.join(tmp, tag, "m.jsonl"),
+                                  "--ckpt-dir", os.path.join(tmp, tag, "ckpt"),
+                                  "--ckpt-every", "1"])
+
+        before = mb.LAUNCHES
+        t0 = time.perf_counter()
+        whole, losses = run("whole", 4)
+        _, first = run("resumed", 2)
+        resumed, rest = run("resumed", 4)
+        secs = time.perf_counter() - t0
+        n = mb.LAUNCHES - before
+        delta = max((a.float() - b.float()).abs().max().item() for a, b in
+                    zip(whole.state_dict().values(), resumed.state_dict().values()))
+        top = max(v.float().abs().max().item() for v in whole.state_dict().values())
+        print(f"[12e] examples/train.py on {EXAMPLE_IMAGES} PNGs of {EXAMPLE_HW[0]}x"
+              f"{EXAMPLE_HW[1]}, Mixer (patch 8, d_model 128, depth 6) @64 b8 bf16: 4 steps "
+              f"{losses}; 2 steps {first} + resumed 2 {rest}; max|param straight - resumed| "
+              f"{delta:.3g} ({'bit-equal' if delta == 0 else 'not bit-equal'}; max|param| "
+              f"{top:.3g}); {n} fused_mixer_block launches (6 a step); {secs:.1f} s", flush=True)
+        check(delta <= 1e-3 * top and n == 6 * 8, f"[12e] params {delta}, launches {n}")
+        for tag in ("whole", "resumed"):
+            steps = read_metrics(os.path.join(tmp, tag, "m.jsonl"))["step"]
+            kept = sorted(os.listdir(os.path.join(tmp, tag, "ckpt")))
+            print(f"[12e] {tag}: metrics steps {steps}; checkpoints {kept}", flush=True)
+            check(steps == [0, 1, 2, 3], f"[12e] {tag}: metrics steps {steps}")
+            check(kept == ["step_00000003", "step_00000004"], f"[12e] {tag}: {kept}")
+        del whole, resumed
+
+
+def phase_recipes(jt, mods, name):
+    """Phase 12; returns the recipe steps' launches of the Mixer's kernels."""
+    t0 = time.perf_counter()
+    counted = recipe_routes(jt, mods, name)
+    torch.cuda.empty_cache()
+    recipe_bn(jt)
+    torch.cuda.empty_cache()
+    recipe_probes(jt, mods)
+    torch.cuda.empty_cache()
+    recipe_flops(jt)
+    torch.cuda.empty_cache()
+    recipe_example(mods)
+    print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -3628,6 +3987,9 @@ def main():
     phase_train_zoo(jt, mods, name)
     torch.cuda.empty_cache()
     phase_serving_layer(jt, mods, name)
+    torch.cuda.empty_cache()
+    for kname, n in phase_recipes(jt, mods, name).items():
+        launches[kname] = launches.get(kname, 0) + n
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}

@@ -10,7 +10,7 @@ This package imports neither JAX nor ``jittor_mlp_tpu``, and builds no kernel
 at import time.
 """
 
-from . import config
+from . import config, train_recipes
 from .core.model import Model
 from .models.active_mlp import ActiveBase, ActiveLarge, ActiveSmall
 from .models.as_mlp import AS_MLP
@@ -74,6 +74,11 @@ __all__ = [
     "MLPMixerForImageClassification",
     "ResMLPForImageClassification",
     "gMLPForImageClassification",
+    "train_recipes",
 ]
+
+# the model factories among the exported names (the examples' --model choices)
+FACTORIES = tuple(n for n in __all__
+                  if n not in ("Model", "MicroBatcher", "Predictor", "config", "train_recipes"))
 
 __version__ = "0.4.0"

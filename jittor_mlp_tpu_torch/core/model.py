@@ -3,7 +3,8 @@
 A zoo model is an ``nn.Module`` whose ``state_dict`` names are the torch
 reference's; the factories build it on the card by default (``place``).
 ``Model`` adds what the JAX facade offers on top: torch
-state-dict import/export by those names, ``to_bf16``, ``param_count`` and a
+state-dict import/export by those names, ``to_bf16``, ``param_count``,
+``flops`` and a
 ``__call__`` that also takes a numpy NCHW batch and casts it to
 ``config.compute_dtype`` (as the JAX ``Model.__call__`` does).
 
@@ -105,6 +106,33 @@ class Model(nn.Module):
 
     def param_count(self):
         return sum(p.numel() for p in self.parameters())
+
+    def flops(self, input_shape=(1, 3, 224, 224)):
+        """Forward FLOPs of one eval forward on zeros of ``input_shape``,
+        counted by ``torch.utils.flop_counter.FlopCounterMode`` on the
+        model's device, in the model's dtype (the JAX ``Model.flops``).
+
+        The counter counts products and convolutions, 2·M·N·K each; a
+        block kernel's op counts its plain twin's products (its flop
+        formula, ``ops/kernels/_op.register``), so the count after
+        ``to_bf16()``, or on the card, equals the f32 forward's. XLA's
+        ``cost_analysis``, which the JAX package reads, also counts
+        elementwise work and GFNet's DFT products: the port's count is
+        0.6–0.8 of JAX's on small Mixers. FFTs (GFNet) count 0, and so
+        does cuDNN's LSTM (Sequencer2D on the card; the CPU's LSTM counts
+        its products)."""
+        from torch.utils.flop_counter import FlopCounterMode
+
+        dtype = next(p.dtype for p in self.parameters() if p.is_floating_point())
+        x = torch.zeros(input_shape, dtype=dtype, device=self.device)
+        was_training = self.training
+        self.eval()
+        try:
+            with torch.no_grad(), FlopCounterMode(display=False) as counter:
+                self.forward(x)
+        finally:
+            self.train(was_training)
+        return float(counter.get_total_flops())
 
     # -- forward --------------------------------------------------------------
 

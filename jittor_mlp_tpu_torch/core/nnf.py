@@ -20,8 +20,10 @@ through ``quant.dynamic_int8_matmul``, as the JAX package's ``nnf._dense``
 does.
 
 ``group_norm`` (NHWC) has the JAX package's hand-written backward for bf16
-activations (``GroupNormAffine``); ``drop_path`` draws its per-sample masks
-from an explicit ``torch.Generator``.
+activations (``GroupNormAffine``); ``drop_path`` draws its per-sample masks,
+and ``dropout`` its elementwise ones, from an explicit ``torch.Generator``.
+``probe(tag, x)`` records stage outputs inside ``probe_sink()``
+(``utils.probes.capture``).
 
 ``batch_norm`` is a pure function, as in JAX: in train mode it normalizes
 with the batch's statistics and updates no running statistic. Inside
@@ -352,6 +354,46 @@ def drop_path(x, rate, train, generator=None, mask=None):
         mask = drop_path_mask(x.shape[0], rate, generator, x.device)
     keep = torch.tensor(_keep(rate), dtype=x.dtype).item()  # rounded to x's dtype
     return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x / keep, 0.0)
+
+
+def dropout(x, rate, train, generator=None):
+    """Elementwise dropout (the JAX ``nnf.dropout``): each element kept
+    with probability 1 - rate, drawn from ``generator`` (on x's device),
+    and scaled to x / keep (keep in x's dtype), else 0. Identity in eval,
+    at rate 0, or with no generator, as ``drop_path``."""
+    if not train or rate == 0 or generator is None:
+        return x
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < _keep(rate)
+    keep = torch.tensor(_keep(rate), dtype=x.dtype).item()  # rounded to x's dtype
+    return torch.where(mask, x / keep, 0.0)
+
+
+_probe_local = threading.local()
+
+
+@contextmanager
+def probe_sink():
+    """Collect ``probe`` values on this thread: yields a list to which every
+    ``probe(tag, x)`` on this thread appends (tag, x), in execution order
+    (``utils.probes.capture``). Thread-local, as ``bn_stats`` and the int8
+    flag, so that concurrent forwards do not record into each other's
+    capture."""
+    old = getattr(_probe_local, "sink", None)
+    _probe_local.sink = sink = []
+    try:
+        yield sink
+    finally:
+        _probe_local.sink = old
+
+
+def probe(tag, x):
+    """Record x under ``tag`` inside ``probe_sink()`` on this thread (the
+    JAX ``nnf.probe``); returns x untouched either way. Models call it at
+    stage boundaries."""
+    sink = getattr(_probe_local, "sink", None)
+    if sink is not None:
+        sink.append((tag, x))
+    return x
 
 
 class _BlockCall(nn.Module):

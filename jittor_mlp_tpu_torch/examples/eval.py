@@ -118,8 +118,7 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="MLPMixerForImageClassification",
-                    choices=[n for n in jt.__all__
-                             if n not in ("Model", "MicroBatcher", "Predictor", "config")])
+                    choices=jt.FACTORIES)
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--image-size", type=int, default=224)

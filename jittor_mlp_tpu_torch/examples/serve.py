@@ -38,8 +38,7 @@ def parse_args(argv=None):
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="MLPMixerForImageClassification",
-                    choices=[n for n in jt.__all__
-                             if n not in ("Model", "MicroBatcher", "Predictor", "config")])
+                    choices=jt.FACTORIES)
     ap.add_argument("--pretrained", action="store_true")
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--batch", type=int, default=1)

@@ -24,7 +24,9 @@ CUDA tensor, forward and backward; its plain twin on the CPU), or with
 ``use_pallas=False`` through the plain twin under autograd. In training,
 drop-path draws its masks from the ``generator`` given to ``forward``
 (none: no drop-path), all of them before the first block, so that a block
-recomputed under checkpointing applies the same masks.
+recomputed under checkpointing applies the same masks. ``nnf.probe`` marks
+the patch embedding and each stage's output (after its patch merging), as
+in the JAX forward, for ``utils.probes.capture``.
 """
 
 from __future__ import annotations
@@ -195,13 +197,15 @@ class ASMLP(Model):
         x = nnf.patch_embed(x, pe.proj.weight, pe.proj.bias, self.patch_size)
         if pe.norm is not None:
             x = _gn(x, pe.norm)
+        x = nnf.probe("patch_embed", x)
         masks = self.drop_path_masks(x, generator)
         shift = axial_shift if self.use_pallas else axial_shift_plain
-        for layer in self.layers:
+        for i, layer in enumerate(self.layers):
             x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h, shift, masks.get(blk)),
                                remat=self.use_checkpoint)
             if layer.downsample is not None:
                 x = layer.downsample(x)
+            x = nnf.probe(f"stage{i}", x)
         x = _gn(x, self.norm).mean((1, 2))
         return nnf.linear(x, self.head.weight, self.head.bias)
 

@@ -58,7 +58,7 @@ def _launch(x, shift_size, axis, sign):
 
 
 OP = register("axial_shift", ["Tensor x", "int shift_size", "int axis", "int sign"], _launch,
-              axial_shift_ref)
+              axial_shift_ref, lambda *_, out_shape=None: 0)  # a copy: no products
 
 
 def shift(x, shift_size, axis, sign=1):

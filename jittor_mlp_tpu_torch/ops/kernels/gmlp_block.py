@@ -130,7 +130,16 @@ def _launch(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     return out
 
 
-OP = register("fused_gmlp_block", tensor_args(BLOCK_ARGS), _launch, gmlp_block_ref)
+def block_flops(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, *_, out_shape=None):
+    """The block's products from the argument shapes (the op's flop
+    formula): GEMM1 2·B·N·D·2F, the token product 2·B·N·N·F, GEMM2
+    2·B·N·F·D."""
+    B, N, D = x
+    F = w1[0] // 2
+    return 2 * B * N * F * (3 * D + N)
+
+
+OP = register("fused_gmlp_block", tensor_args(BLOCK_ARGS), _launch, gmlp_block_ref, block_flops)
 
 
 def fused_gmlp_block(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

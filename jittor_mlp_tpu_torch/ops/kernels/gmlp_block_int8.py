@@ -39,7 +39,7 @@ from ...quant import quant_act, quant_weight
 from ..products import gemm_s8_ref
 from ._build import S8_ROUTES, Library
 from ._op import register, tensor_args
-from .gmlp_block import BLOCK_ARGS, block_dims
+from .gmlp_block import BLOCK_ARGS, block_dims, block_flops
 from .mixer_block import check_block_input, layer_norm_f32, require_bf16_contiguous
 from .mixer_block_int8 import weight_operands
 
@@ -100,7 +100,8 @@ def _launch(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
     return out
 
 
-OP = register("fused_gmlp_block_int8", tensor_args(BLOCK_ARGS), _launch, gmlp_block_int8_ref)
+OP = register("fused_gmlp_block_int8", tensor_args(BLOCK_ARGS), _launch, gmlp_block_int8_ref,
+              block_flops)
 
 
 def fused_gmlp_block_int8(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):

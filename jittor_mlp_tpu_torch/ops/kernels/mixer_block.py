@@ -196,7 +196,15 @@ def _launch(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
     return out
 
 
-OP = register("fused_mixer_block", tensor_args(BLOCK_ARGS), _launch, mixer_block_ref)
+def block_flops(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, *_, out_shape=None):
+    """The block's products from the argument shapes (the op's flop
+    formula): four products of 2·B·N·D·TD and 2·B·N·D·CD pairs."""
+    B, N, D = x
+    return 4 * B * N * D * (wt1[0] + wc1[0])
+
+
+OP = register("fused_mixer_block", tensor_args(BLOCK_ARGS), _launch, mixer_block_ref,
+              block_flops)
 
 
 def fused_mixer_block(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,

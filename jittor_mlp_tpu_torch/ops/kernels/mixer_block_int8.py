@@ -44,7 +44,7 @@ from ...quant import quant_act, quant_weight
 from ..products import gemm_s8_ref
 from ._build import S8_ROUTES, Library
 from ._op import register, tensor_args
-from .mixer_block import (BLOCK_ARGS, block_dims, check_block_input, layer_norm_f32,
+from .mixer_block import (BLOCK_ARGS, block_dims, block_flops, check_block_input, layer_norm_f32,
                           require_bf16_contiguous)
 
 LAUNCHES = 0
@@ -140,7 +140,8 @@ def _launch(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
     return out
 
 
-OP = register("fused_mixer_block_int8", tensor_args(BLOCK_ARGS), _launch, mixer_block_int8_ref)
+OP = register("fused_mixer_block_int8", tensor_args(BLOCK_ARGS), _launch, mixer_block_int8_ref,
+              block_flops)
 
 
 def fused_mixer_block_int8(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,

@@ -129,7 +129,15 @@ def _launch(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
     return out
 
 
-OP = register("fused_resmlp_block", tensor_args(BLOCK_ARGS), _launch, resmlp_block_ref)
+def block_flops(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, *_, out_shape=None):
+    """The block's products from the argument shapes (the op's flop
+    formula): the token product 2·B·N·N·D and FF1, FF2 2·B·N·D·F each."""
+    B, N, D = x
+    return 2 * B * N * D * (N + 2 * w1[0])
+
+
+OP = register("fused_resmlp_block", tensor_args(BLOCK_ARGS), _launch, resmlp_block_ref,
+              block_flops)
 
 
 def fused_resmlp_block(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

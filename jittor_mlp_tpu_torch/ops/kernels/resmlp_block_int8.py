@@ -43,7 +43,7 @@ from ._build import S8_ROUTES, Library
 from ._op import register, tensor_args
 from .mixer_block import check_block_input, require_bf16_contiguous
 from .mixer_block_int8 import pad_last, chunk_size, weight_operands
-from .resmlp_block import BLOCK_ARGS, block_dims
+from .resmlp_block import BLOCK_ARGS, block_dims, block_flops
 
 LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
@@ -114,7 +114,7 @@ def _launch(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
 
 
 OP = register("fused_resmlp_block_int8", tensor_args(BLOCK_ARGS), _launch,
-              resmlp_block_int8_ref)
+              resmlp_block_int8_ref, block_flops)
 
 
 def fused_resmlp_block_int8(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):

@@ -66,10 +66,13 @@ class _Forward(nn.Module):
         return self.model.forward(x)
 
 
-def _loss_and_sites(model, batch, compute_dtype, generator):
-    """``loss_fn``'s loss, and {id of each running_mean tensor the forward
-    reads: (the model's running_mean, running_var)} for
-    ``train_utils.apply_bn_updates``."""
+def _loss_and_sites(model, batch, compute_dtype, generator, loss=cross_entropy_loss):
+    """``loss(logits, batch["label"])`` of the model in train mode on
+    ``batch`` (``loss_fn``'s loss by default), the logits, and {id of each
+    running_mean tensor the forward reads: (the model's running_mean,
+    running_var)} for ``train_utils.apply_bn_updates``. The train steps'
+    one loss boundary: the recipe step passes its soft cross-entropy and
+    soft labels."""
     fwd = _Forward(model.train())
     x = batch["image"].to(model.device)
     buffers = dict(fwd.named_buffers())
@@ -80,7 +83,7 @@ def _loss_and_sites(model, batch, compute_dtype, generator):
     sites = {id(tensors[k]): (buffers[k], buffers[k[:-len("mean")] + "var"])
              for k in buffers if k.endswith("running_mean")}
     logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
-    return cross_entropy_loss(logits, batch["label"].to(logits.device)), sites
+    return loss(logits, batch["label"].to(logits.device)), logits, sites
 
 
 def loss_fn(model, batch, compute_dtype=None, generator=None):
@@ -112,7 +115,7 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1):
                 "tracing a train step.")
         optimizer.zero_grad(set_to_none=True)
         with nnf.bn_stats() as stats:  # the forward's statistics only
-            loss, sites = _loss_and_sites(model, batch, compute_dtype, generator)
+            loss, _, sites = _loss_and_sites(model, batch, compute_dtype, generator)
         loss.backward()
         optimizer.step()
         if bn_momentum is not None and stats:

@@ -9,7 +9,11 @@
   the decoded image, /stats is JSON, a malformed body gets a one-line 400;
 - ``MetricsLogger`` writes the JAX logger's bytes for the same logs, and
   ``read_metrics`` reads them back the same;
-- ``utils.timing.throughput`` on the CPU returns a positive rate.
+- ``utils.timing.throughput`` on the CPU returns a positive rate;
+- ``examples/train.main`` on the folder with ``--data-dir``, ``--metrics``
+  and ``--ckpt-dir``: 4 steps straight end with the parameters of 2 steps
+  and a resume of 2 more, bit for bit (the resume lands mid-epoch), one
+  metrics line a step, the last two checkpoints kept.
 """
 
 import http.client
@@ -32,6 +36,7 @@ from jittor_mlp_tpu.utils import metrics as jmetrics
 from jittor_mlp_tpu_torch.data import BatchIterator, ImageFolderDataset
 from jittor_mlp_tpu_torch.examples import eval as teval
 from jittor_mlp_tpu_torch.examples import serve as tserve
+from jittor_mlp_tpu_torch.examples import train as ttrain
 from jittor_mlp_tpu_torch.utils import metrics as tmetrics
 from jittor_mlp_tpu_torch.utils.timing import throughput
 
@@ -205,3 +210,24 @@ def test_throughput_on_the_cpu_is_positive():
     rate = throughput(lambda x: model.forward(x), (2, 3, 32, 32), iters=2, dtype=torch.float32,
                       repeats=2, device="cpu")
     assert rate > 0
+
+
+def test_train_on_a_folder_resumes_bit_for_bit(folder, tmp_path):
+    """Batches of 6 from 20 images (3 an epoch): the resume at step 2 skips
+    two batches of epoch 0, and step 3 starts epoch 1."""
+    def run(tag, steps):
+        return ttrain.main(["--device", "cpu", "--data-dir", folder, "--image-size", "16",
+                            "--batch", "6", "--steps", str(steps), "--mixed-precision",
+                            "--metrics", str(tmp_path / tag / "m.jsonl"),
+                            "--ckpt-dir", str(tmp_path / tag / "ckpt"), "--ckpt-every", "1"])
+
+    whole, losses = run("whole", 4)
+    _, first = run("resumed", 2)
+    resumed, rest = run("resumed", 4)
+    assert len(losses) == 4 and first + rest == losses
+    for (k, a), b in zip(whole.state_dict().items(), resumed.state_dict().values()):
+        assert torch.equal(a, b), k
+    for tag in ("whole", "resumed"):
+        cols = tmetrics.read_metrics(str(tmp_path / tag / "m.jsonl"))
+        assert cols["step"] == [0, 1, 2, 3] and cols["loss"] == pytest.approx(losses, abs=0)
+        assert sorted(os.listdir(tmp_path / tag / "ckpt")) == ["step_00000003", "step_00000004"]

@@ -24,7 +24,8 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "from jittor_mlp_tpu_torch.models import gfnet, sequencer\n"
         "from jittor_mlp_tpu_torch.ops import dcn, lstm\n"
         "from jittor_mlp_tpu_torch.core import train_utils\n"
-        "from jittor_mlp_tpu_torch.utils import checkpoint\n"
+        "from jittor_mlp_tpu_torch.utils import checkpoint, probes\n"
+        "from jittor_mlp_tpu_torch import train_recipes\n"
         "from jittor_mlp_tpu_torch.ops import deform, shift, window\n"
         "from jittor_mlp_tpu_torch.ops.kernels import (\n"
         "    axial_shift, gemm_sm90, gmlp_block, gmlp_block_int8, kernel_lab, mixer_block,\n"
@@ -43,7 +44,8 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "assert callable(cycle_mlp.CycleNet) and callable(active_mlp.ActivexTiny)\n"
         "assert callable(conv_mlp.ConvMLP) and callable(repmlpnet.RepMLPNet)\n"
         "assert callable(train_utils.recalibrate_bn)\n"
-        "assert callable(checkpoint.load_torch_checkpoint)\n"
+        "assert callable(checkpoint.load_torch_checkpoint) and callable(probes.capture)\n"
+        "assert callable(train_recipes.make_recipe_train_step) and jt.train_recipes\n"
         "assert callable(checkpoint.resize_pos_embed)\n"
         "assert callable(checkpoint.gfnet_checkpoint_filter)\n"
         "assert callable(deform.deform_conv2d) and callable(lstm.bilstm)\n"

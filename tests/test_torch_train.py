@@ -314,7 +314,7 @@ def test_train_example_trains_any_factory(model, rate):
     assert built.stochastic == (rate is not None)
 
 
-EXPORTED = [n for n in jt.__all__ if n not in ("Model", "MicroBatcher", "Predictor", "config")]
+EXPORTED = list(jt.FACTORIES)
 
 
 @pytest.mark.parametrize("name", EXPORTED)

@@ -310,8 +310,14 @@ def fixed_drop_path_masks(monkeypatch):
     even samples kept, the odd ones dropped. The JAX ``nnf.drop_path``
     draws ``jax.random.bernoulli(rng, keep, shape)``: where keep < 1 the
     pattern, else all kept (a rate-0 site); the port draws through
-    ``nnf.drop_path_mask`` at sites whose rate is above 0 only."""
+    ``nnf.drop_path_mask`` at sites whose rate is above 0 only. A scalar
+    draw (shape None or (), as the JAX recipe's mode coin) goes to the
+    original ``jax.random.bernoulli``."""
+    original = jax.random.bernoulli
+
     def bernoulli(key, p=0.5, shape=None):
+        if shape is None or tuple(shape) == ():
+            return original(key, p, shape)
         keep = (jnp.arange(shape[0]) % 2 == 0).reshape((-1,) + (1,) * (len(shape) - 1))
         return jnp.where(jnp.asarray(p) < 1, jnp.broadcast_to(keep, shape), True)
 
