@@ -275,6 +275,31 @@ Phases (each one fails loudly; there is no CPU fallback):
      and a resume of 2 (the parameters printed as bit-equal or not, held
      within 1e-3 of max|param|), one metrics line a step, the last two
      checkpoints kept.
+ 13. the parallel layer (``parallel``) in a one-rank NCCL world on this
+     card (a ``HashStore``, no port) and its 1 × 1 ('data', 'model') mesh,
+     where every collective is an identity but every code path, kernel and
+     microbatch schedule runs: (a) Mixer-B/16 @224 b128 bf16 AdamW on the
+     kernel route, ``make_train_step(mesh=)`` against without: the loss and
+     every parameter after one step bit-equal; (b)
+     ``pipeline_runner(mesh, microbatches=4, data_axis="data")`` against
+     the dense model: the loss within 1e-2 relative and the gradients
+     within phase 6b's 1.5e-2 relative L2, then one pipelined
+     ``make_train_step(mesh=)`` step (the blocks placed by
+     ``pipeline_shardings``) launching each of the four training kernels 48
+     times (12 blocks × 4 microbatches), and its img/s in turns with the
+     dense step's and the mesh step's without a runner (CUDA events), then
+     for each of the three a step's host issue time, wall time and card
+     busy time (``torch.profiler``'s kernel times), and
+     ``reduce_gradients``' host time; (c)
+     ``token_parallel_runner`` on Mixer-B/16 and ResMLP-S24 at b256: bf16
+     logits within 5e-2 of
+     max|logit| of the dense f32 forward with ≥ 90% top-1 agreement, f32
+     (TF32 off) within 1e-3; (d) ``Model.shard(mesh)`` on the bf16 kernel
+     path and the recipe step with ``mesh=`` (mixup, cutmix, EMA), each
+     bit-equal to the same call without the mesh; (e) a CPU check, not the
+     card's: ``multihost.run_local_selftest()``, two gloo processes'
+     data-parallel step of a small Mixer against the dense step, within
+     1e-5. Multi-card speed and numerics are not measured here.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -3929,6 +3954,270 @@ def phase_recipes(jt, mods, name):
     print(f"[12] phase 12 in {time.perf_counter() - t0:.1f} s", flush=True)
     return counted
 
+PP_BATCH = 128
+PP_MICROBATCHES = 4
+PP_LOSS = 1e-2  # 13b: pipelined vs dense loss, relative
+SP_BATCH = 256
+SP_BF16, SP_TOP1, SP_F32 = 5e-2, 0.9, 1e-3  # 13c: of the dense f32 forward's max|logit|
+PARALLEL_ITERS = 3  # 13b: timed steps a turn, after two warm-up steps
+
+
+def one_rank_world():
+    """13: a one-rank NCCL process group on card 0 (a HashStore: no port)
+    and its ('data', 'model') mesh of 1 × 1."""
+    import torch.distributed as dist
+
+    from jittor_mlp_tpu_torch.parallel import make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    mesh = make_mesh()
+    print(f"[13] world: {dist.get_world_size()} rank, backend {dist.get_backend()}, mesh "
+          f"{dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))} on {mesh.device_type}", flush=True)
+    return mesh
+
+
+def params_of(model):
+    return {k: p.detach().clone() for k, p in model.named_parameters()}
+
+
+def bit_equal(a, b):
+    return all(torch.equal(a[k], b[k]) for k in a) and sorted(a) == sorted(b)
+
+
+def parallel_dp(jt, mesh):
+    """13a: one kernel-route AdamW step of Mixer-B/16 at b128 bf16 through
+    make_train_step with the mesh and without, from one state: loss and
+    parameters bit-equal."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.parallel import init_sharded, make_train_step
+
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(PP_BATCH, 17)
+    config.pallas_bwd = True
+    out = {}
+    for tag, kw in (("without", {}), ("mesh", {"mesh": mesh})):
+        model.load_state_dict(init)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=1e-4, eps=1e-8)
+        if kw:
+            init_sharded(model, opt, mesh)
+        loss = make_train_step(model, opt, compute_dtype=torch.bfloat16, **kw)(batch)
+        out[tag] = (loss.clone(), params_of(model))
+    config.pallas_bwd = False
+    equal = torch.equal(out["mesh"][0], out["without"][0]) and bit_equal(out["mesh"][1],
+                                                                          out["without"][1])
+    print(f"[13a] Mixer-B/16 b{PP_BATCH} bf16 kernel-route AdamW step, make_train_step(mesh=) "
+          f"vs without: loss {out['mesh'][0].item():.6f} vs {out['without'][0].item():.6f}; "
+          f"loss and {len(out['mesh'][1])} parameters bit-equal: {equal}", flush=True)
+    check(equal, "[13a] the mesh step differs from the step without a mesh")
+
+
+def _issue_wall_busy(fn, steps):
+    """(host issue ms, wall ms, card busy ms) a step of ``fn`` over
+    ``steps`` steps: the issue time runs to the last launch without waiting
+    for the card, the wall time to a synchronize, and the busy time is the
+    sum of the kernels' device times under ``torch.profiler``. A step whose
+    issue time reaches its wall time is bound by the host."""
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    issue = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3 / steps
+    return issue, wall, busy
+
+
+def parallel_pipeline(jt, mods, mesh, name):
+    """13b: the GPipe runner against the dense model on the kernel route:
+    loss and gradients, the pipelined step's launches, img/s in turns.
+    Returns the pipelined step's launches of the training kernels."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.core import nnf
+    from jittor_mlp_tpu_torch.parallel import (init_sharded, loss_fn, make_train_step,
+                                               pipeline_runner, pipeline_shardings)
+    from jittor_mlp_tpu_torch.parallel.train import reduce_gradients
+
+    runner = pipeline_runner(mesh, microbatches=PP_MICROBATCHES, data_axis="data")
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    batch = train_batch(PP_BATCH, 19)
+    config.pallas_bwd = True
+    dense_loss, dense_grads = grads_of(model, batch, torch.bfloat16)
+    with nnf.block_runner_scope(runner):
+        pp_loss, pp_grads = grads_of(model, batch, torch.bfloat16)
+        stages = pipeline_shardings(model, mesh, (1, 3, 224, 224))
+    loss_rel = abs(pp_loss - dense_loss) / abs(dense_loss)
+    grad_rel = rel_l2(pp_grads, dense_grads)
+    print(f"[13b] Mixer-B/16 b{PP_BATCH} bf16 kernel route, pipeline of 1 stage x "
+          f"{PP_MICROBATCHES} microbatches vs dense: loss {pp_loss:.6f} vs {dense_loss:.6f} "
+          f"(relative {loss_rel:.3g}, limit {PP_LOSS}); gradients' global relative L2 "
+          f"{grad_rel:.6g} (limit {GRAD_PLAIN})", flush=True)
+    check(loss_rel <= PP_LOSS and grad_rel <= GRAD_PLAIN,
+          f"[13b] pipelined vs dense: loss {loss_rel}, gradients {grad_rel}")
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, weight_decay=1e-4, eps=1e-8)
+    init_sharded(model, opt, mesh, stages=stages)
+    owned = sum(v is not None for v in stages.values())
+    pp_step = make_train_step(model, opt, compute_dtype=torch.bfloat16, mesh=mesh)
+    dense_step = make_train_step(model, opt, compute_dtype=torch.bfloat16)
+
+    def piped():
+        with nnf.block_runner_scope(runner):
+            return pp_step(batch)
+
+    bwd = mods["mixer_block_bwd"]
+    reset_counts(mods)  # the pipelined step's run starts here
+    loss = piped()
+    torch.cuda.synchronize()
+    counted = {k: bwd.LAUNCHES[k] for k in TRAIN_KERNELS}
+    want = dict.fromkeys(TRAIN_KERNELS, DEPTH * PP_MICROBATCHES)
+    print(f"[13b] pipelined make_train_step(mesh=): loss {loss.item():.6f}; {owned} block "
+          f"tensors placed on stage 0; launches {json.dumps(counted)} (want "
+          f"{json.dumps(want)})", flush=True)
+    check(counted == want and bool(torch.isfinite(loss)),
+          f"[13b] pipelined step launches {counted}, want {want}; loss {loss.item()}")
+    mesh_step = make_train_step(model, opt, compute_dtype=torch.bfloat16, mesh=mesh)
+    variants = {"dense": lambda: dense_step(batch), "mesh, no runner": lambda: mesh_step(batch),
+                "pipelined": piped}
+    ms, runs = _timed_turns(variants, PARALLEL_ITERS)
+    print(f"[13b] Mixer-B/16 b{PP_BATCH} bf16 kernel-route train step, in turns, ms (img/s, "
+          f"share of dense): " + "; ".join(
+              f"{k} {v:.4f} ({PP_BATCH * 1e3 / v:.1f}, {ms['dense'] / v:.4f})"
+              for k, v in ms.items()) + f" (pipelined: 1 stage x {PP_MICROBATCHES}; runs "
+          f"{json.dumps(runs)})  [{name}]", flush=True)
+    for k, fn in variants.items():
+        issue, wall, busy = _issue_wall_busy(fn, PARALLEL_ITERS)
+        print(f"[13b] {k} step: host issue {issue:.3f} ms, wall {wall:.3f} ms, card busy "
+              f"{busy:.3f} ms ({busy / wall:.1%} of the wall), mean of {PARALLEL_ITERS}  "
+              f"[{name}]", flush=True)
+    model.zero_grad(set_to_none=True)
+    with nnf.block_runner_scope(runner):
+        loss_fn(model, batch, torch.bfloat16).backward()
+    n_grads = sum(p.grad is not None for p in model.parameters())
+    host = []
+    for _ in range(PARALLEL_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reduce_gradients(model, mesh)  # the gradients become their mean: 1 rank, unchanged
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    config.pallas_bwd = False
+    print(f"[13b] reduce_gradients of the pipelined model's {n_grads} gradients: host "
+          f"{', '.join(f'{v:.3f}' for v in host)} ms  [{name}]", flush=True)
+    return counted
+
+
+def parallel_tokens(jt, mesh):
+    """13c: token_parallel_runner on Mixer-B/16 and ResMLP-S24 at b256,
+    bf16 and f32, against the dense f32 forward."""
+    from jittor_mlp_tpu_torch.parallel import token_parallel_runner
+
+    x = images(SP_BATCH, 23)
+    for label, factory, kw, family in (
+            ("Mixer-B/16", jt.MLPMixerForImageClassification, MIXER_B16, "mlp_mixer"),
+            ("ResMLP-S24", jt.ResMLPForImageClassification, RESMLP_S24, "res_mlp")):
+        with torch.no_grad():
+            ref = factory(**kw).eval().forward(x).float()
+            sp = factory(**kw, block_runner=token_parallel_runner(mesh, family)).eval()
+            f32 = sp.forward(x).float()
+            bf16 = sp.to_bf16().forward(x.to(torch.bfloat16)).float()
+        torch.cuda.synchronize()
+        for tag, got, lim, lim_top1 in (("f32", f32, SP_F32, None),
+                                        ("bf16", bf16, SP_BF16, SP_TOP1)):
+            rel = rel_dev(got, ref)
+            top1 = (got.argmax(-1) == ref.argmax(-1)).float().mean().item()
+            print(f"[13c] {label} token-parallel {tag} vs dense f32, b{SP_BATCH}: "
+                  f"max|dlogit|/max|logit| {rel:.6g} (limit {lim}), top-1 agreement "
+                  f"{top1:.4f} (limit {lim_top1})", flush=True)
+            check(bool(torch.isfinite(got).all()) and rel <= lim
+                  and (lim_top1 is None or top1 >= lim_top1),
+                  f"[13c] {label} {tag}: rel {rel}, top-1 {top1}")
+        del sp
+
+
+def parallel_shard_and_recipe(jt, mesh):
+    """13d: Model.shard on the bf16 kernel path, and one kernel-route recipe
+    step with mesh= (mixup, cutmix, EMA), each bit-equal to the call
+    without the mesh."""
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch import train_recipes as tr
+
+    model = jt.MLPMixerForImageClassification(**MIXER_B16).eval().to_bf16()
+    x = images(64, 29)
+    with torch.no_grad(), config.bf16_mode():
+        want = model(x)
+        got = model.shard(mesh)(x)
+    model.mesh = None
+    print(f"[13d] Mixer-B/16 b64 bf16 Model.shard(mesh) vs the model: logits bit-equal "
+          f"{torch.equal(got, want)}", flush=True)
+    check(torch.equal(got, want), "[13d] Model.shard changed the logits")
+    del model
+    recipe = tr.Recipe(mixup_alpha=0.8, cutmix_alpha=1.0, label_smoothing=0.1, ema_decay=0.9999)
+    model = jt.MLPMixerForImageClassification(**MIXER_B16)
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    batch = train_batch(PP_BATCH, 31)
+    config.pallas_bwd = True
+    out = {}
+    for tag, mesh_kw in (("without", None), ("mesh", mesh)):
+        model.load_state_dict(init)
+        opt = torch.optim.AdamW(model.parameters(), lr=1e-3, weight_decay=0.05)
+        state = tr.init_recipe_state(model, opt, mesh=mesh_kw, recipe=recipe)
+        step = tr.make_recipe_train_step(model, opt, 1000, recipe,
+                                         compute_dtype=torch.bfloat16, mesh=mesh_kw)
+        modes = []
+        for k in range(2):
+            state, metrics = step(state, batch, torch.Generator(device=model.device).manual_seed(3))
+            modes.append(tr.mix_draws(tr.mix_generator(torch.Generator().manual_seed(3), k),
+                                      PP_BATCH, 224, 224).cutmix)
+        out[tag] = ({k: v.clone() for k, v in metrics.items()}, params_of(model),
+                    {k: v.clone() for k, v in state.ema.items()})
+    config.pallas_bwd = False
+    (m0, p0, e0), (m1, p1, e1) = out["without"], out["mesh"]
+    equal = bit_equal(m1, m0) and bit_equal(p1, p0) and bit_equal(e1, e0)
+    print(f"[13d] Mixer-B/16 b{PP_BATCH} bf16 kernel-route recipe steps (modes "
+          f"{['cutmix' if c else 'mixup' for c in modes]}), mesh= vs without: loss "
+          f"{m1['loss'].item():.6f} vs {m0['loss'].item():.6f}; metrics, parameters and EMA "
+          f"bit-equal: {equal}", flush=True)
+    check(equal, "[13d] the recipe step on the mesh differs from the step without")
+
+
+def phase_parallel(jt, mods, name):
+    """Phase 13; returns the pipelined step's launches of the training
+    kernels."""
+    import torch.distributed as dist
+
+    from jittor_mlp_tpu_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    mesh = one_rank_world()
+    try:
+        parallel_dp(jt, mesh)
+        torch.cuda.empty_cache()
+        counted = parallel_pipeline(jt, mods, mesh, name)
+        torch.cuda.empty_cache()
+        parallel_tokens(jt, mesh)
+        torch.cuda.empty_cache()
+        parallel_shard_and_recipe(jt, mesh)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    t1 = time.perf_counter()
+    res = multihost.run_local_selftest(num_processes=2, timeout=120)
+    print(f"[13e] CPU check (two gloo processes on this machine's CPU, not the card): "
+          f"run_local_selftest: {json.dumps(res)} in {time.perf_counter() - t1:.1f} s",
+          flush=True)
+    print(f"[13] phase 13 in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -3989,6 +4278,9 @@ def main():
     phase_serving_layer(jt, mods, name)
     torch.cuda.empty_cache()
     for kname, n in phase_recipes(jt, mods, name).items():
+        launches[kname] = launches.get(kname, 0) + n
+    torch.cuda.empty_cache()
+    for kname, n in phase_parallel(jt, mods, name).items():
         launches[kname] = launches.get(kname, 0) + n
 
     sources = {k: (source, PALLAS + replaced)

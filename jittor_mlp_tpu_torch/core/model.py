@@ -14,7 +14,14 @@ residual branches that stochastic depth may drop (1 unless the class says
 otherwise). A model with such modules sets ``stochastic = True``, takes
 ``forward(x, generator=None)`` and draws every mask up front with
 ``drop_path_masks``, so that a checkpointed block recomputes with the
-masks of its forward.
+masks of its forward. Under ``nnf.sample_window_scope`` the masks cover
+the window's global batch, and ``nnf.drop_path`` gives each row the bit of
+its global row index: a data-parallel or microbatched forward drops the
+samples that the dense forward drops with the same generator seed.
+
+Parallel execution: a factory's ``block_runner=`` sets ``block_runner``,
+which the model passes to each of its ``nnf.run_blocks`` stacks;
+``shard(mesh)`` makes ``__call__`` a data-parallel forward over the mesh.
 """
 
 from __future__ import annotations
@@ -43,10 +50,12 @@ def place(module, device):
 class Model(nn.Module):
     name = None  # zoo key, e.g. "mlp_mixer" (tuned.serve_settings looks it up)
     stochastic = False  # True: the train forward takes a drop-path `generator`
+    block_runner = None  # fn(fn, blocks, x) running this model's block stacks
 
     def __init__(self):
         super().__init__()
         self.init_sd = None  # flat torch-name → numpy array, from SDBuilder
+        self.mesh = None  # set by shard()
 
     def _load_init(self, sd):
         """Take the SDBuilder state dict as this module's parameters. The
@@ -65,6 +74,12 @@ class Model(nn.Module):
         """Move the model to ``device`` (``place``)."""
         return place(self, device)
 
+    def with_runner(self, runner):
+        """Install ``runner`` as this model's ``block_runner`` (None: the
+        block loop, or ``nnf.block_runner_scope``'s); returns the model."""
+        self.block_runner = runner
+        return self
+
     @property
     def device(self):
         return next(self.parameters()).device
@@ -74,10 +89,14 @@ class Model(nn.Module):
         (``nnf.drop_path_mask``), drawn from ``generator`` in module order
         for each module whose ``drop_path_rate`` is above 0; empty in eval
         or without a generator. ``x``: the activation, for its batch and
-        device."""
+        device. Under a sample window each mask has a bit for every row of
+        the window's global batch, so that each rank or microbatch draws
+        the same bits and its rows take their own (``nnf.window_rows``)."""
         if not self.training or generator is None:
             return {}
-        return {m: tuple(nnf.drop_path_mask(x.shape[0], m.drop_path_rate, generator, x.device)
+        win = nnf.sample_window()
+        n = x.shape[0] if win is None else win[0]
+        return {m: tuple(nnf.drop_path_mask(n, m.drop_path_rate, generator, x.device)
                          for _ in range(getattr(m, "drop_paths", 1)))
                 for m in self.modules() if getattr(m, "drop_path_rate", 0) > 0}
 
@@ -103,6 +122,25 @@ class Model(nn.Module):
 
     def to_bf16(self):
         return self.to(torch.bfloat16)
+
+    def shard(self, mesh, min_dim=512):
+        """Distribute the model over a ('data', 'model') mesh (the JAX
+        ``Model.shard``): ``__call__`` then takes the global batch, runs this
+        rank's rows of the data split (under their sample window and the
+        data group's BatchNorm statistics) and all-gathers the logits over
+        the data group, so every rank returns the global batch's. A 'model'
+        axis replicates the model; where the JAX heuristic
+        (``parallel.train.shard_params`` at ``min_dim``) would shard a
+        tensor over a 'model' axis larger than 1, NotImplementedError
+        names the tensors (tensor parallelism is not ported). The model
+        must be on the mesh's device type."""
+        from ..parallel.train import check_replicated
+        from ..parallel.mesh import check_device
+
+        check_device(mesh, self.device)
+        check_replicated(self, mesh, min_dim)
+        self.mesh = mesh
+        return self
 
     def param_count(self):
         return sum(p.numel() for p in self.parameters())
@@ -140,4 +178,15 @@ class Model(nn.Module):
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
         x = x.to(self.device, config.compute_dtype)
-        return super().__call__(x, *args, **kwargs)
+        if self.mesh is None:
+            return super().__call__(x, *args, **kwargs)
+        from ..parallel import _comm
+        from ..parallel.mesh import axis_group
+        from ..parallel.multihost import process_batch_offset, process_batch_size
+        from ..parallel.train import data_parallel
+
+        b = process_batch_size(self.mesh, x.shape[0])
+        off = process_batch_offset(self.mesh, x.shape[0])
+        with data_parallel(self.mesh, b):
+            y = super().__call__(x[off:off + b], *args, **kwargs)
+        return _comm.all_gather(y, axis_group(self.mesh, "data"))

@@ -33,14 +33,29 @@ averages and the train step folds into the running statistics
 (``train_utils.apply_bn_updates``).
 
 ``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
-activation checkpointing under ``config.remat_mode()``.
+activation checkpointing under ``config.remat_mode()``. Three thread-local
+scopes carry the parallel layer (``parallel/``) into it:
+
+- ``block_runner_scope(runner)``: every block stack goes to
+  ``runner(fn, blocks, x)`` instead of the loop (the GPipe and
+  token-parallel runners), unless the model installed its own;
+- ``sample_window_scope(global_batch, offset)``: the activations hold rows
+  ``[offset, offset + B)`` of a batch of ``global_batch`` rows. Drop-path
+  masks cover the global batch and each row takes its own bit; ``dropout``
+  draws over the global rows and keeps its own;
+- ``batch_group_scope(group)``: train-mode ``batch_norm`` takes its
+  statistics over the rows of every rank of ``group`` (the data group of a
+  data-parallel step), as the JAX mean over a ``'data'``-sharded batch.
+
+A block that ``run_blocks`` checkpoints recomputes inside the scopes of its
+forward, whichever thread runs the backward.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 import numpy as np
 import torch
@@ -237,10 +252,15 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, train=False
     axis = axis % x.dim()
     if train:
         dims = tuple(d for d in range(x.dim()) if d != axis)
-        var, mean = torch.var_mean(x.float(), dims, correction=0)
+        group = batch_group()
+        n = x.numel() // x.shape[axis]
+        if group is None:
+            var, mean = torch.var_mean(x.float(), dims, correction=0)
+        else:
+            mean, var, n = _global_stats(x.float(), dims, n, group)
         sink = getattr(_bn_local, "sink", None)
         if sink is not None:
-            sink.append((running_mean, mean.detach(), var.detach(), x.numel() // x.shape[axis]))
+            sink.append((running_mean, mean.detach(), var.detach(), n))
     else:
         mean, var = running_mean.float(), running_var.float()
     scale = torch.rsqrt(var + eps)
@@ -251,6 +271,24 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None, train=False
         shift = shift + bias.float()
     shape = [-1 if d == axis else 1 for d in range(x.dim())]
     return x * scale.to(x.dtype).reshape(shape) + shift.to(x.dtype).reshape(shape)
+
+
+def _global_stats(xf, dims, n, group):
+    """(mean, biased variance, count) per channel of float32 ``xf`` over
+    ``dims`` and the rows of every rank of ``group``, each rank holding
+    ``n`` elements a channel (the equal shares of a data-parallel batch):
+    Σx, then Σ(x − mean)², each summed over the group through a
+    differentiable all-reduce, so that every rank's statistics and their
+    gradients are those of the whole batch."""
+    import torch.distributed as dist
+
+    from ..parallel import _comm
+
+    count = n * dist.get_world_size(group)
+    mean = _comm.all_reduce(xf.sum(dims), group) / count
+    shape = [1 if d in dims else -1 for d in range(xf.dim())]
+    var = _comm.all_reduce((xf - mean.reshape(shape)).square().sum(dims), group) / count
+    return mean, var, count
 
 
 def bn(x, m, train=False, axis=-1):
@@ -342,16 +380,37 @@ def drop_path_mask(batch, rate, generator, device):
     return torch.rand(batch, generator=generator, device=device) < _keep(rate)
 
 
+def window_rows(t, rows):
+    """The ``rows`` rows of ``t`` that the activations in flight hold:
+    under ``sample_window_scope(G, offset)``, ``t`` has G rows and this is
+    ``t[offset:offset + rows]``; outside one, ``t`` itself (``rows``
+    rows)."""
+    win = sample_window()
+    if win is None:
+        n, off = rows, 0
+    else:
+        n, off = win
+    if t.shape[0] != n or off + rows > n:
+        raise ValueError(f"{t.shape[0]} rows drawn for a window of {n} rows at offset "
+                         f"{off}, activations of {rows} rows: per-sample draws must cover "
+                         f"the sample window's global batch")
+    return t if rows == n else t[off:off + rows]
+
+
 def drop_path(x, rate, train, generator=None, mask=None):
     """Stochastic depth per sample (the JAX ``nnf.drop_path``): where the
     sample's mask is set x / keep (keep in x's dtype), else 0. The mask is
-    ``mask`` if given, else drawn from ``generator``. Identity in eval, at
-    rate 0, or with neither. JAX's threefry and torch's Philox draw
-    different masks from the same seed."""
+    ``mask`` if given, else drawn from ``generator``; under a sample window
+    it covers the window's global batch, and x's rows take their bits
+    (``window_rows``). Identity in eval, at rate 0, or with neither. JAX's
+    threefry and torch's Philox draw different masks from the same seed."""
     if not train or rate == 0 or (generator is None and mask is None):
         return x
     if mask is None:
-        mask = drop_path_mask(x.shape[0], rate, generator, x.device)
+        win = sample_window()
+        mask = drop_path_mask(x.shape[0] if win is None else win[0], rate, generator,
+                              x.device)
+    mask = window_rows(mask, x.shape[0])
     keep = torch.tensor(_keep(rate), dtype=x.dtype).item()  # rounded to x's dtype
     return torch.where(mask.reshape((-1,) + (1,) * (x.dim() - 1)), x / keep, 0.0)
 
@@ -360,10 +419,16 @@ def dropout(x, rate, train, generator=None):
     """Elementwise dropout (the JAX ``nnf.dropout``): each element kept
     with probability 1 - rate, drawn from ``generator`` (on x's device),
     and scaled to x / keep (keep in x's dtype), else 0. Identity in eval,
-    at rate 0, or with no generator, as ``drop_path``."""
+    at rate 0, or with no generator, as ``drop_path``. Under a sample
+    window the draw covers the window's global rows and x takes its own,
+    so no two shards share bits and the result equals the dense draw's
+    rows."""
     if not train or rate == 0 or generator is None:
         return x
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < _keep(rate)
+    win = sample_window()
+    shape = x.shape if win is None else (win[0], *x.shape[1:])
+    mask = window_rows(torch.rand(shape, generator=generator, device=x.device) < _keep(rate),
+                       x.shape[0])
     keep = torch.tensor(_keep(rate), dtype=x.dtype).item()  # rounded to x's dtype
     return torch.where(mask, x / keep, 0.0)
 
@@ -396,6 +461,70 @@ def probe(tag, x):
     return x
 
 
+_par_local = threading.local()
+
+
+@contextmanager
+def _scope(name, value):
+    old = getattr(_par_local, name, None)
+    setattr(_par_local, name, value)
+    try:
+        yield value
+    finally:
+        setattr(_par_local, name, old)
+
+
+def block_runner_scope(runner):
+    """Install a zoo-wide block runner on this thread (the JAX
+    ``block_runner_scope``): inside it, every ``run_blocks`` stack of a
+    model without a runner of its own runs as ``runner(fn, blocks, x)``.
+    ``None`` turns an outer runner off."""
+    return _scope("runner", runner)
+
+
+def block_runner():
+    """The runner of this thread's ``block_runner_scope``, or None."""
+    return getattr(_par_local, "runner", None)
+
+
+def sample_window_scope(global_batch, offset):
+    """Declare, on this thread, that the activations in flight are rows
+    ``[offset, offset + B)`` of a batch of ``global_batch`` rows (the JAX
+    ``sample_window_scope``): per-sample draws cover the global batch and
+    each row takes its own (``window_rows``)."""
+    return _scope("window", (int(global_batch), int(offset)))
+
+
+def sample_window():
+    """(global_batch, offset) of this thread's sample window, or None."""
+    return getattr(_par_local, "window", None)
+
+
+def batch_group_scope(group):
+    """Train-mode ``batch_norm`` on this thread takes its statistics over
+    the rows of every rank of the process group ``group`` (None: this
+    rank's rows)."""
+    return _scope("group", group)
+
+
+def batch_group():
+    """The process group of this thread's ``batch_group_scope``, or None."""
+    return getattr(_par_local, "group", None)
+
+
+@contextmanager
+def _scopes_of(saved):
+    """Enter the window and batch-group scopes ``saved`` from another
+    thread (a checkpointed block's recompute in the backward)."""
+    window, group = saved
+    with ExitStack() as stack:
+        if window is not None:
+            stack.enter_context(sample_window_scope(*window))
+        if group is not None:
+            stack.enter_context(batch_group_scope(group))
+        yield
+
+
 class _BlockCall(nn.Module):
     """``fn(block, x)`` as a module, so that ``functional_call`` can bind
     the block's tensors for one call."""
@@ -409,25 +538,45 @@ class _BlockCall(nn.Module):
         return self.fn(self.block, x)
 
 
-def run_blocks(blocks, x, fn, remat=False):
-    """x through every block in turn: ``x = fn(block, x)``.
-
-    Under ``config.remat_mode()`` or with ``remat`` (a factory's
-    ``use_checkpoint``), with gradients on, each block runs under
-    ``torch.utils.checkpoint`` (non-reentrant). The block's parameters and
+def checkpointed(fn):
+    """``fn(block, x)`` under ``torch.utils.checkpoint`` (non-reentrant)
+    when gradients are on, else ``fn`` itself. The block's parameters and
     buffers as they are now (under a train step's ``functional_call``, its
     cast copies) go in as explicit inputs and are bound again when the
     backward recomputes the block, so the recompute reads the tensors the
-    forward read."""
-    for blk in blocks:
-        if not ((remat or config.remat) and torch.is_grad_enabled()):
-            x = fn(blk, x)
-            continue
+    forward read, inside the sample window and batch group of the
+    forward."""
+
+    def step(blk, x):
+        if not torch.is_grad_enabled():
+            return fn(blk, x)
         call = _BlockCall(blk, fn)
         named = {**dict(call.named_parameters()), **dict(call.named_buffers())}
+        saved = (sample_window(), batch_group())
 
-        def run(x, *tensors, call=call, names=tuple(named)):
-            return torch.func.functional_call(call, dict(zip(names, tensors)), (x,))
+        def run(x, *tensors, names=tuple(named)):
+            with _scopes_of(saved):
+                return torch.func.functional_call(call, dict(zip(names, tensors)), (x,))
 
-        x = checkpoint(run, x, *named.values(), use_reentrant=False)
+        return checkpoint(run, x, *named.values(), use_reentrant=False)
+
+    return step
+
+
+def run_blocks(blocks, x, fn, remat=False, runner=None):
+    """x through every block in turn: ``x = fn(block, x)``.
+
+    Under ``config.remat_mode()`` or with ``remat`` (a factory's
+    ``use_checkpoint``) each block is ``checkpointed``. With a ``runner``
+    (a factory's ``block_runner=``), or else inside
+    ``block_runner_scope``, the stack goes to ``runner(fn, blocks, x)``
+    with that per-block ``fn``, as the JAX ``scan_blocks`` hands its stack
+    to the runner."""
+    if remat or config.remat:
+        fn = checkpointed(fn)
+    runner = runner if runner is not None else block_runner()
+    if runner is not None:
+        return runner(fn, blocks, x)
+    for blk in blocks:
+        x = fn(blk, x)
     return x

@@ -119,12 +119,16 @@ class BatchIterator:
 
     Yields {'image': uint8 (B, S, S, 3) NHWC, 'label': int32 (B,)} numpy
     batches; a background thread keeps ``prefetch`` batches decoded ahead.
-    An error in that thread is raised in the consumer.
+    An error in that thread is raised in the consumer. ``rows=(offset,
+    size)`` keeps rows ``[offset, offset + size)`` of each batch, chosen
+    before anything is decoded: a data-parallel rank's share
+    (``parallel.multihost.process_batch_offset`` and ``_size``).
     """
 
     def __init__(self, dataset, batch_size, shuffle=True, seed=0,
-                 drop_last=True, prefetch=2, resize_to=None):
+                 drop_last=True, prefetch=2, resize_to=None, rows=None):
         self.ds = dataset
+        self.rows = rows
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
@@ -155,6 +159,9 @@ class BatchIterator:
                   for e in range(self.batch_size, n + 1, self.batch_size)]
         if not self.drop_last and n % self.batch_size:
             chunks.append(order[-(n % self.batch_size):])
+        if self.rows is not None:
+            off, size = self.rows
+            chunks = [c[off:off + size] for c in chunks]
 
         q = queue.Queue(maxsize=self.prefetch)
         stop = object()
@@ -200,14 +207,18 @@ def make_augment(image_size=224, mean=IMAGENET_MEAN, std=IMAGENET_STD,
     fn(generator, images_u8_nhwc) -> float32 NCHW batch: per-image random
     crop from the decoded size down to ``image_size`` and random horizontal
     flip (``draw_crops``, one gather), /255 + mean/std normalize. Upload
-    stays uint8.
+    stays uint8. ``fn(generator, images, window=(global_batch, offset))``
+    takes ``images`` as rows ``[offset, offset + B)`` of a batch of
+    ``global_batch``: the draws cover the global batch and the images
+    take their rows, as the whole batch's augmentation would give them.
     """
 
-    def augment(generator, images):
+    def augment(generator, images, window=None):
         B, H, W, C = images.shape
         dev = images.device
-        tops, lefts, flips = (t.to(dev) for t in
-                              draw_crops(generator, B, H, W, image_size, flip))
+        n, off = (B, 0) if window is None else window
+        tops, lefts, flips = (t[off:off + B].to(dev) for t in
+                              draw_crops(generator, n, H, W, image_size, flip))
         r = torch.arange(image_size, device=dev)
         rows = tops[:, None] + r  # (B, S)
         cols = lefts[:, None] + torch.where(flips[:, None], image_size - 1 - r, r)

@@ -202,7 +202,7 @@ class ASMLP(Model):
         shift = axial_shift if self.use_pallas else axial_shift_plain
         for i, layer in enumerate(self.layers):
             x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h, shift, masks.get(blk)),
-                               remat=self.use_checkpoint)
+                               remat=self.use_checkpoint, runner=self.block_runner)
             if layer.downsample is not None:
                 x = layer.downsample(x)
             x = nnf.probe(f"stage{i}", x)
@@ -235,14 +235,14 @@ def AS_MLP(
     autograd) and device (where the model is built, the card unless the
     caller asks for the CPU; with no card, "cuda" raises). drop_rate is
     accepted and unused and other keyword arguments are ignored, as in
-    JAX, except that block_runner must be None: the parallel runners are
-    not ported yet. use_checkpoint checkpoints every block."""
+    JAX, except ``block_runner`` (fn(fn, blocks, x), e.g.
+    ``parallel.pipeline_runner``), which runs each stage's block stack: the
+    JAX factory swallows it and ignores it. use_checkpoint checkpoints
+    every block."""
     del drop_rate  # unused, as in the JAX factory
-    if kwargs.get("block_runner") is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return ASMLP(
         img_size=img_size, patch_size=patch_size, in_chans=in_chans, num_classes=num_classes,
         embed_dim=embed_dim, depths=list(depths), shift_size=shift_size, mlp_ratio=mlp_ratio,
         as_bias=as_bias, drop_path_rate=drop_path_rate, patch_norm=patch_norm,
         use_checkpoint=use_checkpoint, use_pallas=use_pallas, seed=seed,
-    ).place(device)
+    ).place(device).with_runner(kwargs.get("block_runner"))

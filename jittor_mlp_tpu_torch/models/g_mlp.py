@@ -134,7 +134,7 @@ class gMLP(Model):
         conv = self.patcher[0]
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
         x = x.reshape(x.shape[0], self.num_patches, self.d_model)
-        x = nnf.run_blocks(self.model, x, self.block_fn(x))
+        x = nnf.run_blocks(self.model, x, self.block_fn(x), runner=self.block_runner)
         x = nnf.global_avg_pool_tokens(x)
         head = self.mlp_head[0]
         return nnf.linear(x, head.weight, head.bias)
@@ -156,13 +156,13 @@ def gMLPForImageClassification(
     """use_pallas: keeps the JAX factory's name; True runs bf16 blocks
     through the hand-written gMLP-block kernels (W8A8 under int8_mode in
     eval; in training the forward kernel with the plain block's backward).
-    block_runner must be None: the parallel runners are not ported yet.
+    block_runner: optional fn(fn, blocks, x) running the block stack
+    (``parallel.pipeline_runner``); under a pipeline each stage runs its
+    blocks through the same kernels.
     device: where the model is built, the card unless the caller asks for
     the CPU; with no card, "cuda" raises."""
-    if block_runner is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return gMLP(
         image_size=image_size, patch_size=patch_size, in_channels=in_channels,
         num_classes=num_classes, d_model=d_model, d_ffn=d_ffn, depth=depth,
         use_pallas=use_pallas, seed=seed,
-    ).place(device)
+    ).place(device).with_runner(block_runner)

@@ -162,7 +162,7 @@ class MLPMixer(Model):
         conv = self.patcher[0]
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
         x = x.reshape(x.shape[0], self.num_patches, self.d_model)
-        x = nnf.run_blocks(self.model, x, self.block_fn(x))
+        x = nnf.run_blocks(self.model, x, self.block_fn(x), runner=self.block_runner)
         x = nnf.layer_norm(x, self.active.weight, self.active.bias)
         x = nnf.global_avg_pool_tokens(x)
         head = self.mlp_head[0]
@@ -190,14 +190,14 @@ def MLPMixerForImageClassification(
     through the hand-written mixer-block kernels (W8A8 under int8_mode in
     eval; in training the forward kernel, and under config.pallas_bwd the
     backward kernels too).
-    block_runner must be None: the parallel runners are not ported yet.
+    block_runner: optional fn(fn, blocks, x) running the block stack
+    (``parallel.pipeline_runner``, ``parallel.token_parallel_runner``);
+    under a pipeline each stage runs its blocks through the same kernels.
     device: where the model is built, the card unless the caller asks for
     the CPU; with no card, "cuda" raises."""
-    if block_runner is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return MLPMixer(
         in_channels=in_channels, d_model=d_model, num_classes=num_classes,
         patch_size=patch_size, image_size=image_size, depth=depth,
         expansion_factor=expansion_factor, token_dim=token_dim,
         use_pallas=use_pallas, seed=seed,
-    ).place(device)
+    ).place(device).with_runner(block_runner)

@@ -116,7 +116,7 @@ class S2MLP(Model):
         for stage, patch in zip(self.stages, self.patch_sizes):
             conv = stage[0]
             x = nnf.patch_embed(x, conv.weight, conv.bias, patch)
-            x = nnf.run_blocks(stage[1].model, x, self.block)
+            x = nnf.run_blocks(stage[1].model, x, self.block, runner=self.block_runner)
         return _linear(x.mean((1, 2)), self.mlp_head[1])
 
 
@@ -135,17 +135,15 @@ def S2MLPv1(
     """S2-MLP v1; the JAX factory's signature, plus device (where the model
     is built, the card unless the caller asks for the CPU; with no card,
     "cuda" raises). image_size is accepted, as in JAX: the patch
-    embeddings follow the input. block_runner must be None: the parallel
-    runners are not ported yet."""
+    embeddings follow the input. block_runner: optional fn(fn, blocks, x)
+    running each stage's block stack (``parallel.pipeline_runner``)."""
     del image_size  # unused, as in the JAX factory
-    if block_runner is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return S2MLP(
         name="s2_mlp_v1", stage=S2Stage, block=s2_block, init_sd=_init_state_dict,
         in_channels=in_channels, patch_size=list(patch_size), d_model=list(d_model),
         depth=list(depth), expansion_factor=list(expansion_factor), num_classes=num_classes,
         seed=seed,
-    ).place(device)
+    ).place(device).with_runner(block_runner)
 
 
 def S2MLPv1_deep(num_classes: int = 1000, **kwargs):

@@ -87,14 +87,12 @@ def S2MLPv2(
     """S2-MLP v2; the JAX factory's signature, plus device (where the model
     is built, the card unless the caller asks for the CPU; with no card,
     "cuda" raises). image_size is accepted, as in JAX: the patch
-    embeddings follow the input. block_runner must be None: the parallel
-    runners are not ported yet."""
+    embeddings follow the input. block_runner: optional fn(fn, blocks, x)
+    running each stage's block stack (``parallel.pipeline_runner``)."""
     del image_size  # unused, as in the JAX factory
-    if block_runner is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return S2MLP(
         name="s2_mlp_v2", stage=S2Stage, block=s2_attention_block, init_sd=_init_state_dict,
         in_channels=in_channels, patch_size=list(patch_size), d_model=list(d_model),
         depth=list(depth), expansion_factor=list(expansion_factor), num_classes=num_classes,
         seed=seed,
-    ).place(device)
+    ).place(device).with_runner(block_runner)

@@ -222,7 +222,7 @@ class SwinMLPModel(Model):
         masks = self.drop_path_masks(x, generator)
         for layer in self.layers:
             x = nnf.run_blocks(layer.blocks, x, lambda blk, h: blk(h, masks.get(blk)),
-                               remat=self.use_checkpoint)
+                               remat=self.use_checkpoint, runner=self.block_runner)
             if layer.downsample is not None:
                 x = layer.downsample(x)
         return _linear(_ln(x, self.norm).mean(1), self.head)
@@ -251,15 +251,15 @@ def SwinMLP(
     signature, plus device (where the model is built, the card unless the
     caller asks for the CPU; with no card, "cuda" raises). drop_rate is
     accepted and unused, as in JAX. Other keyword arguments are ignored, as
-    in JAX, except that block_runner must be None: the parallel runners are
-    not ported yet. use_checkpoint checkpoints every block."""
+    in JAX, except ``block_runner`` (fn(fn, blocks, x), e.g.
+    ``parallel.pipeline_runner``), which runs each stage's block stack: the
+    JAX factory swallows it and ignores it. use_checkpoint checkpoints
+    every block."""
     del drop_rate  # unused, as in the JAX factory
-    if kwargs.get("block_runner") is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
     return SwinMLPModel(
         img_size=img_size, patch_size=patch_size, in_chans=in_chans, num_classes=num_classes,
         embed_dim=embed_dim, depths=list(depths), num_heads=list(num_heads),
         window_size=window_size, mlp_ratio=mlp_ratio, drop_path_rate=drop_path_rate, ape=ape,
         patch_norm=patch_norm,
         use_checkpoint=use_checkpoint, seed=seed,
-    ).place(device)
+    ).place(device).with_runner(kwargs.get("block_runner"))

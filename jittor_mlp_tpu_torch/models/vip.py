@@ -176,7 +176,7 @@ class ViPModel(Model):
         x = x.permute(0, 2, 3, 1)  # NCHW → NHWC
         conv = self.patcher[0]
         x = nnf.patch_embed(x, conv.weight, conv.bias, self.patch_size)
-        x = nnf.run_blocks(self.blocks.model, x, self.block)
+        x = nnf.run_blocks(self.blocks.model, x, self.block, runner=self.block_runner)
         norm, head = self.mlp_head[0], self.mlp_head[2]
         x = nnf.layer_norm(x, norm.weight, norm.bias).mean((1, 2))
         return _linear(x, head)
@@ -198,12 +198,10 @@ def ViP(
 ):
     """ViP; the JAX factory's signature, plus device (where the model is
     built, the card unless the caller asks for the CPU; with no card,
-    "cuda" raises). block_runner must be None: the parallel runners are not
-    ported yet."""
-    if block_runner is not None:
-        raise NotImplementedError("block_runner is not supported by the port yet")
+    "cuda" raises). block_runner: optional fn(fn, blocks, x) running the
+    block stack (``parallel.pipeline_runner``)."""
     return ViPModel(
         image_size=image_size, patch_size=patch_size, in_channels=in_channels,
         num_classes=num_classes, d_model=d_model, depth=depth, segments=segments,
         expansion_factor=expansion_factor, weighted=weighted, seed=seed,
-    ).place(device)
+    ).place(device).with_runner(block_runner)

@@ -27,6 +27,7 @@ an uninterrupted one.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Any, NamedTuple
@@ -37,7 +38,10 @@ from scipy import special
 
 from . import config
 from .core import nnf, train_utils
-from .parallel.train import _loss_and_sites
+from .parallel import _comm
+from .parallel.mesh import axis_group, axis_index, axis_size
+from .parallel.train import (_loss_and_sites, check_mesh_step, data_parallel, global_mean,
+                             init_sharded, reduce_gradients)
 
 # ---------------------------------------------------------------------------
 # losses
@@ -125,27 +129,43 @@ def mix_draws(generator, batch, height, width, mixup_alpha=0.8, cutmix_alpha=1.0
                       (batch, height, width), mixup_alpha, cutmix_alpha)
 
 
-def mix(images, soft_labels, draws):
+def mix(images, soft_labels, draws, partner=None):
     """Apply ``draws`` to NCHW ``images`` and dense ``soft_labels``; each
     sample's partner is the batch reversed. Cutmix copies the partner's box;
     mixup blends λ·x + (1 − λ)·partner in float32 and casts back to the
     images' dtype; the labels blend with λ. ``draws`` None returns the
-    inputs themselves."""
+    inputs themselves. ``partner``: (images, soft labels) of each row's
+    partner, row for row, for a rank's rows of a data-parallel batch (the
+    global batch's draws, whose batch is the global one)."""
     if draws is None:
         return images, soft_labels
     b, _, h, w = images.shape
-    if (b, h, w) != draws.shape:
+    if partner is None:
+        partner = (images.flip(0), soft_labels.flip(0))
+        drawn_for = (b, h, w)
+    else:
+        drawn_for = (draws.shape[0], h, w)
+    if drawn_for != draws.shape:
         raise ValueError(f"draws made for (batch, height, width) {draws.shape}, "
                          f"images {tuple(images.shape)}")
+    p_images, p_labels = partner
     lam = float(draws.lam)
     rest = float(np.float32(1.0) - draws.lam)  # JAX's float32 1 − λ
     if draws.cutmix:
         y0, y1, x0, x1 = draws.box
         mixed = images.clone()
-        mixed[:, :, y0:y1, x0:x1] = images[:, :, y0:y1, x0:x1].flip(0)
+        mixed[:, :, y0:y1, x0:x1] = p_images[:, :, y0:y1, x0:x1]
     else:
-        mixed = (lam * images.float() + rest * images.flip(0).float()).to(images.dtype)
-    return mixed, lam * soft_labels + rest * soft_labels.flip(0)
+        mixed = (lam * images.float() + rest * p_images.float()).to(images.dtype)
+    return mixed, lam * soft_labels + rest * p_labels
+
+
+def partner_rows(tensor, mesh):
+    """The partners of this rank's rows when the global batch pairs with
+    itself reversed: rank r's rows pair with data rank (n − 1 − r)'s,
+    reversed, which the two ranks exchange over the data group."""
+    n, r = axis_size(mesh, "data"), axis_index(mesh, "data")
+    return _comm.exchange(tensor, n - 1 - r, axis_group(mesh, "data")).flip(0)
 
 
 def mixup_cutmix(generator, images, soft_labels, mixup_alpha=0.8, cutmix_alpha=1.0,
@@ -252,11 +272,12 @@ class RecipeState(NamedTuple):
 def init_recipe_state(model, optimizer, mesh=None, recipe=Recipe()):
     """The recipe state of ``model`` (its parameters, the f32 masters) and
     ``optimizer`` (built over ``model.parameters()``), with an EMA copy of
-    the parameters when ``recipe.ema_decay > 0``; step 0. ``mesh`` must be
-    None (one card): the JAX package's mesh placement is not ported."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported yet: init_recipe_state takes "
-                                  "mesh=None (one card)")
+    the parameters when ``recipe.ema_decay > 0``; step 0. With ``mesh``
+    the model is placed as ``parallel.train.init_sharded`` places it
+    (unless a pipeline's ``init_sharded(..., stages=)`` already did), for
+    ``make_recipe_train_step(..., mesh=mesh)``."""
+    if mesh is not None and getattr(model, "pipeline_stages", None) is None:
+        init_sharded(model, optimizer, mesh)
     params = dict(model.named_parameters())
     ema = ({k: p.detach().clone() for k, p in params.items()}
            if recipe.ema_decay > 0.0 else None)
@@ -271,8 +292,23 @@ def mix_generator(generator, step):
     return torch.Generator().manual_seed(int(seed[0]))
 
 
+def _grad_norm(model, mesh):
+    """Global L2 norm of the f32 gradients; under a pipeline placement the
+    squares of the stage-owned ones summed over the model group."""
+    stages = getattr(model, "pipeline_stages", None) or {}
+    grads = [p.grad.float() for k, p in model.named_parameters()
+             if p.grad is not None and stages.get(k) is None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    own = [p.grad.float() for k, p in model.named_parameters()
+           if p.grad is not None and stages.get(k) is not None]
+    if mesh is None or not stages:
+        return norm
+    sq = torch.stack(torch._foreach_norm(own)).square().sum() if own else norm.new_zeros(())
+    return torch.sqrt(norm.square() + _comm.all_reduce(sq, axis_group(mesh, "model")))
+
+
 def make_recipe_train_step(model, optimizer, num_classes, recipe=Recipe(), compute_dtype=None,
-                           bn_momentum=0.1, lr_schedule=None):
+                           bn_momentum=0.1, lr_schedule=None, mesh=None):
     """Build ``step(state, batch, generator) -> (state, metrics)``.
 
     ``batch``: {"image": NCHW float, "label": int labels}. Each step
@@ -296,7 +332,15 @@ def make_recipe_train_step(model, optimizer, num_classes, recipe=Recipe(), compu
     step's behaviour). Metrics are detached device scalars, read with no
     sync: ``loss``, ``accuracy`` (top-1 against the hard labels) and
     ``grad_norm`` (global L2 of the f32 gradients before the update). The
-    step raises RuntimeError under ``config.int8_mode()``."""
+    step raises RuntimeError under ``config.int8_mode()``.
+
+    ``mesh``: one rank's part of a data-parallel recipe step, as
+    ``make_train_step(..., mesh=)`` (``batch`` holds the rank's rows; the
+    loss scaled by 1 / |model group|, the gradients reduced before the
+    clip-free norm and the update). The mix draws are the global batch's,
+    the same on every rank, and each row's partner is its partner in the
+    global batch reversed (``partner_rows``); loss and accuracy are the
+    global batch's."""
 
     def step(state, batch, generator):
         if config.int8_enabled():  # the W8A8 path's rounding has a zero gradient
@@ -308,15 +352,29 @@ def make_recipe_train_step(model, optimizer, num_classes, recipe=Recipe(), compu
         dev = model.device
         labels = batch["label"].to(dev)
         soft = smooth_labels(labels, num_classes, recipe.label_smoothing)
-        images, soft = mixup_cutmix(mix_generator(generator, it), batch["image"].to(dev), soft,
-                                    recipe.mixup_alpha, recipe.cutmix_alpha, recipe.switch_prob)
+        images = batch["image"].to(dev)
+        if mesh is None:
+            images, soft = mixup_cutmix(mix_generator(generator, it), images, soft,
+                                        recipe.mixup_alpha, recipe.cutmix_alpha,
+                                        recipe.switch_prob)
+            scope, scale = contextlib.nullcontext(), 1
+        else:
+            check_mesh_step(model, mesh, bn_momentum)
+            b, _, h, w = images.shape
+            draws = mix_draws(mix_generator(generator, it), b * axis_size(mesh, "data"), h, w,
+                              recipe.mixup_alpha, recipe.cutmix_alpha, recipe.switch_prob)
+            if draws is not None:
+                images, soft = mix(images, soft, draws, (partner_rows(images, mesh),
+                                                         partner_rows(soft, mesh)))
+            scope, scale = data_parallel(mesh, b), axis_size(mesh, "model")
         optimizer.zero_grad(set_to_none=True)
-        with nnf.bn_stats() as stats:  # the forward's statistics only
+        with nnf.bn_stats() as stats, scope:  # the forward's statistics only
             loss, logits, sites = _loss_and_sites(model, {"image": images, "label": soft},
                                                   compute_dtype, generator, soft_cross_entropy)
-        loss.backward()
-        grads = [p.grad.float() for p in model.parameters() if p.grad is not None]
-        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        (loss / scale).backward()
+        if mesh is not None:
+            reduce_gradients(model, mesh)
+        grad_norm = _grad_norm(model, mesh)
         if lr_schedule is not None:
             lr = lr_schedule(it)
             for group in optimizer.param_groups:
@@ -327,7 +385,10 @@ def make_recipe_train_step(model, optimizer, num_classes, recipe=Recipe(), compu
         if recipe.ema_decay > 0.0:
             ema_update(state.ema, dict(model.named_parameters()), recipe.ema_decay)
         accuracy = (logits.argmax(-1) == labels).float().mean()
-        metrics = {"loss": loss.detach(), "accuracy": accuracy, "grad_norm": grad_norm}
+        loss = loss.detach()
+        if mesh is not None:
+            loss, accuracy = global_mean(loss, mesh), global_mean(accuracy, mesh)
+        metrics = {"loss": loss, "accuracy": accuracy, "grad_norm": grad_norm}
         return RecipeState(state.params, state.opt_state, state.ema, it + 1), metrics
 
     return step

@@ -112,11 +112,17 @@ def load_params(model, path):
     return model.load_torch_state_dict(sd)
 
 
-def save_train_state(path, model, optimizer, step, generator=None):
+def save_train_state(path, model, optimizer, step, generator=None, model_state=None,
+                     optimizer_state=None):
     """``torch.save`` of the model's and the optimizer's state dicts, the
-    step and ``generator``'s state (if given). Returns the absolute path."""
+    step and ``generator``'s state (if given). Returns the absolute path.
+    ``model_state`` and ``optimizer_state`` replace ``model.state_dict()``
+    and ``optimizer.state_dict()`` (a pipelined model's
+    ``parallel.gather_state_dict`` and ``gather_optimizer_state``)."""
     path = os.path.abspath(path)
-    torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+    torch.save({"model": model.state_dict() if model_state is None else model_state,
+                "optimizer": (optimizer.state_dict() if optimizer_state is None
+                              else optimizer_state),
                 "step": int(step),
                 "generator": None if generator is None else generator.get_state()}, path)
     return path

@@ -33,6 +33,7 @@ import optax
 import pytest
 import torch
 from conftest import assert_close
+import torch_parity as tp
 
 import jittor_mlp_tpu as jm
 import jittor_mlp_tpu_torch as jt
@@ -255,8 +256,7 @@ def test_shift_moves_the_logits():
 
 
 def test_factory_options():
-    with pytest.raises(NotImplementedError):
-        jt.AS_MLP(**SMALL, block_runner=lambda *a: None, **CPU)
+    tp.check_block_runner(jt.AS_MLP, SMALL, 32, stacks=2)  # applied, unlike JAX's
     m = jt.AS_MLP(**{**SMALL, "drop_path_rate": 0.3}, drop_rate=0.5, **CPU)
     rates = [blk.drop_path_rate for layer in m.layers for blk in layer.blocks]
     np.testing.assert_array_equal(rates, np.linspace(0, 0.3, 4, dtype=np.float32))

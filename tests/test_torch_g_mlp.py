@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import assert_close
+import torch_parity as tp
 
 import jittor_mlp_tpu as jm
 import jittor_mlp_tpu_torch as jt
@@ -145,8 +146,7 @@ def test_kernel_gate_and_options():
         assert m.eval().uses_kernel(bf) and not m.train().uses_kernel(bf)
     assert not jt.gMLPForImageClassification(
         **SMALL, use_pallas=False, **CPU).eval().uses_kernel(bf)
-    with pytest.raises(NotImplementedError):
-        jt.gMLPForImageClassification(**SMALL, block_runner=lambda *a: None, **CPU)
+    tp.check_block_runner(jt.gMLPForImageClassification, SMALL, 32, stacks=1)
     # the factory's defaults are the JAX factory's (gMLP-S @256)
     d = jt.gMLPForImageClassification(depth=1, **CPU)
     assert (d.num_patches, d.d_model, d.patch_size) == (256, 256, 16)

@@ -14,6 +14,7 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "import jittor_mlp_tpu_torch.quant\n"
         "import jittor_mlp_tpu_torch.examples.train\n"
         "import jittor_mlp_tpu_torch.parallel\n"
+        "from jittor_mlp_tpu_torch.parallel import mesh, multihost, pipeline, sequence\n"
         "import jittor_mlp_tpu_torch.tools.profile_blocks\n"
         "import jittor_mlp_tpu_torch.tools.kernel_lab\n"
         "from jittor_mlp_tpu_torch.models import (\n"
@@ -44,6 +45,8 @@ def test_import_pulls_in_no_jax_and_needs_no_toolchain():
         "assert callable(cycle_mlp.CycleNet) and callable(active_mlp.ActivexTiny)\n"
         "assert callable(conv_mlp.ConvMLP) and callable(repmlpnet.RepMLPNet)\n"
         "assert callable(train_utils.recalibrate_bn)\n"
+        "assert callable(mesh.make_mesh) and callable(multihost.initialize)\n"
+        "assert callable(pipeline.pipeline_runner) and callable(sequence.token_parallel_runner)\n"
         "assert callable(checkpoint.load_torch_checkpoint) and callable(probes.capture)\n"
         "assert callable(train_recipes.make_recipe_train_step) and jt.train_recipes\n"
         "assert callable(checkpoint.resize_pos_embed)\n"

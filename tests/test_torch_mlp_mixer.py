@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import assert_close
+import torch_parity as tp
 
 import jittor_mlp_tpu as jm
 import jittor_mlp_tpu_torch as jt
@@ -101,8 +102,9 @@ def test_kernel_gate():
 
 
 def test_block_runner_refused():
-    with pytest.raises(NotImplementedError):
-        jt.MLPMixerForImageClassification(**SMALL, block_runner=lambda *a: None)
+    """``block_runner=`` is no longer refused: the runner runs the stack and
+    a pass-through runner leaves the logits as they are."""
+    tp.check_block_runner(jt.MLPMixerForImageClassification, SMALL, 32, stacks=1)
 
 
 @pytest.mark.parametrize("path", ["f32_plain", "bf16_kernel"])

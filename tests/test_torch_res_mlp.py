@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from conftest import assert_close
+import torch_parity as tp
 
 import jittor_mlp_tpu as jm
 import jittor_mlp_tpu_torch as jt
@@ -139,5 +140,4 @@ def test_kernel_gate_and_options():
         assert m.eval().uses_kernel(bf) and not m.train().uses_kernel(bf)
     assert not jt.ResMLPForImageClassification(
         **SMALL, use_pallas=False, **CPU).eval().uses_kernel(bf)
-    with pytest.raises(NotImplementedError):
-        jt.ResMLPForImageClassification(**SMALL, block_runner=lambda *a: None, **CPU)
+    tp.check_block_runner(jt.ResMLPForImageClassification, SMALL, 32, stacks=1)

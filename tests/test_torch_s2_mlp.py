@@ -108,8 +108,7 @@ def test_spatial_shifts_match_jax(fn, axes, dtype):
 def test_factory_options():
     tp.check_factory_device(jt.S2MLPv2, tp.S2)
     for factory in (S2MLPv1, jt.S2MLPv2):
-        with pytest.raises(NotImplementedError):
-            factory(**tp.S2, block_runner=lambda *a: None, **tp.CPU)
+        tp.check_block_runner(factory, tp.S2, 32, stacks=2)
         with pytest.raises(ValueError):
             factory(**{**tp.S2, "depth": [2]}, **tp.CPU)
     wide = jt.S2MLPv1_wide(num_classes=10, device="meta")

@@ -98,8 +98,7 @@ def test_use_checkpoint_gives_the_same_gradients():
 
 def test_factory_options():
     tp.check_factory_device(jt.SwinMLP, tp.SWIN)
-    with pytest.raises(NotImplementedError):
-        jt.SwinMLP(**tp.SWIN, block_runner=lambda *a: None, **tp.CPU)
+    tp.check_block_runner(jt.SwinMLP, tp.SWIN, 32, stacks=2)  # applied, unlike JAX's
     m = jt.SwinMLP(**tp.SWIN, drop_rate=0.5, patch_norm=False, **tp.CPU)
     assert m.name == "swin_mlp" and m.patch_embed.norm is None
     shifts = [[blk.shift_size for blk in layer.blocks] for layer in m.layers]

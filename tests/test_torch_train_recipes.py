@@ -251,13 +251,17 @@ def test_schedules_drive_adamw_as_optax(kind, warmup, tmp_path):
         assert torch.equal(a, b), k
 
 
-def test_unknown_schedule_mesh_and_int8_raise():
+def test_unknown_schedule_mesh_and_int8_raise(monkeypatch):
     with pytest.raises(ValueError, match="unknown schedule kind"):
         tr.make_lr_schedule(1e-3, 10, kind="step")
     model = jt.MLPMixerForImageClassification(**TINY, **CPU)
     opt = torch.optim.AdamW(model.parameters())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tr.init_recipe_state(model, opt, mesh=object())
+    placed = []  # a mesh places the model as init_sharded does
+    monkeypatch.setattr(tr, "init_sharded", lambda *a: placed.append(a))
+    mesh = object()
+    state = tr.init_recipe_state(model, opt, mesh=mesh)
+    assert placed == [(model, opt, mesh)] and state.step == 0
+    assert state.params == dict(model.named_parameters())
     step = tr.make_recipe_train_step(model, opt, 4)
     with config.int8_mode(), pytest.raises(RuntimeError, match="inference-only"):
         step(tr.init_recipe_state(model, opt), _batches(1, 8, 4)[0], torch.Generator())

@@ -75,8 +75,7 @@ def test_softmax_matches_jax():
 
 def test_factory_options():
     tp.check_factory_device(jt.ViP, tp.VIP)
-    with pytest.raises(NotImplementedError):
-        jt.ViP(**tp.VIP, block_runner=lambda *a: None, **tp.CPU)
+    tp.check_block_runner(jt.ViP, tp.VIP, 32, stacks=1)
     with pytest.raises(ValueError):
         jt.ViP(**{**tp.VIP, "segments": 5}, **tp.CPU)
     assert jt.ViP(**tp.VIP, **tp.CPU).name == "vip"

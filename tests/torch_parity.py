@@ -19,6 +19,9 @@ the JAX package:
   equals JAX's ``dequantize_tree(quantize_tree(params))`` bit for bit;
 - ``check_predictor``: ``Predictor`` answers, and its batched answers equal
   single ones, in bf16, with ``compute="int8"`` and with ``weights="int8"``;
+- ``check_block_runner``: a factory's ``block_runner=`` runs each of the
+  model's block stacks, and a pass-through runner leaves the float32
+  logits as the dense forward's, bit for bit;
 - ``check_train_steps``: float32 AdamW steps of the port's
   ``make_train_step`` against the JAX ``make_train_step`` on the same
   weights and batch, losses and the whole exported state dict (running
@@ -303,6 +306,29 @@ def check_factory_device(port_factory, kwargs):
             port_factory(**kwargs)
     assert port_factory(**kwargs, **CPU).device.type == "cpu"
 
+
+
+def check_block_runner(port_factory, kwargs, image_size, stacks):
+    """``port_factory(..., block_runner=runner)`` runs its ``stacks`` block
+    stacks through ``runner`` (a pass-through that records them), and its
+    float32 logits on two seeded images equal the dense model's bit for
+    bit."""
+    seen = []
+
+    def runner(fn, blocks, x):
+        seen.append(len(blocks))
+        for blk in blocks:
+            x = fn(blk, x)
+        return x
+
+    x = torch.from_numpy(images((2, 3, image_size, image_size)))
+    with torch.no_grad():
+        want = port_factory(**kwargs, **CPU).eval()(x)
+        model = port_factory(**kwargs, block_runner=runner, **CPU)
+        got = model.eval()(x)
+    assert model.block_runner is runner
+    assert len(seen) == stacks, seen
+    assert torch.equal(got, want)
 
 
 def fixed_drop_path_masks(monkeypatch):
