@@ -14,8 +14,11 @@ models), checks the DCN ops, trains the nineteen, drives the serving
 and evaluation layer (folder eval, the HTTP server, deploy, checkpoints),
 and trains with the recipes (train_recipes: mixup/cutmix, label
 smoothing, EMA, a warmup-cosine schedule) on both Mixer routes, with
-probes, FLOPs and the train example's folder, metrics and checkpoints. Models: Mixer-B/16 @224 (d_model 768, depth 12, token_dim 384; bench.py's
-config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
+probes, FLOPs and the train example's folder, metrics and checkpoints, runs
+the parallel layer in a one-rank world, and splits the Mixer's channel MLP
+over ranks (tensor parallelism: the split kernel entry in one process, then
+two processes sharing the card over gloo). Models: Mixer-B/16 @224
+(d_model 768, depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
 the factory's defaults, compare.py's), full width and depth, random
@@ -300,6 +303,32 @@ Phases (each one fails loudly; there is no CPU fallback):
      card's: ``multihost.run_local_selftest()``, two gloo processes'
      data-parallel step of a small Mixer against the dense step, within
      1e-5. Multi-card speed and numerics are not measured here.
+ 14. tensor parallelism over the 'model' axis (``parallel/tensor.py``):
+     (a) in this process, no collective: Mixer-B/16's block at b256 bf16
+     (block_inputs, seed 0) with its channel MLP split over P = 2 and 4
+     ranks, each rank's split entry (``mixer_block_bf16_tp``: the f32
+     partial), the partials summed in rank order and the finishing pass,
+     against row 1's whole ``fused_mixer_block`` and the plain split block
+     within 1.6e-2 of max(1, max|ref|); two calls bit-equal; the entry
+     and the pass against their twins; every channel product on the wgmma
+     core; ms per rank of the entry at P = 2 and 4 beside row 1's, the
+     pass's ms, in turns; (b) two processes of this script (``--tp-rank``)
+     in a gloo world sharing this card, the 1 × 2 ('data', 'model') mesh
+     (NCCL takes one card a rank): ``Model.shard(mesh)`` of Mixer-B/16 at
+     b64, f32 (the plain split path) within 1e-4 of max|logit| of the
+     unsharded f32 forward, bf16 (the split kernel entry) within 5e-2 of
+     the unsharded bf16 forward with ≥ 99% top-1 agreement, 12 split
+     entries, 12 finishing passes and 12 splits a forward, no whole kernel;
+     two f32 and two bf16 AdamW steps of ``init_sharded`` +
+     ``make_train_step(mesh=)`` at b32 on the recompute route against the
+     dense steps (f32: losses within 1e-5 relative, parameters within
+     1e-4 of each tensor's max, the first step's gradients gathered
+     within 1e-4 relative L2; bf16: losses within 1e-4, the first step's
+     gradients within 1e-2 relative L2 in all and 3e-2 in each tensor,
+     parameters within 2e-4 of max(1, max|w|), 12 split entries a step),
+     and each rank's parameters and AdamW state
+     (``torch.cuda.memory_allocated``) against the dense model's (under
+     0.6 of it). Speed across cards is not measured.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -307,6 +336,7 @@ line is {"ok": true, "device": {...}}.
 
 import contextlib
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -4218,7 +4248,382 @@ def phase_parallel(jt, mods, name):
     return counted
 
 
+TP_BATCH = 256  # 14a: the split entry at the timed batch of phase 5
+TP_RANKS = (2, 4)
+TP_SHARD_BATCH = 64  # 14b: Model.shard forwards
+TP_TRAIN_BATCH = 32  # 14b: train steps
+TP_STEPS = 2
+TP_F32_LOGITS = 1e-4  # 14b: of the unsharded f32 forward's max|logit| on this card
+TP_BF16_LOGITS, TP_BF16_TOP1 = 5e-2, 0.99  # 14b: bf16 TP vs the unsharded bf16 forward
+TP_F32_LOSS, TP_F32_PARAMS = 1e-5, 1e-4  # 14b: f32 steps, relative (params: of each tensor's max)
+TP_F32_GRADS = 1e-4  # 14b: the first f32 step's gradients, relative L2 (grad_dev)
+# 14b: bf16 recompute-route steps vs the dense bf16 steps: the losses (relative), the first
+# step's gradients (relative L2 in all, and in each tensor) and the parameters (of max(1,
+# max|w|)); AdamW moves a weight by about lr a step whatever its gradient, so the gradient
+# bands are the ones a wrong split backward fails
+TP_BF16_LOSS, TP_BF16_GRADS, TP_BF16_PARAMS = 1e-4, (1e-2, 3e-2), 2e-4
+# 14b: AdamW's eps 1e-4, as the CPU tests take it: the token mix's output
+# bias has a zero gradient in exact arithmetic, which f32 leaves at noise in
+# an order that differs between the split and the whole sums; eps 1e-8 would
+# turn that noise into ±lr steps
+TP_ADAMW = dict(lr=1e-4, weight_decay=1e-4, eps=1e-4)
+TP_JOIN_S = 240  # 14b: the two ranks' time limit
+TP_REPLACES = PALLAS + "mixer_block.py:157 (fused_mixer_block, its channel MLP split over ranks)"
+FINISH_REPLACES = (PALLAS + "mixer_block.py:157 (fused_mixer_block's last bias and residual, "
+                   "after the sum of the ranks' partials)")
+
+
+def tp_slices(w, P):
+    """Each of P ranks' twelve block weights: Wc1 and bc1 cut on the hidden
+    axis, Wc2 on its input axis (contiguous), the rest whole."""
+    out = []
+    for r in range(P):
+        wr = list(w)
+        wr[8], wr[9] = w[8].chunk(P, 0)[r].contiguous(), w[9].chunk(P, 0)[r].contiguous()
+        wr[10] = w[10].chunk(P, 1)[r].contiguous()
+        out.append(wr)
+    return out
+
+
+def tp_split_block(x, slices, plain=False):
+    """The split block in one process: ``tensor.split_mixer_block`` on rank
+    0's slice, its reduce adding the other ranks' f32 partials (their split
+    entries, or with ``plain`` the plain split's) in rank order."""
+    from jittor_mlp_tpu_torch.ops.kernels import mixer_block as mb
+    from jittor_mlp_tpu_torch.parallel import tensor
+
+    partial = mb.mixer_block_plain_partial if plain else mb.PARTIAL_OP
+    others = [partial(x, *wr[:-1])[1] for wr in slices[1:]]
+
+    def reduce(p):
+        for q in others:
+            p = p + q
+        return p
+
+    return tensor.split_mixer_block(x, slices[0], reduce, plain=plain)
+
+
+def tp_kernels(mods, name):
+    """14a: the split entry and the finishing pass at Mixer-B/16's block
+    shape, b256 bf16, in one process: P = 2 and 4 ranks' partials summed
+    in rank order against row 1's whole kernel and the plain split block;
+    two calls bit-equal; every channel product on the wgmma core; ms per
+    rank beside row 1's. Returns ({row: max_abs_err}, {row: timing})."""
+    mb = mods["mixer_block"]
+    shape = (TP_BATCH, 196, MIXER_B16["d_model"], MIXER_B16["token_dim"],
+             4 * MIXER_B16["d_model"])
+    x, w = block_inputs(*shape, seed=0)
+    whole = mb.fused_mixer_block(x, *w)
+    errs = {"fused_mixer_block_tp": 0.0, "mixer_block_tp_finish": 0.0}
+    for P in TP_RANKS:
+        slices = tp_slices(w, P)
+        before = mb.routes()
+        got = tp_split_block(x, slices)
+        again = tp_split_block(x, slices)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in mb.routes().items()}
+        plain = tp_split_block(x, slices, plain=True)
+        # the entry and the pass against their direct twins, rank 0's slice
+        h, p = mb.PARTIAL_OP(x, *slices[0][:-1])
+        h_ref, p_ref = mb.mixer_block_partial_ref(x, *slices[0][:-1])
+        fin = mb.FINISH_OP(h, p, w[-1])
+        fin_ref = mb.mixer_block_finish_ref(h, p, w[-1])
+        torch.cuda.synchronize()
+        entry_err = max((h.float() - h_ref.float()).abs().max().item(),
+                        (p - p_ref).abs().max().item())
+        entry_lim = TOL * max(1.0, p_ref.abs().max().item())
+        fin_err = (fin.float() - fin_ref.float()).abs().max().item()
+        errs["fused_mixer_block_tp"] = max(errs["fused_mixer_block_tp"], entry_err)
+        errs["mixer_block_tp_finish"] = max(errs["mixer_block_tp_finish"], fin_err)
+        for ref_tag, ref in (("row 1's whole kernel", whole), ("the plain split block", plain)):
+            err = (got.float() - ref.float()).abs().max().item()
+            lim = TOL * max(1.0, ref.float().abs().max().item())
+            print(f"[14a] Mixer-B/16 b{TP_BATCH} split over P = {P}, partials summed in rank "
+                  f"order, vs {ref_tag}: max|d| {err:.6g} (limit {lim:.6g})", flush=True)
+            check(err <= lim, f"[14a] P = {P} vs {ref_tag}: {err} > {lim}")
+        print(f"[14a] P = {P}: two calls bit-equal {torch.equal(got, again)}; rank 0's entry vs "
+              f"its twin max|d| {entry_err:.6g} (h and the f32 partial; limit {entry_lim:.6g}), "
+              f"the finishing pass vs its twin {fin_err:.6g} (limit 0); channel products "
+              f"{json.dumps(moved)} (want sm90 {4 * P}, wmma 0)", flush=True)
+        check(torch.equal(got, again), f"[14a] P = {P}: two calls differ")
+        check(entry_err <= entry_lim and fin_err == 0.0, f"[14a] P = {P}: entry {entry_err}, "
+              f"finish {fin_err}")
+        check(moved == {"sm90": 4 * P, "wmma": 0}, f"[14a] P = {P}: products {moved}")
+        del got, again, plain, h, p, h_ref, p_ref, fin, fin_ref
+    # times in turns: row 1 whole, each P's entry on one rank's slice, the pass
+    fns = {"row 1 whole": lambda: mb.fused_mixer_block(x, *w)}
+    slices = {P: tp_slices(w, P)[0] for P in TP_RANKS}
+    for P in TP_RANKS:
+        fns[f"entry P={P}"] = functools.partial(mb.PARTIAL_OP, x, *slices[P][:-1])
+    h, p = mb.PARTIAL_OP(x, *slices[2][:-1])
+    fns["finishing pass"] = lambda: mb.FINISH_OP(h, p, w[-1])
+    ms, runs = _timed_turns(fns, 10)
+    plain_entry = cuda_ms(lambda: mb.mixer_block_partial_ref(x, *slices[2][:-1]), 3)
+    plain_fin = cuda_ms(lambda: mb.mixer_block_finish_ref(h, p, w[-1]), 5)
+    B, N, D, TD, CD = shape
+    CDr = CD // 2
+    # least time: the entry's products (operations) or its bytes, whichever is more
+    entry_flops = 4 * B * N * D * (TD + CDr)
+    entry_bytes = (2 * B * N * D * 2 + 4 * B * N * D
+                   + 2 * sum(t.numel() for t in slices[2][:-1]))
+    entry_bound = max(entry_flops / PEAK["bf16"], entry_bytes / HBM_BYTES_S) * 1e3
+    entry_by = "operations" if entry_flops / PEAK["bf16"] >= entry_bytes / HBM_BYTES_S else "bytes"
+    fin_bytes = 2 * B * N * D * 2 + 4 * B * N * D + 2 * D
+    fin_bound = fin_bytes / HBM_BYTES_S * 1e3
+    print(f"[14a] Mixer-B/16 b{TP_BATCH} bf16, ms in turns (mean of 2 turns of 10): "
+          + "; ".join(f"{k} {v:.4f}" for k, v in ms.items())
+          + f"; the entry at P = 2 is {ms['entry P=2'] / ms['row 1 whole']:.4f} of row 1, "
+          f"P = 4 {ms['entry P=4'] / ms['row 1 whole']:.4f}; twins: entry {plain_entry:.4f}, "
+          f"pass {plain_fin:.4f}; bounds: entry at P = 2 {entry_bound:.4f} ({entry_by}), "
+          f"pass {fin_bound:.4f} (bytes)  [{name}]", flush=True)
+    timings = {"fused_mixer_block_tp": (ms["entry P=2"], plain_entry, entry_bound, entry_by),
+               "mixer_block_tp_finish": (ms["finishing pass"], plain_fin, fin_bound, "bytes")}
+    return errs, timings
+
+
+def tp_rank(rank, port, out_path):
+    """14b, one of the two ranks: a gloo world of two processes sharing card
+    0, the 1 × 2 ('data', 'model') mesh; Model.shard forwards and
+    make_train_step(mesh=) steps of Mixer-B/16 against the same calls on the
+    dense model; writes what it measured to ``out_path`` (JSON)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    import jittor_mlp_tpu_torch as jt
+    from jittor_mlp_tpu_torch import config
+    from jittor_mlp_tpu_torch.ops.kernels import mixer_block as mb
+    from jittor_mlp_tpu_torch.parallel import (gather_state_dict, init_sharded, make_mesh,
+                                               make_train_step, tensor)
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=2, timeout=datetime.timedelta(seconds=120))
+    mesh = make_mesh(model_parallel=2, devices="cuda")
+    out = {"rank": rank, "backend": dist.get_backend(), "device_type": mesh.device_type}
+    base = jt.MLPMixerForImageClassification(**MIXER_B16).eval()
+    x = images(TP_SHARD_BATCH, 41)
+
+    def counts():
+        return {"split_entry": mb.TP_LAUNCHES, "finish": mb.FINISH_LAUNCHES,
+                "whole_kernel": mb.LAUNCHES, **tensor.COUNTS}
+
+    def reset():
+        mb.TP_LAUNCHES = mb.FINISH_LAUNCHES = mb.LAUNCHES = 0
+        tensor.reset_counts()
+
+    main_path = {"split_entry": 0, "finish": 0}
+    # forwards: f32 (the plain split path) and bf16 (the split kernel entry)
+    with torch.no_grad():
+        dense32 = base(x).float()
+        dense16 = copy.deepcopy(base).to_bf16()
+        with config.bf16_mode():
+            want16 = dense16(x).float()
+        del dense16
+        tp32 = copy.deepcopy(base).shard(mesh)
+        reset()
+        got32 = tp32(x).float()
+        torch.cuda.synchronize()
+        out["f32_counts"] = counts()
+        del tp32
+        tp16 = copy.deepcopy(base).to_bf16().shard(mesh)
+        reset()
+        with config.bf16_mode():
+            got16 = tp16(x).float()
+        torch.cuda.synchronize()
+        out["bf16_counts"] = counts()
+        for k in main_path:
+            main_path[k] += out["bf16_counts"][k]
+        out["placed"] = len(tp16.tp_specs)
+        out["split_names"] = len(tp16.tp_split)
+        del tp16
+    out["f32_rel"] = rel_dev(got32, dense32)
+    out["bf16_rel"] = rel_dev(got16, want16)
+    out["bf16_top1"] = (got16.argmax(-1) == want16.argmax(-1)).float().mean().item()
+    out["bf16_vs_f32_rel"] = rel_dev(got16, dense32)
+    # train steps: dense, then TP, from the same weights and batches
+    batches = [train_batch(TP_TRAIN_BATCH, 43 + s) for s in range(TP_STEPS)]
+    for tag, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        runs = {}
+        for placed in (False, True):
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            model = copy.deepcopy(base)
+            opt = torch.optim.AdamW(model.parameters(), **TP_ADAMW)
+            kw = {}
+            if placed:
+                init_sharded(model, opt, mesh)
+                kw["mesh"] = mesh
+            step = make_train_step(model, opt, compute_dtype=dtype, **kw)
+            reset()
+            losses, grads = [], None
+            for b in batches:
+                losses.append(step(b).item())
+                if grads is None:  # the first step's gradients, from the same weights
+                    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+                             if p.grad is not None}  # on the host: out of the memory reading
+            torch.cuda.synchronize()
+            if placed:
+                out[f"{tag}_step_counts"] = counts()
+                for k in main_path:
+                    main_path[k] += out[f"{tag}_step_counts"][k]
+            opt.zero_grad(set_to_none=True)
+            torch.cuda.synchronize()
+            mem = torch.cuda.memory_allocated() - mem0  # parameters and AdamW state
+            sd = gather_state_dict(model, mesh) if placed else model.state_dict()
+            if placed:
+                grads = tensor.gather_tp(grads, model.tp_specs, tensor.model_group(model))
+            runs[placed] = (losses, {k: v.detach().clone() for k, v in sd.items()}, mem, grads)
+            del model, opt, step, sd, grads
+        (dl, dsd, dmem, dg), (tl, tsd, tmem, tg) = runs[False], runs[True]
+        out[f"{tag}_loss"] = [dl, tl]
+        out[f"{tag}_param_rel"] = max(
+            (((tsd[k].float() - v.float()).abs().max()
+              / v.float().abs().max().clamp_min(1e-12)).item(), k)
+            for k, v in dsd.items() if v.is_floating_point())
+        out[f"{tag}_param_abs"] = max(
+            (((tsd[k].float() - v.float()).abs().max()
+              / max(1.0, v.float().abs().max().item())).item(), k)
+            for k, v in dsd.items() if v.is_floating_point())
+        out[f"{tag}_grad"] = grad_dev(tg, dg)
+        out[f"{tag}_mem"] = [dmem, tmem]
+        del runs, dsd, tsd, dg, tg
+        torch.cuda.empty_cache()
+    out["main_path"] = main_path
+    dist.barrier()
+    dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def grad_dev(got, want):
+    """(global relative L2 of the gradients, [(relative L2, name, share of
+    the global norm) of the three worst tensors]): a tensor's ||got - want||
+    over ||want||, floored at 1e-2 of the global ||want|| (a tensor whose
+    gradient is rounding alone, as the token-mix output bias's, which
+    LayerNorm's removal of a per-token shift makes zero, is held to the
+    floor)."""
+    if set(got) != set(want):
+        return float("inf"), [(float("inf"), f"names {sorted(set(got) ^ set(want))}", 0.0)]
+    norm = sum((v.float() ** 2).sum().item() for v in want.values()) ** 0.5
+    per = sorted((((got[k].float() - v.float()).norm().item()
+                   / max(v.float().norm().item(), 1e-2 * norm)), k, v.float().norm().item() / norm)
+                 for k, v in want.items())
+    return rel_l2(got, want), per[::-1][:3]
+
+
+def tp_two_ranks(name):
+    """14b: two processes (this script with --tp-rank) in a gloo world on
+    card 0; returns each rank's results."""
+    import os
+    import socket
+    import tempfile
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.json") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, __file__, "--tp-rank", str(r), str(port),
+                                   paths[r]], env=env) for r in range(2)]
+        try:
+            for p in procs:
+                p.wait(timeout=TP_JOIN_S)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        check(all(p.returncode == 0 for p in procs),
+              f"[14b] the two ranks exited {[p.returncode for p in procs]}")
+        res = []
+        for path in paths:
+            with open(path) as f:
+                res.append(json.load(f))
+    return res
+
+
+def tp_report(res, name):
+    """14b's bands on each rank's results; returns the main path's launches
+    of the split entry and the finishing pass, both ranks together."""
+    depth = MIXER_B16["depth"]
+    launches = {"fused_mixer_block_tp": 0, "mixer_block_tp_finish": 0}
+    for r in res:
+        tag = f"[14b] rank {r['rank']} ({r['backend']} on {r['device_type']})"
+        check(r["backend"] == "gloo" and r["device_type"] == "cuda",
+              f"{tag}: want a gloo world on the card")
+        print(f"{tag}: gloo's all-reduce and all-gather took the CUDA tensors as they are "
+              f"(no host staging in the port)", flush=True)
+        print(f"{tag}: Model.shard(mesh) of Mixer-B/16 on the 1 x 2 mesh, {r['placed']} tensors "
+              f"placed, {r['split_names']} split; b{TP_SHARD_BATCH} f32 vs the unsharded f32 "
+              f"forward {r['f32_rel']:.6g} of max|logit| (limit {TP_F32_LOGITS}); bf16 vs the "
+              f"unsharded bf16 forward {r['bf16_rel']:.6g} (limit {TP_BF16_LOGITS}), top-1 "
+              f"{r['bf16_top1']:.4f} (limit {TP_BF16_TOP1}), vs f32 {r['bf16_vs_f32_rel']:.6g}; "
+              f"counts f32 {json.dumps(r['f32_counts'])}, bf16 {json.dumps(r['bf16_counts'])}",
+              flush=True)
+        check(r["f32_rel"] <= TP_F32_LOGITS and r["bf16_rel"] <= TP_BF16_LOGITS
+              and r["bf16_top1"] >= TP_BF16_TOP1, f"{tag}: logits out of band")
+        want16 = {"split_entry": depth, "finish": depth, "whole_kernel": 0, "split": depth}
+        want32 = {"split_entry": 0, "finish": 0, "whole_kernel": 0, "split": depth}
+        check(r["bf16_counts"] == want16 and r["f32_counts"] == want32,
+              f"{tag}: counts {r['bf16_counts']} (want {want16}), {r['f32_counts']} "
+              f"(want {want32})")
+        for dt in ("f32", "bf16"):
+            (dl, tl), (rel, worst) = r[f"{dt}_loss"], r[f"{dt}_param_rel"]
+            absolute, worst_abs = r[f"{dt}_param_abs"]
+            g_all, g_top = r[f"{dt}_grad"]
+            g_rel = g_top[0][0]
+            loss_rel = max(abs(a - b) / abs(a) for a, b in zip(dl, tl))
+            dmem, tmem = r[f"{dt}_mem"]
+            print(f"{tag}: {TP_STEPS} {dt} AdamW steps of make_train_step(mesh=) at "
+                  f"b{TP_TRAIN_BATCH} (recompute route) vs the dense steps: losses {tl} vs {dl} "
+                  f"(relative {loss_rel:.6g}); the first step's gradients, gathered: relative "
+                  f"L2 {g_all:.6g} in all; the worst tensors (relative L2, name, share of the "
+                  f"norm) {json.dumps(g_top)}; "
+                  f"parameters {rel:.6g} of each tensor's max (at most in {worst}), "
+                  f"{absolute:.6g} of max(1, max|w|) (at most in {worst_abs}); "
+                  f"parameters and AdamW state {tmem / 2 ** 20:.1f} MiB on this rank vs "
+                  f"{dmem / 2 ** 20:.1f} MiB dense ({tmem / dmem:.4f}); counts "
+                  f"{json.dumps(r[f'{dt}_step_counts'])}  [{name}]", flush=True)
+            if dt == "f32":
+                check(loss_rel <= TP_F32_LOSS and rel <= TP_F32_PARAMS
+                      and max(g_all, g_rel) <= TP_F32_GRADS, f"{tag}: f32 steps: loss "
+                      f"{loss_rel}, parameters {rel}, gradients {g_all} and {g_rel}")
+            else:
+                check(loss_rel <= TP_BF16_LOSS and g_all <= TP_BF16_GRADS[0]
+                      and g_rel <= TP_BF16_GRADS[1] and absolute <= TP_BF16_PARAMS,
+                      f"{tag}: bf16 steps: loss {loss_rel} (limit {TP_BF16_LOSS}), gradients "
+                      f"{g_all} in all and {g_rel} in a tensor (limits {TP_BF16_GRADS}), "
+                      f"parameters {absolute} (limit {TP_BF16_PARAMS})")
+                want = {"split_entry": depth * TP_STEPS, "finish": depth * TP_STEPS,
+                        "whole_kernel": 0, "split": depth * TP_STEPS}
+                check(r["bf16_step_counts"] == want,
+                      f"{tag}: bf16 step counts {r['bf16_step_counts']}, want {want}")
+            check(tmem < 0.6 * dmem, f"{tag}: {dt} memory {tmem} vs dense {dmem}")
+        launches["fused_mixer_block_tp"] += r["main_path"]["split_entry"]
+        launches["mixer_block_tp_finish"] += r["main_path"]["finish"]
+    return launches
+
+
+def phase_tensor_parallel(jt, mods, name):
+    """Phase 14; returns (errs, timings, launches) of its two kernel rows."""
+    t0 = time.perf_counter()
+    errs, timings = tp_kernels(mods, name)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    launches = tp_report(tp_two_ranks(name), name)
+    print(f"[14] phase 14 in {time.perf_counter() - t0:.1f} s (14b {time.perf_counter() - t1:.1f} "
+          f"s); main-path launches {json.dumps(launches)}", flush=True)
+    return errs, timings, launches
+
+
 def main():
+    if len(sys.argv) == 5 and sys.argv[1] == "--tp-rank":  # a rank of phase 14b
+        tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
+        return
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
     cap = torch.cuda.get_device_capability(0)
@@ -4282,6 +4687,11 @@ def main():
     torch.cuda.empty_cache()
     for kname, n in phase_parallel(jt, mods, name).items():
         launches[kname] = launches.get(kname, 0) + n
+    torch.cuda.empty_cache()
+    tp_errs, tp_timings, tp_launches = phase_tensor_parallel(jt, mods, name)
+    errs.update(tp_errs)
+    timings.update(tp_timings)
+    launches.update(tp_launches)
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}
@@ -4296,6 +4706,8 @@ def main():
     sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
     sources["gemm_bf16_dual_sm90"] = ("gemm_sm90.cuh", DUAL_REPLACES)
     sources["gemm_bf16_group_sm90"] = ("gemm_sm90.cuh", GROUP_REPLACES)
+    sources["fused_mixer_block_tp"] = ("mixer_block.cu", TP_REPLACES)
+    sources["mixer_block_tp_finish"] = ("mixer_block.cu", FINISH_REPLACES)
     rows = []
     for kname, (source, replaced) in sources.items():
         ms, plain_ms, bound_ms, bound_by = timings[kname]
@@ -4312,8 +4724,9 @@ def main():
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             # no single PyTorch call computes a whole block (of any lab variant),
-            # a block's backward or the zero-fill grouped shift (torch.roll
-            # wraps around); the GEMM core's rows: cuBLAS's products
+            # a block's backward, the split block's products or its finishing
+            # pass, or the zero-fill grouped shift (torch.roll wraps around);
+            # the GEMM core's rows: cuBLAS's products
             "library_ms": library.get(kname),
         })
     print(f"[end] all phases in {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -10,7 +10,7 @@ This package imports neither JAX nor ``jittor_mlp_tpu``, and builds no kernel
 at import time.
 """
 
-from . import config, train_recipes
+from . import config, deploy, train_recipes
 from .core.model import Model
 from .models.active_mlp import ActiveBase, ActiveLarge, ActiveSmall
 from .models.as_mlp import AS_MLP
@@ -71,6 +71,7 @@ __all__ = [
     "convmlp_s",
     "create_RepMLPNet_B224",
     "create_RepMLPNet_B256",
+    "deploy",
     "MLPMixerForImageClassification",
     "ResMLPForImageClassification",
     "gMLPForImageClassification",
@@ -79,6 +80,7 @@ __all__ = [
 
 # the model factories among the exported names (the examples' --model choices)
 FACTORIES = tuple(n for n in __all__
-                  if n not in ("Model", "MicroBatcher", "Predictor", "config", "train_recipes"))
+                  if n not in ("Model", "MicroBatcher", "Predictor", "config", "deploy",
+                               "train_recipes"))
 
 __version__ = "0.4.0"

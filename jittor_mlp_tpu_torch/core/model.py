@@ -21,7 +21,11 @@ samples that the dense forward drops with the same generator seed.
 
 Parallel execution: a factory's ``block_runner=`` sets ``block_runner``,
 which the model passes to each of its ``nnf.run_blocks`` stacks;
-``shard(mesh)`` makes ``__call__`` a data-parallel forward over the mesh.
+``shard(mesh)`` places the model over the mesh's 'model' axis (tensor
+parallelism, ``parallel/tensor.py``) and makes ``__call__`` a
+data-parallel forward over the mesh. A family with a split mode names the
+tensors it splits in ``tensor_parallel_splits`` and the calls that split
+them in ``tensor_parallel_split_applies``.
 """
 
 from __future__ import annotations
@@ -125,22 +129,40 @@ class Model(nn.Module):
 
     def shard(self, mesh, min_dim=512):
         """Distribute the model over a ('data', 'model') mesh (the JAX
-        ``Model.shard``): ``__call__`` then takes the global batch, runs this
-        rank's rows of the data split (under their sample window and the
-        data group's BatchNorm statistics) and all-gathers the logits over
-        the data group, so every rank returns the global batch's. A 'model'
-        axis replicates the model; where the JAX heuristic
-        (``parallel.train.shard_params`` at ``min_dim``) would shard a
-        tensor over a 'model' axis larger than 1, NotImplementedError
-        names the tensors (tensor parallelism is not ported). The model
-        must be on the mesh's device type."""
-        from ..parallel.train import check_replicated
+        ``Model.shard``): each tensor that the JAX heuristic
+        (``parallel.train.shard_params`` at ``min_dim``) shards over a
+        'model' axis larger than 1 keeps this rank's slice
+        (``parallel.train.place_model``; a model whose 'model' axis carries
+        a block runner stays whole). ``__call__`` then takes the global
+        batch, runs this rank's rows of the data split (under their sample
+        window and the data group's BatchNorm statistics, the slices
+        gathered or split by ``parallel/tensor.py``'s rule) and all-gathers
+        the logits over the data group, so every rank returns the global
+        batch's. The model must be on the mesh's device type. A model
+        placed before (``init_sharded``) keeps its slices where ``mesh``
+        and ``min_dim`` place it alike, and raises ValueError otherwise."""
         from ..parallel.mesh import check_device
+        from ..parallel.train import place_model
 
         check_device(mesh, self.device)
-        check_replicated(self, mesh, min_dim)
+        place_model(self, mesh, min_dim)
         self.mesh = mesh
         return self
+
+    def tensor_parallel_splits(self, specs):
+        """The names of the placed tensors ({name: spec}) that this model's
+        forward splits itself under ``nnf.tensor_parallel_scope`` (its
+        split mode, taken here); every other placed tensor is gathered
+        whole at the forward's boundary (``parallel/tensor.py``). None
+        here: a family with a split mode overrides it."""
+        return set()
+
+    def tensor_parallel_split_applies(self, x):
+        """Whether a call on the input ``x`` takes the split mode named by
+        ``tensor_parallel_splits`` (else ``parallel/tensor.boundary``
+        gathers those tensors too). A family whose split mode leaves out
+        some routes overrides it."""
+        return True
 
     def param_count(self):
         return sum(p.numel() for p in self.parameters())
@@ -175,10 +197,19 @@ class Model(nn.Module):
     # -- forward --------------------------------------------------------------
 
     def __call__(self, x, *args, **kwargs):
+        """The forward of ``x`` (a tensor or a numpy NCHW batch) cast to
+        ``config.compute_dtype``; after ``shard`` the data-parallel forward
+        of the global batch. A model placed over a 'model' axis
+        (``init_sharded``) without ``shard`` runs ``x`` as it is, every
+        rank of its model group alike."""
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
         x = x.to(self.device, config.compute_dtype)
+        from ..parallel import tensor
+
         if self.mesh is None:
+            if tensor.is_placed(self):
+                return tensor.call(self, x, *args, **kwargs)
             return super().__call__(x, *args, **kwargs)
         from ..parallel import _comm
         from ..parallel.mesh import axis_group
@@ -188,5 +219,8 @@ class Model(nn.Module):
         b = process_batch_size(self.mesh, x.shape[0])
         off = process_batch_offset(self.mesh, x.shape[0])
         with data_parallel(self.mesh, b):
-            y = super().__call__(x[off:off + b], *args, **kwargs)
+            if tensor.is_placed(self):
+                y = tensor.call(self, x[off:off + b], *args, **kwargs)
+            else:
+                y = super().__call__(x[off:off + b], *args, **kwargs)
         return _comm.all_gather(y, axis_group(self.mesh, "data"))

@@ -33,7 +33,7 @@ averages and the train step folds into the running statistics
 (``train_utils.apply_bn_updates``).
 
 ``run_blocks`` is the models' block loop (the JAX ``scan_blocks``), with
-activation checkpointing under ``config.remat_mode()``. Three thread-local
+activation checkpointing under ``config.remat_mode()``. Four thread-local
 scopes carry the parallel layer (``parallel/``) into it:
 
 - ``block_runner_scope(runner)``: every block stack goes to
@@ -45,7 +45,10 @@ scopes carry the parallel layer (``parallel/``) into it:
   draws over the global rows and keeps its own;
 - ``batch_group_scope(group)``: train-mode ``batch_norm`` takes its
   statistics over the rows of every rank of ``group`` (the data group of a
-  data-parallel step), as the JAX mean over a ``'data'``-sharded batch.
+  data-parallel step), as the JAX mean over a ``'data'``-sharded batch;
+- ``tensor_parallel_scope(group)``: a model placed over a 'model' axis
+  runs its split sites over ``group``, the model group
+  (``parallel/tensor.py``).
 
 A block that ``run_blocks`` checkpoints recomputes inside the scopes of its
 forward, whichever thread runs the backward.
@@ -512,16 +515,31 @@ def batch_group():
     return getattr(_par_local, "group", None)
 
 
+def tensor_parallel_scope(group):
+    """A model placed over a 'model' axis (``parallel/tensor.py``) runs its
+    split sites, on this thread, over the process group ``group`` (its
+    model group; None: no split)."""
+    return _scope("tp_group", group)
+
+
+def tensor_parallel_group():
+    """The process group of this thread's ``tensor_parallel_scope``, or None."""
+    return getattr(_par_local, "tp_group", None)
+
+
 @contextmanager
 def _scopes_of(saved):
-    """Enter the window and batch-group scopes ``saved`` from another
-    thread (a checkpointed block's recompute in the backward)."""
-    window, group = saved
+    """Enter the window, batch-group and tensor-parallel scopes ``saved``
+    from another thread (a checkpointed block's recompute in the
+    backward)."""
+    window, group, tp_group = saved
     with ExitStack() as stack:
         if window is not None:
             stack.enter_context(sample_window_scope(*window))
         if group is not None:
             stack.enter_context(batch_group_scope(group))
+        if tp_group is not None:
+            stack.enter_context(tensor_parallel_scope(tp_group))
         yield
 
 
@@ -544,15 +562,15 @@ def checkpointed(fn):
     buffers as they are now (under a train step's ``functional_call``, its
     cast copies) go in as explicit inputs and are bound again when the
     backward recomputes the block, so the recompute reads the tensors the
-    forward read, inside the sample window and batch group of the
-    forward."""
+    forward read, inside the sample window, batch group and
+    tensor-parallel group of the forward."""
 
     def step(blk, x):
         if not torch.is_grad_enabled():
             return fn(blk, x)
         call = _BlockCall(blk, fn)
         named = {**dict(call.named_parameters()), **dict(call.named_buffers())}
-        saved = (sample_window(), batch_group())
+        saved = (sample_window(), batch_group(), tensor_parallel_group())
 
         def run(x, *tensors, names=tuple(named)):
             with _scopes_of(saved):

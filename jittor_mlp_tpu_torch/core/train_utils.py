@@ -67,15 +67,22 @@ def apply_bn_updates(sites, stats, momentum=0.1):
     at least 1), in float32, under ``no_grad``. ``stats``: the
     ``nnf.bn_stats()`` entries (running_mean as read, mean, var, n) of the
     forward; ``sites``: {id of the running_mean tensor the forward read:
-    (the model's own running_mean, running_var)}, so that a forward that
-    read cast copies (a bf16 step) updates the float32 buffers. A site the
-    forward ran twice takes its last statistics, as in JAX.
+    (the model's own running_mean, running_var[, part])}, so that a
+    forward that read cast copies (a bf16 step) updates the float32
+    buffers. ``part`` (axis, ranks, rank), where not None, says that the
+    buffers are this rank's slice of a tensor-parallel placement
+    (``parallel/tensor.py``) while the forward read them gathered whole:
+    the slice takes its chunk of the statistics. A site the forward ran
+    twice takes its last statistics, as in JAX.
     ``num_batches_tracked`` is left as it is: the JAX package keeps no
     counter, and a fixed momentum never reads it."""
     last = {id(rm): (mean, var, n) for rm, mean, var, n in stats}
     with torch.no_grad():
         for key, (mean, var, n) in last.items():
-            rm, rv = sites[key]
+            rm, rv, *part = sites[key]
+            if part and part[0] is not None:
+                axis, ranks, rank = part[0]
+                mean, var = mean.chunk(ranks, axis)[rank], var.chunk(ranks, axis)[rank]
             ratio = float(np.float32(n) / np.float32(max(n - 1, 1)))  # JAX's float32 n/(n-1)
             rm.copy_(((1.0 - momentum) * rm.float() + momentum * mean.float()).to(rm.dtype))
             rv.copy_(((1.0 - momentum) * rv.float() + momentum * (var.float() * ratio))

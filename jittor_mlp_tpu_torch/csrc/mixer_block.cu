@@ -42,6 +42,19 @@
 //   allow it, and 2-byte loads elsewhere.
 // The token products on wgmma and keeping the intermediates on chip are
 // later work.
+//
+// Tensor parallelism (parallel/tensor.py): the JAX package shards Wc1 and
+// bc1 on the channel hidden axis and Wc2 on its input axis over the mesh's
+// 'model' axis, so rank r of P holds CD_r = CD / P hidden columns. The
+// split entry mixer_block_bf16_tp runs the first five launches as above at
+// CD_r and stores the f32 partial p_r = c_r · Wc2_r^T of the sixth product
+// through the core's f32 store epilogue (no bias, no residual). The caller
+// sums the ranks' partials (an all-reduce) and the finishing pass
+// mixer_block_tp_finish writes out = bf16(h + (Σ p_r + bc2)): the rounding
+// points of the whole block, with the f32 sum of the second channel product
+// taken in another order. Wc2_r is (D, CD_r), contiguous: TMA loads it
+// where CD_r % 8 == 0, else the product takes the WMMA core. The pass reads
+// h and s and writes out once (8 bytes an element, bound by bytes).
 
 #include "mixer_forward.cuh"
 
@@ -59,6 +72,79 @@ extern "C" int mixer_block_bf16(const void* x, const void* ln1w, const void* ln1
                                 void* stream_ptr) {
   return mixer_forward(static_cast<cudaStream_t>(stream_ptr), x, ln1w, ln1b, wt1, bt1, wt2, bt2,
                        ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, h, c, out, B, N, D, TD, CD);
+}
+
+// The split entry: the first five launches at CD = CD_r (this rank's hidden
+// columns; wc1 (CD_r, D), bc1 (CD_r,), wc2 (D, CD_r)), then the f32 partial
+// (B·N, D) = c · Wc2^T with no bias and no residual. h (B, N, D) is left
+// for the finishing pass. Scratch as above.
+extern "C" int mixer_block_bf16_tp(const void* x, const void* ln1w, const void* ln1b,
+                                   const void* wt1, const void* bt1, const void* wt2,
+                                   const void* bt2, const void* ln2w, const void* ln2b,
+                                   const void* wc1, const void* bc1, const void* wc2, void* xn,
+                                   void* t, void* h, void* c, void* partial, int B, int N, int D,
+                                   int TD, int CD, void* stream_ptr) {
+  const auto s = static_cast<cudaStream_t>(stream_ptr);
+  const int e = mixer_forward_hidden(s, x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1,
+                                     xn, t, h, c, B, N, D, TD, CD);
+  if (e) return e;
+  JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,
+                          sm90::StoreEntries{static_cast<float*>(partial), B * N, D}));
+  return 0;
+}
+
+// out = bf16(h + (s + bias)), eight elements a thread (ResidualBias's
+// arithmetic in its order); rows of D % 8 == 0, 16-byte aligned buffers.
+__global__ void tp_finish8(const bf16* __restrict__ h, const float* __restrict__ s,
+                           const bf16* __restrict__ bias, bf16* __restrict__ out, long long n8,
+                           int D) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n8; i += step) {
+    const long long e0 = i * 8;
+    const uint4 hv = *reinterpret_cast<const uint4*>(h + e0);
+    const uint4 bv = col8(bias, (int)(e0 % D));
+    float sv[8], v[8];
+    load8(s + e0, sv);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v[e] = at8(hv, e) + (sv[e] + at8(bv, e));
+    store8(out + e0, v);
+  }
+}
+
+// The same, one element a thread, for any D and alignment.
+__global__ void tp_finish1(const bf16* __restrict__ h, const float* __restrict__ s,
+                           const bf16* __restrict__ bias, bf16* __restrict__ out, long long n,
+                           int D) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step)
+    out[i] = __float2bfloat16(__bfloat162float(h[i]) + (s[i] + __bfloat162float(bias[i % D])));
+}
+
+// The finishing pass of the split block: h, out (rows, D) bf16, s (rows, D)
+// f32 (the sum of the ranks' partials), bias (D,) bf16.
+extern "C" int mixer_block_tp_finish(const void* h, const void* s, const void* bias, void* out,
+                                     int rows, int D, void* stream_ptr) {
+  const auto st = static_cast<cudaStream_t>(stream_ptr);
+  const long long n = (long long)rows * D;
+  if (n == 0) return 0;
+  int dev = 0, sms = 0;
+  JMT_CHECK(cudaGetDevice(&dev));
+  JMT_CHECK(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const int threads = 256;
+  const bool vec = vec_ok(h, D, 0) && vec_ok(s, D, 0, 4) && vec_ok(out, D, 0);
+  const long long work = vec ? n / 8 : n;
+  const long long want = (work + threads - 1) / threads;
+  const int grid = (int)(want < 16LL * sms ? want : 16LL * sms);
+  if (vec) {
+    tp_finish8<<<grid, threads, 0, st>>>(static_cast<const bf16*>(h), static_cast<const float*>(s),
+                                         static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+                                         work, D);
+  } else {
+    tp_finish1<<<grid, threads, 0, st>>>(static_cast<const bf16*>(h), static_cast<const float*>(s),
+                                         static_cast<const bf16*>(bias), static_cast<bf16*>(out),
+                                         work, D);
+  }
+  return (int)cudaGetLastError();
 }
 
 // Channel products this library launched on route 0 (the wgmma core) or

@@ -44,16 +44,20 @@ is none; gloo with ``--device cpu``) the example joins the world
 ('data', 'model') mesh: ``--batch`` is the global batch, and each rank
 makes, decodes and augments only its rows (``multihost.process_batch_size``
 and ``process_batch_offset``), with the draws of the whole batch. ``--model-parallel`` sizes the
-'model' axis (a replicated model: tensor parallelism is not ported);
+'model' axis: without ``--pipeline-stages`` it is tensor parallelism, as in
+the JAX example (``parallel.init_sharded`` at the JAX ``min_dim`` of 512:
+each tensor the JAX heuristic shards keeps a rank's slice, the Mixer's
+channel MLPs split across the ranks, ``parallel/tensor.py``);
 ``--pipeline-stages P`` > 1 sets it to P and runs every block stack as a
 GPipe pipeline of ``--microbatches`` microbatches (``--batch`` must divide
 by it), each rank keeping its stage's blocks, with the BatchNorm running
 statistics frozen (``bn_momentum=None``; refresh them with
 ``core.train_utils.recalibrate_bn`` afterwards). Rank 0 writes the
 checkpoints: the model's and the optimizer's whole state dicts, a
-pipeline's gathered from its stages (``parallel.gather_state_dict`` and
-``gather_optimizer_state``), so a resumed run, pipelined or not, trains as
-an uninterrupted one.
+pipeline's gathered from its stages and a tensor-parallel model's from its
+slices (``parallel.gather_state_dict`` and ``gather_optimizer_state``), so
+a checkpoint loads into a dense model and a resumed run, placed or not,
+trains as an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -73,7 +77,7 @@ from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch.core import nnf
 from jittor_mlp_tpu_torch.parallel import (gather_optimizer_state, gather_state_dict,
                                            init_sharded, make_train_step, multihost,
-                                           pipeline_runner, pipeline_shardings)
+                                           pipeline_runner, pipeline_shardings, tensor)
 from jittor_mlp_tpu_torch.parallel.mesh import check_device, mesh_device
 from jittor_mlp_tpu_torch.tuned import train_settings
 from jittor_mlp_tpu_torch.utils import sized_kwargs
@@ -111,7 +115,8 @@ def main(argv=None):
                     help="train-state dir: save every --ckpt-every steps and resume from it")
     ap.add_argument("--ckpt-every", type=int, default=25)
     ap.add_argument("--model-parallel", type=int, default=1,
-                    help="size of the mesh's 'model' axis (under torchrun)")
+                    help="size of the mesh's 'model' axis (under torchrun): tensor "
+                         "parallelism unless --pipeline-stages")
     ap.add_argument("--pipeline-stages", type=int, default=0,
                     help="GPipe pipeline parallelism: split each block stack into this many "
                          "stages over the 'model' axis (overrides --model-parallel)")
@@ -268,9 +273,9 @@ def folder_batches(args, rows):
 def checkpoints(ckpt_dir, model, optimizer, mesh=None):
     """Resume from the newest ``step_%08d`` file under ``ckpt_dir`` (made if
     missing); returns (the step to start at, save(step)). Under a mesh,
-    every rank resumes from the file (before any pipeline placement) and
-    ``save`` writes on rank 0 only, the model's and the optimizer's state
-    dicts gathered from the stages."""
+    every rank resumes from the file (before any placement) and ``save``
+    writes on rank 0 only, the model's and the optimizer's state dicts
+    gathered from the stages or slices."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     os.makedirs(ckpt_dir, exist_ok=True)
 
@@ -287,7 +292,7 @@ def checkpoints(ckpt_dir, model, optimizer, mesh=None):
         state = opt_state = None
         if mesh is not None:
             state = gather_state_dict(model, mesh)
-            if getattr(model, "pipeline_stages", None):
+            if getattr(model, "pipeline_stages", None) or tensor.is_placed(model):
                 opt_state = gather_optimizer_state(optimizer, model, mesh)
             if dist.get_rank() != 0:
                 return

@@ -21,6 +21,23 @@ float32 takes the plain ``nnf`` block, whose dense ops go int8 under
 ``int8_mode()`` as in the JAX package. The JAX gate's ``B % 2 == 0`` and
 TPU-backend conditions belong to its TPU kernels and are dropped. Blocks
 run through ``nnf.run_blocks`` (checkpointed under ``config.remat_mode()``).
+
+Tensor parallelism (``parallel/tensor.py``): where the JAX placement puts
+a block's channel MLP Megatron's way over the 'model' axis (Wc1 and bc1 on
+the hidden axis, Wc2 on its input axis: ``tensor_parallel_splits``), the
+block computes this rank's hidden columns under
+``nnf.tensor_parallel_scope`` and sums the partial products over the model
+group: in bf16 eval through the split kernel entry
+(``tensor.fused_mixer_block_tp``), in bf16 training on the recompute route
+its trainable form (the plain split block's autograd as the backward), and
+on the plain path (float32, or bf16 without the kernels) in ``nnf`` ops.
+The split mode does not apply (``tensor_parallel_split_applies``) under
+``config.int8_mode()`` (the W8A8 kernel, or the int8 dense ops) nor on the
+backward-kernel route (``config.pallas_bwd``: the four training kernels,
+rows 5–8): ``tensor.boundary`` then gathers those slices with the others
+and the block runs whole, as the JAX ``pallas_call`` runs on replicated
+operands. The token half is whole (its widths are under the heuristic's
+``min_dim`` in every configuration the JAX tests shard).
 """
 
 from __future__ import annotations
@@ -35,6 +52,7 @@ from ..core.model import Model
 from ..ops.kernels.mixer_block import fused_mixer_block, fused_mixer_block_trainable
 from ..ops.kernels.mixer_block_bwd import fused_mixer_block_train
 from ..ops.kernels.mixer_block_int8 import fused_mixer_block_int8
+from ..parallel import _comm, tensor
 from ..utils import check_sizes, pair
 
 
@@ -66,7 +84,11 @@ class FeedForward(nn.Module):
 
 
 class PreNormResidual(nn.Module):
-    """x + FF(LN(x)); ``token=True`` mixes over the token axis."""
+    """x + FF(LN(x)); ``token=True`` mixes over the token axis. ``split``:
+    the channel MLP's W1, b1 and W2 are this rank's slices of a
+    tensor-parallel placement (``MLPMixer.tensor_parallel_splits``)."""
+
+    split = False
 
     def __init__(self, dim, fn, token):
         super().__init__()
@@ -77,6 +99,13 @@ class PreNormResidual(nn.Module):
     def forward(self, x):
         net = self.fn.net
         y = nnf.layer_norm(x, self.norm.weight, self.norm.bias)
+        group = nnf.tensor_parallel_group() if self.split else None
+        if group is not None:
+            # this rank's hidden columns; the f32 partial summed over the group
+            tensor.count()
+            y = nnf.gelu(nnf.linear(y, net[0].weight, net[0].bias))
+            p = torch.matmul(y.float(), net[3].weight.float().t())
+            return x + (_comm.all_reduce(p, group).to(x.dtype) + net[3].bias)
         dense = nnf.conv1d_token if self.token else nnf.linear
         y = dense(y, net[0].weight, net[0].bias)
         y = nnf.gelu(y)
@@ -139,20 +168,50 @@ class MLPMixer(Model):
         return (self.use_pallas and x.dtype == torch.bfloat16
                 and not (self.training and config.int8_enabled()))
 
+    def tensor_parallel_splits(self, specs):
+        """The channel MLPs that the JAX placement ``specs`` puts Megatron's
+        way (W1 ("model", None), b1 ("model",), W2 (None, "model")) take
+        the split mode (``PreNormResidual.split``); returns their names."""
+        names = set()
+        for i, blk in enumerate(self.model):
+            pre = f"model.{i}.1.fn.net."
+            want = {pre + "0.weight": ("model", None), pre + "0.bias": ("model",),
+                    pre + "3.weight": (None, "model")}
+            if all(specs.get(k) == v for k, v in want.items()):
+                blk[1].split = True
+                names.update(want)
+        return names
+
+    def tensor_parallel_split_applies(self, x):
+        """Whether a call on the input ``x`` takes the split mode: not under
+        ``config.int8_mode()``, nor in training on the backward-kernel
+        route (``config.pallas_bwd`` with the kernels), which run whole."""
+        if config.int8_enabled():
+            return False
+        return not (self.training and config.pallas_bwd and self.uses_kernel(x))
+
     def block_fn(self, x):
         """fn(block, x) that each block runs for activations like x."""
         if not self.uses_kernel(x):
             return lambda blk, x: blk(x)
+        split = None  # the kernel's split mode (tensor_parallel_split_applies)
         if not self.training:
             kernel = fused_mixer_block_int8 if config.int8_enabled() else fused_mixer_block
+            split = tensor.fused_mixer_block_tp
         elif config.pallas_bwd:
             kernel = fused_mixer_block_train
         else:
             kernel = fused_mixer_block_trainable
+            split = tensor.fused_mixer_block_tp_trainable
+        group = nnf.tensor_parallel_group()
 
         def fn(blk, x):
             tok, chan = blk
-            return kernel(x, *(a.to(x.dtype) for a in (*tok.fused_args(), *chan.fused_args())))
+            args = [a.to(x.dtype) for a in (*tok.fused_args(), *chan.fused_args())]
+            if chan.split and group is not None:
+                tensor.count()
+                return split(x, *args, group=group)
+            return kernel(x, *args)
 
         return fn
 

@@ -27,19 +27,22 @@ from torch.utils.flop_counter import register_flop_formula
 NAMESPACE = "jittor_mlp_tpu_torch"
 
 
-def register(name, args, cuda, cpu, flops):
+def register(name, args, cuda, cpu, flops, returns="Tensor", fake=None):
     """Define op ``NAMESPACE::name`` with the arguments ``args`` (schema
     fragments such as ``"Tensor x"`` or ``"int axis"``), returning one
-    Tensor shaped and typed like its first argument; ``cuda`` and ``cpu``
-    are its implementations. ``flops(*shapes, out_shape=...)`` is its
-    formula for ``torch.utils.flop_counter`` (the op's arguments as
-    shapes): the counter does not look inside an op, so without it a
-    block would count 0 (``Model.flops``). Returns the op's overload
-    packet, ``torch.ops.<NAMESPACE>.<name>``."""
+    Tensor shaped and typed like its first argument (or ``returns``, a
+    schema's return type, with ``fake`` its outputs' shapes and dtypes from
+    the arguments); ``cuda`` and ``cpu`` are its implementations.
+    ``flops(*shapes, out_shape=...)`` is its formula for
+    ``torch.utils.flop_counter`` (the op's arguments as shapes): the
+    counter does not look inside an op, so without it a block would count 0
+    (``Model.flops``). Returns the op's overload packet,
+    ``torch.ops.<NAMESPACE>.<name>``."""
     op = torch.library.custom_op(f"{NAMESPACE}::{name}", cuda, mutates_args=(),
-                                 device_types="cuda", schema=f"({', '.join(args)}) -> Tensor")
+                                 device_types="cuda",
+                                 schema=f"({', '.join(args)}) -> {returns}")
     op.register_kernel("cpu")(cpu)
-    op.register_fake(lambda x, *rest: torch.empty_like(x))
+    op.register_fake(fake or (lambda x, *rest: torch.empty_like(x)))
     packet = getattr(getattr(torch.ops, NAMESPACE), name)
     register_flop_formula(packet)(flops)
     return packet

@@ -32,6 +32,28 @@ Training (the recompute route; ``mixer_block_bwd`` holds the kernel route):
 - ``fused_mixer_block_trainable``: forward ``fused_mixer_block``, backward
   autograd of ``mixer_block_plain`` (``KernelForwardPlainBackward``), as the
   JAX custom VJP ``fused_mixer_block_trainable``.
+
+Tensor parallelism (``parallel/tensor.py``): the JAX placement shards Wc1,
+bc1 on the channel hidden axis and Wc2 on its input axis over the mesh's
+'model' axis, so a rank holds wc1 (CD_r, D), bc1 (CD_r,) and wc2 (D, CD_r),
+CD_r = CD / P. The split block computes this rank's hidden columns and the
+f32 partial p_r = c_r · Wc2_rᵀ; ``parallel/tensor.py`` sums the partials
+over the ranks (one all-reduce a block) and finishes with bc2 and the
+residual. This module holds the two launches and their twins, and no
+collective (an op schema takes no process group):
+
+- the op ``fused_mixer_block_partial`` (the kernel entry
+  ``mixer_block_bf16_tp``: row 1's first five launches at CD_r, then the
+  partial through the core's f32 store; its twin
+  ``mixer_block_partial_ref``) returns (h, p_r);
+- the op ``mixer_block_tp_finish`` (a CUDA pass, out = bf16(h + (Σp +
+  bc2)); its twin ``mixer_block_finish_ref``). The rounding points are
+  row 1's: only the order of the f32 sums changes.
+  ``TP_LAUNCHES`` and ``FINISH_LAUNCHES`` count the two launches;
+- ``mixer_block_plain_partial`` and ``mixer_block_plain_finish``: the
+  plain pieces in the JAX ``_plain_block``'s rounding: the partial's
+  products summed in f32, rounded once after the sum, where the whole
+  block rounds its product once.
 """
 
 from __future__ import annotations
@@ -45,8 +67,12 @@ from ._build import Library
 from ._op import register, tensor_args
 
 LAUNCHES = 0
+TP_LAUNCHES = 0  # the split entry's launches
+FINISH_LAUNCHES = 0  # the finishing pass's launches
 _COUNT_LOCK = threading.Lock()
-_LIB = Library("mixer_block", ["mixer_block.cu"], {"mixer_block_bf16": (18, 5)},
+_LIB = Library("mixer_block", ["mixer_block.cu"],
+               {"mixer_block_bf16": (18, 5), "mixer_block_bf16_tp": (17, 5),
+                "mixer_block_tp_finish": (4, 2)},
                error="mixer_error_string", routes="mixer_gemm_products")
 
 
@@ -226,3 +252,99 @@ def fused_mixer_block_trainable(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b,
     return KernelForwardPlainBackward.apply(
         fused_mixer_block, mixer_block_plain, x, ln1w, ln1b, wt1, bt1, wt2, bt2,
         ln2w, ln2b, wc1, bc1, wc2, bc2)
+
+
+# -- tensor parallelism: the channel MLP split over the hidden axis ----------
+
+
+def mixer_block_partial_ref(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2):
+    """Twin of the split entry: (h, p), h as ``mixer_block_ref`` rounds it
+    and p (B, N, D) = c · Wc2ᵀ in f32, c = bf16(gelu(hn · Wc1ᵀ + bc1)) of
+    this rank's hidden columns (no bias, no residual)."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+    xn = layer_norm_f32(x, ln1w, ln1b).to(dt)
+    t = act(torch.matmul(wt1.float(), xn.float()) + bt1.float()[:, None]).to(dt)
+    h = (x.float() + torch.matmul(wt2.float(), t.float()) + bt2.float()[:, None]).to(dt)
+    hn = layer_norm_f32(h, ln2w, ln2b).to(dt)
+    c = act(torch.matmul(hn.float(), wc1.float().t()) + bc1.float()).to(dt)
+    return h, torch.matmul(c.float(), wc2.float().t())
+
+
+def mixer_block_finish_ref(h, s, bc2):
+    """Twin of the finishing pass: bf16(h + (s + bc2)), s the f32 sum of the
+    ranks' partials, in the order of the whole block's epilogue."""
+    return (h.float() + (s + bc2.float())).to(h.dtype)
+
+
+PARTIAL_ARGS = BLOCK_ARGS[:-1]
+
+
+def _launch_partial(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2):
+    """The split entry's CUDA implementation: (h, f32 partial)."""
+    global TP_LAUNCHES
+    weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2)
+    B, N, D, TD, CD = block_dims(x, weights)
+    require_bf16_contiguous((x, *weights))
+    xn = torch.empty_like(x)
+    t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(x)
+    c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
+    partial = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
+    _LIB.launch("mixer_block_bf16_tp", x.device, (x, *weights, xn, t, h, c, partial),
+                (B, N, D, TD, CD))
+    with _COUNT_LOCK:
+        TP_LAUNCHES += 1
+    return h, partial
+
+
+def _launch_finish(h, s, bc2):
+    """The finishing pass's CUDA implementation."""
+    global FINISH_LAUNCHES
+    D = h.shape[-1]
+    if s.shape != h.shape or s.dtype != torch.float32 or tuple(bc2.shape) != (D,):
+        raise ValueError(f"finish: h {tuple(h.shape)}, s {tuple(s.shape)} {s.dtype}, "
+                         f"bc2 {tuple(bc2.shape)}")
+    require_bf16_contiguous((h, bc2))
+    if not s.is_contiguous():
+        raise ValueError("the CUDA kernel takes contiguous tensors only")
+    out = torch.empty_like(h)
+    _LIB.launch("mixer_block_tp_finish", h.device, (h, s, bc2, out), (h.numel() // D, D))
+    with _COUNT_LOCK:
+        FINISH_LAUNCHES += 1
+    return out
+
+
+def _partial_fake(x, *weights):
+    return torch.empty_like(x), torch.empty(x.shape, dtype=torch.float32, device=x.device)
+
+
+PARTIAL_OP = register("fused_mixer_block_partial", tensor_args(PARTIAL_ARGS), _launch_partial,
+                      mixer_block_partial_ref, block_flops, returns="(Tensor, Tensor)",
+                      fake=_partial_fake)
+FINISH_OP = register("mixer_block_tp_finish", tensor_args(("h", "s", "bc2")), _launch_finish,
+                     mixer_block_finish_ref, lambda *shapes, out_shape=None: 0)
+
+
+def mixer_block_plain_partial(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2):
+    """(h, p) of ``mixer_block_plain`` split over the hidden axis: h and
+    this rank's c rounded as the JAX ``_plain_block`` rounds them, p the
+    product c · Wc2ᵀ summed in f32 (the whole block's product, before its
+    one rounding, is the sum of the ranks' p)."""
+    dt = x.dtype
+    act = gelu_erf if dt == torch.float32 else gelu_tanh
+
+    def ln(v, w, b):
+        return layer_norm_f32(v, w, b).to(dt)
+
+    y = torch.matmul(wt1, ln(x, ln1w, ln1b)) + bt1[:, None]
+    y = act(y.float()).to(dt)
+    h = x + torch.matmul(wt2, y) + bt2[:, None]
+    c = torch.matmul(ln(h, ln2w, ln2b), wc1.t()) + bc1
+    c = act(c.float()).to(dt)
+    return h, torch.matmul(c.float(), wc2.float().t())
+
+
+def mixer_block_plain_finish(h, s, bc2):
+    """``mixer_block_plain``'s last line on the summed product s."""
+    return h + s.to(h.dtype) + bc2

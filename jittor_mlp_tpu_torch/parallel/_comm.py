@@ -19,7 +19,10 @@ are then identities.
 
 The reduce-scatter runs as an all-reduce and a slice, and the gathers as
 ``dist.all_gather`` of a list: the calls that both NCCL and gloo take in
-every torch release the port meets.
+every torch release the port meets. gloo also takes CUDA tensors for the
+all-reduce, the all-gather and the broadcast (torch 2.11 on an H100: how
+chip_smoke.py's phase 14 runs two ranks on one card), though not for
+``p2p``'s sends and receives, which tensor parallelism does not use.
 """
 
 from __future__ import annotations

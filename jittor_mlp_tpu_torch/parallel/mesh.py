@@ -49,8 +49,13 @@ def make_mesh(n_devices=None, model_parallel=1, devices=None):
     process holds one device of the mesh. ``devices``, if given, is the
     device type the caller expects ("cuda" or "cpu"); it must be the
     backend's (NCCL: "cuda", each rank on ``cuda:{LOCAL_RANK}``; gloo:
-    "cpu"), else ValueError."""
+    "cpu"), else ValueError, with one exception asked for by name: a gloo
+    world with ``devices="cuda"`` computes on the cards (gloo's collectives
+    take CUDA tensors), which is how several ranks share one card, where
+    NCCL needs a card a rank."""
     kind = _device_type()
+    if devices is not None and dist.get_backend() == "gloo" and torch.device(devices).type == "cuda":
+        kind = "cuda"
     world = dist.get_world_size()
     if n_devices is None:
         n_devices = world

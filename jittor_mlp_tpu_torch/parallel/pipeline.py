@@ -244,17 +244,23 @@ def pipeline_shardings(model, mesh, input_shape, axis="model"):
 
 def gather_state_dict(model, mesh, axis="model"):
     """The whole torch state dict of a model placed with
-    ``init_sharded(..., stages=)``, on every rank (a collective over the
-    model group: each released tensor comes from the rank of its stage).
+    ``init_sharded(..., stages=)`` or over a 'model' axis (tensor
+    parallelism, ``parallel/tensor.py``), on every rank (a collective over
+    the model group: each released tensor comes from the rank of its
+    stage, each tensor-parallel slice is all-gathered along its axis).
     Tensors on the model's device; the model keeps its placement.
     ``axis`` must be "model"."""
     require_axis(axis)
     released = getattr(model, "released", {})
     stages = getattr(model, "pipeline_stages", {})
+    sliced = getattr(model, "tp_specs", None) or {}
     group = axis_group(mesh, axis)
     sd = {}
     for name, t in model.state_dict().items():
         where = stages.get(name)
+        if name in sliced:
+            sd[name] = _comm._gather(t, group, sliced[name].index("model"))
+            continue
         if where is None:
             sd[name] = t
             continue
@@ -271,20 +277,32 @@ def gather_state_dict(model, mesh, axis="model"):
 
 def gather_optimizer_state(optimizer, model, mesh, axis="model"):
     """The whole ``optimizer.state_dict()`` of a model placed with
-    ``init_sharded(..., stages=)``, on every rank (a collective over the
-    model group): the state of each block parameter (AdamW's step and
-    moments) comes from the rank of its stage, as ``gather_state_dict``
-    brings its weights, and the replicated parameters' is the rank's own.
-    Loaded before ``init_sharded`` places the model again, it resumes
-    every stage's state. ``axis`` must be "model"."""
+    ``init_sharded(..., stages=)`` or over a 'model' axis, on every rank (a
+    collective over the model group): the state of each block parameter
+    (AdamW's step and moments) comes from the rank of its stage, as
+    ``gather_state_dict`` brings its weights; a tensor-parallel slice's
+    moments are all-gathered along its axis (its step is every rank's);
+    the replicated parameters' is the rank's own. Loaded before
+    ``init_sharded`` places the model again, it resumes every rank's
+    state. ``axis`` must be "model"."""
     require_axis(axis)
     sd = optimizer.state_dict()
     stages = getattr(model, "pipeline_stages", {})
+    sliced = getattr(model, "tp_specs", None) or {}
     names = {id(p): n for n, p in model.named_parameters()}
     params = [p for g in optimizer.param_groups for p in g["params"]]
-    where = [stages.get(names.get(id(p))) for p in params]
-    stage = axis_index(mesh, axis)
     group = axis_group(mesh, axis)
+    for i, p in enumerate(params):
+        spec = sliced.get(names.get(id(p)))
+        if spec is not None and i in sd["state"]:
+            sd["state"][i] = {
+                k: (_comm._gather(v.to(p.device), group, spec.index("model")).to(v.device)
+                    if isinstance(v, torch.Tensor) and v.shape == p.shape else v)
+                for k, v in sd["state"][i].items()}
+    where = [stages.get(names.get(id(p))) for p in params]
+    if not stages:
+        return sd
+    stage = axis_index(mesh, axis)
     own = {i: {k: (tuple(v.shape), v.dtype, v.device.type) for k, v in sd["state"][i].items()}
            for i, w in enumerate(where) if w == stage and i in sd["state"]}
     layouts = [None] * axis_size(mesh, axis)

@@ -44,10 +44,14 @@ the global batch.
 
 The placement helpers are the JAX ones on torch state-dict names:
 ``_leaf_spec`` and ``shard_params`` give the JAX heuristic's spec per
-tensor; ``init_sharded`` and ``Model.shard`` check that nothing would be
-sharded over a 'model' axis larger than 1 (tensor parallelism is not
-ported: NotImplementedError names the tensors) and, with a pipeline's
-``stages``, release the blocks of other stages. The JAX ``split_params``
+tensor; ``init_sharded`` and ``Model.shard`` apply it (``place_model``:
+tensor parallelism over a 'model' axis larger than 1, each sharded tensor
+kept as this rank's slice, executed as ``parallel/tensor.py`` sets out)
+or, with a pipeline's ``stages``, release the blocks of other stages. At
+the loss boundary, after the cast, ``tensor.boundary`` gathers the slices
+that the call does not split and runs the split sites under the model
+group's ``tensor_parallel_scope``; ``reduce_gradients`` sums a slice's gradient
+over the data group. The JAX ``split_params``
 and ``merge_params`` split a params pytree into its trainable and aux
 leaves; a torch module keeps that split itself, as its parameters and its
 buffers, so they have no counterpart here.
@@ -63,7 +67,7 @@ from torch import nn
 
 from .. import config
 from ..core import nnf, train_utils
-from . import _comm
+from . import _comm, tensor
 from .mesh import axis_group, axis_index, axis_size, check_device, mesh_device
 from .multihost import process_batch_offset, process_batch_size
 
@@ -101,9 +105,11 @@ def _loss_and_sites(model, batch, compute_dtype, generator, loss=cross_entropy_l
     """``loss(logits, batch["label"])`` of the model in train mode on
     ``batch`` (``loss_fn``'s loss by default), the logits, and {id of each
     running_mean tensor the forward reads: (the model's running_mean,
-    running_var)} for ``train_utils.apply_bn_updates``. The train steps'
-    one loss boundary: the recipe step passes its soft cross-entropy and
-    soft labels."""
+    running_var, its slice or None)} for ``train_utils.apply_bn_updates``.
+    The train steps' one loss boundary: the recipe step passes its soft
+    cross-entropy and soft labels. A model placed over a 'model' axis goes
+    through ``tensor.boundary`` after the cast: the slices the call does
+    not split gathered, the split sites under the model group's scope."""
     fwd = _Forward(model.train())
     x = batch["image"].to(model.device)
     buffers = dict(fwd.named_buffers())
@@ -111,10 +117,22 @@ def _loss_and_sites(model, batch, compute_dtype, generator, loss=cross_entropy_l
     if compute_dtype is not None:
         tensors = cast_floating(tensors, compute_dtype)
         x = x.to(compute_dtype)
-    sites = {id(tensors[k]): (buffers[k], buffers[k[:-len("mean")] + "var"])
+    tensors, scope = tensor.boundary(model, tensors, x, prefix="model.")
+    sites = {id(tensors[k]): (buffers[k], buffers[k[:-len("mean")] + "var"], _slice_of(model, k))
              for k in buffers if k.endswith("running_mean")}
-    logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
+    with scope:
+        logits = torch.func.functional_call(fwd, tensors, (x,), {"generator": generator})
     return loss(logits, batch["label"].to(logits.device)), logits, sites
+
+
+def _slice_of(model, name):
+    """(axis, ranks, rank) of this rank's slice of the placed tensor
+    ``name`` ("model."-prefixed), or None for a whole one."""
+    spec = (getattr(model, "tp_specs", None) or {}).get(name[len("model."):])
+    if spec is None:
+        return None
+    mesh = model.tp_mesh
+    return spec.index("model"), axis_size(mesh, "model"), axis_index(mesh, "model")
 
 
 def loss_fn(model, batch, compute_dtype=None, generator=None):
@@ -226,8 +244,10 @@ def global_mean(value, mesh):
 def reduce_gradients(model, mesh):
     """Sum each parameter's gradient over the ranks that hold it and divide
     by |data group|: the replicated parameters over the world, the blocks
-    of this rank's pipeline stage (``init_sharded(..., stages=)``) over its
-    data group, each set in one flattened float32 bucket, reduced and
+    of this rank's pipeline stage (``init_sharded(..., stages=)``) and the
+    slices of a tensor-parallel placement over its data group (a slice's
+    gradient is whole for the rank's rows: ``parallel/tensor.py``), each
+    set in one flattened float32 bucket, reduced and
     divided in place, whose slices become the gradients. A parameter no
     rank took a gradient for keeps ``grad = None`` (the optimizer skips
     it, as the dense step's): which ones, the ranks agree on once for each
@@ -235,16 +255,17 @@ def reduce_gradients(model, mesh):
     card), kept in ``model.grad_flags``, so that a step in a pattern seen
     before does not wait."""
     stages = getattr(model, "pipeline_stages", None) or {}
+    sliced = getattr(model, "tp_specs", None) or {}
     stage = axis_index(mesh, "model")
     world, own = [], []
     for name, p in model.named_parameters():
         if not p.requires_grad:
             continue
         where = stages.get(name)
-        if where is None:
-            world.append(p)
-        elif where == stage:
+        if name in sliced or where == stage:
             own.append(p)
+        elif where is None:
+            world.append(p)
     n_data = axis_size(mesh, "data")
     known = model.__dict__.setdefault("grad_flags", {})
     for part, params, group in (("world", world, None), ("own", own, axis_group(mesh, "data"))):
@@ -307,12 +328,14 @@ def shard_params(params, mesh, min_dim=512):
     module (its parameters and buffers) or {name: tensor or shape}, under
     ``mesh`` (or the size of its 'model' axis). A tensor of a block of an
     ``nn.ModuleList`` stack is judged at its JAX shape, with the stack's
-    depth in front, and that axis dropped from its spec."""
+    depth in front, and that axis dropped from its spec. A module placed
+    over a 'model' axis is judged at its whole shapes (``tp_shapes``)."""
     model_size = mesh if isinstance(mesh, int) else axis_size(mesh, "model")
     stacks = {}
     if isinstance(params, nn.Module):
         stacks = _stack_depths(params)
-        params = dict(params.state_dict(keep_vars=True))
+        whole = getattr(params, "tp_shapes", None) or {}
+        params = {k: whole.get(k, t.shape) for k, t in params.state_dict(keep_vars=True).items()}
     out = {}
     for name, t in params.items():
         shape = tuple(getattr(t, "shape", t))
@@ -325,22 +348,17 @@ def shard_params(params, mesh, min_dim=512):
     return out
 
 
-def check_replicated(model, mesh, min_dim=512):
-    """``shard_params`` of ``model``; NotImplementedError naming the
-    tensors it would shard over 'model' (tensor parallelism is not
-    ported), else the specs. A model whose 'model' axis carries a block
-    runner (pipeline stages, token shards) passes: the heuristic is not
-    its placement."""
+def place_model(model, mesh, min_dim=512, optimizer=None):
+    """``shard_params`` of ``model`` at ``min_dim``, applied: each tensor it
+    shards over a 'model' axis larger than 1 keeps this rank's slice
+    (``tensor.place``; the ``optimizer``'s state of it is cut alike).
+    Returns the specs. A model whose 'model' axis carries a block runner
+    (pipeline stages, token shards) stays whole: the heuristic is not its
+    placement."""
     specs = shard_params(model, mesh, min_dim)
     if _runner_active(model) or getattr(model, "pipeline_stages", None):
         return specs
-    tp = sorted(k for k, spec in specs.items() if "model" in spec)
-    if tp:
-        raise NotImplementedError(
-            f"tensor parallelism is not ported: at min_dim={min_dim} a 'model' axis of "
-            f"{axis_size(mesh, 'model')} would shard {len(tp)} tensors ({', '.join(tp[:6])}"
-            f"{', ...' if len(tp) > 6 else ''}); raise min_dim, or give the 'model' axis to "
-            f"a pipeline or token-parallel runner")
+    tensor.place(model, mesh, specs, optimizer)
     return specs
 
 
@@ -363,9 +381,11 @@ def batch_sharding(mesh):
 
 def init_sharded(model, optimizer, mesh, min_dim=512, stages=None):
     """Place ``model`` (built alike on every rank, from one seed) on
-    ``mesh`` for ``make_train_step(..., mesh=mesh)``. Without ``stages`` it
-    must be replicated, as ``Model.shard`` checks (``check_replicated``).
-    With ``stages`` (``pipeline.pipeline_shardings``) each parameter and
+    ``mesh`` for ``make_train_step(..., mesh=mesh)``. Without ``stages``
+    the JAX heuristic at ``min_dim`` places it (``place_model``: tensor
+    parallelism over the 'model' axis, the optimizer's state of each
+    slice cut alike), as ``Model.shard`` does. With ``stages``
+    (``pipeline.pipeline_shardings``) each parameter and
     buffer of another stage's blocks leaves the device (an empty tensor
     takes its place, ``pipeline.gather_state_dict`` brings the whole
     state back) and the model records ``pipeline_stages``. The
@@ -374,7 +394,7 @@ def init_sharded(model, optimizer, mesh, min_dim=512, stages=None):
     state back). Returns (model, optimizer, the specs or stages)."""
     check_device(mesh, model.device)
     if stages is None:
-        return model, optimizer, check_replicated(model, mesh, min_dim)
+        return model, optimizer, place_model(model, mesh, min_dim, optimizer)
     stage = axis_index(mesh, "model")
     shapes = {}
     for name, t in model.state_dict(keep_vars=True).items():

@@ -38,7 +38,7 @@ from scipy import special
 
 from . import config
 from .core import nnf, train_utils
-from .parallel import _comm
+from .parallel import _comm, tensor
 from .parallel.mesh import axis_group, axis_index, axis_size
 from .parallel.train import (_loss_and_sites, check_mesh_step, data_parallel, global_mean,
                              init_sharded, reduce_gradients)
@@ -274,9 +274,11 @@ def init_recipe_state(model, optimizer, mesh=None, recipe=Recipe()):
     ``optimizer`` (built over ``model.parameters()``), with an EMA copy of
     the parameters when ``recipe.ema_decay > 0``; step 0. With ``mesh``
     the model is placed as ``parallel.train.init_sharded`` places it
-    (unless a pipeline's ``init_sharded(..., stages=)`` already did), for
+    (unless an ``init_sharded`` already did: a pipeline's stages, or a
+    tensor-parallel placement at its own ``min_dim``), for
     ``make_recipe_train_step(..., mesh=mesh)``."""
-    if mesh is not None and getattr(model, "pipeline_stages", None) is None:
+    if (mesh is not None and getattr(model, "pipeline_stages", None) is None
+            and not tensor.is_placed(model)):
         init_sharded(model, optimizer, mesh)
     params = dict(model.named_parameters())
     ema = ({k: p.detach().clone() for k, p in params.items()}
@@ -293,15 +295,21 @@ def mix_generator(generator, step):
 
 
 def _grad_norm(model, mesh):
-    """Global L2 norm of the f32 gradients; under a pipeline placement the
-    squares of the stage-owned ones summed over the model group."""
+    """Global L2 norm of the f32 gradients; under a pipeline or
+    tensor-parallel placement the squares of the stage-owned ones and of
+    the slices summed over the model group."""
     stages = getattr(model, "pipeline_stages", None) or {}
+    sliced = getattr(model, "tp_specs", None) or {}
+
+    def owned(k):
+        return stages.get(k) is not None or k in sliced
+
     grads = [p.grad.float() for k, p in model.named_parameters()
-             if p.grad is not None and stages.get(k) is None]
+             if p.grad is not None and not owned(k)]
     norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     own = [p.grad.float() for k, p in model.named_parameters()
-           if p.grad is not None and stages.get(k) is not None]
-    if mesh is None or not stages:
+           if p.grad is not None and owned(k)]
+    if mesh is None or not (stages or sliced):
         return norm
     sq = torch.stack(torch._foreach_norm(own)).square().sum() if own else norm.new_zeros(())
     return torch.sqrt(norm.square() + _comm.all_reduce(sq, axis_group(mesh, "model")))

@@ -287,15 +287,21 @@ def test_a_rank_feeds_only_its_rows(offset, size):
 
 
 def test_train_step_mesh_preconditions():
-    """The mesh step refuses a model on another device type than the mesh's,
-    and ``check_replicated`` names the tensors a 'model' axis would
-    shard."""
+    """The mesh step refuses a model on another device type than the mesh's;
+    ``place_model`` keeps each tensor a 'model' axis shards as this rank's
+    slice, and at the default ``min_dim`` the small model stays whole."""
     mesh = _Mesh(2, 2, 0)
     mesh.device_type = "cuda"
     model = jt.MLPMixerForImageClassification(d_model=32, depth=2, patch_size=4, image_size=16,
                                               num_classes=8, device="cpu")
     with pytest.raises(ValueError, match="mesh on 'cuda'"):
         ptrain.check_mesh_step(model, mesh, 0.1)
-    with pytest.raises(NotImplementedError, match="tensor parallelism"):
-        ptrain.check_replicated(model, mesh, min_dim=16)
-    assert all("model" not in s for s in ptrain.check_replicated(model, mesh).values())
+    whole = {k: v.clone() for k, v in model.state_dict().items()}
+    assert all("model" not in s for s in ptrain.place_model(model, mesh).values())
+    assert not getattr(model, "tp_specs", None)
+    specs = ptrain.place_model(model, mesh, min_dim=16)
+    sliced = {k for k, s in specs.items() if "model" in s}
+    assert sliced and sliced == set(model.tp_specs)
+    for k, v in model.state_dict().items():
+        want = whole[k].chunk(2, specs[k].index("model"))[0] if k in sliced else whole[k]
+        assert torch.equal(v, want), k

@@ -20,6 +20,19 @@ dense step on the same seed's weights and batch:
 - the BatchNorm contract under a runner; a data-parallel WaveMLP step,
   running statistics included; token-parallel Mixer and ResMLP forwards
   and a token-parallel Mixer step; each rank keeping 1/P of the blocks;
+- tensor parallelism on the 2 × 2 mesh's 'model' axis (``Model.shard``
+  and ``init_sharded`` at the JAX tests' ``min_dim=8``): f32 forwards of
+  the 20 families and the three shard cases against the JAX dense forward
+  (1e-4) and the port's dense forward (rtol = atol = 1e-5, JAX's band), the
+  Mixer also against the JAX package's own sharded forward; the Mixer's
+  channel MLPs split (one split a block), bf16 through the split kernel's
+  twin and int8 (gathered, bit-equal); Mixer, gMLP and WaveMLP SGD steps
+  (the running statistics too) against the dense steps, and the Mixer's
+  bf16 recompute-route step; an AdamW step whose gathered weights and
+  moments resume as a dense model; ``gather_tp`` and its backward, its
+  slices bucketed; a placement kept on the same mesh and refused on
+  another; the train example with ``--model-parallel 2`` and its
+  checkpoint in a dense model;
 - on the 2-rank mesh: ``Model.shard`` forwards of WaveMLP, Swin-MLP and
   CycleMLP, and the recipe step, mixup and cutmix on, against the dense
   recipe step; and ``multihost.run_local_selftest()``.
@@ -46,6 +59,7 @@ from conftest import assert_close
 from torch_parallel_cases import PP_CASES, add_pp_settings, build, images, labels
 
 import jittor_mlp_tpu_torch.train_recipes as tr
+from jittor_mlp_tpu.parallel import make_mesh as jax_make_mesh
 from jittor_mlp_tpu.parallel.train import make_train_step as jax_train_step
 from jittor_mlp_tpu.parallel.train import split_params
 from jittor_mlp_tpu_torch.core import nnf
@@ -70,12 +84,21 @@ def _batch(name, seed=2):
     return {"image": torch.from_numpy(images(name, seed=seed)), "label": torch.from_numpy(labels())}
 
 
-def _dense_step(name, generator_seed=None):
+def _dense_step(name, generator_seed=None, compute_dtype=None):
     model = build(PORT, name)
     opt = torch.optim.SGD(model.parameters(), lr=0.1)
     gen = None if generator_seed is None else torch.Generator().manual_seed(generator_seed)
-    loss = make_train_step(model, opt)(_batch(name), gen)
+    loss = make_train_step(model, opt, compute_dtype=compute_dtype)(_batch(name), gen)
     return float(loss), model.state_dict()
+
+
+def _dense_adamw():
+    """Two dense AdamW steps of the Mixer on the batches of seeds 300, 301."""
+    model = build(PORT, "mixer")
+    opt = torch.optim.AdamW(model.parameters(), **worker.ADAMW)
+    step = make_train_step(model, opt)
+    losses = [float(step(_batch("mixer", seed=s))) for s in (300, 301)]
+    return losses, model.state_dict()
 
 
 def _jax_step(name):
@@ -107,11 +130,13 @@ def _dense_recipe():
 
 def _references():
     add_pp_settings(JAX)  # before the threads: build() would add them in each
-    names = [*PP_CASES, "mixer", "gmlp", "asmlp", "resmlp"]
+    names = [*worker.TP_CASES, "mixer", "gmlp", "asmlp", "resmlp"]
     with ThreadPoolExecutor(4) as pool:  # XLA compiles the forwards side by side
         logits = list(pool.map(lambda n: np.asarray(build(JAX, n)(images(n))), names))
     ref = {f"jax_logits/{n}": v for n, v in zip(names, logits)}
-    for name in ("shard_wave_mlp", "shard_swin_mlp", "shard_cycle_mlp"):
+    ref["jax_sharded_logits/mlp_mixer"] = np.asarray(build(JAX, "mlp_mixer").shard(
+        jax_make_mesh(4, model_parallel=2), min_dim=worker.TP_MIN_DIM)(images("mlp_mixer")))
+    for name in worker.TP_CASES:
         with torch.no_grad():
             ref[f"logits/{name}"] = build(PORT, name).eval()(images(name)).numpy()
     for name in ("mixer", "gmlp"):
@@ -119,6 +144,8 @@ def _references():
     for name in ("mixer", "gmlp", "wave_xs"):
         ref[f"step/{name}"] = _dense_step(name)
     ref["step/swin_dp"] = _dense_step("swin_dp", generator_seed=7)
+    ref["step_bf16/mixer"] = _dense_step("mixer", compute_dtype=torch.bfloat16)
+    ref["adamw/mixer"] = _dense_adamw()
     model = build(PORT, "swin_dp").train()
     with torch.no_grad():
         x = torch.from_numpy(images("swin_dp"))
@@ -333,6 +360,184 @@ def test_recipe_step_on_a_data_mesh_matches_dense(run):
         _close_sd(res, dense_sd, 1e-4, 1e-6, f"recipe rank {r}")
         for k, v in dense_ema.items():
             np.testing.assert_allclose(res["ema." + k], v.numpy(), rtol=1e-4, atol=1e-6)
+
+
+TP_BF16_STEP = 2e-3  # of max|param|: bf16 products summed per rank vs whole (one SGD step)
+
+
+@pytest.mark.parametrize("name", worker.TP_CASES)
+def test_tensor_parallel_forward_matches_dense(run, name):
+    """``Model.shard(mesh, min_dim=8)`` over the 2 × 2 mesh: each tensor the
+    JAX heuristic shards keeps half on each rank, and the f32 logits of the
+    global batch agree with the JAX dense forward within 1e-4 and with the
+    port's dense forward at JAX's band (rtol = atol = 1e-5); the Mixer also
+    with the JAX package's own sharded forward, its channel MLPs split (one
+    split site a block)."""
+    dense = sum(t.numel() for t in build(PORT, name).state_dict().values())
+    for r, res in enumerate(_get(run, "dp2pp2", f"tp_forward[{name}]")):
+        assert int(res["placed"]) > 0
+        assert int(res["numel"]) == dense - int(res["whole"]) // 2  # half of each placed one
+        assert_close(res["logits"], run["ref"][f"jax_logits/{name}"], tol=1e-4,
+                     name=f"{name} rank {r} vs JAX")
+        np.testing.assert_allclose(res["logits"], run["ref"][f"logits/{name}"], rtol=1e-5,
+                                   atol=1e-5, err_msg=f"{name} rank {r} vs the port")
+        if name == "mlp_mixer":
+            assert int(res["split"]) == PP_CASES[name][1]["depth"]
+            assert_close(res["logits"], run["ref"]["jax_sharded_logits/mlp_mixer"], tol=1e-4,
+                         name=f"rank {r} vs the JAX sharded forward")
+        else:
+            assert int(res["split"]) == 0
+
+
+def test_tensor_parallel_bf16_and_int8(run):
+    """The Mixer (depth 4) under TP against its data-parallel forward
+    unplaced: bf16 through the split kernel's twin within the kernel-vs-twin
+    band (1.6e-2 of max(1, max|ref|)), 4 splits; int8, f32 and bf16 models,
+    bit-equal (the split mode does not apply: the boundary gathers the
+    split sites' slices and the blocks run whole, 0 splits)."""
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_bf16_and_int8")):
+        want = res["bf16.want"]
+        assert np.abs(res["bf16.got"] - want).max() <= 1.6e-2 * max(1.0, np.abs(want).max())
+        assert int(res["bf16.split"]) == 4
+        for tag in ("int8_f32", "int8_bf16"):
+            assert np.array_equal(res[f"{tag}.got"], res[f"{tag}.want"]), f"{tag} rank {r}"
+            assert int(res[f"{tag}.split"]) == 0
+
+
+@pytest.mark.parametrize("name", ["mixer", "gmlp"])
+def test_tensor_parallel_train_step_matches_dense(run, name):
+    """A TP SGD step (``init_sharded(min_dim=8)``): loss within rtol 1e-5 and
+    the gathered parameters within rtol 1e-4 / atol 1e-6 of the port's dense
+    step and of the JAX dense step; the Mixer's four channel MLPs split."""
+    dense_loss, dense_sd = run["ref"][f"step/{name}"]
+    jax_loss, jax_sd = run["ref"][f"jax_step/{name}"]
+    for r, res in enumerate(_get(run, "dp2pp2", f"tp_train[{name}]")):
+        np.testing.assert_allclose(float(res["loss"]), dense_loss, rtol=1e-5)
+        np.testing.assert_allclose(float(res["loss"]), jax_loss, rtol=1e-5)
+        _close_sd(res, dense_sd, 1e-4, 1e-6, f"{name} rank {r} vs the port's dense step")
+        _close_sd(res, jax_sd, 1e-4, 1e-6, f"{name} rank {r} vs the JAX dense step")
+        assert int(res["split"]) == (4 if name == "mixer" else 0)
+
+
+def test_tensor_parallel_bn_step_matches_dense(run):
+    """WaveMLP PP_XS under TP: its wide BatchNorm buffers are slices, each
+    folding its chunk of the global batch's statistics: the running
+    statistics and the parameters as the dense step's."""
+    dense_loss, dense_sd = run["ref"]["step/wave_xs"]
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_train[wave_xs]")):
+        np.testing.assert_allclose(float(res["loss"]), dense_loss, rtol=1e-5)
+        _close_sd(res, dense_sd, 1e-4, 1e-6, f"wave_xs rank {r}")
+
+
+def test_tensor_parallel_bf16_step_matches_dense(run):
+    """The Mixer's bf16 recompute-route step under TP (the split kernel's
+    twin forward, autograd of the plain split block backward) against the
+    dense bf16 step: loss within rtol 1e-3, parameters within 2e-3 of each
+    tensor's max (the ranks' bf16 partial gradients round apart)."""
+    dense_loss, dense_sd = run["ref"]["step_bf16/mixer"]
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_train_bf16[mixer]")):
+        np.testing.assert_allclose(float(res["loss"]), dense_loss, rtol=1e-3)
+        assert int(res["split"]) == 4
+        for k, w in dense_sd.items():
+            w = w.float().numpy()
+            assert np.abs(res["sd." + k] - w).max() <= TP_BF16_STEP * max(1.0, np.abs(w).max()), k
+
+
+def test_tensor_parallel_other_routes_match_dense(run):
+    """The Mixer's TP step under ``config.remat_mode()`` (f32: the blocks
+    recompute inside the tensor-parallel scope, four splits in the forward
+    and four in the recompute) against the dense step at JAX's bands, and
+    on the backward-kernel route (bf16, ``config.pallas_bwd``: no split,
+    the boundary gathers the four channel MLPs' slices and the training
+    kernels' twins run whole) within
+    the bf16 step's band of the dense bf16 step."""
+    dense_loss, dense_sd = run["ref"]["step/mixer"]
+    bf16_loss, bf16_sd = run["ref"]["step_bf16/mixer"]
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_routes")):
+        np.testing.assert_allclose(float(res["remat.loss"]), dense_loss, rtol=1e-5)
+        remat = {k[len("remat."):]: v for k, v in res.items() if k.startswith("remat.")}
+        _close_sd(remat, dense_sd, 1e-4, 1e-6, f"remat rank {r}")
+        assert int(res["remat.split"]) == 8
+        np.testing.assert_allclose(float(res["pallas_bwd.loss"]), bf16_loss, rtol=1e-3)
+        assert int(res["pallas_bwd.split"]) == 0
+        for k, w in bf16_sd.items():
+            w = w.float().numpy()
+            got = res[f"pallas_bwd.sd.{k}"]
+            assert np.abs(got - w).max() <= TP_BF16_STEP * max(1.0, np.abs(w).max()), k
+
+
+def test_tensor_parallel_recipe_step_matches_dense(run):
+    """The recipe step (mixup, cutmix, EMA) of the Mixer under TP for four
+    steps against the dense recipe step: metrics, the gathered parameters
+    and the gathered EMA as the data-mesh recipe test holds them."""
+    metrics, dense_sd, dense_ema = run["ref"]["recipe"]
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_recipe")):
+        for s, m in enumerate(metrics):
+            for k, v in m.items():
+                np.testing.assert_allclose(float(res[f"{k}{s}"]), v, rtol=1e-5,
+                                           err_msg=f"rank {r} step {s} {k}")
+        _close_sd(res, dense_sd, 1e-4, 1e-6, f"tp recipe rank {r}")
+        for k, v in dense_ema.items():
+            np.testing.assert_allclose(res["ema." + k], v.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_tensor_parallel_checkpoint_resumes_dense(run):
+    """A TP AdamW step of the Mixer whose gathered weights and AdamW state
+    (``gather_state_dict``, ``gather_optimizer_state``) load into a dense
+    model that takes the second step: as two dense steps."""
+    (loss1, loss2), dense_sd = run["ref"]["adamw/mixer"]
+    whole = sum(v.numel() for k, v in dense_sd.items() if "num_batches" not in k)
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_adamw_dense")):
+        np.testing.assert_allclose([float(res["loss1"]), float(res["loss2"])], [loss1, loss2],
+                                   rtol=1e-5)
+        _close_sd(res, dense_sd, 1e-4, 1e-6, f"rank {r}")
+        assert int(res["moments"]) < 2 * whole  # each rank keeps a slice of the moments
+
+
+def test_gather_tp_backward_matches_dense(run):
+    """``gather_tp`` under the mesh step's 1/P loss scale, with three f32
+    slices in one bucket (along axes 1, 0 and 0) and a bf16 one in its
+    own: each gathered tensor is the whole one, and each rank's slice gets
+    its part of the dense gradient."""
+    whole, x = worker.gather_inputs()
+    whole = {k: t.clone().requires_grad_() for k, t in whole.items()}
+    worker.gather_loss(whole, x).backward()
+    for res in _get(run, "dp2pp2", "tp_gather_grad"):
+        for k, t in whole.items():
+            axis = worker.GATHER_SPECS[k].index("model")
+            np.testing.assert_array_equal(res[f"whole.{k}"], t.detach().float().numpy())
+            want = t.grad.chunk(2, axis)[int(res["rank"])].float().numpy()
+            np.testing.assert_allclose(res[f"grad.{k}"], want, rtol=1e-6, atol=1e-6, err_msg=k)
+
+
+def test_tensor_parallel_placement_is_kept_or_refused(run):
+    """A model placed on the 2 × 2 mesh at ``min_dim=8``, sharded again:
+    a 4 × 1 mesh (each rank its own model group) and the default
+    ``min_dim`` (other specs) raise ValueError, where keeping the slices
+    would sum other rows' partials; the same mesh and ``min_dim`` keep
+    the slices, and the logits are the port's dense forward's at JAX's
+    band."""
+    dense = sum(t.numel() for t in build(PORT, "mlp_mixer").state_dict().values())
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_reshard")):
+        for tag in ("4x1", "min_dim"):
+            assert "placed over the model group" in str(res[tag]), (tag, str(res[tag]))
+        assert int(res["numel"]) < dense
+        np.testing.assert_allclose(res["logits"], run["ref"]["logits/mlp_mixer"], rtol=1e-5,
+                                   atol=1e-5, err_msg=f"rank {r}")
+
+
+def test_tensor_parallel_train_example(run):
+    """``examples/train.py --model-parallel 2`` in the 4-rank world: tensor
+    parallelism over the 2 × 2 mesh, its default Mixer's channel MLPs split
+    at ``min_dim`` 512; two finite steps; its checkpoint (the slices and
+    moments gathered) loads into a dense model whose logits are the placed
+    model's."""
+    for r, res in enumerate(_get(run, "dp2pp2", "tp_example")):
+        assert np.isfinite(res["losses"]).all() and len(res["losses"]) == 2
+        assert int(res["step"]) == 2 and int(res["placed"]) > 0
+        assert int(res["split"]) == 3 * 6  # W1, b1, W2 of six blocks
+        np.testing.assert_allclose(res["got"], res["want"], rtol=1e-5, atol=1e-5,
+                                   err_msg=f"rank {r}")
 
 
 def test_worlds_exit_cleanly(run):
