@@ -17,7 +17,8 @@ smoothing, EMA, a warmup-cosine schedule) on both Mixer routes, with
 probes, FLOPs and the train example's folder, metrics and checkpoints, runs
 the parallel layer in a one-rank world, and splits the Mixer's channel MLP
 over ranks (tensor parallelism: the split kernel entry in one process, then
-two processes sharing the card over gloo). Models: Mixer-B/16 @224
+two processes sharing the card over gloo), and runs the harness layer (the
+per-model compare runs, the tuned-table generator, create_model). Models: Mixer-B/16 @224
 (d_model 768, depth 12, token_dim 384; bench.py's config), ResMLP-S24 @224 (d_model 384, depth 24, expansion 4;
 compare.py's), gMLP-S @224 (d_model 256, d_ffn 1536, depth 30;
 compare.py's) and AS-MLP-T @224 (embed 96, depths [2, 2, 6, 2], shift 5:
@@ -329,6 +330,22 @@ Phases (each one fails loudly; there is no CPU fallback):
      and each rank's parameters and AdamW state
      (``torch.cuda.memory_allocated``) against the dense model's (under
      0.6 of it). Speed across cards is not measured.
+ 15. the harness layer through its entry points, in at most about a minute:
+     (a) ``tools/compare.main`` on Mixer-B/16 as the serving sweep runs it
+     (b256 bf16 and int8 img/s over 3 forwards a timed run, the seven
+     serving statistics at b64, and the card's f32 forward against the
+     CPU's at b2 within 1e-3 of max|logit|), then as the train sweep runs
+     it (b32, --try-remat, 5 steps a timed run): every field the generator
+     reads present and finite, the record naming this card and its power
+     limit, rows 1 and 2 launched 12 times a bf16 or int8 forward; (b)
+     compare's serving run on S2-MLPv2 (seed 0): the rule's choice on this
+     reading equals the committed ``tuned.SERVE`` row, and
+     ``Predictor(S2MLPv2())`` resolves that dtype, its top-5 labels on 16
+     images equal to the forward's in that dtype; (c) ``tools/gen_tuned``
+     on (a)'s and (b)'s records writes a module that imports, whose rows
+     are the rule's choices; (d) ``examples/create_model --model
+     MLPMixerForImageClassification --time``: params, GFLOPs, the (8, 1000)
+     output and ms per forward.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}.
@@ -2399,9 +2416,10 @@ def family_phase(jt, key, name, x64, imgs):
     compare_logits(f"{title} int8 vs f32 (TF32 off{how})", lq, lf, 0.1, None, phase="8")
     del f32
 
-    p16 = jt.Predictor(model, batch_size=32)
+    # bf16 asked for: the committed tuned.SERVE serves ConvMixer and S2-MLPv2 in f32
+    p16 = jt.Predictor(model, batch_size=32, bf16=True)
     l16 = batched_equals_alone(f"{tag} bf16 Predictor", p16, imgs)
-    pw = jt.Predictor(build(), batch_size=32, weights="int8")
+    pw = jt.Predictor(build(), batch_size=32, weights="int8", bf16=True)
     lw = batched_equals_alone(f"{tag} weights=int8 Predictor", pw, imgs)
     check(p16.dtype == pw.dtype == "bf16", f"{tag}: Predictor dtypes {p16.dtype}, {pw.dtype}")
     print(f"{tag}: bf16 and weights=int8 Predictors, 16 images batched == alone; top-1 "
@@ -4620,6 +4638,186 @@ def phase_tensor_parallel(jt, mods, name):
     return errs, timings, launches
 
 
+# Phase 15: the harness layer on the card, through its entry points:
+# tools/compare.main (as the sweeps call it), tools/gen_tuned, the committed
+# tuned.SERVE row of S2-MLPv2 through Predictor, and examples/create_model.
+HARNESS_ITERS = 3  # 15a: forwards a timed run (the sweep's 20, cut for time); train steps: 5
+HARNESS_PREDICT = 16  # 15b: images through Predictor
+GENERATOR_FIELDS = ("fps", "int8_fps", "bf16_argmax_agree", "int8_argmax_agree",
+                    "int8_argmax_agree_vs_bf16")
+
+
+def harness_record(compare, argv, path):
+    """Run ``compare.main(argv + --json path)``; its exit code and the one
+    record it appended."""
+    before = len(compare_records(path))
+    rc = compare.main([*argv, "--json", path])
+    recs = compare_records(path)
+    check(len(recs) == before + 1, f"[15] compare {argv} appended {len(recs) - before} records")
+    return rc, recs[-1]
+
+
+def compare_records(path):
+    import os
+
+    if not os.path.exists(path):
+        return []
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def harness_mixer(mods, serving, train, name):
+    """15a: compare's serving run on Mixer-B/16 (b256 bf16 and int8
+    throughput, b64 serving numerics, b2 card-vs-CPU parity) and its train
+    run at b32 with --try-remat. Returns the main path's launches."""
+    from jittor_mlp_tpu_torch.tools import compare
+
+    t0 = time.perf_counter()
+    reset_counts(mods)
+    rc, rec = harness_record(compare, ["--model", "mlp_mixer", "--batch", "256", "--iters",
+                                       str(HARNESS_ITERS), "--int8", "--serving-numerics"],
+                             serving)
+    counted = {"fused_mixer_block": mods["mixer_block"].LAUNCHES,
+               "fused_mixer_block_int8": mods["mixer_block_int8"].LAUNCHES}
+    # a warm-up and 3 repeats of the timed run, and the numerics' forward: each path's
+    # kernel once a block a forward (the parity forward is f32: no kernel)
+    want = DEPTH * (2 + 3 * HARNESS_ITERS)
+    print(f"[15a] compare --model mlp_mixer --batch 256 --int8 --serving-numerics: rc {rc}; "
+          f"bf16 {rec['fps']:.1f} img/s, int8 {rec['int8_fps']:.1f} img/s; bf16 vs f32 "
+          f"max {rec['bf16_max_rel']:.4g} of max|logit|, top-1 {rec['bf16_argmax_agree']:.4f}; "
+          f"int8 vs f32 {rec['int8_max_rel']:.4g}, top-1 {rec['int8_argmax_agree']:.4f} (vs bf16 "
+          f"{rec['int8_argmax_agree_vs_bf16']:.4f}); parity card f32 vs CPU max|d| "
+          f"{rec['max_abs']:.4g} of max|logit| {rec['out_scale']:.4g} (limit "
+          f"{compare.PARITY_BAND:g} of it); launches {json.dumps(counted)} (want {want} each); "
+          f"{rec['card']}, {rec['power_limit']}  [{name}]", flush=True)
+    check(rc == 0 and rec["parity_ok"], f"[15a] compare's serving run: rc {rc}, record {rec}")
+    check(rec["max_abs"] <= CARD_VS_CPU * rec["out_scale"], f"[15a] parity {rec['max_abs']}")
+    for k in GENERATOR_FIELDS:
+        check(np.isfinite(rec[k]) and rec[k] > 0, f"[15a] {k} = {rec.get(k)}")
+    check(counted == dict.fromkeys(counted, want), f"[15a] launches {counted}, want {want} each")
+    check(f"{rec['card']}, {rec['power_limit']}" == name, f"[15a] record names {rec['card']}")
+    reset_counts(mods)
+    rc, trec = harness_record(compare, ["--model", "mlp_mixer", "--train", "--try-remat",
+                                        "--batch", "32", "--iters", str(2 * HARNESS_ITERS),
+                                        "--skip-throughput", "--skip-parity"], train)
+    steps = mods["mixer_block"].LAUNCHES
+    print(f"[15a] compare --model mlp_mixer --train --try-remat --batch 32: rc {rc}; "
+          f"{trec.get('train_fps', float('nan')):.1f} img/s, remat {trec.get('train_remat')}; "
+          f"{steps} fused_mixer_block launches (the recompute route's forward kernel)"
+          f"{'; ERROR ' + trec['train_error'] if 'train_error' in trec else ''}", flush=True)
+    check(rc == 0 and np.isfinite(trec["train_fps"]) and trec["train_fps"] > 0
+          and isinstance(trec["train_remat"], bool) and trec["train_batch"] == 32,
+          f"[15a] compare's train run: rc {rc}, record {trec}")
+    check(steps > 0, "[15a] the train steps launched no forward kernel")
+    counted["fused_mixer_block"] += steps
+    print(f"[15a] in {time.perf_counter() - t0:.1f} s", flush=True)
+    return counted
+
+
+def harness_s2(jt, serving, name):
+    """15b: compare's serving run on S2-MLPv2 (seed 0): the rule's choice on
+    this reading equals the committed SERVE row, and Predictor(S2MLPv2())
+    resolves that dtype; its top-5 labels equal those of the forward in that
+    dtype (f32: the parity forward's logits)."""
+    from jittor_mlp_tpu_torch import config, tuned
+    from jittor_mlp_tpu_torch.tools import compare, gen_tuned
+
+    t0 = time.perf_counter()
+    rc, rec = harness_record(compare, ["--model", "s2_mlp_v2", "--batch", "256", "--iters",
+                                       str(HARNESS_ITERS), "--int8", "--serving-numerics",
+                                       "--skip-parity"], serving)
+    choice = gen_tuned.serve_row(rec)["dtype"]
+    row = tuned.serve_settings("S2MLPv2")
+    print(f"[15b] compare --model s2_mlp_v2: rc {rc}; bf16 vs f32 top-1 "
+          f"{rec['bf16_argmax_agree']:.4f} (max {rec['bf16_max_rel']:.4g} of max|logit|), int8 "
+          f"{rec['int8_fps'] / rec['fps']:.4f}x bf16 with top-1 {rec['int8_argmax_agree_vs_bf16']:.4f} "
+          f"vs bf16: the rule gives {choice!r}; the committed SERVE row {row['dtype']!r} (its "
+          f"bf16 top-1 {row['bf16_argmax']})  [{name}]", flush=True)
+    check(rc == 0 and choice == row["dtype"], f"[15b] rule {choice} vs committed {row['dtype']}")
+    x = images(HARNESS_PREDICT, seed=15)
+    p = jt.Predictor(jt.S2MLPv2(), batch_size=HARNESS_PREDICT, preprocess=False)
+    ref = jt.S2MLPv2().eval()
+    mode = {"f32": config.parity_mode, "bf16": config.bf16_mode}[p.dtype]
+    if p.dtype == "bf16":
+        ref.to_bf16()
+    with mode(), torch.inference_mode():  # parity_mode: TF32 off for both
+        labels, _ = p.predict(x.cpu().numpy())
+        # the Predictor's own ranking: top-5 of the float32 softmax of the logits
+        want = torch.softmax(ref(x).float(), -1).topk(5, dim=-1).indices.cpu().numpy()
+    same = np.array_equal(labels, want)
+    print(f"[15b] Predictor(S2MLPv2()) resolves dtype {p.dtype!r}; top-5 labels on "
+          f"{HARNESS_PREDICT} images equal the {p.dtype} forward's: {same}; in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(p.dtype == row["dtype"], f"[15b] Predictor serves {p.dtype}, the row {row['dtype']}")
+    check(same, "[15b] Predictor's top-5 labels differ from the forward's")
+    return rec
+
+
+def harness_generator(serving, train, tmp):
+    """15c: gen_tuned on 15a's and 15b's records writes a module that
+    imports, whose rows are the rule's choices on those records."""
+    import importlib.util
+
+    from jittor_mlp_tpu_torch.tools import gen_tuned
+
+    out = f"{tmp}/tuned_15c.py"
+    check(gen_tuned.main(["--train", train, "--serving", serving, "--out", out]) == 0,
+          "[15c] gen_tuned failed")
+    spec = importlib.util.spec_from_file_location("tuned_15c", out)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    recs = compare_records(serving)
+    (trec,) = compare_records(train)
+    want = {r["model"]: gen_tuned.serve_row(r)["dtype"] for r in recs}
+    got = {k: v["dtype"] for k, v in mod.SERVE.items()}
+    print(f"[15c] gen_tuned on 15a's and 15b's records: SERVE {json.dumps(got)} (the rule: "
+          f"{json.dumps(want)}), TRAIN mlp_mixer remat {mod.TRAIN['mlp_mixer']['remat']} at "
+          f"b{mod.TRAIN['mlp_mixer']['batch']}", flush=True)
+    check(got == want, f"[15c] SERVE {got} vs the rule {want}")
+    check(mod.TRAIN["mlp_mixer"]["remat"] == trec["train_remat"]
+          and mod.train_settings("MLPMixerForImageClassification") is mod.TRAIN["mlp_mixer"],
+          f"[15c] TRAIN {mod.TRAIN}")
+
+
+def harness_create_model():
+    """15d: create_model --model MLPMixerForImageClassification --time."""
+    import io
+    import re
+
+    from jittor_mlp_tpu_torch.examples import create_model
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = create_model.main(["--model", "MLPMixerForImageClassification", "--time"])
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"[15d] {line}", flush=True)
+    m = re.search(r"^MLPMixerForImageClassification\s+([\d,]+)\s+([\d.]+)\s+\((\d+), (\d+)\)"
+                  r"\s+([\d.]+)$", out, re.M)
+    check(rc == 0 and m is not None, f"[15d] create_model rc {rc}: {out}")
+    params, shape, ms = int(m[1].replace(",", "")), (int(m[3]), int(m[4])), float(m[5])
+    check(params > 0 and shape == (8, 1000) and ms > 0, f"[15d] row {m[0]}")
+
+
+def phase_harness(jt, mods, name):
+    """Phase 15; returns the harness runs' launches of the Mixer's kernels."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        serving, train = f"{tmp}/serving.jsonl", f"{tmp}/train.jsonl"
+        counted = harness_mixer(mods, serving, train, name)
+        torch.cuda.empty_cache()
+        harness_s2(jt, serving, name)
+        torch.cuda.empty_cache()
+        harness_generator(serving, train, tmp)
+    harness_create_model()
+    torch.cuda.empty_cache()
+    print(f"[15] phase 15 in {time.perf_counter() - t0:.1f} s; main-path launches "
+          f"{json.dumps(counted)}", flush=True)
+    return counted
+
+
 def main():
     if len(sys.argv) == 5 and sys.argv[1] == "--tp-rank":  # a rank of phase 14b
         tp_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
@@ -4692,6 +4890,9 @@ def main():
     errs.update(tp_errs)
     timings.update(tp_timings)
     launches.update(tp_launches)
+    torch.cuda.empty_cache()
+    for kname, n in phase_harness(jt, mods, name).items():
+        launches[kname] = launches.get(kname, 0) + n
 
     sources = {k: (source, PALLAS + replaced)
                for k, (*_mid, source, replaced, _depth) in table.items()}

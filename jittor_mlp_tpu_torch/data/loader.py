@@ -2,8 +2,10 @@
 ``jittor_mlp_tpu/data/loader.py``).
 
 Two libraries, each built with ``g++`` at first use from the sources in
-``data/native/`` into ``build/native/`` at the repository root (gitignored),
-as ``<name>_<hash>.so`` with a hash of the source and the flags (the naming
+``data/native/`` into ``build/native/`` at the repository root (gitignored)
+in a checkout, or the per-user cache's ``jittor_mlp_tpu_torch/native`` once
+installed (``ops/kernels/_build.build_root``; ``JMT_NATIVE_BUILD_DIR``
+overrides both), as ``<name>_<hash>.so`` with a hash of the source and the flags (the naming
 of ``ops/kernels/_build.py``), and bound with ctypes:
 
 - ``fastloader``: uint8 NHWC → normalized float32 NCHW, and bilinear uint8
@@ -29,15 +31,16 @@ import threading
 
 import numpy as np
 
+from ..ops.kernels._build import build_root
+
 _NATIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "build", "native")
+BUILD_DIR = build_root("native", "JMT_NATIVE_BUILD_DIR")
 _LOCK = threading.Lock()
 _LIBS = {}  # name → CDLL, or None when the build failed
 
 
 def library_path(name, flags):
-    """``build/native/<name>_<hash>.so``: the hash covers the source and the
+    """``<BUILD_DIR>/<name>_<hash>.so``: the hash covers the source and the
     flags, so an edited source builds anew."""
     with open(os.path.join(_NATIVE, f"{name}.cpp"), "rb") as f:
         h = hashlib.sha256(f.read() + " ".join(flags).encode())

@@ -1,10 +1,13 @@
 """Build the port's CUDA sources with nvcc into shared libraries for ctypes.
 
-Each library is compiled at first use, from the sources in this checkout, into
-``build/kernels/`` at the repository root:
+Each library is compiled at first use, from the package's ``csrc/``, into
+``build/kernels/`` at the repository root when the package lies in a checkout
+(a ``pyproject.toml`` beside it), else, installed, into the per-user cache
+``$XDG_CACHE_HOME/jittor_mlp_tpu_torch/kernels`` (``~/.cache`` without
+``XDG_CACHE_HOME``); ``JMT_KERNEL_BUILD_DIR`` overrides both:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/<name>_<hash>.so <sources>
+         -Xcompiler -fPIC -o <build dir>/<name>_<hash>.so <sources>
 
 The file name carries a hash of the sources, the shared headers (``*.cuh``)
 and the flags, so an edited ``.cu`` or ``.cuh`` is rebuilt; so copies of the
@@ -26,8 +29,24 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.environ.get("JMT_KERNEL_BUILD_DIR") or os.path.join(os.path.dirname(_PKG),
-                                                                    "build", "kernels")
+
+
+def build_root(kind, override):
+    """Where the package's compiled libraries of ``kind`` ("kernels",
+    "native") go: the environment variable ``override`` if set; in a
+    checkout (the repository's ``pyproject.toml`` beside the package)
+    ``build/<kind>/`` at its root; installed, the per-user cache
+    ``$XDG_CACHE_HOME`` (or ``~/.cache``) ``/jittor_mlp_tpu_torch/<kind>``."""
+    if os.environ.get(override):
+        return os.environ[override]
+    root = os.path.dirname(_PKG)
+    if os.path.exists(os.path.join(root, "pyproject.toml")):
+        return os.path.join(root, "build", kind)
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(os.path.expanduser("~"), ".cache")
+    return os.path.join(cache, "jittor_mlp_tpu_torch", kind)
+
+
+BUILD_DIR = build_root("kernels", "JMT_KERNEL_BUILD_DIR")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 # The GEMM cores a product may take (csrc/gemm_sm90.cuh's routes, in order):

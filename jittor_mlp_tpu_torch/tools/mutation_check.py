@@ -1,7 +1,9 @@
 """Does chip_smoke.py catch a wrong kernel? Run its kernel phase (2) and,
 for the Mixer training kernels, its gradient bands (6b), for the axial
-shift its AS-MLP-T gradient bands (6g), against deliberately broken copies
-of the kernels (the kernel lab's and the GEMM core's modes among them).
+shift its AS-MLP-T gradient bands (6g), for the Mixer block's tensor-parallel
+split entry and finishing pass its split-block check (14a), against
+deliberately broken copies of the kernels (the kernel lab's and the GEMM
+core's modes among them).
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
@@ -140,7 +142,17 @@ MUTANTS = {
     "M31 the WMMA core's grouped sum takes only the first image of each group": (
         "gemm_core", "csrc/gemm_bf16.cuh",
         "steps = (nimg - 1) * KT + (int)((k_last + BK - 1) / BK);", "steps = KT;"),
+    # the tensor-parallel split of the Mixer block (phase 14a)
+    "M32 the split entry's f32 partial is stored without its last 64 columns": (
+        "fused_mixer_block_tp", "csrc/mixer_block.cu",
+        "JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,",
+        "JMT_CHECK(sm90::gemm_tn(s, B * N, D - 64, CD, c, CD, wc2, CD,"),
+    "M33 the finishing pass adds the bias twice": (
+        "mixer_block_tp_finish", "csrc/mixer_block.cu",
+        "v[e] = at8(hv, e) + (sv[e] + at8(bv, e));",
+        "v[e] = at8(hv, e) + (sv[e] + at8(bv, e) + at8(bv, e));"),
 }
+TP_KERNELS = {"fused_mixer_block_tp", "mixer_block_tp_finish"}
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
 
 RUN = """
@@ -162,6 +174,8 @@ if "gemm_core" in names:
     cs.phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"])
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
+if {"fused_mixer_block_tp", "mixer_block_tp_finish"} & set(names):
+    cs.tp_kernels(mods, "mutation check")
 if "bands" in sys.argv[2].split(","):
     cs.grad_bands(jt)
 if "shift_bands" in sys.argv[2].split(","):
@@ -173,7 +187,8 @@ if "shift_bands" in sys.argv[2].split(","):
 # name run, beyond the name's own module in chip_smoke's kernel table
 MODULES = {"gemm_tn": ("gemm_sm90",), "gemm_core": ("gemm_sm90", "mixer_block_bwd"),
            "axial_shift": ("axial_shift",), "bands": ("mixer_block", "mixer_block_bwd"),
-           "shift_bands": ("axial_shift",)}
+           "shift_bands": ("axial_shift",),
+           **{k: ("mixer_block",) for k in TP_KERNELS}}
 
 
 def _modules(names, bands, cs):

@@ -49,13 +49,16 @@ def test_padding_is_invisible_and_oversize_raises():
         tp.predict(_images(5))
 
 
-def test_options_and_default_dtype():
+def test_options_and_default_dtype(monkeypatch):
+    from jittor_mlp_tpu_torch import tuned
+
     model = jt.MLPMixerForImageClassification(**KW, device="cpu")
     with pytest.raises(ValueError):
         jt.Predictor(model, weights="int4")
     with pytest.raises(ValueError):
         jt.Predictor(model, compute="fp8")
-    # the port's tuned.SERVE is empty: every model serves in bf16
+    # a model without a SERVE row serves in bf16
+    monkeypatch.setattr(tuned, "SERVE", {})
     p = jt.Predictor(model, batch_size=2, image_size=32, top_k=3)
     assert p.dtype == "bf16"
     assert next(p.model.parameters()).dtype.is_floating_point
@@ -67,6 +70,8 @@ def test_options_and_default_dtype():
 def test_tuned_tables_resolve_by_key_or_factory(monkeypatch):
     from jittor_mlp_tpu_torch import tuned
 
+    monkeypatch.setattr(tuned, "SERVE", {})
+    monkeypatch.setattr(tuned, "TRAIN", {})
     for name in ("mlp_mixer", "MLPMixerForImageClassification"):
         assert tuned.serve_settings(name) is None
         assert tuned.train_settings(name) is None

@@ -58,6 +58,7 @@ from jittor_mlp_tpu.parallel.train import make_train_step as jax_train_step
 from jittor_mlp_tpu.parallel.train import split_params
 from jittor_mlp_tpu_torch import config
 from jittor_mlp_tpu_torch import quant as tquant
+from jittor_mlp_tpu_torch import tuned
 from jittor_mlp_tpu_torch.convert import state_dict_from_jax
 from jittor_mlp_tpu_torch.core import nnf as tnnf
 from jittor_mlp_tpu_torch.parallel import make_train_step
@@ -281,7 +282,14 @@ def check_int8_state_dict(name, jax_factory, port_factory, kwargs, dtype="float3
 def check_predictor(port_factory, kwargs, image_size, opts):
     model = port_factory(**kwargs, **CPU)
     p = jt.Predictor(model, batch_size=4, image_size=image_size, top_k=3, **opts)
-    assert p.dtype == ("int8" if opts.get("compute") else "bf16")
+    # the default dtype is the model's row of the port's tuned.SERVE (bf16
+    # without one); compute="int8" serves int8, and weights="int8" an int8
+    # row's dtype in bf16
+    row = tuned.serve_settings(model.name)
+    default = row["dtype"] if row else "bf16"
+    want = ("int8" if opts.get("compute") else
+            "bf16" if default == "int8" and opts.get("weights") else default)
+    assert p.dtype == want
     imgs = np.random.default_rng(4).integers(0, 256, (4, image_size, image_size, 3),
                                              dtype=np.uint8)
     labels, probs = p.predict(imgs)
