@@ -40,7 +40,7 @@ Sequencer2D-S. Run from the repository root, with no arguments:
 
 Phases (each one fails loudly; there is no CPU fallback):
   1. the card, the kernels' build time, and the tile, ring stages and
-     shared memory of the channel products' GEMM core (gemm_sm90.cuh);
+     shared memory of the blocks' GEMM core (gemm_sm90.cuh);
   2. every kernel vs its twin at the full block shape (B=8), two ragged
      small shapes and, for the W8A8 Mixer and ResMLP kernels and the
      Mixer training kernels, a chunked shape (CD ≥ 2048, ragged chunk and
@@ -80,14 +80,20 @@ Phases (each one fails loudly; there is no CPU fallback):
      its groups (partials of several images and a short last one, printed
      and checked to occur), a ragged one, the b131 dWt2 on the WMMA core's
      gemm_sum and rows 72 bytes apart on the WMMA route. Kernel 1 and the
-     four training kernels also run at D=36, the bf16 gMLP
+     four training kernels also run at the forward's three route cases
+     (MIXER_ROUTE_SHAPES: N = 33 with every product of the forward on the
+     wgmma core; TD = 50, its second token product on WMMA; D = 36, every
+     product on WMMA), the bf16 gMLP
      and ResMLP blocks at D=36 and at D=44, F=100, where their bf16
      products (some or all) take the WMMA route; at every shape the route
      counts of those kernels and of the W8A8 gMLP, Mixer and ResMLP blocks
      (three, four and three s8 wgmma products a call) are checked; the
      ResMLP blocks' three products alone (gemm_bf16 with Wt shared in rows
      of 200 and h an N-major entry an image; gemm_s8) at B=8 and b256 on
-     both cores of each type;
+     both cores of each type, and kernel 1's two token products alone
+     (gemm_bf16: Wt1 shared in rows of round_up(N, 8), Wt2 in rows of TD,
+     xn and t N-major entries an image) at B=8, N=33 and b256 on the wgmma
+     core, at B=8 on WMMA too;
   3. logits on 64 random images: Mixer-B/16 bf16 kernel path vs the plain
      bf16 path and the float32 forward (TF32 off); Mixer-B/16 int8 vs the
      bf16 kernel path and f32; ResMLP-S24 (γ = 0.1, perturbed affines)
@@ -99,8 +105,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      kernel path's deviation from f32. Bands: bf16 5e-2 of
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
      per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
-     bf16 forward runs 2 x depth channel products on the wgmma core and
-     none on the WMMA core, a Mixer-B/16 int8 forward 4 x depth products on
+     bf16 forward runs 4 x depth products (two token, two channel) on the
+     wgmma core and none on the WMMA core, a Mixer-B/16 int8 forward 4 x
+     depth products on
      the s8 wgmma core and none on mma.sync, a gMLP-S or ResMLP-S24 bf16
      forward 3 x depth on the wgmma core and none on WMMA, and a gMLP-S or
      ResMLP-S24 int8 forward 3 x depth on the s8 wgmma core and none on
@@ -117,17 +124,21 @@ Phases (each one fails loudly; there is no CPU fallback):
      the bf16 ones; (g) AS-MLP-T int8 and bf16 Predictors on one model
      served at once, shift launches 24 × the forwards of both, and (h) its
      weights="int8" Predictor agrees with the bf16 one;
-  5. CUDA-event timings at b256: each kernel vs its twin (the shift at
+  5. CUDA-event timings at b256: each kernel vs its twin, kernels 1 and 5
+     (one forward body) also in turns on one input (the shift at
      AS-MLP-T's stage-1 shape, both axes; the W8A8 gMLP block beside the
      bytes of its f32 intermediates, the W8A8 Mixer, bf16 gMLP and both
      ResMLP blocks beside the bytes of their data flows); the GEMM core at
      the two channel products, on each core and against cuBLAS's
      torch.matmul; its other modes at gMLP-S's and ResMLP-S24's three int8
      products and the W8A8 Mixer block's four (against mma.sync and
-     torch._int_mm), gMLP-S's and ResMLP-S24's three bf16 products and
-     Mixer-B/16's four channel backward products (against WMMA and
-     torch.matmul); the dual mode at the two backward pairs (against WMMA and
-     two torch.matmul calls) and the Group mode at dWt2 and dWt1 (against
+     torch._int_mm), gMLP-S's and ResMLP-S24's three bf16 products,
+     Mixer-B/16's two token products (f32 output, against WMMA and the
+     batched torch.matmul(wt1, xn) and torch.matmul(wt2, t), beside their
+     data flow's floor in kernel 1) and its four channel backward products
+     (against WMMA and torch.matmul); the dual mode at the two backward
+     pairs (against WMMA and two torch.matmul calls) and the Group mode at
+     dWt2 and dWt1 (against
      WMMA's gemm_sum and torch.einsum); rows 6 and 7's data-flow floors
      before and after their redesign; the forwards
      kernel vs plain (Mixer-B/16, gMLP-S and AS-MLP-T bf16) and int8 vs
@@ -144,7 +155,7 @@ Phases (each one fails loudly; there is no CPU fallback):
      and on: the loss descends, and remat gives the same losses; (d) the
      launches per step, depth × (1, or 2 for a forward kernel under
      remat), and the products of the block forward and the three backwards
-     (2, 5, 3 and 4 a block: 14), all on the wgmma core, with a dual launch
+     (4, 5, 3 and 4 a block: 16), all on the wgmma core, with a dual launch
      a token or channel data backward and two Group launches a token
      backward; (e) one
      ResMLP-S24 (γ = 0.1) and one gMLP-S step, gradients against their
@@ -311,8 +322,11 @@ Phases (each one fails loudly; there is no CPU fallback):
      partial), the partials summed in rank order and the finishing pass,
      against row 1's whole ``fused_mixer_block`` and the plain split block
      within 1.6e-2 of max(1, max|ref|); two calls bit-equal; the entry
-     and the pass against their twins; every channel product on the wgmma
-     core; ms per rank of the entry at P = 2 and 4 beside row 1's, the
+     and the pass against their twins; every product on the wgmma core;
+     and before it rank 0's split entry at P = 2 at the forward's three
+     route cases (MIXER_ROUTE_SHAPES) against its twin in the same band,
+     two calls bit-equal, its products on the cores ROUTED gives at CD / 2;
+     ms per rank of the entry at P = 2 and 4 beside row 1's, the
      pass's ms, in turns; (b) two processes of this script (``--tp-rank``)
      in a gloo world sharing this card, the 1 × 2 ('data', 'model') mesh
      (NCCL takes one card a rank): ``Model.shard(mesh)`` of Mixer-B/16 at
@@ -337,7 +351,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      CPU's at b2 within 1e-3 of max|logit|), then as the train sweep runs
      it (b32, --try-remat, 5 steps a timed run): every field the generator
      reads present and finite, the record naming this card and its power
-     limit, rows 1 and 2 launched 12 times a bf16 or int8 forward; (b)
+     limit, rows 1 and 2 launched 12 times a bf16 or int8 forward, each
+     launch's four products on its wgmma core; (b)
      compare's serving run on S2-MLPv2 (seed 0): the rule's choice on this
      reading equals the committed ``tuned.SERVE`` row, and
      ``Predictor(S2MLPv2())`` resolves that dtype, its top-5 labels on 16
@@ -554,10 +569,17 @@ def _bf16_routes(*on_sm90):
     return {"sm90": sum(on_sm90), "wmma": len(on_sm90) - sum(on_sm90)}
 
 
+def _mixer_forward_routes(s):
+    """The Mixer block forward's four products (mixer_forward.cuh): Wt1·xn
+    an image (Wt1 copied into rows of round_up(N, 8), xn rows D apart),
+    Wt2·t an image (Wt2 rows TD apart, t rows D apart), hn·Wc1ᵀ (rows D
+    apart), c·Wc2ᵀ (rows CD apart; CD_r for the split entry)."""
+    return _bf16_routes(s[2] % 8 == 0, s[2] % 8 == s[3] % 8 == 0, s[2] % 8 == 0, s[4] % 8 == 0)
+
+
 ROUTED = {
-    # hn·Wc1ᵀ (rows D apart), c·Wc2ᵀ (rows CD apart)
-    "fused_mixer_block": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
-    "fwd_with_h": lambda s: _bf16_routes(s[2] % 8 == 0, s[4] % 8 == 0),
+    "fused_mixer_block": _mixer_forward_routes,
+    "fwd_with_h": _mixer_forward_routes,
     # the dual product (two: hn·Wc1ᵀ, g·Wc2 with Wc2ᵀ copied; rows D apart),
     # then dhn = dcp·Wc1 (dcp rows CD apart)
     "chan_data_bwd": lambda s: _bf16_routes(s[2] % 8 == 0, s[2] % 8 == 0,
@@ -580,13 +602,13 @@ ROUTED = {
 # products on the GEMM cores per block of each routed forward kernel at the
 # models' widths (every operand one TMA can load), by library: (route,
 # products a launch); and on the bf16 wgmma core per Mixer-B/16 block of a
-# kernel-route step: the forward's two, the token backward's five (a dual
-# product counts two), the channel data backward's three and the channel
-# weight backward's four: 14
-BLOCK_PRODUCTS = {"mixer_block": ("sm90", 2), "mixer_block_int8": ("sm90_s8", 4),
+# kernel-route step: the forward's four (two token, two channel), the token
+# backward's five (a dual product counts two), the channel data backward's
+# three and the channel weight backward's four: 16
+BLOCK_PRODUCTS = {"mixer_block": ("sm90", 4), "mixer_block_int8": ("sm90_s8", 4),
                   "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3),
                   "resmlp_block": ("sm90", 3), "resmlp_block_int8": ("sm90_s8", 3)}
-BWD_PRODUCTS = {"fwd_with_h": 2, "token_bwd": 5, "chan_data_bwd": 3, "chan_wgt_bwd": 4}
+BWD_PRODUCTS = {"fwd_with_h": 4, "token_bwd": 5, "chan_data_bwd": 3, "chan_wgt_bwd": 4}
 # the wgmma core's dual and Group launches per launch of each backward kernel
 BWD_MODES = {"token_bwd": {"dual": 1, "group": 2}, "chan_data_bwd": {"dual": 1, "group": 0}}
 # the kernels line's rows of a block library's products on the core
@@ -602,15 +624,19 @@ GEMM_SHAPES = [(1568, 3072, 768), (1568, 768, 3072), (97, 72, 40), (165, 200, 13
 GEMM_WMMA_SHAPE = (33, 40, 50)  # K % 8 != 0: rows 100 bytes apart, the WMMA route
 GEMM_TIMED = [(256 * 196, 3072, 768), (256 * 196, 768, 3072)]  # b256's channel products
 GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_block)"
+# Kernel 1's, the forward-with-h's and the split entry's route cases
+# (ROUTED): both token products on the wgmma core at a ragged N (N = 33:
+# Wt1 copied into rows of 40); the second on the WMMA core (TD = 50: Wt2's
+# rows 100 bytes apart); every product on the WMMA core (D = 36, CD = 100:
+# rows 72 and 200 bytes apart, which TMA cannot load).
+MIXER_ROUTE_SHAPES = [(4, 33, 136, 48, 200), (5, 33, 136, 50, 200), (2, 33, 36, 50, 100)]
 
 
 def kernel_table(mods):
     """name → (module, wrapper, twin, inputs, shapes, source, replaced, depth)."""
     mixer_shapes = [(8, 196, 768, 384, 3072), (3, 20, 40, 24, 72), (5, 33, 136, 50, 200)]
-    # kernel 1 and the training kernels also at D = 36, CD = 100: rows 72
-    # and 200 bytes apart, which TMA cannot load, so their bf16 products
-    # take the WMMA core (ROUTED)
-    fwd_shapes = mixer_shapes + [(2, 33, 36, 50, 100)]
+    # kernel 1 and the training kernels also at the forward's route cases
+    fwd_shapes = mixer_shapes[:2] + MIXER_ROUTE_SHAPES
     res_shapes = [(8, 196, 384, 1536), (3, 20, 40, 72), (5, 33, 136, 200)]
     # the bf16 ResMLP block also at D = 36 (the token product's h and FF1's
     # rows 72 bytes apart: the WMMA route, FF2 on wgmma) and D = 44, F = 100
@@ -788,6 +814,14 @@ RES_BF16 = [(8, 196, 384, 196, 200, True), (1, 1568, 1536, 384, 384, False),
             (1, 1568, 384, 1536, 1536, False)]
 RES_BF16_TIMED = [(256, 196, 384, 196, 200, True), (1, 256 * 196, 1536, 384, 384, False),
                   (1, 256 * 196, 384, 1536, 1536, False)]
+# Kernel 1's two token products alone (the forward-with-h's and the split
+# entry's too), as GMLP_BF16's: Wt1·xn_b (Wt1 shared in rows of
+# round_up(N, 8), xn an N-major entry an image; K = N tokens) and Wt2·t_b
+# (Wt2 shared in rows of TD, t an N-major entry an image; M = N tokens),
+# at Mixer-B/16's B = 8, at N = 33 (Wt1 in rows of 40), and at b256
+MIXER_TOKEN_BF16 = [(8, 384, 768, 196, 200, True), (8, 196, 768, 384, 384, True),
+                    (4, 48, 136, 33, 40, True), (4, 33, 136, 48, 48, True)]
+MIXER_TOKEN_TIMED = [(256, 384, 768, 196, 200, True), (256, 196, 768, 384, 384, True)]
 RES_S8 = [(8, 196, 384, 224, False, True, None), (1, 1568, 1536, 384, False, False, None),
           (1, 1568, 384, 1536, False, False, None)]
 RES_S8_TIMED = [(256, 196, 384, 224, False, True, None),
@@ -810,6 +844,7 @@ S8_REPLACES = PALLAS + "gmlp_block_int8.py:61 (the products of fused_gmlp_block_
 MIXER_S8_REPLACES = PALLAS + "mixer_block_int8.py:121 (the products of fused_mixer_block_int8)"
 GMLP_BF16_REPLACES = PALLAS + "gmlp_block.py:57 (the products of fused_gmlp_block)"
 RES_BF16_REPLACES = PALLAS + "resmlp_block.py:54 (the products of fused_resmlp_block)"
+MIXER_TOKEN_REPLACES = PALLAS + "mixer_block.py:157 (the token half of fused_mixer_block)"
 RES_S8_REPLACES = PALLAS + "resmlp_block_int8.py:69 (the products of fused_resmlp_block_int8)"
 BWD_REPLACES = (PALLAS + "mixer_block_bwd.py:397 (the products of _chan_wgt_bwd; with :220 "
                 "and :306, the products of _token_bwd and _chan_data_bwd)")
@@ -1004,7 +1039,8 @@ def phase_core(mod):
     WMMA core) and at CORE_BF16_WMMA (counted on the WMMA route; core="sm90"
     must raise), each partial within TOL of gemm_bf16_ref's; gemm_bf16 at
     the bf16 gMLP and ResMLP blocks' products (GMLP_BF16, RES_BF16, and
-    at b256) on the auto route (those at B = 8 also on WMMA), within TOL;
+    at b256) and kernel 1's two token products (MIXER_TOKEN_BF16, and at
+    b256) on the auto route (those at B = 8 also on WMMA), within TOL;
     gemm_s8 at CORE_S8, MIXER_S8 (the chunked mode among them), RES_S8 and
     at b256 (CORE_S8_TIMED, MIXER_S8_TIMED, RES_S8_TIMED) on the s8 wgmma
     core (the first three of CORE_S8, the two Mixer chunked ones at B = 8
@@ -1014,7 +1050,7 @@ def phase_core(mod):
     largest max|Δ|."""
     worst = dict.fromkeys(("gemm_bwd_sm90", "gemm_bf16_gmlp_sm90", "gemm_s8_sm90",
                            "gemm_s8_mixer_sm90", "gemm_bf16_resmlp_sm90",
-                           "gemm_s8_resmlp_sm90"), 0.0)
+                           "gemm_s8_resmlp_sm90", "gemm_bf16_mixer_token_sm90"), 0.0)
 
     def bf16_routes(route):
         return {"sm90": (route == "sm90") * 2, "wmma": (route == "wmma") * 2}
@@ -1044,7 +1080,11 @@ def phase_core(mod):
              + [(c, "legacy", "wmma", "gMLP", "gemm_bf16_gmlp_sm90") for c in GMLP_BF16[:3]]
              + [(c, "auto", "sm90", "ResMLP", "gemm_bf16_resmlp_sm90")
                 for c in RES_BF16 + RES_BF16_TIMED]
-             + [(c, "legacy", "wmma", "ResMLP", "gemm_bf16_resmlp_sm90") for c in RES_BF16])
+             + [(c, "legacy", "wmma", "ResMLP", "gemm_bf16_resmlp_sm90") for c in RES_BF16]
+             + [(c, "auto", "sm90", "Mixer", "gemm_bf16_mixer_token_sm90")
+                for c in MIXER_TOKEN_BF16 + MIXER_TOKEN_TIMED]
+             + [(c, "legacy", "wmma", "Mixer", "gemm_bf16_mixer_token_sm90")
+                for c in MIXER_TOKEN_BF16[:2]])
     for (nz, M, N, K, lda, b_mn), core, route, block, row in cases:
         a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=nz + M + N + K)
         tag = (f"gemm_bf16 {nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn} "
@@ -1291,8 +1331,9 @@ def phase_logits(jt, mods):
         q0 = mbq.routes()
         with config.int8_mode():
             lq = forward_counted(kernel, x.bfloat16(), mbq, DEPTH)
-        check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1, 2 * DEPTH)
-        check(mb.routes() == routes1, "the int8 Mixer forward ran kernel 1's channel products")
+        check_routes("[3] Mixer-B/16 bf16 kernel-path forward", routes0, routes1,
+                     BLOCK_PRODUCTS["mixer_block"][1] * DEPTH)
+        check(mb.routes() == routes1, "the int8 Mixer forward ran kernel 1's products")
         check_routes("[3] Mixer-B/16 int8 kernel-path forward", q0, mbq.routes(),
                      BLOCK_PRODUCTS["mixer_block_int8"][1] * DEPTH, route="sm90_s8")
         lp = plain.forward(x.bfloat16()).float()
@@ -1497,9 +1538,10 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
     print(f"[4a] Predictor.latency_stats: {json.dumps(pred.latency_stats())}", flush=True)
     launches["fused_mixer_block"] = check_launches("[4a] Mixer bf16", mods["mixer_block"],
                                                    DEPTH, pred)
-    launches["gemm_tn_sm90"] = check_routes(
-        "[4a] Mixer bf16", routes0, mods["mixer_block"].routes(),
-        2 * launches["fused_mixer_block"])
+    # a launch's two channel products and two token products, each pair a row
+    moved = check_routes("[4a] Mixer bf16", routes0, mods["mixer_block"].routes(),
+                         BLOCK_PRODUCTS["mixer_block"][1] * launches["fused_mixer_block"])
+    launches["gemm_tn_sm90"] = launches["gemm_bf16_mixer_token_sm90"] = moved // 2
 
     # (b), (c): an int8 and a bf16 Predictor on one model, at the same time
     for tag, model, bf_mod, q_mod, depth, bf_name, q_name in (
@@ -1769,6 +1811,15 @@ def phase_timing(jt, table, name):
         timings[kname] = (ms, plain_ms, bound_ms, bound_by)
         del x, w, outs
         torch.cuda.empty_cache()
+    # rows 1 and 5 run one forward body (mixer_forward.cuh): in turns on one input
+    mb, bwd = table["fused_mixer_block"][0], table["fwd_with_h"][0]
+    x, w = block_inputs(256, *table["fused_mixer_block"][4][0][1:], seed=7)
+    ms, runs = _timed_turns({"fused_mixer_block": lambda: mb.fused_mixer_block(x, *w),
+                             "fwd_with_h": lambda: bwd.fwd_with_h(x, *w)}, 10)
+    print(f"[5] fused_mixer_block and fwd_with_h b256 in turns on one input: "
+          f"{ms['fused_mixer_block']:.4f} ms and {ms['fwd_with_h']:.4f} ms (runs "
+          f"{json.dumps(runs)})  [{name}]", flush=True)
+    del x, w
 
     xb = torch.randn(256, 3, 224, 224, device="cuda").bfloat16()
 
@@ -2083,10 +2134,12 @@ def core_timing(mod, name):
     """Phase 5 for the core's modes at b256, by block: gMLP-S's three int8
     products (CORE_S8_TIMED) and the W8A8 Mixer-B/16 block's four
     (MIXER_S8_TIMED, the second chunked) on the s8 wgmma core, on mma.sync
-    and as torch._int_mm; gMLP-S's three bf16 products (GMLP_BF16_TIMED) and
-    Mixer-B/16's four channel backward products (CORE_BF16_TIMED) on the
-    wgmma core, the WMMA core and torch.matmul; in turns, then each twin.
-    Returns {row: ((ms, twin ms, bound ms, bound_by), library ms)}."""
+    and as torch._int_mm; gMLP-S's three bf16 products (GMLP_BF16_TIMED),
+    ResMLP-S24's three, Mixer-B/16's two token products (MIXER_TOKEN_TIMED,
+    beside their data flow's floor in kernel 1) and its four channel
+    backward products (CORE_BF16_TIMED) on the wgmma core, the WMMA core and
+    torch.matmul; in turns, then each twin. Returns {row: ((ms, twin ms,
+    bound ms, bound_by), library ms)}."""
     rows = {"gemm_s8_sm90": _s8_timing(mod, name, CORE_S8_TIMED, "gMLP-S's three products")}
     # The token product's 196 tokens take two 192-row tiles, the second
     # nearly all zero fill: the same product on the first 192 tokens alone
@@ -2120,6 +2173,22 @@ def core_timing(mod, name):
     rows["gemm_bf16_resmlp_sm90"] = _bf16_timing(mod, name, res,
                                                  "ResMLP-S24's three bf16 products")
     del res
+    tok = []
+    for nz, M, N, K, lda, b_mn in MIXER_TOKEN_TIMED:
+        a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=7)
+        tok.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
+                    {"b_mn": b_mn}))
+    rows["gemm_bf16_mixer_token_sm90"] = _bf16_timing(mod, name, tok,
+                                                      "Mixer-B/16's two token products")
+    del tok
+    B, TD, D, N = MIXER_TOKEN_TIMED[0][:4]  # Wt1·xn_b: (M, N, K) = (TD, D, N)
+    flow = 2 * (3 * B * N * D + 2 * B * TD * D)  # xn, x read; h written; t written and read
+    ops = 4 * B * N * D * TD
+    print(f"[5] gemm_bf16 b256, Mixer-B/16's two token products in kernel 1 (bf16 t, the GELU "
+          f"and residual epilogues): operations {ops / 1e9:.2f} GFLOP, "
+          f"{ops / PEAK['bf16'] * 1e3:.4f} ms at the bf16 peak; data flow (xn and x read, t "
+          f"written and read, h written) {flow / 1e9:.4f} GB, {flow / HBM_BYTES_S * 1e3:.4f} ms "
+          f"at the HBM rate  [{name}]", flush=True)
     bwd = []
     for M, N, K, a_mn, b_mn, slab in CORE_BF16_TIMED:
         a, b = bf16_core_inputs(M, N, K, a_mn, b_mn, seed=7)
@@ -2190,7 +2259,7 @@ def phase_lab_stack(mods, name):
     check_routes("[7] the lab's kernels", routes0["lab"], kl.routes(),
                  2 * sum(counts[fn] for fn in LAB_KERNELS))
     check_routes("[7] kernel 1 in the lab", routes0["kernel 1"], mb.routes(),
-                 2 * counts["fused_mixer_block"])
+                 BLOCK_PRODUCTS["mixer_block"][1] * counts["fused_mixer_block"])
     ref = stats["prod2"]["img_s"]
     print("[7] variant, img/s, stack TFLOP/s, ratio to prod2:", flush=True)
     for v, st in stats.items():
@@ -2845,7 +2914,7 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             check(counts == want, f"{tag}: launches {counts}, want {want}")
             # the kernel route's library also runs the channel backwards' products
             products = sum(BWD_PRODUCTS.get(k, 0) * counts[k] for k in TRAIN_KERNELS) \
-                if route == "kernel" else 2 * fwd
+                if route == "kernel" else BLOCK_PRODUCTS["mixer_block"][1] * fwd
             moved = check_routes(f"[6d] {tag}, block forwards and channel backwards", routes0,
                                  fwd_mod.routes(), products)
             runs[(route, remat)] = losses
@@ -4321,18 +4390,50 @@ def tp_split_block(x, slices, plain=False):
     return tensor.split_mixer_block(x, slices[0], reduce, plain=plain)
 
 
+def tp_entry_routes(mb):
+    """14a at the forward's route cases (MIXER_ROUTE_SHAPES), rank 0's slice
+    at P = 2: the split entry's h and f32 partial against its twin within
+    TOL of max(1, max|ref|), two calls bit-equal, its four products a call on
+    the cores ROUTED gives at CD_r. Returns the largest max|Δ|."""
+    worst = 0.0
+    for shape in MIXER_ROUTE_SHAPES:
+        x, w = block_inputs(*shape, seed=sum(shape))
+        wr = tp_slices(w, 2)[0][:-1]
+        before = mb.routes()
+        h, p = mb.PARTIAL_OP(x, *wr)
+        h2, p2 = mb.PARTIAL_OP(x, *wr)
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in mb.routes().items()}
+        want = {k: 2 * v for k, v in ROUTED["fused_mixer_block"](
+            (*shape[:4], wr[8].shape[0])).items()}
+        h_ref, p_ref = mb.mixer_block_partial_ref(x, *wr)
+        rels = [(a.float() - b.float()).abs().max().item() / max(1.0, b.float().abs().max().item())
+                for a, b in ((h, h_ref), (p, p_ref))]
+        worst = max(worst, (h.float() - h_ref.float()).abs().max().item(),
+                    (p - p_ref).abs().max().item())
+        same = torch.equal(h, h2) and torch.equal(p, p2)
+        print(f"[14a] split entry at {shape}, rank 0 of P = 2: h, partial vs twin max|d|/max(1,"
+              f"max|ref|) {rels[0]:.6g} {rels[1]:.6g} (limit {TOL}); two calls bit-equal {same}; "
+              f"products of two calls {json.dumps(moved)} (want {json.dumps(want)})", flush=True)
+        check(max(rels) <= TOL and same and moved == want,
+              f"[14a] split entry at {shape}: {rels}, bit-equal {same}, products {moved}")
+    return worst
+
+
 def tp_kernels(mods, name):
-    """14a: the split entry and the finishing pass at Mixer-B/16's block
-    shape, b256 bf16, in one process: P = 2 and 4 ranks' partials summed
-    in rank order against row 1's whole kernel and the plain split block;
-    two calls bit-equal; every channel product on the wgmma core; ms per
-    rank beside row 1's. Returns ({row: max_abs_err}, {row: timing})."""
+    """14a: the split entry at the forward's route cases (``tp_entry_routes``);
+    the split entry and the finishing pass at Mixer-B/16's block shape, b256
+    bf16, in one process: P = 2 and 4 ranks' partials summed in rank order
+    against row 1's whole kernel and the plain split block; two calls
+    bit-equal; every product on the wgmma core; ms per rank beside row 1's.
+    Returns ({row: max_abs_err}, {row: timing})."""
     mb = mods["mixer_block"]
+    errs = {"fused_mixer_block_tp": tp_entry_routes(mb), "mixer_block_tp_finish": 0.0}
     shape = (TP_BATCH, 196, MIXER_B16["d_model"], MIXER_B16["token_dim"],
              4 * MIXER_B16["d_model"])
     x, w = block_inputs(*shape, seed=0)
     whole = mb.fused_mixer_block(x, *w)
-    errs = {"fused_mixer_block_tp": 0.0, "mixer_block_tp_finish": 0.0}
+    per = BLOCK_PRODUCTS["mixer_block"][1]  # a split entry's products, as a whole launch's
     for P in TP_RANKS:
         slices = tp_slices(w, P)
         before = mb.routes()
@@ -4361,12 +4462,12 @@ def tp_kernels(mods, name):
             check(err <= lim, f"[14a] P = {P} vs {ref_tag}: {err} > {lim}")
         print(f"[14a] P = {P}: two calls bit-equal {torch.equal(got, again)}; rank 0's entry vs "
               f"its twin max|d| {entry_err:.6g} (h and the f32 partial; limit {entry_lim:.6g}), "
-              f"the finishing pass vs its twin {fin_err:.6g} (limit 0); channel products "
-              f"{json.dumps(moved)} (want sm90 {4 * P}, wmma 0)", flush=True)
+              f"the finishing pass vs its twin {fin_err:.6g} (limit 0); products "
+              f"{json.dumps(moved)} (want sm90 {2 * per * P}, wmma 0)", flush=True)
         check(torch.equal(got, again), f"[14a] P = {P}: two calls differ")
         check(entry_err <= entry_lim and fin_err == 0.0, f"[14a] P = {P}: entry {entry_err}, "
               f"finish {fin_err}")
-        check(moved == {"sm90": 4 * P, "wmma": 0}, f"[14a] P = {P}: products {moved}")
+        check(moved == {"sm90": 2 * per * P, "wmma": 0}, f"[14a] P = {P}: products {moved}")
         del got, again, plain, h, p, h_ref, p_ref, fin, fin_ref
     # times in turns: row 1 whole, each P's entry on one rank's slice, the pass
     fns = {"row 1 whole": lambda: mb.fused_mixer_block(x, *w)}
@@ -4674,6 +4775,8 @@ def harness_mixer(mods, serving, train, name):
 
     t0 = time.perf_counter()
     reset_counts(mods)
+    libs = ("mixer_block", "mixer_block_int8")
+    routes0 = {lib: mods[lib].routes() for lib in libs}
     rc, rec = harness_record(compare, ["--model", "mlp_mixer", "--batch", "256", "--iters",
                                        str(HARNESS_ITERS), "--int8", "--serving-numerics"],
                              serving)
@@ -4695,6 +4798,9 @@ def harness_mixer(mods, serving, train, name):
     for k in GENERATOR_FIELDS:
         check(np.isfinite(rec[k]) and rec[k] > 0, f"[15a] {k} = {rec.get(k)}")
     check(counted == dict.fromkeys(counted, want), f"[15a] launches {counted}, want {want} each")
+    for lib in libs:  # each launch's products on its wgmma core (TD = 784, D = 768)
+        route, per = BLOCK_PRODUCTS[lib]
+        check_routes(f"[15a] {lib}", routes0[lib], mods[lib].routes(), per * want, route=route)
     check(f"{rec['card']}, {rec['power_limit']}" == name, f"[15a] record names {rec['card']}")
     reset_counts(mods)
     rc, trec = harness_record(compare, ["--model", "mlp_mixer", "--train", "--try-remat",
@@ -4843,7 +4949,7 @@ def main():
         list(pool.map(lambda m: m.build(), mods.values()))
     print(f"[1] kernel builds + loads ({len(mods)} in parallel): "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    print(f"[1] channel-product core (gemm_sm90.cuh): {json.dumps(mods['gemm_sm90'].config())}",
+    print(f"[1] the blocks' GEMM core (gemm_sm90.cuh): {json.dumps(mods['gemm_sm90'].config())}",
           flush=True)
 
     table = kernel_table(mods)
@@ -4903,6 +5009,7 @@ def main():
     sources["gemm_s8_mixer_sm90"] = ("gemm_sm90.cuh", MIXER_S8_REPLACES)
     sources["gemm_bf16_gmlp_sm90"] = ("gemm_sm90.cuh", GMLP_BF16_REPLACES)
     sources["gemm_bf16_resmlp_sm90"] = ("gemm_sm90.cuh", RES_BF16_REPLACES)
+    sources["gemm_bf16_mixer_token_sm90"] = ("gemm_sm90.cuh", MIXER_TOKEN_REPLACES)
     sources["gemm_s8_resmlp_sm90"] = ("gemm_sm90.cuh", RES_S8_REPLACES)
     sources["gemm_bwd_sm90"] = ("gemm_sm90.cuh", BWD_REPLACES)
     sources["gemm_bf16_dual_sm90"] = ("gemm_sm90.cuh", DUAL_REPLACES)

@@ -9,17 +9,17 @@
 //   hn  = bf16(LN2(h))
 //   c   = bf16(gelu_tanh(hn · Wc1^T + bc1))             Wc1 (CD, D), rows B·N
 //   out = bf16(h + c · Wc2^T + bc2)                     Wc2 (D, CD)
-// All products accumulate in f32 on the tensor cores: the channel products
-// on the Hopper core (gemm_sm90.cuh), the token products on the WMMA core
+// All products accumulate in f32 on the tensor cores, on the Hopper core
+// (gemm_sm90.cuh) where TMA can load their operands, else on the WMMA core
 // (gemm_bf16.cuh).
 //
 // What bounds it on this card, and what the design does about it:
 // - The TPU kernel keeps all four weight matrices in VMEM. Here Wc1 alone is
 //   4.7 MB in bf16, far beyond a block's 227 KB of shared memory, so the
-//   block runs as six launches on the caller's stream: LN, GEMM, GEMM, LN,
-//   GEMM, GEMM. Intermediates (xn/hn, t, h, c) go through device memory; the
-//   weights are shared by every image (batch stride 0) and stay in the 50 MB
-//   L2 cache.
+//   block runs as launches on the caller's stream: LN, a copy of Wt1, GEMM,
+//   GEMM, LN, GEMM, GEMM. Intermediates (xn/hn, t, h, c) go through device
+//   memory; the weights are shared by every image (batch stride 0) and stay
+//   in the 50 MB L2 cache.
 // - The channel GEMMs carry CD/(CD+TD) = 3072/3456 ≈ 89% of the FLOPs. They
 //   stack all B·N rows into one M, so at serving batch sizes they are large,
 //   compute-bound products. They run on gemm_sm90.cuh: TMA loads into a
@@ -28,26 +28,32 @@
 //   load an operand (a row stride that is not a multiple of 16 bytes, e.g.
 //   D % 8 ≠ 0) they take the WMMA core on the same arguments.
 // - The token GEMMs (K = N = 196 and K = TD = 384) are small per image and
-//   bandwidth-bound at this design: each reads and writes a whole (B, TD, D)
-//   intermediate. They run batched over images (grid z) with the weight as
-//   the shared A operand.
+//   bound by bytes at this design: each reads and writes a whole (B, TD, D)
+//   intermediate (at Mixer-B/16 b256 59.2 GFLOP, 0.060 ms at the dense
+//   bf16 peak, against ≈ 0.53 GB, 0.159 ms at the HBM rate). They run on
+//   the same core, an entry an image through its batch axis (a 3-D tensor
+//   map for every image but the last), the weight the shared A operand and
+//   the activations N-major B operands (K × D row-major per image, read
+//   with wgmma's transpose bit: the core's TB mode).
+// - Rows of Wt1 (384, 196) are 392 bytes apart, not a multiple of 16, which
+//   TMA cannot stride: each call first copies Wt1 into rows of
+//   Np = round_up(N, 8) (400 bytes), zero past column N, a (TD, Np) scratch
+//   the caller gives. Wt2 (196, 384) is loaded as it is (768-byte rows).
 // - N = 196 is not a multiple of any tile size. It is the K of the first
-//   token GEMM and the M of the second: ragged K tails are zero-filled in
-//   shared memory and ragged M/N edges are masked in the epilogue, instead
-//   of the TPU version's padding to 128.
-// - Rows of Wt1 (384, 196) are 392 bytes apart, not 16-byte aligned, which
-//   TMA cannot load. The token products stay on the WMMA core (128×128
-//   tiles, a two-stage cp.async ring), whose tile loader uses 16-byte
-//   cp.async copies only where the base, leading dimension and batch stride
-//   allow it, and 2-byte loads elsewhere.
-// The token products on wgmma and keeping the intermediates on chip are
-// later work.
+//   token GEMM, whose ragged K tail TMA zero-fills, and the M of the
+//   second, cut as 192 + 4 rows (two row tiles; the epilogue stores rows
+//   < N), instead of the TPU version's padding to 128.
+// - Where TMA's rules fail for a token product (D % 8 ≠ 0 for xn and t,
+//   TD % 8 ≠ 0 for Wt2) it takes the WMMA core on the same arguments. Each
+//   product is counted on the route it took (mixer_gemm_products).
+// Keeping t on chip (the TPU kernel's VMEM form) and the epilogues beside
+// the wgmmas are later work.
 //
 // Tensor parallelism (parallel/tensor.py): the JAX package shards Wc1 and
 // bc1 on the channel hidden axis and Wc2 on its input axis over the mesh's
 // 'model' axis, so rank r of P holds CD_r = CD / P hidden columns. The
-// split entry mixer_block_bf16_tp runs the first five launches as above at
-// CD_r and stores the f32 partial p_r = c_r · Wc2_r^T of the sixth product
+// split entry mixer_block_bf16_tp runs the block up to c as above at
+// CD_r and stores the f32 partial p_r = c_r · Wc2_r^T of the last product
 // through the core's f32 store epilogue (no bias, no residual). The caller
 // sums the ranks' partials (an all-reduce) and the finishing pass
 // mixer_block_tp_finish writes out = bf16(h + (Σ p_r + bc2)): the rounding
@@ -61,20 +67,21 @@
 using namespace jmt;
 
 // All pointers are contiguous bf16 device buffers. Scratch: xn (B, N, D),
-// reused for hn; t (B, TD, D); h (B, N, D); c (B·N, CD). Returns a
-// cudaError_t code (0 on success) from the first launch that failed.
+// reused for hn; t (B, TD, D); wt1p (TD, round_up(N, 8)); h (B, N, D);
+// c (B·N, CD). Returns a cudaError_t code (0 on success) from the first
+// call that failed.
 extern "C" int mixer_block_bf16(const void* x, const void* ln1w, const void* ln1b,
                                 const void* wt1, const void* bt1, const void* wt2,
                                 const void* bt2, const void* ln2w, const void* ln2b,
                                 const void* wc1, const void* bc1, const void* wc2,
-                                const void* bc2, void* xn, void* t, void* h, void* c,
-                                void* out, int B, int N, int D, int TD, int CD,
+                                const void* bc2, void* xn, void* t, void* wt1p, void* h,
+                                void* c, void* out, int B, int N, int D, int TD, int CD,
                                 void* stream_ptr) {
   return mixer_forward(static_cast<cudaStream_t>(stream_ptr), x, ln1w, ln1b, wt1, bt1, wt2, bt2,
-                       ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, h, c, out, B, N, D, TD, CD);
+                       ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, wt1p, h, c, out, B, N, D, TD, CD);
 }
 
-// The split entry: the first five launches at CD = CD_r (this rank's hidden
+// The split entry: the block up to c at CD = CD_r (this rank's hidden
 // columns; wc1 (CD_r, D), bc1 (CD_r,), wc2 (D, CD_r)), then the f32 partial
 // (B·N, D) = c · Wc2^T with no bias and no residual. h (B, N, D) is left
 // for the finishing pass. Scratch as above.
@@ -82,11 +89,11 @@ extern "C" int mixer_block_bf16_tp(const void* x, const void* ln1w, const void* 
                                    const void* wt1, const void* bt1, const void* wt2,
                                    const void* bt2, const void* ln2w, const void* ln2b,
                                    const void* wc1, const void* bc1, const void* wc2, void* xn,
-                                   void* t, void* h, void* c, void* partial, int B, int N, int D,
-                                   int TD, int CD, void* stream_ptr) {
+                                   void* t, void* wt1p, void* h, void* c, void* partial, int B,
+                                   int N, int D, int TD, int CD, void* stream_ptr) {
   const auto s = static_cast<cudaStream_t>(stream_ptr);
   const int e = mixer_forward_hidden(s, x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1,
-                                     xn, t, h, c, B, N, D, TD, CD);
+                                     xn, t, wt1p, h, c, B, N, D, TD, CD);
   if (e) return e;
   JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,
                           sm90::StoreEntries{static_cast<float*>(partial), B * N, D}));
@@ -147,9 +154,9 @@ extern "C" int mixer_block_tp_finish(const void* h, const void* s, const void* b
   return (int)cudaGetLastError();
 }
 
-// Channel products this library launched on route 0 (the wgmma core) or
-// 1 (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
-// route.
+// Products this library launched on route 0 (the wgmma core) or 1 (the
+// WMMA core), since it was loaded (gemm_sm90.cuh): four a block (the two
+// token products, the two channel products); -1 for another route.
 extern "C" long long mixer_gemm_products(int route) { return sm90::products(route); }
 
 extern "C" const char* mixer_error_string(int code) {

@@ -25,8 +25,8 @@
 //
 // What bounds each entry on this card (Mixer-B/16 at b256, bf16 dense peak
 // 989 TFLOP/s, HBM 3.35 TB/s), and what the design does about it:
-// - mixer_fwd_with_h_bf16: 533 GFLOP, 0.539 ms; kernel 1's six launches
-//   (mixer_forward.cuh, its channel products on gemm_sm90.cuh's wgmma core)
+// - mixer_fwd_with_h_bf16: 533 GFLOP, 0.539 ms; kernel 1's launches
+//   (mixer_forward.cuh, its four products on gemm_sm90.cuh's wgmma core)
 //   with h handed to the caller.
 // - mixer_token_bwd_bf16: 148 GFLOP with the recompute of the token
 //   forward, 0.150 ms; but its data flow binds: 2.06 GB, 0.62 ms (3.20 GB,
@@ -553,16 +553,16 @@ cudaError_t chan_recompute(cudaStream_t s, const void* h, const void* g, const v
 // cudaError_t code (0 on success) from the first launch that failed.
 
 // Kernel 1 with h (B, N, D) for the caller. Scratch: xn (B, N, D), t
-// (B, TD, D), c (B·N, CD).
+// (B, TD, D), wt1p (TD, round_up(N, 8)), c (B·N, CD).
 extern "C" int mixer_fwd_with_h_bf16(const void* x, const void* ln1w, const void* ln1b,
                                      const void* wt1, const void* bt1, const void* wt2,
                                      const void* bt2, const void* ln2w, const void* ln2b,
                                      const void* wc1, const void* bc1, const void* wc2,
-                                     const void* bc2, void* xn, void* t, void* c, void* h,
-                                     void* out, int B, int N, int D, int TD, int CD,
+                                     const void* bc2, void* xn, void* t, void* wt1p, void* h,
+                                     void* c, void* out, int B, int N, int D, int TD, int CD,
                                      void* stream_ptr) {
   return mixer_forward(static_cast<cudaStream_t>(stream_ptr), x, ln1w, ln1b, wt1, bt1, wt2, bt2,
-                       ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, h, c, out, B, N, D, TD, CD);
+                       ln2w, ln2b, wc1, bc1, wc2, bc2, xn, t, wt1p, h, c, out, B, N, D, TD, CD);
 }
 
 // The two weight-gradient entries take `sms`, the device's multiprocessor
@@ -692,9 +692,10 @@ extern "C" int mixer_chan_wgt_bwd_bf16(const void* h, const void* g, const void*
 }
 
 // Products this library launched on route 0 (the wgmma core) or 1 (the
-// WMMA core), since it was loaded (gemm_sm90.cuh): the forward's two
-// channel products, the channel data backward's two recompute products and
-// the channel weight backward's four; -1 for another route.
+// WMMA core), since it was loaded (gemm_sm90.cuh): the forward's four (two
+// token, two channel), the token backward's five (a dual product counts
+// two), the channel data backward's three and the channel weight
+// backward's four; -1 for another route.
 extern "C" long long mixer_bwd_gemm_products(int route) { return sm90::products(route); }
 
 // Launches of the wgmma core since this library was loaded, by mode: 0 one

@@ -20,8 +20,11 @@ wc1 (CD, D), wc2 (D, CD).
   (``_op.register``; ``OP``): a CPU tensor goes to ``mixer_block_ref``; a
   CUDA bf16 contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel; ``routes()``:
-  its channel products on each GEMM core (the wgmma core where TMA can load
-  the operands, else the WMMA core).
+  its products on each GEMM core, four a launch (the two token products and
+  the two channel products; each on the wgmma core where TMA can load its
+  operands, else on the WMMA core).
+- ``forward_scratch``: the buffers the forward's launches write besides
+  their outputs, among them Wt1 copied into rows of round_up(N, 8).
 
 Training (the recompute route; ``mixer_block_bwd`` holds the kernel route):
 
@@ -43,7 +46,7 @@ residual. This module holds the two launches and their twins, and no
 collective (an op schema takes no process group):
 
 - the op ``fused_mixer_block_partial`` (the kernel entry
-  ``mixer_block_bf16_tp``: row 1's first five launches at CD_r, then the
+  ``mixer_block_bf16_tp``: row 1's launches up to c at CD_r, then the
   partial through the core's f32 store; its twin
   ``mixer_block_partial_ref``) returns (h, p_r);
 - the op ``mixer_block_tp_finish`` (a CUDA pass, out = bf16(h + (Σp +
@@ -71,7 +74,7 @@ TP_LAUNCHES = 0  # the split entry's launches
 FINISH_LAUNCHES = 0  # the finishing pass's launches
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("mixer_block", ["mixer_block.cu"],
-               {"mixer_block_bf16": (18, 5), "mixer_block_bf16_tp": (17, 5),
+               {"mixer_block_bf16": (19, 5), "mixer_block_bf16_tp": (18, 5),
                 "mixer_block_tp_finish": (4, 2)},
                error="mixer_error_string", routes="mixer_gemm_products")
 
@@ -151,8 +154,11 @@ def build():
 
 
 def routes():
-    """{"sm90": n, "wmma": n}: the kernel's channel products so far on each
-    GEMM core (csrc/gemm_sm90.cuh), two a launch."""
+    """{"sm90": n, "wmma": n}: the kernel's products so far on each GEMM
+    core (csrc/gemm_sm90.cuh), four a launch of either entry: the two token
+    products (the first on the wgmma core where D % 8 == 0, the second where
+    D % 8 == 0 and TD % 8 == 0) and the two channel products (where D % 8
+    == 0, and where CD % 8 == 0)."""
     return _LIB.routes()
 
 
@@ -200,6 +206,18 @@ def block_dims(x, weights):
     return B, N, D, TD, CD
 
 
+def forward_scratch(x, TD, CD):
+    """(xn, t, wt1p, h, c): the buffers the block forward's launches write
+    for x (B, N, D) besides their outputs, on x's device, in x's dtype: xn
+    (B, N, D), also hn; t (B, TD, D); wt1p (TD, round_up(N, 8)), Wt1 in rows
+    a TMA load can stride; h (B, N, D); c (B·N, CD)."""
+    B, N, D = x.shape
+    like = dict(dtype=x.dtype, device=x.device)
+    return (torch.empty_like(x), torch.empty((B, TD, D), **like),
+            torch.empty((TD, -(-N // 8) * 8), **like), torch.empty_like(x),
+            torch.empty((B * N, CD), **like))
+
+
 BLOCK_ARGS = ("x", "ln1w", "ln1b", "wt1", "bt1", "wt2", "bt2", "ln2w", "ln2b",
               "wc1", "bc1", "wc2", "bc2")
 
@@ -210,12 +228,8 @@ def _launch(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2):
     weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2)
     B, N, D, TD, CD = block_dims(x, weights)
     require_bf16_contiguous((x, *weights))
-    xn = torch.empty_like(x)
-    t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
-    h = torch.empty_like(x)
-    c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
-    _LIB.launch("mixer_block_bf16", x.device, (x, *weights, xn, t, h, c, out),
+    _LIB.launch("mixer_block_bf16", x.device, (x, *weights, *forward_scratch(x, TD, CD), out),
                 (B, N, D, TD, CD))
     with _COUNT_LOCK:
         LAUNCHES += 1
@@ -286,13 +300,11 @@ def _launch_partial(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2
     weights = (ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2)
     B, N, D, TD, CD = block_dims(x, weights)
     require_bf16_contiguous((x, *weights))
-    xn = torch.empty_like(x)
-    t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
-    h = torch.empty_like(x)
-    c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
+    scratch = forward_scratch(x, TD, CD)
     partial = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
-    _LIB.launch("mixer_block_bf16_tp", x.device, (x, *weights, xn, t, h, c, partial),
+    _LIB.launch("mixer_block_bf16_tp", x.device, (x, *weights, *scratch, partial),
                 (B, N, D, TD, CD))
+    h = scratch[3]
     with _COUNT_LOCK:
         TP_LAUNCHES += 1
     return h, partial

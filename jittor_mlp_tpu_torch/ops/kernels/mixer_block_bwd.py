@@ -27,7 +27,7 @@ dwc1 (CD, D), dwc2 (D, CD)).
 - A CPU tensor runs the twin; a CUDA bf16 contiguous tensor launches the
   kernel; anything else raises.
 - ``LAUNCHES``: launches per wrapper, by name; ``routes()``: the products
-  on each bf16 GEMM core of the forward (two a launch), the token backward
+  on each bf16 GEMM core of the forward (four a launch), the token backward
   (five: a dual product, two group sums, dxn), the channel data backward
   (three: a dual product, dhn) and the channel weight backward (four);
   ``mode_launches()``: the wgmma core's launches by mode.
@@ -59,13 +59,14 @@ import torch
 from ...core.nnf import gelu_erf, gelu_tanh
 from ..products import gemm_bf16_dual_ref, gemm_bf16_group_ref, gemm_bf16_ref, sum_slabs_ref
 from ._build import Library
-from .mixer_block import block_dims, check_weights, mixer_block_ref, require_bf16_contiguous
+from .mixer_block import (block_dims, check_weights, forward_scratch, mixer_block_ref,
+                          require_bf16_contiguous)
 
 LAUNCHES = {"fwd_with_h": 0, "token_bwd": 0, "chan_data_bwd": 0, "chan_wgt_bwd": 0}
 _COUNT_LOCK = threading.Lock()
 _LIB = Library(
     "mixer_block_bwd", ["mixer_block_bwd.cu"],
-    {"mixer_fwd_with_h_bf16": (18, 5), "mixer_token_bwd_bf16": (14, 5),
+    {"mixer_fwd_with_h_bf16": (19, 5), "mixer_token_bwd_bf16": (14, 5),
      "mixer_chan_data_bwd_bf16": (11, 4), "mixer_chan_wgt_bwd_bf16": (11, 5)},
     error="mixer_bwd_error_string",
     workspace={"mixer_token_bwd_workspace": 5, "mixer_chan_data_bwd_workspace": 4,
@@ -214,7 +215,7 @@ def build():
 
 def routes():
     """{"sm90": n, "wmma": n}: the products so far on each bf16 GEMM core
-    (csrc/gemm_sm90.cuh) of ``fwd_with_h`` (two a launch), ``token_bwd``
+    (csrc/gemm_sm90.cuh) of ``fwd_with_h`` (four a launch), ``token_bwd``
     (five), ``chan_data_bwd`` (three) and ``chan_wgt_bwd`` (four); a dual
     product counts as two."""
     return _LIB.routes()
@@ -285,12 +286,10 @@ def fwd_with_h(x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1, wc2, bc2
     if dev == "cpu":
         return fwd_with_h_ref(x, *weights)
     require_bf16_contiguous((x, *weights))
-    xn, h, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    t = torch.empty((B, TD, D), dtype=x.dtype, device=x.device)
-    c = torch.empty((B * N, CD), dtype=x.dtype, device=x.device)
-    _launch("fwd_with_h", "mixer_fwd_with_h_bf16", x, (x, *weights, xn, t, c, h, out),
+    scratch, out = forward_scratch(x, TD, CD), torch.empty_like(x)
+    _launch("fwd_with_h", "mixer_fwd_with_h_bf16", x, (x, *weights, *scratch, out),
             (B, N, D, TD, CD))
-    return out, h
+    return out, scratch[3]
 
 
 def token_bwd(x, dh, ln1w, ln1b, wt1, bt1, wt2):

@@ -151,6 +151,19 @@ MUTANTS = {
         "mixer_block_tp_finish", "csrc/mixer_block.cu",
         "v[e] = at8(hv, e) + (sv[e] + at8(bv, e));",
         "v[e] = at8(hv, e) + (sv[e] + at8(bv, e) + at8(bv, e));"),
+    # kernel 1's token products on the wgmma core (mixer_forward.cuh, which
+    # the forward-with-h and the split entry share)
+    "M34 kernel 1's copy of Wt1 is written at pitch N, not Np": (
+        "fused_mixer_block", "csrc/mixer_forward.cuh",
+        "cudaMemcpy2DAsync(wt1p, sizeof(bf16) * Np,", "cudaMemcpy2DAsync(wt1p, sizeof(bf16) * N,"),
+    "M35 kernel 1's first token product's TB bit is dropped: xn is read as a K-major B": (
+        "fused_mixer_block", "csrc/mixer_forward.cuh",
+        "(sm90::gemm_bf16<false, true>(s, B, TD, D, N, N, wt1p,",
+        "(sm90::gemm_bf16<false, false>(s, B, TD, D, N, N, wt1p,"),
+    "M36 kernel 1's second token product stores no row past 192: h's 4-row M tail is left": (
+        "fused_mixer_block,fused_mixer_block_tp", "csrc/mixer_forward.cuh",
+        "(sm90::gemm_bf16<false, true>(s, B, N, D, TD, TD, wt2,",
+        "(sm90::gemm_bf16<false, true>(s, B, std::min(N, 192), D, TD, TD, wt2,"),
 }
 TP_KERNELS = {"fused_mixer_block_tp", "mixer_block_tp_finish"}
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
