@@ -175,10 +175,12 @@ Phases (each one fails loudly; there is no CPU fallback):
      variant of its table over the 12-block Mixer-B/16 stack at b256 (img/s
      and TFLOP/s; prod4 and noscratch4 launch what prod2 and noscratch2 do
      and are reported as them); each lab kernel launches 12 times a pass of
-     its own variants, warm-up included, and their channel products all run
-     on the wgmma core. Phase 2 also holds the four lab
+     its own variants, warm-up included, and all four of its products (the
+     token pair through kernel 1's code, the channel pair) run on the wgmma
+     core. Phase 2 also holds the four lab
      kernels against their twins at every bt and mode the lab uses, at b8,
-     the stack's b256 and two ragged shapes, and phase 5 times them at b256;
+     the stack's b256 and three ragged shapes, with each call's products on
+     each core held to LAB_ROUTED, and phase 5 times them at b256;
   8. the eighteen families without a kernel, in nineteen models (plain
      PyTorch: cuBLAS products, cuDNN convolutions, gathers, cuFFT, cuDNN's
      LSTM), each built by its factory on
@@ -542,9 +544,14 @@ LAB_KERNELS = {
     "ablate_block": ("lab_ablate.cu",
                      "tools/kernel_lab.py:255 (_call, bodies _make_kernel_ablate :166)"),
 }
-# the lab's check and stack shapes (b8, b256) and two ragged ones
+# the lab's check and stack shapes (b8, b256) and three ragged ones
+# (LAB_ROUTED): D = 36 (the wide and token-major token products on the
+# wgmma core at every bt, eight columns straddling two images; the others'
+# on WMMA), TD = 50 (every kernel's second token product on WMMA), and
+# D = 30 at N = 33 (the wide and token-major token products on WMMA at
+# bt 2, on the wgmma core at bt 4 and 8)
 LAB_SHAPES = [(8, 196, 768, 384, 3072), (8, 20, 36, 24, 72), (8, 33, 136, 50, 200),
-              (256, 196, 768, 384, 3072)]
+              (8, 33, 30, 24, 72), (256, 196, 768, 384, 3072)]
 LAB_TIMED = "gelu_tanh"  # the ablate kernel's mode in its phase-5 row: all of the block's work
 LAB_ITERS = 10  # timed stack passes per variant in phase 7, after one warm-up pass
 TRAIN_KERNELS = {"fwd_with_h": "mixer_block_bwd.py:129", "token_bwd": "mixer_block_bwd.py:220",
@@ -569,12 +576,14 @@ def _bf16_routes(*on_sm90):
     return {"sm90": sum(on_sm90), "wmma": len(on_sm90) - sum(on_sm90)}
 
 
-def _mixer_forward_routes(s):
+def _mixer_forward_routes(s, width=None):
     """The Mixer block forward's four products (mixer_forward.cuh): Wt1·xn
-    an image (Wt1 copied into rows of round_up(N, 8), xn rows D apart),
-    Wt2·t an image (Wt2 rows TD apart, t rows D apart), hn·Wc1ᵀ (rows D
-    apart), c·Wc2ᵀ (rows CD apart; CD_r for the split entry)."""
-    return _bf16_routes(s[2] % 8 == 0, s[2] % 8 == s[3] % 8 == 0, s[2] % 8 == 0, s[4] % 8 == 0)
+    an entry of W columns (Wt1 copied into rows of round_up(N, 8), xn rows
+    W apart), Wt2·t an entry (Wt2 rows TD apart, t rows W apart), hn·Wc1ᵀ
+    (rows D apart), c·Wc2ᵀ (rows CD apart; CD_r for the split entry). W is
+    ``width``, by default D: an entry an image."""
+    W = s[2] if width is None else width
+    return _bf16_routes(W % 8 == 0, W % 8 == s[3] % 8 == 0, s[2] % 8 == 0, s[4] % 8 == 0)
 
 
 ROUTED = {
@@ -599,6 +608,15 @@ ROUTED = {
     # the two token products, the two channel products (the second chunked)
     "fused_mixer_block_int8": lambda s: {"sm90_s8": 4, "mma_s8": 0},
 }
+# The lab kernels' token-product width W at (shape, bt): bt images side by
+# side in the wide and token-major kernels, one image in the others (their
+# kernel does not depend on bt).
+LAB_WIDTH = {"tokmajor_block": lambda s, bt: bt * s[2], "wide_block": lambda s, bt: bt * s[2],
+             "noscratch_block": lambda s, bt: s[2], "ablate_block": lambda s, bt: s[2]}
+# the routes of one lab call's four products at (shape, bt): kernel 1's
+# code (mixer_forward.cuh's token products, gemm_tn) at that width
+LAB_ROUTED = {fn: (lambda s, bt, w=w: _mixer_forward_routes(s, w(s, bt)))
+              for fn, w in LAB_WIDTH.items()}
 # products on the GEMM cores per block of each routed forward kernel at the
 # models' widths (every operand one TMA can load), by library: (route,
 # products a launch); and on the bf16 wgmma core per Mixer-B/16 block of a
@@ -1236,23 +1254,32 @@ def lab_variants(fn):
 def phase_lab(mod, names=None):
     """The kernel lab's kernels (or those in ``names``) against their twins
     at LAB_SHAPES, every bt and mode the lab runs: every output within TOL of
-    max(1, max|ref|), two calls bit-equal, one launch a call. Returns name →
-    largest max|Δ|."""
+    max(1, max|ref|), two calls bit-equal, one launch a call, each call's
+    products on each core as LAB_ROUTED says; each kernel's token products
+    take both cores at some shape and bt. Returns name → largest max|Δ|."""
     errs = {}
     for fn in LAB_KERNELS:
         if names is not None and fn not in names:
             continue
         errs[fn] = 0.0
+        token_cores = set()  # whether the token products' rows suit TMA, per call
         for shape in LAB_SHAPES:
             x, w = block_inputs(*shape, seed=sum(shape))
             for vname, kw in lab_variants(fn).items():
                 tag = f"{fn} ({vname}) {shape}"
                 before = mod.LAUNCHES[fn]
+                routes0 = mod.routes()
                 got = lab_call(mod, fn, x, w, kw)
                 torch.cuda.synchronize()
                 check(mod.LAUNCHES[fn] == before + 1, f"{tag}: LAUNCHES did not rise by 1")
                 again = lab_call(mod, fn, x, w, kw)
                 torch.cuda.synchronize()
+                routes1 = mod.routes()
+                moved = {k: routes1[k] - routes0[k] for k in routes1}
+                want_routes = {k: 2 * v for k, v in LAB_ROUTED[fn](shape, kw["bt"]).items()}
+                check(moved == want_routes,
+                      f"{tag}: products of two calls {moved}, want {want_routes}")
+                token_cores.add(LAB_WIDTH[fn](shape, kw["bt"]) % 8 == 0)
                 check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
                 want = lab_call(mod, fn, x, w, kw, twin=True)
                 check(got.shape == want.shape == x.shape and got.dtype == want.dtype,
@@ -1262,11 +1289,13 @@ def phase_lab(mod, names=None):
                 rel = err / max(1.0, want.float().abs().max().item())
                 errs[fn] = max(errs[fn], err)
                 print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL}); two "
-                      f"calls bit-equal", flush=True)
+                      f"calls bit-equal; products of two calls {json.dumps(moved)}", flush=True)
                 check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
                 del got, again, want
             del x, w
             torch.cuda.empty_cache()
+        check(token_cores == {True, False},
+              f"{fn}: its token products did not take both cores over LAB_SHAPES")
     return errs
 
 
@@ -2257,7 +2286,7 @@ def phase_lab_stack(mods, name):
           flush=True)
     check(counts == want, f"kernel lab launches {counts}, want {want}")
     check_routes("[7] the lab's kernels", routes0["lab"], kl.routes(),
-                 2 * sum(counts[fn] for fn in LAB_KERNELS))
+                 4 * sum(counts[fn] for fn in LAB_KERNELS))
     check_routes("[7] kernel 1 in the lab", routes0["kernel 1"], mb.routes(),
                  BLOCK_PRODUCTS["mixer_block"][1] * counts["fused_mixer_block"])
     ref = stats["prod2"]["img_s"]

@@ -1,6 +1,6 @@
 // Batched bf16 GEMM on the tensor cores (nvcuda::wmma, f32 accumulation)
-// with a pluggable epilogue: every bf16 block kernel's products, forward
-// and backward, share this main loop.
+// with a pluggable epilogue: gemm_sm90.cuh runs a bf16 product here where
+// TMA cannot load its operands (and on Core::Legacy, for comparison).
 //
 //   C[z] (M×N) = epi(op(A[z]) · op(B[z])),   z = blockIdx.z
 //   A_T false: A is M×K row-major;  A_T true: A is K×M row-major, used as Aᵀ.
@@ -267,13 +267,6 @@ cudaError_t gemm_ex(cudaStream_t stream, int batch, int M, int N, int K,
       M, N, K, static_cast<const bf16*>(A), lda, sA, vec_ok(A, lda, sA),
       static_cast<const bf16*>(B), ldb, sB, vec_ok(B, ldb, sB), K, 1, epi);
   return cudaGetLastError();
-}
-
-template <bool B_T, class Epi>
-cudaError_t gemm(cudaStream_t stream, int batch, int M, int N, int K,
-                 const void* A, int lda, long long sA,
-                 const void* B, int ldb, long long sB, const Epi& epi) {
-  return gemm_ex<false, B_T>(stream, batch, M, N, K, A, lda, sA, B, ldb, sB, epi);
 }
 
 // Σ over images of op(A_i)·op(B_i) (see the header), `per` images a block;

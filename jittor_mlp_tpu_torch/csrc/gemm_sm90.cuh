@@ -76,8 +76,9 @@
 // Which TPU work it serves: the four products of
 // jittor_mlp_tpu/ops/pallas/mixer_block.py:157 fused_mixer_block (kernel 1,
 // mixer_block.cu, and the forward-with-h, through mixer_forward.cuh: the
-// token products an entry an image with an N-major B) and the channel
-// products of the kernel lab's bodies; the
+// token products an entry an image with an N-major B) and the four
+// products of the kernel lab's bodies (the same code; the wide and
+// token-major bodies' token products an entry a group of images); the
 // four products of mixer_block_bwd.py:397 _chan_wgt_bwd and the two it
 // shares with :306 _chan_data_bwd (mixer_block_bwd.cu); the three int8
 // products of gmlp_block_int8.py:61 fused_gmlp_block_int8

@@ -2,12 +2,15 @@
 // (lab_tokmajor.cu, lab_wide.cu, lab_ablate.cu): the
 // activations the lab ablates, the residual order of its bodies, the
 // token-major variant's bf16 + f32 store of h and the wide variant's
-// scatter of h back to (B, N, D). They plug into gemm_bf16.cuh's main loop
-// and gemm_sm90.cuh's core; the epilogue contract is gemm_bf16.cuh's.
+// scatter of h back to (B, N, D). All four products of each body run
+// through kernel 1's code: the token pair through mixer_forward.cuh's
+// token_products, the channel pair through gemm_tn, so on gemm_sm90.cuh's
+// wgmma core where TMA can load the operands, else on gemm_bf16.cuh's WMMA
+// core. Both cores call an epilogue as gemm_bf16.cuh states: row m < M,
+// columns n .. n+cnt−1 < N with n % 8 == 0 and cnt ≤ 8.
 #pragma once
 
-#include "gemm_sm90.cuh"
-#include "layer_norm.cuh"
+#include "mixer_forward.cuh"
 
 namespace jmt {
 namespace lab {
@@ -120,7 +123,9 @@ inline TokenResidual token_residual(const void* bias, const void* R, void* C, fl
 // z·bt + bt − 1 side by side, column c = i·D + d of the group's product is
 // element d of image z·bt + i. h = bf16(x + (acc + bias[m])) goes back to
 // the (B, N, D) layout of x and h. vec: D % 8 == 0 (so 8 columns from a
-// multiple of 8 lie in one image) and x, h allow 16-byte access.
+// multiple of 8 lie in one image) and x, h allow 16-byte access. Else eight
+// columns may straddle two images (D = 30, bt = 4: the wgmma core's route,
+// as bt·D % 8 == 0), and each column finds its own image.
 struct ScatterResidual {
   const bf16* bias;
   const bf16* R;

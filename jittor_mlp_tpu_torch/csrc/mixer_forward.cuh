@@ -1,14 +1,40 @@
 // The bf16 Mixer block forward as the launches of one stream: the body of
 // mixer_block.cu's entries and of mixer_block_bwd.cu's forward-with-h (see
-// mixer_block.cu's header for the math and what bounds it). All four
-// products run on the Hopper core (gemm_sm90.cuh) where TMA can load their
-// operands, else on the WMMA core (gemm_bf16.cuh) with the same arguments.
+// mixer_block.cu's header for the math and what bounds it), and the token
+// products the kernel lab's bodies share with it. All four products run on
+// the Hopper core (gemm_sm90.cuh) where TMA can load their operands, else on
+// the WMMA core (gemm_bf16.cuh) with the same arguments.
 #pragma once
 
 #include "gemm_sm90.cuh"
 #include "layer_norm.cuh"
 
 namespace jmt {
+
+// The token mix's two products over nz entries of W columns each, the
+// weights shared by every entry and the entries N-major B operands (the
+// core's TB mode). Wt1 (TD, N) is first copied into wt1p, rows of
+// round_up(N, 8) (16-byte multiples, which a TMA load can stride), zero
+// past column N. Then
+//   epi1(z, Wt1 · xn_z)   K = N tokens; xn_z at xn + z·sx, rows ldx apart
+//   epi2(z, Wt2 · t_z)    M = N tokens (192 + 4 rows at 196); t_z at
+//                         t + z·st, rows ldt apart: what epi1 wrote
+// Kernel 1 runs an entry an image (W = D); the kernel lab's wide and
+// token-major bodies an entry a group of bt images side by side (W = bt·D).
+// Returns a cudaError_t code (0 on success) from the first call that failed.
+template <class Epi1, class Epi2>
+inline int token_products(cudaStream_t s, int nz, int N, int W, int TD, const void* wt1,
+                          void* wt1p, const void* xn, int ldx, long long sx, const void* wt2,
+                          const void* t, int ldt, long long st, const Epi1& epi1,
+                          const Epi2& epi2) {
+  const int Np = round_up(N, 8);
+  JMT_CHECK(cudaMemsetAsync(wt1p, 0, sizeof(bf16) * TD * Np, s));
+  JMT_CHECK(cudaMemcpy2DAsync(wt1p, sizeof(bf16) * Np, wt1, sizeof(bf16) * N, sizeof(bf16) * N,
+                              TD, cudaMemcpyDeviceToDevice, s));
+  JMT_CHECK((sm90::gemm_bf16<false, true>(s, nz, TD, W, N, N, wt1p, Np, 0, xn, ldx, sx, epi1)));
+  JMT_CHECK((sm90::gemm_bf16<false, true>(s, nz, N, W, TD, TD, wt2, TD, 0, t, ldt, st, epi2)));
+  return 0;
+}
 
 // Everything up to the channel mix's hidden activations. All pointers are
 // contiguous bf16 device buffers. Scratch: xn (B, N, D), reused for hn;
@@ -26,19 +52,12 @@ inline int mixer_forward_hidden(cudaStream_t s, const void* x, const void* ln1w,
   using bf16gemm::gelu_bias;
   using bf16gemm::residual_bias;
   const long long nd = (long long)N * D, td = (long long)TD * D;
-  const int Np = round_up(N, 8);
   JMT_CHECK(layer_norm(s, x, D, ln1w, ln1b, xn, B * N, D));
-  // Wt1 → rows of Np, zero past column N
-  JMT_CHECK(cudaMemsetAsync(wt1p, 0, sizeof(bf16) * TD * Np, s));
-  JMT_CHECK(cudaMemcpy2DAsync(wt1p, sizeof(bf16) * Np, wt1, sizeof(bf16) * N, sizeof(bf16) * N,
-                              TD, cudaMemcpyDeviceToDevice, s));
-  // token mix, an entry an image, the weights shared and xn_b, t_b N-major
-  // B operands (the core's TB mode): t = gelu(Wt1 · xn + bt1) with K = N
-  // tokens; h = x + Wt2 · t + bt2 with M = N tokens (192 + 4 rows at 196)
-  JMT_CHECK((sm90::gemm_bf16<false, true>(s, B, TD, D, N, N, wt1p, Np, 0, xn, D, nd,
-                                          gelu_bias(bt1, 1, t, D, td))));
-  JMT_CHECK((sm90::gemm_bf16<false, true>(s, B, N, D, TD, TD, wt2, TD, 0, t, D, td,
-                                          residual_bias(bt2, 1, x, h, D, nd))));
+  // token mix, an entry an image: t = gelu(Wt1 · xn + bt1); h = x + Wt2 · t + bt2
+  if (const int e = token_products(s, B, N, D, TD, wt1, wt1p, xn, D, nd, wt2, t, D, td,
+                                   gelu_bias(bt1, 1, t, D, td),
+                                   residual_bias(bt2, 1, x, h, D, nd)))
+    return e;
   JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
   // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1)
   JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, xn, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));

@@ -38,8 +38,12 @@ wrappers accept and check it (B % bt == 0), so the lab's ``noscratch2`` and
 Each wrapper takes a CPU tensor to its twin (``*_ref``: plain PyTorch with
 the body's rounding points and addition order), launches its kernel on the
 current stream for a contiguous bf16 CUDA tensor, and raises on anything
-else. ``LAUNCHES`` counts kernel launches per wrapper, ``routes()`` their
-channel products per GEMM core.
+else. Every kernel runs its four products through kernel 1's code: the token
+pair through ``mixer_forward.cuh``'s ``token_products`` (Wt1 copied into
+rows of round_up(N, 8), a scratch each wrapper gives, as
+``mixer_block.forward_scratch`` does for kernel 1), the channel pair through
+``gemm_tn``. ``LAUNCHES`` counts kernel launches per wrapper, ``routes()``
+their products per GEMM core.
 """
 
 from __future__ import annotations
@@ -56,11 +60,11 @@ from .mixer_block import block_dims, layer_norm_f32, require_bf16_contiguous
 LAUNCHES = {"tokmajor_block": 0, "wide_block": 0, "noscratch_block": 0, "ablate_block": 0}
 _COUNT_LOCK = threading.Lock()
 _LIBS = {
-    "tokmajor_block": Library("lab_tokmajor", ["lab_tokmajor.cu"], {"lab_tokmajor_bf16": (19, 6)},
+    "tokmajor_block": Library("lab_tokmajor", ["lab_tokmajor.cu"], {"lab_tokmajor_bf16": (20, 6)},
                               error="lab_error_string", routes="lab_tokmajor_gemm_products"),
-    "wide_block": Library("lab_wide", ["lab_wide.cu"], {"lab_wide_bf16": (18, 6)},
+    "wide_block": Library("lab_wide", ["lab_wide.cu"], {"lab_wide_bf16": (19, 6)},
                           error="lab_error_string", routes="lab_wide_gemm_products"),
-    "ablate_block": Library("lab_ablate", ["lab_ablate.cu"], {"lab_ablate_bf16": (18, 7)},
+    "ablate_block": Library("lab_ablate", ["lab_ablate.cu"], {"lab_ablate_bf16": (19, 7)},
                             error="lab_error_string", routes="lab_ablate_gemm_products"),
 }
 _LIBS["noscratch_block"] = _LIBS["ablate_block"]
@@ -75,9 +79,13 @@ def build():
 
 
 def routes():
-    """{"sm90": n, "wmma": n}: the lab kernels' channel products so far on
-    each GEMM core (csrc/gemm_sm90.cuh), two a launch, summed over the three
-    libraries."""
+    """{"sm90": n, "wmma": n}: the lab kernels' products so far on each
+    GEMM core (csrc/gemm_sm90.cuh), summed over the three libraries: four a
+    launch, each on the wgmma core where TMA can load its operands, else on
+    the WMMA core. With W the token products' width (bt·D for the wide and
+    token-major kernels, D for the others): the first token product where
+    W % 8 == 0, the second where W % 8 == 0 and TD % 8 == 0, the channel
+    products where D % 8 == 0, and where CD % 8 == 0."""
     counts = [lib.routes() for lib in set(_LIBS.values())]
     return {r: sum(c[r] for c in counts) for r in counts[0]}
 
@@ -170,12 +178,23 @@ def _check(x, weights, bt, tokmajor=False):
     return B, N, D, TD, CD
 
 
+def _device(x):
+    """'cpu' or 'cuda' for x's device; raise for any other."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel-lab kernel for device {x.device}")
+    return x.device.type
+
+
+def _wt1p(N, TD):
+    """The token products' copy of Wt1: (TD, round_up(N, 8)), rows a TMA
+    load can stride."""
+    return (TD, -(-N // 8) * 8), torch.bfloat16
+
+
 def _launch(name, entry, x, weights, scratch, ints):
     """Launch ``entry`` of wrapper ``name``'s library on x's current stream
     with fresh scratch buffers (shape, dtype), None standing for the output
     buffer, and a fresh output; count it."""
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel-lab kernel for device {x.device}")
     require_bf16_contiguous((x, *weights))
     out = torch.empty_like(x)
     bufs = [out if s is None else torch.empty(s[0], dtype=s[1], device=x.device)
@@ -190,11 +209,11 @@ def tokmajor_block(x, *weights, bt):
     """The token-major block on x (G, N, bt, D). CPU: the twin. CUDA: the
     kernel (bf16, contiguous); it raises on anything it does not take."""
     B, N, D, TD, CD = _check(x, weights, bt, tokmajor=True)
-    if x.device.type == "cpu":
+    if _device(x) == "cpu":
         return tokmajor_block_ref(x, *weights, bt=bt)
     bf, f32 = torch.bfloat16, torch.float32
-    scratch = [((B, N, D), bf), ((B, TD, D), bf), ((B, N, D), bf), ((B, N, D), f32),
-               ((B * N, CD), bf)]  # xn (then hn), t, h, f32 h, c
+    scratch = [((B, N, D), bf), ((B, TD, D), bf), _wt1p(N, TD), ((B, N, D), bf),
+               ((B, N, D), f32), ((B * N, CD), bf)]  # xn (then hn), t, Wt1's copy, h, f32 h, c
     return _launch("tokmajor_block", "lab_tokmajor_bf16", x, weights, scratch,
                    (B // bt, N, bt, D, TD, CD))
 
@@ -203,11 +222,11 @@ def wide_block(x, *weights, bt):
     """The wide-token-product block on x (B, N, D). CPU: the twin. CUDA: the
     kernel (bf16, contiguous); it raises on anything it does not take."""
     B, N, D, TD, CD = _check(x, weights, bt)
-    if x.device.type == "cpu":
+    if _device(x) == "cpu":
         return wide_block_ref(x, *weights, bt=bt)
     bf = torch.bfloat16
-    scratch = [((B, N, D), bf), ((B, TD, D), bf), ((B, N, D), bf),
-               ((B * N, CD), bf)]  # group-major xn (then hn), t, h, c
+    scratch = [((B, N, D), bf), ((B, TD, D), bf), _wt1p(N, TD), ((B, N, D), bf),
+               ((B * N, CD), bf)]  # group-major xn (then hn), t, Wt1's copy, h, c
     return _launch("wide_block", "lab_wide_bf16", x, weights, scratch, (B, N, D, TD, CD, bt))
 
 
@@ -216,11 +235,11 @@ def noscratch_block(x, *weights, bt):
     kernel at (exact, LN on) with h in the output buffer (bf16, contiguous);
     it raises on anything it does not take."""
     B, N, D, TD, CD = _check(x, weights, bt)
-    if x.device.type == "cpu":
+    if _device(x) == "cpu":
         return noscratch_block_ref(x, *weights, bt=bt)
     bf = torch.bfloat16
-    scratch = [((B, N, D), bf), ((B, TD, D), bf), None,
-               ((B * N, CD), bf)]  # xn (then hn), t, h = the output, c
+    scratch = [((B, N, D), bf), ((B, TD, D), bf), _wt1p(N, TD), None,
+               ((B * N, CD), bf)]  # xn (then hn), t, Wt1's copy, h = the output, c
     return _launch("noscratch_block", "lab_ablate_bf16", x, weights, scratch,
                    (B, N, D, TD, CD, GELUS.index("exact"), 1))
 
@@ -232,10 +251,10 @@ def ablate_block(x, *weights, bt, gelu, ln):
     if gelu not in GELUS:
         raise ValueError(f"gelu must be one of {GELUS}, got {gelu!r}")
     B, N, D, TD, CD = _check(x, weights, bt)
-    if x.device.type == "cpu":
+    if _device(x) == "cpu":
         return ablate_block_ref(x, *weights, bt=bt, gelu=gelu, ln=ln)
     bf = torch.bfloat16
-    scratch = [((B, N, D), bf), ((B, TD, D), bf), ((B, N, D), bf),
-               ((B * N, CD), bf)]  # xn (then hn), t, h, c
+    scratch = [((B, N, D), bf), ((B, TD, D), bf), _wt1p(N, TD), ((B, N, D), bf),
+               ((B * N, CD), bf)]  # xn (then hn), t, Wt1's copy, h, c
     return _launch("ablate_block", "lab_ablate_bf16", x, weights, scratch,
                    (B, N, D, TD, CD, GELUS.index(gelu), int(bool(ln))))

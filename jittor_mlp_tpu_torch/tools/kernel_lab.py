@@ -1,6 +1,7 @@
 """Kernel lab on the card: time Mixer-block variants over the 12-block Mixer-B/16 stack.
 
     python -m jittor_mlp_tpu_torch.tools.kernel_lab [--batch 256] [--iters 10] [--variants ...]
+    python -m jittor_mlp_tpu_torch.tools.kernel_lab --digest
 
 The port of ``tools/kernel_lab.py``. It checks the lab's kernels against
 kernel 1 (``fused_mixer_block``) at batch 8, then times ``iters`` passes of
@@ -8,6 +9,18 @@ the stack (DEPTH blocks, one weight copy each) for each variant with CUDA
 events, after one warm-up pass, and prints img/s and the stack's TFLOP/s
 beside the card's name and power limit. It needs a CUDA card and raises
 without one.
+
+Every lab kernel runs its four products through kernel 1's code and cores
+(the token pair through ``csrc/mixer_forward.cuh``'s ``token_products``,
+the channel pair through ``gemm_tn``), so a variant differs from ``prod2``
+only in the choice it isolates, and the ablations split kernel 1's time by
+cause.
+
+``--digest`` prints SHA-256 digests of kernel 1's output bytes on the lab's
+seeded weights and inputs (one block at b8 and b256, one stack pass at
+b256): run against two checkouts (``PYTHONPATH=<checkout> python
+<this file> --digest``), equal digests mean the two builds of kernel 1
+agree bit for bit.
 
 Variants (``VARIANTS``, the JAX tool's table; kernels in
 ``ops/kernels/kernel_lab.py``):
@@ -141,10 +154,14 @@ def check(weights, x):
     name → max|Δ| and raises if one is out of its bound.
 
     The bound is the JAX tool's, max|Δ| < CHECK_TOL absolute, for wide and
-    noscratch. tokmajor's LN2 reads the f32 h where kernel 1 reads the bf16
-    h, which moves some bf16 outputs by one ulp: 1.5625e-2 where |out| is in
-    [2, 4). So each tokmajor output may differ from kernel 1's by CHECK_TOL
-    or by one bf16 ulp of kernel 1's output, whichever is larger."""
+    noscratch. All three run kernel 1's products on kernel 1's cores, with
+    each sum over K in kernel 1's order. wide at bt 2 has kernel 1's LN,
+    epilogues and rounding points too, so it reads 0. noscratch differs in
+    its GELU (exact erf, not tanh). tokmajor's LN2 reads the f32 h where
+    kernel 1 reads the bf16 h, which moves some bf16 outputs by one ulp:
+    1.5625e-2 where |out| is in [2, 4). So each tokmajor output may differ
+    from kernel 1's by CHECK_TOL or by one bf16 ulp of kernel 1's output,
+    whichever is larger."""
     want = mb.fused_mixer_block(x, *weights).float()
     room = torch.clamp_min(bf16_ulp(want), CHECK_TOL)  # tokmajor's, per output
     runs = {
@@ -245,6 +262,29 @@ def bench(names, weights, batch, iters, label=""):
     return stats
 
 
+def digest():
+    """{what: SHA-256 of kernel 1's output bytes}: one block at b8 and b256
+    and one DEPTH-block stack pass at b256, on the lab's seeded weights and
+    inputs."""
+    import hashlib
+
+    mb.build()
+    weights = make_weights(0, "cuda")
+    stacked = [tuple(t.clone() for t in weights) for _ in range(DEPTH)]
+
+    def sha(t):
+        torch.cuda.synchronize()
+        return hashlib.sha256(t.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+
+    out = {f"block b{b}": sha(mb.fused_mixer_block(make_input(1, b, "cuda"), *weights))
+           for b in (8, 256)}
+    h = make_input(2, 256, "cuda")
+    for w in stacked:
+        h = mb.fused_mixer_block(h, *w)
+    out[f"stack b256 ({DEPTH} blocks)"] = sha(h)
+    return out
+
+
 def run(names, batch, iters, label):
     """The lab on the card: build, check, then bench. Returns name → stats."""
     kl.build()
@@ -260,9 +300,16 @@ def main():
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--variants", default=DEFAULT_VARIANTS,
                     help=f"comma-separated, of: {', '.join(variants())}")
+    ap.add_argument("--digest", action="store_true",
+                    help="print digests of kernel 1's outputs instead (see the module's doc)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_lab: no CUDA card (the lab times kernels on the card only)")
+    if args.digest:
+        print(f"card: {card()}", flush=True)
+        for what, hexdigest in digest().items():
+            print(f"digest kernel 1 {what}: {hexdigest}", flush=True)
+        return
     names = args.variants.split(",")
     unknown = [n for n in names if n not in variants()]
     if unknown:

@@ -71,7 +71,7 @@ MUTANTS = {
         "const int group = (C + shift - 1) / shift;", "const int group = C / shift;"),
     "M12 the token-major first token product reads each group at leading dimension D, not bt·D": (
         "tokmajor_block", "csrc/lab_tokmajor.cu",
-        "wt1, N, 0, xn, W, nw,", "wt1, N, 0, xn, D, nw,"),
+        "wt1p, xn, W, nw,", "wt1p, xn, D, nw,"),
     "M13 the ablate kernel runs the tanh GELU where ReLU was asked": (
         "ablate_block", "csrc/lab_ablate.cu",
         "case 3: return run<Act::Relu>(JMT_ARGS);", "case 3: return run<Act::Tanh>(JMT_ARGS);"),
@@ -151,19 +151,27 @@ MUTANTS = {
         "mixer_block_tp_finish", "csrc/mixer_block.cu",
         "v[e] = at8(hv, e) + (sv[e] + at8(bv, e));",
         "v[e] = at8(hv, e) + (sv[e] + at8(bv, e) + at8(bv, e));"),
-    # kernel 1's token products on the wgmma core (mixer_forward.cuh, which
-    # the forward-with-h and the split entry share)
-    "M34 kernel 1's copy of Wt1 is written at pitch N, not Np": (
+    # the token products on the wgmma core (mixer_forward.cuh's
+    # token_products, which kernel 1, the forward-with-h, the split entry and
+    # the kernel lab's three bodies share)
+    "M34 the token products' copy of Wt1 is written at pitch N, not Np": (
         "fused_mixer_block", "csrc/mixer_forward.cuh",
         "cudaMemcpy2DAsync(wt1p, sizeof(bf16) * Np,", "cudaMemcpy2DAsync(wt1p, sizeof(bf16) * N,"),
-    "M35 kernel 1's first token product's TB bit is dropped: xn is read as a K-major B": (
+    "M35 the first token product's TB bit is dropped: xn is read as a K-major B": (
         "fused_mixer_block", "csrc/mixer_forward.cuh",
-        "(sm90::gemm_bf16<false, true>(s, B, TD, D, N, N, wt1p,",
-        "(sm90::gemm_bf16<false, false>(s, B, TD, D, N, N, wt1p,"),
-    "M36 kernel 1's second token product stores no row past 192: h's 4-row M tail is left": (
-        "fused_mixer_block,fused_mixer_block_tp", "csrc/mixer_forward.cuh",
-        "(sm90::gemm_bf16<false, true>(s, B, N, D, TD, TD, wt2,",
-        "(sm90::gemm_bf16<false, true>(s, B, std::min(N, 192), D, TD, TD, wt2,"),
+        "(sm90::gemm_bf16<false, true>(s, nz, TD, W, N, N, wt1p,",
+        "(sm90::gemm_bf16<false, false>(s, nz, TD, W, N, N, wt1p,"),
+    "M36 the second token product stores no row past 192: h's 4-row M tail is left": (
+        "fused_mixer_block,fused_mixer_block_tp,wide_block", "csrc/mixer_forward.cuh",
+        "(sm90::gemm_bf16<false, true>(s, nz, N, W, TD, TD, wt2,",
+        "(sm90::gemm_bf16<false, true>(s, nz, std::min(N, 192), W, TD, TD, wt2,"),
+    # the kernel lab's token products on the wgmma core (lab_*.cu)
+    "M37 the wide kernel's scatter of h takes one image for eight columns that straddle two": (
+        "wide_block", "csrc/lab_block.cuh",
+        "const size_t o = at(z, m, n + e);", "const size_t o = at(z, m, n) + e;"),
+    "M38 the wide kernel's token products read group g's xn at entry stride N·D, not N·bt·D": (
+        "wide_block", "csrc/lab_wide.cu",
+        "wt1p, xg, W, nw,", "wt1p, xg, W, (long long)N * D,"),
 }
 TP_KERNELS = {"fused_mixer_block_tp", "mixer_block_tp_finish"}
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}

@@ -271,22 +271,27 @@ def test_unknown_schedule_mesh_and_int8_raise(monkeypatch):
 
 RECIPE = tr.Recipe(mixup_alpha=0.8, cutmix_alpha=1.0, switch_prob=0.5, label_smoothing=0.1,
                    ema_decay=0.9)
-PARITY = {  # name: (JAX factory, port factory, kwargs, image side, bn_momentum)
+PARITY = {  # name: (JAX factory, port factory, kwargs, image side, bn_momentum, batch)
     "mlp_mixer": (jm.MLPMixerForImageClassification, jt.MLPMixerForImageClassification,
-                  MIXER, 16, 0.1),
-    "raft_mlp": (jm.RaftMLP, jt.RaftMLP, {**tp.RAFT, "drop_path_rate": 0.3}, 16, 0.1),
-    "conv_mixer": (jm.ConvMixer, jt.ConvMixer, tp.CONV_MIXER, 32, None),
+                  MIXER, 16, 0.1, 4),
+    "raft_mlp": (jm.RaftMLP, jt.RaftMLP, {**tp.RAFT, "drop_path_rate": 0.3}, 16, 0.1, 4),
+    "conv_mixer": (jm.ConvMixer, jt.ConvMixer, tp.CONV_MIXER, 32, None, 4),
+    # Mixer-B/16 at full size (bench.py's widths, 196 tokens, depth 12)
+    "mlp_mixer_b16": (jm.MLPMixerForImageClassification, jt.MLPMixerForImageClassification,
+                      dict(d_model=768, depth=12, token_dim=384, num_classes=10), 224, 0.1, 2),
 }
+SLOW = {"mlp_mixer_b16"}
 
 
-@pytest.mark.parametrize("name", list(PARITY))
+@pytest.mark.parametrize("name", [pytest.param(n, marks=pytest.mark.slow) if n in SLOW else n
+                                  for n in PARITY])
 def test_recipe_steps_match_jax(name, monkeypatch):
     """Three f32 AdamW steps (lr 1e-2, warmup 1 of 6 cosine, Adam eps 1e-4
     as ``torch_parity.check_train_steps``, EMA 0.9) of both recipe steps on
     the same weights, batches and mix draws."""
-    jax_factory, port_factory, kwargs, side, bn_momentum = PARITY[name]
+    jax_factory, port_factory, kwargs, side, bn_momentum, batch = PARITY[name]
     tp.fixed_drop_path_masks(monkeypatch)
-    batches = [tp.train_batch((4, 3, side, side), seed=s) for s in range(3)]
+    batches = [tp.train_batch((batch, 3, side, side), seed=s) for s in range(3)]
     rng = jax.random.PRNGKey(7)
     jmodel = jax_factory(**kwargs)
     model = port_factory(**kwargs, **CPU)
@@ -303,7 +308,7 @@ def test_recipe_steps_match_jax(name, monkeypatch):
             jstate, m = jstep(jstate, {k: jnp.asarray(v.numpy()) for k, v in b.items()}, rng)
             want.append({k: float(v) for k, v in m.items()})
 
-    draws = iter([jax_step_draws(rng, s, (4, side, side), RECIPE) for s in range(3)])
+    draws = iter([jax_step_draws(rng, s, (batch, side, side), RECIPE) for s in range(3)])
     monkeypatch.setattr(tr, "mix_draws", lambda *args: next(draws))
     opt = torch.optim.AdamW(model.parameters(), lr=1e-2, weight_decay=1e-4, eps=1e-4)
     state = tr.init_recipe_state(model, opt, recipe=RECIPE)
