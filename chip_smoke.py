@@ -57,8 +57,13 @@ Phases (each one fails loudly; there is no CPU fallback):
      The GEMM core alone (gemm_tn, both epilogues): Mixer-B/16's two
      channel products at B=8 and three ragged (M, N, K), each counted on the
      wgmma core, the first two also on the WMMA core, and a K % 8 != 0 shape
-     counted on the WMMA route (the wgmma core refuses it), within the same
-     band, two calls bit-equal. Its other modes alone: gemm_bf16 (MN-major
+     counted on the WMMA route (the wgmma core and its handoff schedule
+     refuse it), within the same band, two calls bit-equal; and on the
+     handoff schedule (the GELU products of kernels 1, 5 and 1 (TP)) at
+     those five shapes and HANDOFF_SHAPES (ragged M, N and K against its
+     128×192 tile, blocks of one to three tiles), counted as handoff
+     launches, each output printed as bit-equal to the cooperative
+     schedule's or not. Its other modes alone: gemm_bf16 (MN-major
      A and/or B, row slabs with one f32 partial each) at Mixer-B/16's four
      channel backward products at B=8 and ragged ones (a short last slab),
      on the wgmma core and the WMMA core, and rows 72 bytes apart on the
@@ -106,7 +111,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      max|logit| and 90% top-1, int8 0.1 and 90%. Launches rise by depth
      per forward (by 24, two shifts a block, for AS-MLP-T); a Mixer-B/16
      bf16 forward runs 4 x depth products (two token, two channel) on the
-     wgmma core and none on the WMMA core, a Mixer-B/16 int8 forward 4 x
+     wgmma core and none on the WMMA core (the token and residual products,
+     3 x depth, on its plain mode, the GELU products, depth, on its handoff
+     schedule, as TN_SCHEDULES says), a Mixer-B/16 int8 forward 4 x
      depth products on
      the s8 wgmma core and none on mma.sync, a gMLP-S or ResMLP-S24 bf16
      forward 3 x depth on the wgmma core and none on WMMA, and a gMLP-S or
@@ -129,8 +136,9 @@ Phases (each one fails loudly; there is no CPU fallback):
      AS-MLP-T's stage-1 shape, both axes; the W8A8 gMLP block beside the
      bytes of its f32 intermediates, the W8A8 Mixer, bf16 gMLP and both
      ResMLP blocks beside the bytes of their data flows); the GEMM core at
-     the two channel products, on each core and against cuBLAS's
-     torch.matmul; its other modes at gMLP-S's and ResMLP-S24's three int8
+     the two channel products, on the wgmma core's cooperative and handoff
+     schedules, on the WMMA core and against cuBLAS's torch.matmul, in
+     turns, with TFLOP/s and the bound; its other modes at gMLP-S's and ResMLP-S24's three int8
      products and the W8A8 Mixer block's four (against mma.sync and
      torch._int_mm), gMLP-S's and ResMLP-S24's three bf16 products,
      Mixer-B/16's two token products (f32 output, against WMMA and the
@@ -329,7 +337,8 @@ Phases (each one fails loudly; there is no CPU fallback):
      route cases (MIXER_ROUTE_SHAPES) against its twin in the same band,
      two calls bit-equal, its products on the cores ROUTED gives at CD / 2;
      ms per rank of the entry at P = 2 and 4 beside row 1's, the
-     pass's ms, in turns; (b) two processes of this script (``--tp-rank``)
+     pass's ms, in turns; the entry's launches by mode; its second channel
+     product alone at P = 2 and 4 on both schedules in turns; (b) two processes of this script (``--tp-rank``)
      in a gloo world sharing this card, the 1 × 2 ('data', 'model') mesh
      (NCCL takes one card a rank): ``Model.shard(mesh)`` of Mixer-B/16 at
      b64, f32 (the plain split path) within 1e-4 of max|logit| of the
@@ -627,8 +636,6 @@ BLOCK_PRODUCTS = {"mixer_block": ("sm90", 4), "mixer_block_int8": ("sm90_s8", 4)
                   "gmlp_block": ("sm90", 3), "gmlp_block_int8": ("sm90_s8", 3),
                   "resmlp_block": ("sm90", 3), "resmlp_block_int8": ("sm90_s8", 3)}
 BWD_PRODUCTS = {"fwd_with_h": 4, "token_bwd": 5, "chan_data_bwd": 3, "chan_wgt_bwd": 4}
-# the wgmma core's dual and Group launches per launch of each backward kernel
-BWD_MODES = {"token_bwd": {"dual": 1, "group": 2}, "chan_data_bwd": {"dual": 1, "group": 0}}
 # the kernels line's rows of a block library's products on the core
 PRODUCT_ROWS = {"mixer_block_int8": "gemm_s8_mixer_sm90", "gmlp_block": "gemm_bf16_gmlp_sm90",
                 "gmlp_block_int8": "gemm_s8_sm90", "resmlp_block": "gemm_bf16_resmlp_sm90",
@@ -642,6 +649,36 @@ GEMM_SHAPES = [(1568, 3072, 768), (1568, 768, 3072), (97, 72, 40), (165, 200, 13
 GEMM_WMMA_SHAPE = (33, 40, 50)  # K % 8 != 0: rows 100 bytes apart, the WMMA route
 GEMM_TIMED = [(256 * 196, 3072, 768), (256 * 196, 768, 3072)]  # b256's channel products
 GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_block)"
+# The handoff schedule's phase-2 shapes beyond GEMM_SHAPES, against its
+# 128×192 tiles on 132 blocks: M and N not multiples of the tile with a K
+# tail (K = 136 and 200, a part of a 64-wide K step) at 32 × 11 = 352 tiles
+# (blocks of 2 and 3 tiles: the sums' buffer turns in both parities), 19 ×
+# 11 = 209 (an odd count, blocks of 1 and 2) and 8 × 13 = 104 (fewer tiles
+# than blocks); GEMM_SHAPES' 208, 52, 16, 4 and 1 tiles.
+HANDOFF_SHAPES = [(4000, 2000, 136), (2400, 2100, 136), (1000, 2400, 200)]
+# Which schedule each K-major channel product of csrc/ runs: its gemm_tn
+# call sites, file → their schedules in source order ("handoff":
+# gemm_tn<sm90::Sched::Handoff>, "coop": gemm_tn without one). Kernel 1's
+# GELU product (mixer_forward.cuh; through it rows 5 and 1 (TP)), the split
+# entry's f32 partial (mixer_block.cu) and the lab's GELU products (so that
+# the lab splits kernel 1's time) take the handoff schedule; kernel 1's and
+# the lab's residual products keep the cooperative one, which phase 5
+# measured faster there (the split entry's partial, at a K of CD / P, runs
+# faster on the handoff one in 14a), and so does every other block.
+TN_SCHEDULES = {"mixer_forward.cuh": ("handoff", "coop"), "mixer_block.cu": ("handoff",),
+                "lab_ablate.cu": ("handoff", "coop"), "lab_tokmajor.cu": ("handoff", "coop"),
+                "lab_wide.cu": ("handoff", "coop"), "mixer_block_bwd.cu": ("coop",),
+                "resmlp_block.cu": ("coop", "coop"), "gmlp_block.cu": ("coop", "coop")}
+# handoff launches a launch of kernel 1 (and of the forward-with-h): its
+# GELU product (the rest of its products run the plain mode), and of the
+# split entry: the GELU product and the f32 partial
+HANDOFF_FWD = TN_SCHEDULES["mixer_forward.cuh"].count("handoff")
+HANDOFF_TP = TN_SCHEDULES["mixer_forward.cuh"][0:1].count("handoff") + \
+    TN_SCHEDULES["mixer_block.cu"].count("handoff")
+# the wgmma core's dual, Group and handoff launches per launch of each
+# training kernel that runs them
+BWD_MODES = {"token_bwd": {"dual": 1, "group": 2}, "chan_data_bwd": {"dual": 1, "group": 0},
+             "fwd_with_h": {"handoff": HANDOFF_FWD}}
 # Kernel 1's, the forward-with-h's and the split entry's route cases
 # (ROUTED): both token products on the wgmma core at a ragged N (N = 33:
 # Wt1 copied into rows of 40); the second on the WMMA core (TD = 50: Wt2's
@@ -734,27 +771,34 @@ def phase_gemm(mod):
     """Phase 2 for the GEMM core of the channel products: gemm_tn on the
     auto route at GEMM_SHAPES (each counted on the wgmma core) and on the
     WMMA core at the first two, at GEMM_WMMA_SHAPE on the auto route
-    (counted on the WMMA core; the wgmma core refuses it), both epilogues:
+    (counted on the WMMA core; the wgmma core refuses it), and on the
+    handoff schedule at GEMM_SHAPES and HANDOFF_SHAPES (counted on the
+    wgmma core and as handoff launches; its output against the
+    cooperative schedule's, bit-equal or max|Δ| printed), both epilogues:
     within TOL of max(1, max|ref|) of gemm_tn_ref, two calls bit-equal, one
-    launch a call. Returns the largest max|Δ|."""
-    worst = 0.0
+    launch a call. Returns {row: the largest max|Δ|} for the cooperative
+    and the handoff rows."""
+    worst = {"gemm_tn_sm90": 0.0, "gemm_tn_handoff_sm90": 0.0}
     cases = ([(shape, "auto", "sm90") for shape in GEMM_SHAPES]
              + [(shape, "legacy", "wmma") for shape in GEMM_SHAPES[:2]]
-             + [(GEMM_WMMA_SHAPE, "auto", "wmma")])
+             + [(GEMM_WMMA_SHAPE, "auto", "wmma")]
+             + [(shape, "handoff", "sm90") for shape in GEMM_SHAPES + HANDOFF_SHAPES])
     for shape, core, route in cases:
         for residual in (False, True):
             a, b, bias, kw = gemm_inputs(*shape, residual, seed=sum(shape) + residual)
             tag = f"gemm_tn {shape} {'residual' if residual else 'gelu_tanh'} core={core}"
-            before, routes0 = mod.LAUNCHES, mod.routes()
+            before, routes0, modes0 = mod.LAUNCHES, mod.routes(), mod.mode_launches()
             got = mod.gemm_tn(a, b, bias, core=core, **kw)
             torch.cuda.synchronize()
             again = mod.gemm_tn(a, b, bias, core=core, **kw)
             torch.cuda.synchronize()
-            routes1 = mod.routes()
+            routes1, modes1 = mod.routes(), mod.mode_launches()
             moved = {k: routes1[k] - routes0[k] for k in routes1}
             want_routes = {k: 2 * (k == route) for k in routes1}
             check(mod.LAUNCHES == before + 2, f"{tag}: LAUNCHES did not rise by 1 a call")
             check(moved == want_routes, f"{tag}: routes {moved}, want {want_routes}")
+            pp = modes1["handoff"] - modes0["handoff"]
+            check(pp == 2 * (core == "handoff"), f"{tag}: {pp} handoff launches")
             check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
             want = mod.gemm_tn_ref(a, b, bias, **kw)
             check(got.shape == want.shape and got.dtype == want.dtype,
@@ -762,20 +806,32 @@ def phase_gemm(mod):
             check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
             err = (got.float() - want.float()).abs().max().item()
             rel = err / max(1.0, want.float().abs().max().item())
-            worst = max(worst, err)
+            row = "gemm_tn_handoff_sm90" if core == "handoff" else "gemm_tn_sm90"
+            worst[row] = max(worst[row], err)
+            schedule = ""
+            if core == "handoff":
+                coop = mod.gemm_tn(a, b, bias, core="sm90", **kw)
+                same = torch.equal(got, coop)
+                schedule = "; bit-equal to the cooperative schedule" if same else (
+                    f"; differs from the cooperative schedule: max|d| "
+                    f"{(got.float() - coop.float()).abs().max().item():.6g}")
+                del coop
             print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL}); two calls "
-                  f"bit-equal; on the {route} core ({json.dumps(moved)})", flush=True)
+                  f"bit-equal; on the {route} core ({json.dumps(moved)}, handoff launches "
+                  f"{pp}){schedule}", flush=True)
             check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
             del a, b, bias, kw, got, again, want
     a, b, bias, kw = gemm_inputs(*GEMM_WMMA_SHAPE, False, seed=0)
-    try:
-        mod.gemm_tn(a, b, bias, core="sm90", **kw)
-        refused = False
-    except RuntimeError:
-        refused = True
-    check(refused, f"gemm_tn core=sm90 at {GEMM_WMMA_SHAPE} (rows 100 bytes apart) did not raise")
-    print(f"[2] gemm_tn core=sm90 at {GEMM_WMMA_SHAPE}: refused (TMA needs 16-byte row strides)",
-          flush=True)
+    for core in ("sm90", "handoff"):
+        try:
+            mod.gemm_tn(a, b, bias, core=core, **kw)
+            refused = False
+        except RuntimeError:
+            refused = True
+        check(refused,
+              f"gemm_tn core={core} at {GEMM_WMMA_SHAPE} (rows 100 bytes apart) did not raise")
+        print(f"[2] gemm_tn core={core} at {GEMM_WMMA_SHAPE}: refused (TMA needs 16-byte row "
+              f"strides)", flush=True)
     return worst
 
 
@@ -1343,6 +1399,25 @@ def check_routes(tag, before, after, products, route="sm90"):
     return moved[route]
 
 
+def fwd_modes(launches):
+    """The wgmma core's launches by mode of ``launches`` Mixer block
+    forwards at Mixer-B/16's widths (kernel 1's or the forward-with-h's):
+    the channel products TN_SCHEDULES puts on the handoff schedule, the
+    rest (the token products, the residual product) on the plain mode."""
+    per = BLOCK_PRODUCTS["mixer_block"][1]
+    return {"plain": (per - HANDOFF_FWD) * launches, "handoff": HANDOFF_FWD * launches}
+
+
+def check_modes(tag, before, after, want):
+    """Between two readings of a library's launches by mode, the modes of
+    ``want`` moved by as much."""
+    moved = {k: after[k] - before[k] for k in want}
+    print(f"{tag}: wgmma launches by mode {json.dumps(moved)} (want {json.dumps(want)})",
+          flush=True)
+    check(moved == want, f"{tag}: wgmma launches by mode {moved}, want {want}")
+    return moved
+
+
 def phase_logits(jt, mods):
     """Mixer-B/16, ResMLP-S24 and gMLP-S logits, kernel paths against plain
     paths. Returns the bf16 kernel-path models (on the card)."""
@@ -1354,9 +1429,11 @@ def phase_logits(jt, mods):
     f32 = jt.MLPMixerForImageClassification(**MIXER_B16).eval()
     x = images(64, 0)
     with torch.inference_mode():
-        routes0 = mb.routes()
+        routes0, modes0 = mb.routes(), mb.mode_launches()
         lk = forward_counted(kernel, x.bfloat16(), mb, DEPTH)
         routes1 = mb.routes()
+        check_modes("[3] Mixer-B/16 bf16 kernel-path forward", modes0, mb.mode_launches(),
+                    fwd_modes(DEPTH))
         q0 = mbq.routes()
         with config.int8_mode():
             lq = forward_counted(kernel, x.bfloat16(), mbq, DEPTH)
@@ -1554,7 +1631,8 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
 
     # (a) Mixer-B/16 bf16, as the first slice serves it
     reset_counts(mods)  # the main path's run starts here
-    routes0 = mods["mixer_block"].routes()  # a library's count is read, not reset
+    # a library's counts are read, not reset
+    routes0, modes0 = mods["mixer_block"].routes(), mods["mixer_block"].mode_launches()
     pred = jt.Predictor(mixer, batch_size=32).warmup()
     stats = serve(jt, [pred], imgs)
     labels, probs = pred.predict(big)
@@ -1570,7 +1648,13 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
     # a launch's two channel products and two token products, each pair a row
     moved = check_routes("[4a] Mixer bf16", routes0, mods["mixer_block"].routes(),
                          BLOCK_PRODUCTS["mixer_block"][1] * launches["fused_mixer_block"])
-    launches["gemm_tn_sm90"] = launches["gemm_bf16_mixer_token_sm90"] = moved // 2
+    modes = check_modes("[4a] Mixer bf16", modes0, mods["mixer_block"].mode_launches(),
+                        fwd_modes(launches["fused_mixer_block"]))
+    # a launch's two token products and its two channel products, each on
+    # its schedule
+    launches["gemm_bf16_mixer_token_sm90"] = moved // 2
+    launches["gemm_tn_handoff_sm90"] = modes["handoff"]
+    launches["gemm_tn_sm90"] = moved // 2 - modes["handoff"]
 
     # (b), (c): an int8 and a bf16 Predictor on one model, at the same time
     for tag, model, bf_mod, q_mod, depth, bf_name, q_name in (
@@ -1913,13 +1997,15 @@ def shift_timing(mod, name):
 
 def gemm_timing(mod, name):
     """Phase 5 for the GEMM core at b256's two channel products (GEMM_TIMED,
-    the GELU and the residual epilogue): gemm_tn on the wgmma core and on the
-    WMMA core and cuBLAS's bf16 torch.matmul (the product alone, without the
-    epilogue: the yardstick, which the port never calls), in turns, then the
-    twin; ms, TFLOP/s and share of the dense bf16 peak. Returns (wgmma ms,
-    twin ms, bound ms, bound_by, cuBLAS ms), each summed over the two
-    products: one block's channel half."""
-    total = dict.fromkeys(("sm90", "wmma", "cublas", "twin", "bound"), 0.0)
+    the GELU and the residual epilogue): gemm_tn on the wgmma core's
+    cooperative and handoff schedules, on the WMMA core and cuBLAS's bf16
+    torch.matmul (the product alone, without the epilogue: the yardstick,
+    which the port never calls), in turns, then the twin; ms, TFLOP/s and
+    share of the dense bf16 peak. Returns {row: ((ms, twin ms, bound ms,
+    bound_by), cuBLAS ms)} for the cooperative schedule's row and the
+    handoff one's, each summed over the two products: one block's
+    channel half."""
+    total = dict.fromkeys(("sm90", "handoff", "wmma", "cublas", "twin", "bound"), 0.0)
     total_by = set()
     for (M, N, K), residual in zip(GEMM_TIMED, (False, True)):
         a, b, bias, kw = gemm_inputs(M, N, K, residual, seed=7)
@@ -1930,20 +2016,23 @@ def gemm_timing(mod, name):
         t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
         bound, bound_by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
         fns = {"sm90": lambda: mod.gemm_tn(a, b, bias, core="sm90", **kw),
+               "handoff": lambda: mod.gemm_tn(a, b, bias, core="handoff", **kw),
                "wmma": lambda: mod.gemm_tn(a, b, bias, core="legacy", **kw),
                "cublas": lambda: torch.matmul(a, b.t())}
         runs = {k: [] for k in fns}
         for k in list(fns) + list(fns)[::-1]:
             runs[k].append(cuda_ms(fns[k], 20))
         epi = "residual" if residual else "gelu_tanh"
+        what = {"sm90": "wgmma core, cooperative schedule", "handoff":
+                "wgmma core, handoff schedule", "wmma": "WMMA core",
+                "cublas": "torch.matmul (cuBLAS, no epilogue)"}
         for k, r in runs.items():
             ms = sum(r) / len(r)
             total[k] += ms
-            what = "torch.matmul (cuBLAS, no epilogue)" if k == "cublas" else f"{k} core"
             rate = flop / ms / 1e9  # TFLOP/s
-            print(f"[5] gemm_tn b256 {(M, N, K)} {epi}, {what}: {ms:.4f} ms, {rate:.1f} TFLOP/s, "
-                  f"{100 * rate * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak (runs {r})  [{name}]",
-                  flush=True)
+            print(f"[5] gemm_tn b256 {(M, N, K)} {epi}, {what[k]}: {ms:.4f} ms, {rate:.1f} "
+                  f"TFLOP/s, {100 * rate * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak, "
+                  f"bound/ms {bound / ms:.3f} (runs {r})  [{name}]", flush=True)
         twin = cuda_ms(lambda: mod.gemm_tn_ref(a, b, bias, **kw), 3)
         total["twin"] += twin
         total["bound"] += bound
@@ -1952,11 +2041,13 @@ def gemm_timing(mod, name):
         total_by.add(bound_by)
         del a, b, bias, kw, out
         torch.cuda.empty_cache()
-    print(f"[5] gemm_tn b256, one block's two channel products: wgmma core {total['sm90']:.4f} ms, "
-          f"WMMA core {total['wmma']:.4f} ms, cuBLAS {total['cublas']:.4f} ms, bound "
+    print(f"[5] gemm_tn b256, one block's two channel products: wgmma core cooperative "
+          f"{total['sm90']:.4f} ms, handoff {total['handoff']:.4f} ms, WMMA core "
+          f"{total['wmma']:.4f} ms, cuBLAS {total['cublas']:.4f} ms, bound "
           f"{total['bound']:.4f} ms  [{name}]", flush=True)
     by = total_by.pop() if len(total_by) == 1 else "operations"  # both are, at these shapes
-    return (total["sm90"], total["twin"], total["bound"], by), total["cublas"]
+    return {row: ((total[k], total["twin"], total["bound"], by), total["cublas"])
+            for row, k in (("gemm_tn_sm90", "sm90"), ("gemm_tn_handoff_sm90", "handoff"))}
 
 
 def _timed_turns(fns, iters):
@@ -2949,12 +3040,12 @@ def loss_descends(jt, mods, steps=10, batch_size=128):
             runs[(route, remat)] = losses
             modes = {k: v - modes0[k] for k, v in bwd.mode_launches().items()}
             want_modes = {k: sum(BWD_MODES[n].get(k, 0) * counts[n] for n in BWD_MODES)
-                          for k in ("dual", "group")}
+                          for k in ("dual", "group", "handoff")}
             got_modes = {k: modes[k] for k in want_modes}
-            print(f"[6d] the wgmma core's dual and Group launches, {tag}: "
+            print(f"[6d] the wgmma core's dual, Group and handoff launches, {tag}: "
                   f"{json.dumps(got_modes)} (want {json.dumps(want_modes)})", flush=True)
             check(got_modes == want_modes,
-                  f"{tag}: dual and Group launches {got_modes}, want {want_modes}")
+                  f"{tag}: dual, Group and handoff launches {got_modes}, want {want_modes}")
             if route == "kernel" and not remat:
                 counted = {k: counts[k] for k in TRAIN_KERNELS}
                 counted["gemm_bwd_sm90"] = moved - BWD_PRODUCTS["fwd_with_h"] * counts["fwd_with_h"]
@@ -4465,11 +4556,14 @@ def tp_kernels(mods, name):
     per = BLOCK_PRODUCTS["mixer_block"][1]  # a split entry's products, as a whole launch's
     for P in TP_RANKS:
         slices = tp_slices(w, P)
-        before = mb.routes()
+        before, modes0 = mb.routes(), mb.mode_launches()
         got = tp_split_block(x, slices)
         again = tp_split_block(x, slices)
         torch.cuda.synchronize()
         moved = {k: v - before[k] for k, v in mb.routes().items()}
+        # 2P entries: each runs its channel products on the schedules of TN_SCHEDULES
+        check_modes(f"[14a] P = {P}, two calls", modes0, mb.mode_launches(),
+                    {"plain": 2 * P * (per - HANDOFF_TP), "handoff": 2 * P * HANDOFF_TP})
         plain = tp_split_block(x, slices, plain=True)
         # the entry and the pass against their direct twins, rank 0's slice
         h, p = mb.PARTIAL_OP(x, *slices[0][:-1])
@@ -4526,7 +4620,26 @@ def tp_kernels(mods, name):
           f"pass {fin_bound:.4f} (bytes)  [{name}]", flush=True)
     timings = {"fused_mixer_block_tp": (ms["entry P=2"], plain_entry, entry_bound, entry_by),
                "mixer_block_tp_finish": (ms["finishing pass"], plain_fin, fin_bound, "bytes")}
+    if "gemm_sm90" in mods:
+        tp_schedules(mods["gemm_sm90"], B * N, D, CD, name)
     return errs, timings
+
+
+def tp_schedules(core, M, D, CD, name):
+    """14a: the split entry's second channel product, (M, D, CD / P) at P =
+    2 and 4, on the wgmma core's cooperative and handoff schedules in
+    turns (gemm_tn with the residual epilogue: bf16 read and written where
+    the entry stores f32, the same bytes an element)."""
+    for P in TP_RANKS:
+        a, b, bias, kw = gemm_inputs(M, D, CD // P, True, seed=P)
+        ms, runs = _timed_turns({k: functools.partial(core.gemm_tn, a, b, bias, core=k, **kw)
+                                 for k in ("sm90", "handoff")}, 20)
+        flop = 2 * M * D * (CD // P)
+        print(f"[14a] the split entry's second channel product at P = {P}, {(M, D, CD // P)}: "
+              f"cooperative schedule {ms['sm90']:.4f} ms ({flop / ms['sm90'] / 1e9:.1f} TFLOP/s), "
+              f"handoff {ms['handoff']:.4f} ms ({flop / ms['handoff'] / 1e9:.1f} TFLOP/s) "
+              f"(runs {json.dumps(runs)})  [{name}]", flush=True)
+        del a, b, bias, kw
 
 
 def tp_rank(rank, port, out_path):
@@ -4985,7 +5098,7 @@ def main():
     errs = phase_kernels(table)
     errs["axial_shift"] = phase_shift(mods["axial_shift"])
     errs.update(phase_lab(mods["kernel_lab"]))
-    errs["gemm_tn_sm90"] = phase_gemm(mods["gemm_sm90"])
+    errs.update(phase_gemm(mods["gemm_sm90"]))
     errs.update(phase_core(mods["gemm_sm90"]))
     errs.update(phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"]))
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
@@ -4996,7 +5109,8 @@ def main():
     timings["axial_shift"] = shift_timing(mods["axial_shift"], name)
     timings.update(lab_timing(mods["kernel_lab"], name))
     library = {}
-    timings["gemm_tn_sm90"], library["gemm_tn_sm90"] = gemm_timing(mods["gemm_sm90"], name)
+    for row, (timing, lib_ms) in gemm_timing(mods["gemm_sm90"], name).items():
+        timings[row], library[row] = timing, lib_ms
     for row, (timing, lib_ms) in core_timing(mods["gemm_sm90"], name).items():
         timings[row], library[row] = timing, lib_ms
     for row, (timing, lib_ms) in mode_timing(mods["gemm_sm90"], mods["mixer_block_bwd"],
@@ -5034,6 +5148,7 @@ def main():
     sources["axial_shift"] = ("axial_shift.cu", SHIFT_REPLACES)
     sources.update(LAB_KERNELS)
     sources["gemm_tn_sm90"] = ("gemm_sm90.cuh", GEMM_REPLACES)
+    sources["gemm_tn_handoff_sm90"] = ("gemm_sm90.cuh", GEMM_REPLACES)
     sources["gemm_s8_sm90"] = ("gemm_sm90.cuh", S8_REPLACES)
     sources["gemm_s8_mixer_sm90"] = ("gemm_sm90.cuh", MIXER_S8_REPLACES)
     sources["gemm_bf16_gmlp_sm90"] = ("gemm_sm90.cuh", GMLP_BF16_REPLACES)

@@ -7,6 +7,9 @@
 //   A (M, K), B (N, K) and bias (N,), all bf16,
 //     act 0:  C = bf16(gelu_tanh(A · Bᵀ + bias))          (GeluBias)
 //     act 1:  C = bf16(R + (A · Bᵀ + bias)), R (M, N)     (ResidualBias)
+//   on the cooperative schedule or on the handoff one (core 3: the
+//   tile's sums handed through shared memory to epilogue warps, which run
+//   under the next tile's wgmmas), which kernel 1 runs.
 // - gemm_bf16_f32: the bf16 modes of the Mixer channel backward
 //   (mixer_block_bwd.py:397 _chan_wgt_bwd): MN-major A and/or B, and K cut
 //   into row slabs, one f32 partial each (StoreF32's output); or entries
@@ -51,23 +54,34 @@ bool valid_core(int core) { return core >= 0 && core <= 2; }
 
 }  // namespace
 
+// One channel product on schedule S and core `which` (gemm_tn_bf16's act).
+template <sm90::Sched S>
+cudaError_t channel_product(cudaStream_t s, const void* a, const void* b, const void* bias,
+                            const void* r, void* c, int M, int N, int K, int act,
+                            sm90::Core which) {
+  if (act == 0)
+    return sm90::gemm_tn<S>(s, M, N, K, a, K, b, K, bf16gemm::gelu_bias(bias, 0, c, N, 0), which);
+  if (act == 1)
+    return sm90::gemm_tn<S>(s, M, N, K, a, K, b, K, bf16gemm::residual_bias(bias, 0, r, c, N, 0),
+                            which);
+  return cudaErrorInvalidValue;
+}
+
 // All pointers are contiguous bf16 device buffers; r is read for act 1
 // only. core: 0 the wgmma core where TMA's rules hold, else the WMMA core;
-// 1 the wgmma core (an error where the rules do not hold); 2 the WMMA core.
-// Returns a cudaError_t code (0 on success); cudaErrorInvalidValue for an
-// unknown act or core.
+// 1 the wgmma core (an error where the rules do not hold); 2 the WMMA core
+// (0 and 1 on the cooperative schedule); 3 the wgmma core on the handoff
+// schedule (an error where the rules do not hold). Returns a cudaError_t
+// code (0 on success); cudaErrorInvalidValue for an unknown act or core.
 extern "C" int gemm_tn_bf16(const void* a, const void* b, const void* bias, const void* r, void* c,
                             int M, int N, int K, int act, int core, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (core == 3)
+    return static_cast<int>(channel_product<sm90::Sched::Handoff>(s, a, b, bias, r, c, M, N, K,
+                                                                  act, sm90::Core::Sm90));
   if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
-  const sm90::Core which = static_cast<sm90::Core>(core);
-  if (act == 0)
-    return static_cast<int>(
-        sm90::gemm_tn(s, M, N, K, a, K, b, K, bf16gemm::gelu_bias(bias, 0, c, N, 0), which));
-  if (act == 1)
-    return static_cast<int>(sm90::gemm_tn(s, M, N, K, a, K, b, K,
-                                          bf16gemm::residual_bias(bias, 0, r, c, N, 0), which));
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(channel_product<sm90::Sched::Coop>(s, a, b, bias, r, c, M, N, K, act,
+                                                             static_cast<sm90::Core>(core)));
 }
 
 // out (nz, M, N) f32. Slabs (nb 1): nz = ceil(K / slab), partial z =
@@ -179,14 +193,22 @@ extern "C" int gemm_bf16_group_f32(const void* a, const void* b, void* out, int 
 // loaded; -1 for another route.
 extern "C" long long gemm_tn_products(int route) { return sm90::products(route); }
 
+// The wgmma core's launches by these entries so far in mode `mode` (0
+// plain, 1 chunked, 2 dual, 3 Group, 4 handoff); -1 for another mode.
+extern "C" long long gemm_mode_launches(int mode) { return sm90::mode_launches(mode); }
+
 // The core's tile (rows, columns, K step in bf16 values), ring stages and
 // dynamic shared memory in bytes, then the dual mode's tile columns (K-major
-// B), stages and shared memory: what = 0 .. 7; -1 otherwise.
+// B), stages and shared memory, then the handoff schedule's tile (rows,
+// columns), stages, epilogue warps and shared memory: what = 0 .. 12; -1
+// otherwise.
 extern "C" long long gemm_sm90_config(int what) {
   const long long v[] = {sm90::BM,      sm90::BN,          sm90::BK,
                          sm90::STAGES,  sm90::SMEM_BYTES,  sm90::BN_DUAL,
-                         sm90::DUAL_STAGES, sm90::DUAL_SMEM_BYTES};
-  return what >= 0 && what < 8 ? v[what] : -1;
+                         sm90::DUAL_STAGES, sm90::DUAL_SMEM_BYTES, sm90::HO_BM,
+                         sm90::HO_BN,   sm90::HO_STAGES,   sm90::HO_EPI_WARPS,
+                         sm90::HandoffTile::SMEM_BYTES};
+  return what >= 0 && what < 13 ? v[what] : -1;
 }
 
 extern "C" const char* gemm_error_string(int code) {

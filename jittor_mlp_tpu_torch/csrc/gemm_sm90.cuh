@@ -136,11 +136,47 @@
 // - Epilogue: wgmma's accumulator spreads a row's 8 columns over the 4
 //   lanes of a quad, so each consumer warp stages its 16 rows 32 columns at
 //   a time, as f32, through 2.3 KB of shared memory, and 4 lanes then hand
-//   one row's 32 columns to the functor. The epilogue does not overlap this
-//   block's wgmmas.
+//   one row's 32 columns to the functor. In this cooperative schedule the
+//   epilogue does not overlap this block's wgmmas; the handoff schedule
+//   (below) overlaps it.
 // - Deterministic: no atomics. Each output element is one tile's sum over
 //   its entry's K in a fixed order, whatever the grid: two calls agree bit
 //   for bit.
+//
+// The handoff schedule (gemm_tn<Sched::Handoff>, gemm_handoff_kernel; bf16,
+// one product, K-major operands): kernel 1's GELU channel product
+// (mixer_forward.cuh: through it the forward-with-h's and the split entry's),
+// the split entry's f32 partial and the kernel lab's GELU channel products
+// run it; every other product runs the cooperative one (gemm_kernel), kernel
+// 1's residual product among them. What bounds the Mixer-B/16 GELU product
+// at b256, (50176, 3072, 768): its K loop alone takes ≈ 0.32-0.34 ms on
+// either schedule, but the functor's tanh GELU, a branchy libm tanhf a value
+// (about 45 instructions, issue-bound over 154 M values), and its 308 MB of
+// bf16 stores add ≈ 0.24 ms after the cooperative schedule's K loops. What
+// the design does about it: one MMA warpgroup holds a 128×192 tile (192 f32
+// sums a thread after setmaxnreg: 232 registers) and runs its K loops back
+// to back over a 3-stage ring of 40 KB; after each tile it writes the sums
+// to a 100 KB shared-memory buffer (float2 stores, rows HO_BN + 8 floats
+// apart: no bank conflicts), and 11 epilogue warps (two warpgroups at 104
+// registers, and the producer warpgroup's warps 1-3 at 72) hand them to the
+// functor while the next tile's wgmmas run. Eleven warps, because the
+// epilogue is bound by its instruction issue and its latency chains per warp
+// (a tanh's branches, then the functor's store before the next call's bias
+// loads): a ping-pong schedule (two consumer warpgroups, each on a 128×128
+// or 128×192 tile of its own, taking turns at the tensor cores) left each
+// tile's epilogue to one warpgroup of four warps and ran the GELU product
+// at 0.68 and 1.06 ms, slower than the cooperative schedule; a wgmma of 96
+// sums needs 122 registers a thread at launch, so no more than 512 threads
+// fit. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 5, in
+// turns): the GELU product 0.4637 ms on the handoff schedule against 0.5716
+// on the cooperative one (cuBLAS's product alone, without the epilogue,
+// 0.3339); the residual product (50176, 768, 3072), whose epilogue is short
+// beside its K of 3072, 0.3739 against 0.3529, so kernel 1 keeps the
+// cooperative schedule there; the split entry's f32 partial (50176, 768,
+// 1536) at P = 2 0.2018 against 0.2319 (phase 14a). Each output element is
+// the same f32 sum over the same k16 slices in the same order as the
+// cooperative schedule's, through the same functor: the two schedules agree
+// bit for bit.
 //
 // Routes, both hand-written and both counted (products(route), a dual
 // launch two; wgmma launches also per mode, mode_launches): bf16 takes the
@@ -184,6 +220,24 @@ constexpr int BN_DUAL = 96;                       // the dual mode's tile width 
 constexpr int BN_DUAL_MN = 64;                    // ... with an MN-major B: one swizzle atom
 constexpr int DUAL_STAGES = 3;                    // the dual mode's ring
 
+// The handoff schedule (gemm_tn<Sched::Handoff>): one MMA warpgroup runs its
+// tiles' K loops back to back on HO_BM × HO_BN tiles; after each, it writes
+// the tile's f32 sums to shared memory, and HO_EPI_WARPS epilogue warps hand
+// them to the functor under the next tile's wgmmas.
+constexpr int HO_BM = 128, HO_BN = 192;           // the tile: two m64n192 wgmmas
+constexpr int HO_STAGES = 3;
+constexpr int HO_EPI_WGS = 2;                     // epilogue warpgroups
+// ... and warps 1-3 of the producer warpgroup, whose warp 0 issues the loads
+constexpr int HO_EPI_WARPS = 4 * HO_EPI_WGS + 3;
+constexpr int HO_THREADS = 128 * (2 + HO_EPI_WGS);
+// setmaxnreg, of the 512·128 the launch bounds give: the producer
+// warpgroup 72 (its helpers run the epilogue), the MMA warpgroup 232 (192
+// sums a thread), the epilogue warpgroups the rest, 104
+constexpr int HO_PRODUCER_REGS = 72, HO_MMA_REGS = 232;
+constexpr int HO_EPI_REGS = (HO_THREADS * 128 - 128 * (HO_PRODUCER_REGS + HO_MMA_REGS)) /
+                            (128 * HO_EPI_WGS) / 8 * 8;
+constexpr int HO_LD = HO_BN + 8;  // f32 row of the sums: the MMA warps' float2 stores conflict-free
+
 // The geometry of a block tile W columns wide with PAIRS products (two in
 // the dual mode): each consumer thread holds W / 2 sums of each product; a
 // stage is, for each product, A's 192 rows and B's W rows of one K step
@@ -212,10 +266,31 @@ static_assert(Tile<BN_DUAL_MN, 2, true>::SMEM_BYTES <= DUAL_SMEM_BYTES, "either 
 static_assert(BN == 192 && BN_CHUNKED == 96 && BN_DUAL == 96 && BN_DUAL_MN == 64,
               "the consumers' wgmma is m64n192 (m64n96 chunked and dual, m64n64 dual MN-major)");
 
+// The handoff schedule's shared memory: a ring of HO_STAGES stages of A's
+// HO_BM rows and B's HO_BN rows of one K step (40 KB), the tile's f32 sums
+// (HO_BM rows of HO_LD, 100 KB), the ring's full and empty barriers and the
+// sums' two.
+struct HandoffTile {
+  static constexpr int A_BYTES = HO_BM * K_BYTES;  // 16 KB
+  static constexpr int STAGE_BYTES = A_BYTES + HO_BN * K_BYTES;
+  static constexpr int SUMS_BYTES = HO_BM * HO_LD * 4;
+  static constexpr int SMEM_BYTES =
+      1024 + HO_STAGES * STAGE_BYTES + SUMS_BYTES + (2 * HO_STAGES + 2) * 8;
+  static_assert(STAGE_BYTES % 1024 == 0 && A_BYTES % 1024 == 0, "stages stay 1024-byte aligned");
+  static_assert(SMEM_BYTES <= 232448, "the ring and the sums fit the 227 KB a block may use");
+};
+
 // The kernel's modes: one product a tile (Plain), the chunked s8 mode, two
 // products of one tile (Dual), one product summed over a group of images
-// in the K loop (Group).
-enum class Mode { Plain = 0, Chunked = 1, Dual = 2, Group = 3 };
+// in the K loop (Group); and one product a tile on the handoff schedule
+// (Handoff, its own kernel: gemm_handoff_kernel).
+enum class Mode { Plain = 0, Chunked = 1, Dual = 2, Group = 3, Handoff = 4 };
+constexpr int MODES = 5;
+
+// A K-major bf16 product's schedule (gemm_tn's template argument): the
+// cooperative one (gemm_kernel: three consumer warpgroups on the rows of
+// one 192×192 tile, then all three in its epilogue) or the handoff one.
+enum class Sched { Coop, Handoff };
 
 // The block tile's width of a mode.
 template <Mode MODE, bool TB>
@@ -234,14 +309,14 @@ enum class Core { Auto = 0, Sm90 = 1, Legacy = 2 };
 // library (internal linkage: each kernel library is one translation unit
 // and keeps its own counts). A dual launch is two products.
 static std::atomic<long long> g_products[4];
-static std::atomic<long long> g_modes[4];
+static std::atomic<long long> g_modes[MODES];
 
 inline long long products(int route) {
   return route >= 0 && route < 4 ? g_products[route].load() : -1;
 }
 
 inline long long mode_launches(int mode) {
-  return mode >= 0 && mode < 4 ? g_modes[mode].load() : -1;
+  return mode >= 0 && mode < MODES ? g_modes[mode].load() : -1;
 }
 
 template <class T>
@@ -493,16 +568,16 @@ __device__ __forceinline__ void wgmma_dual(float (&d)[ACC], uint64_t a, uint64_t
     wgmma_64<TA, TB>(d, a, b);
 }
 
-// Output tile `tile` of a walk over tiles W columns wide: entry z, first
-// row m0, first column n0.
+// Output tile `tile` of a walk over tiles H rows high and W columns wide:
+// entry z, first row m0, first column n0.
 struct TilePos {
   int z, m0, n0;
 };
 
-template <int W>
+template <int W, int H = BM>
 __device__ __forceinline__ TilePos tile_pos(int tile, int tiles_m, int tiles_n) {
   const int per = tiles_m * tiles_n, r = tile % per;
-  return {tile / per, r / tiles_n * BM, r % tiles_n * W};
+  return {tile / per, r / tiles_n * H, r % tiles_n * W};
 }
 
 // K steps of entry z (the last entry's K may be shorter). The producer and
@@ -826,6 +901,140 @@ gemm_kernel(const __grid_constant__ CUtensorMap m0, const __grid_constant__ CUte
   }
 }
 
+// The handoff schedule of one K-major bf16 product, C = epi(0, A · Bᵀ), on
+// the 2-D maps ma (A, boxes of HO_BM rows) and mb (B, HO_BN rows). Warp 0
+// of warpgroup 0 produces as gemm_kernel's does; warpgroup 1 runs the K loop
+// of each of the block's tiles in turn (tile blockIdx.x + t·gridDim.x), then
+// waits on sums_empty for the sums' buffer, writes the tile's f32 sums there
+// and arrives on sums_full, and goes on to the next tile's K loop. The
+// epilogue warps (warpgroups 2 and 3, and warps 1-3 of warpgroup 0) wait on
+// sums_full, hand each row's 8-column runs to the functor and arrive on
+// sums_empty: a tile's epilogue runs under the next tile's wgmmas. Each
+// output element is the sum over the same k16 slices, in the same order, as
+// gemm_kernel's, handed to the functor the same way.
+template <class Epi>
+__global__ void __launch_bounds__(HO_THREADS, 1)
+gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                    int M, int N, int K, Epi epi) {
+  typedef HandoffTile G;
+  constexpr int NST = HO_STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that boundary
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* sums = reinterpret_cast<float*>(smem + NST * G::STAGE_BYTES);  // rows HO_LD apart
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + NST * G::STAGE_BYTES + G::SUMS_BYTES);
+  uint64_t* empty = full + NST;
+  uint64_t* sums_full = empty + NST;     // the MMA warpgroup wrote a tile's sums
+  uint64_t* sums_empty = sums_full + 1;  // the epilogue warps read them
+
+  const int tiles_m = (M + HO_BM - 1) / HO_BM, tiles_n = (N + HO_BN - 1) / HO_BN;
+  const int tiles = tiles_m * tiles_n;
+  const int ktiles = k_steps<bf16>(0, 1, K, K);
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int r = lane / 4, q = lane % 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NST; ++s) {
+      mbar_init(&full[s], 1);   // the producer's expect_tx
+      mbar_init(&empty[s], 4);  // one arrive per MMA warp
+    }
+    mbar_init(sums_full, 4);              // one arrive per MMA warp
+    mbar_init(sums_empty, HO_EPI_WARPS);  // one per epilogue warp
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // epilogue warp e takes the tile's runs in items of 8 rows × 4 runs of 8
+  // columns: item e, e + HO_EPI_WARPS, …; lane (r, q) row r, run q
+  auto epilogue = [&](int e) {
+    constexpr int RUNS = HO_BN / 32, ITEMS = HO_BM / 8 * RUNS;
+    for (int tile = blockIdx.x, t = 0; tile < tiles; tile += gridDim.x, ++t) {
+      const TilePos p = tile_pos<HO_BN, HO_BM>(tile, tiles_m, tiles_n);
+      mbar_wait(sums_full, t & 1);
+      for (int item = e; item < ITEMS; item += HO_EPI_WARPS) {
+        const int row = item / RUNS * 8 + r, col = item % RUNS * 32 + 8 * q;
+        float v[8];
+        load8(sums + row * HO_LD + col, v);
+        const int gm = p.m0 + row, gn = p.n0 + col;
+        if (gm < M && gn < N) epi(0, gm, gn, v, min(8, N - gn));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sums_empty);
+    }
+  };
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(HO_PRODUCER_REGS));
+    if (warp > 0) epilogue(4 * HO_EPI_WGS + warp - 1);  // warp 0's thread 0 produces
+    if (threadIdx.x == 0) {
+      int it = 0;  // K steps loaded so far, over all tiles: stage it % NST
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const TilePos p = tile_pos<HO_BN, HO_BM>(tile, tiles_m, tiles_n);
+        for (int kt = 0; kt < ktiles; ++kt, ++it) {
+          const int s = it % NST;
+          mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);  // round 0 passes at once
+          mbar_expect_tx(&full[s], G::STAGE_BYTES);
+          unsigned char* st = smem + s * G::STAGE_BYTES;
+          tma_load(st, &ma, kt * BK, p.m0, 0, true, &full[s]);
+          tma_load(st + G::A_BYTES, &mb, kt * BK, p.n0, 0, true, &full[s]);
+        }
+      }
+    }
+  } else if (wg == 1) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(HO_MMA_REGS));
+    float acc[2][HO_BN / 2];  // the tile's two m64 halves
+    int it = 0;
+    for (int tile = blockIdx.x, t = 0; tile < tiles; tile += gridDim.x, ++t) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int i = 0; i < HO_BN / 2; ++i) acc[h][i] = 0.0f;
+      for (int kt = 0; kt < ktiles; ++kt, ++it) {
+        const int s = it % NST;
+        mbar_wait(&full[s], (it / NST) & 1);
+        const uint32_t a = smem_u32(smem + s * G::STAGE_BYTES), b = a + G::A_BYTES;
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_fence();
+#pragma unroll
+        for (int k = 0; k < BK / 16; ++k) {
+          const uint64_t db = desc_sw128(b + 32 * k, MN_LBO);
+#pragma unroll
+          for (int h = 0; h < 2; ++h)  // half h: A's rows 64h .. 64h+63, 8 KB into the stage
+            wgmma_192<false, false>(acc[h], desc_sw128(a + h * 64 * K_BYTES + 32 * k, MN_LBO),
+                                    db);
+        }
+        wgmma_commit();
+        fence_acc(acc[0]);
+        fence_acc(acc[1]);
+        wgmma_wait<1>();  // the previous K step's wgmmas have retired: free its stage
+        if (kt > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % NST]);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc[0]);
+      fence_acc(acc[1]);
+      if (ktiles > 0 && lane == 0) mbar_arrive(&empty[(it - 1) % NST]);
+      mbar_wait(sums_empty, (t & 1) ^ 1);  // the previous tile's sums are read
+      // lane (r, q) of warp w holds rows 64h + 16w + r + 8i, columns 8j + 2q + c
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < HO_BN / 8; ++j)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            *reinterpret_cast<float2*>(sums + (64 * h + 16 * warp + r + 8 * i) * HO_LD + 8 * j +
+                                       2 * q) =
+                make_float2(acc[h][4 * j + 2 * i], acc[h][4 * j + 2 * i + 1]);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(sums_full);
+    }
+  } else {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(HO_EPI_REGS));
+    epilogue((wg - 2) * 4 + warp);
+  }
+}
+
 // cuTensorMapEncodeTiled, looked up in libcuda at run time (null if it is
 // not there).
 inline PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
@@ -978,6 +1187,43 @@ cudaError_t launch_sm90(cudaStream_t stream, int nz, int M, int N, int K, int K_
   return e;
 }
 
+// One K-major bf16 product, C = epi(0, A · Bᵀ), on the handoff schedule:
+// persistent blocks, one per SM (at most one per tile); cudaErrorInvalidValue
+// where TMA's rules do not hold or the shapes are not a product's. Counted
+// as a wgmma-core product and a Handoff launch.
+template <class Epi>
+cudaError_t launch_handoff(cudaStream_t stream, int M, int N, int K, const Operand& a,
+                           const Operand& b, const Epi& epi) {
+  if (M <= 0 || N <= 0 || K <= 0 || !tma_ok<bf16>(a) || !tma_ok<bf16>(b))
+    return cudaErrorInvalidValue;
+  CUtensorMap ma, mb, unused;  // one entry: the 2-D maps
+  if (!operand_maps<bf16, false>(&unused, &ma, a, M, HO_BM, 1, K, K) ||
+      !operand_maps<bf16, false>(&unused, &mb, b, N, HO_BN, 1, K, K))
+    return cudaErrorInvalidValue;
+  const auto kernel = gemm_handoff_kernel<Epi>;
+  // setmaxnreg moves registers between warpgroups within the block's own
+  // allocation: refuse to launch (rather than hang) if ptxas gave it less.
+  cudaFuncAttributes attr;
+  SM90_TRY(cudaFuncGetAttributes(&attr, kernel));
+  if (attr.numRegs * HO_THREADS <
+      128 * (HO_PRODUCER_REGS + HO_MMA_REGS) + HO_EPI_REGS * 128 * HO_EPI_WGS)
+    return cudaErrorInvalidConfiguration;
+  constexpr int smem = HandoffTile::SMEM_BYTES;
+  SM90_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  int dev = 0, sms = 0;
+  SM90_TRY(cudaGetDevice(&dev));
+  SM90_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  const long long tiles = (long long)((M + HO_BM - 1) / HO_BM) * ((N + HO_BN - 1) / HO_BN);
+  const int grid = (int)(tiles < sms ? tiles : sms);
+  kernel<<<grid, HO_THREADS, smem, stream>>>(ma, mb, M, N, K, epi);
+  const cudaError_t e = cudaGetLastError();
+  if (e == cudaSuccess) {
+    ++g_modes[static_cast<int>(Mode::Handoff)];
+    ++g_products[SM90];
+  }
+  return e;
+}
+
 // C[(z·M + m)·N + n] = v in f32: entries one after another, rows N apart.
 struct StoreEntries {
   float* C;
@@ -1117,10 +1363,17 @@ cudaError_t gemm_bf16(cudaStream_t stream, int nz, int M, int N, int K, int K_la
 }
 
 // C = epi(A · Bᵀ), A (M×K) and B (N×K) row-major bf16: one product, K-major
-// operands (the Mixer channel products).
-template <class Epi>
+// operands (the Mixer channel products), on schedule S where the wgmma core
+// runs it (Core::Auto where TMA's rules hold, or Core::Sm90), else on the
+// WMMA core (gemm_bf16's routes).
+template <Sched S = Sched::Coop, class Epi>
 cudaError_t gemm_tn(cudaStream_t stream, int M, int N, int K, const void* A, int lda, const void* B,
                     int ldb, const Epi& epi, Core core = Core::Auto) {
+  if constexpr (S == Sched::Handoff) {
+    const Operand a{A, lda, 0}, b{B, ldb, 0};
+    if (core == Core::Sm90 || (core == Core::Auto && tma_ok<bf16>(a) && tma_ok<bf16>(b)))
+      return launch_handoff(stream, M, N, K, a, b, epi);
+  }
   return gemm_bf16<false, false>(stream, 1, M, N, K, K, A, lda, 0, B, ldb, 0, epi, core);
 }
 

@@ -64,7 +64,8 @@ int run(cudaStream_t s, const void* x, const void* ln1w, const void* ln1b, const
     JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
     h_in = xn;
   }
-  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, h_in, D, wc1, D, lab::act_bias<A>(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, B * N, CD, D, h_in, D, wc1, D,
+                                                 lab::act_bias<A>(bc1, 0, c, CD, 0)));
   JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }

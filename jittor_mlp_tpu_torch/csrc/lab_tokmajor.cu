@@ -63,7 +63,8 @@ extern "C" int lab_tokmajor_bf16(const void* x, const void* ln1w, const void* ln
   JMT_CHECK(lab::layer_norm_grouped(s, static_cast<const float*>(hf), ln2w, ln2b, xn, rows, D,
                                     rows, 1));
   // channel mix over all rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(sm90::gemm_tn(s, rows, CD, D, xn, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, rows, CD, D, xn, D, wc1, D,
+                                                 gelu_bias(bc1, 0, c, CD, 0)));
   JMT_CHECK(sm90::gemm_tn(s, rows, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }

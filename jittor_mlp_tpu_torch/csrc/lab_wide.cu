@@ -61,7 +61,8 @@ extern "C" int lab_wide_bf16(const void* x, const void* ln1w, const void* ln1b, 
     return e;
   JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xg, B * N, D));
   // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1); out = h + c · Wc2^T + bc2
-  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, xg, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, B * N, CD, D, xg, D, wc1, D,
+                                                 gelu_bias(bc1, 0, c, CD, 0)));
   JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD, residual_bias(bc2, 0, h, out, D, 0)));
   return 0;
 }

@@ -22,11 +22,20 @@
 //   in the 50 MB L2 cache.
 // - The channel GEMMs carry CD/(CD+TD) = 3072/3456 ≈ 89% of the FLOPs. They
 //   stack all B·N rows into one M, so at serving batch sizes they are large,
-//   compute-bound products. They run on gemm_sm90.cuh: TMA loads into a
-//   four-stage mbarrier ring feeding wgmma.m64n192k16 from warp-specialized
-//   warpgroups, 192×192 output tiles, persistent blocks. Where TMA cannot
-//   load an operand (a row stride that is not a multiple of 16 bytes, e.g.
-//   D % 8 ≠ 0) they take the WMMA core on the same arguments.
+//   compute-bound products on gemm_sm90.cuh's wgmma core: TMA loads into an
+//   mbarrier ring feeding wgmma.m64n192k16, persistent blocks. The GELU
+//   product runs its handoff schedule: one MMA warpgroup's K loops back to
+//   back on 128×192 tiles, each tile's f32 sums through shared memory to
+//   eleven epilogue warps that run the tanh GELU under the next tile's
+//   wgmmas (at Mixer-B/16 b256 0.4637 ms against 0.5716 on the cooperative
+//   schedule, whose epilogue follows the K loops; its K loop alone ≈ 0.33).
+//   The residual product keeps the cooperative schedule (192×192 tiles of
+//   three consumer warpgroups: 0.3529 ms against the handoff one's 0.3739;
+//   its epilogue is short beside its K of CD), the split entry's f32 partial
+//   the handoff one (0.2018 against 0.2319 ms at P = 2). H100 80GB HBM3 at
+//   700 W, chip_smoke.py phases 5 and 14a. Where TMA cannot load an operand
+//   (a row stride that is not a multiple of 16 bytes, e.g. D % 8 ≠ 0) they
+//   take the WMMA core on the same arguments.
 // - The token GEMMs (K = N = 196 and K = TD = 384) are small per image and
 //   bound by bytes at this design: each reads and writes a whole (B, TD, D)
 //   intermediate (at Mixer-B/16 b256 59.2 GFLOP, 0.060 ms at the dense
@@ -46,15 +55,16 @@
 // - Where TMA's rules fail for a token product (D % 8 ≠ 0 for xn and t,
 //   TD % 8 ≠ 0 for Wt2) it takes the WMMA core on the same arguments. Each
 //   product is counted on the route it took (mixer_gemm_products).
-// Keeping t on chip (the TPU kernel's VMEM form) and the epilogues beside
-// the wgmmas are later work.
+// Keeping t on chip (the TPU kernel's VMEM form) and the token products'
+// epilogues beside their wgmmas are later work.
 //
 // Tensor parallelism (parallel/tensor.py): the JAX package shards Wc1 and
 // bc1 on the channel hidden axis and Wc2 on its input axis over the mesh's
 // 'model' axis, so rank r of P holds CD_r = CD / P hidden columns. The
 // split entry mixer_block_bf16_tp runs the block up to c as above at
 // CD_r and stores the f32 partial p_r = c_r · Wc2_r^T of the last product
-// through the core's f32 store epilogue (no bias, no residual). The caller
+// through the core's f32 store epilogue (no bias, no residual; the handoff
+// schedule, as the whole block's second channel product). The caller
 // sums the ranks' partials (an all-reduce) and the finishing pass
 // mixer_block_tp_finish writes out = bf16(h + (Σ p_r + bc2)): the rounding
 // points of the whole block, with the f32 sum of the second channel product
@@ -95,8 +105,8 @@ extern "C" int mixer_block_bf16_tp(const void* x, const void* ln1w, const void* 
   const int e = mixer_forward_hidden(s, x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1,
                                      xn, t, wt1p, h, c, B, N, D, TD, CD);
   if (e) return e;
-  JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,
-                          sm90::StoreEntries{static_cast<float*>(partial), B * N, D}));
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(
+      s, B * N, D, CD, c, CD, wc2, CD, sm90::StoreEntries{static_cast<float*>(partial), B * N, D}));
   return 0;
 }
 
@@ -158,6 +168,12 @@ extern "C" int mixer_block_tp_finish(const void* h, const void* s, const void* b
 // WMMA core), since it was loaded (gemm_sm90.cuh): four a block (the two
 // token products, the two channel products); -1 for another route.
 extern "C" long long mixer_gemm_products(int route) { return sm90::products(route); }
+
+// The wgmma core's launches by this library so far in mode `mode` (0 plain:
+// the token products and the residual channel product; 4 handoff: the GELU
+// channel product and the split entry's f32 partial); -1 for another
+// mode.
+extern "C" long long mixer_mode_launches(int mode) { return sm90::mode_launches(mode); }
 
 extern "C" const char* mixer_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -2,8 +2,10 @@
 // mixer_block.cu's entries and of mixer_block_bwd.cu's forward-with-h (see
 // mixer_block.cu's header for the math and what bounds it), and the token
 // products the kernel lab's bodies share with it. All four products run on
-// the Hopper core (gemm_sm90.cuh) where TMA can load their operands, else on
-// the WMMA core (gemm_bf16.cuh) with the same arguments.
+// the Hopper core (gemm_sm90.cuh) where TMA can load their operands, the GELU
+// channel product on its handoff schedule (its epilogue under the next
+// tile's wgmmas), else on the WMMA core (gemm_bf16.cuh) with the same
+// arguments.
 #pragma once
 
 #include "gemm_sm90.cuh"
@@ -60,7 +62,8 @@ inline int mixer_forward_hidden(cudaStream_t s, const void* x, const void* ln1w,
     return e;
   JMT_CHECK(layer_norm(s, h, D, ln2w, ln2b, xn, B * N, D));
   // channel mix over all B·N rows: c = gelu(hn · Wc1^T + bc1)
-  JMT_CHECK(sm90::gemm_tn(s, B * N, CD, D, xn, D, wc1, D, gelu_bias(bc1, 0, c, CD, 0)));
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, B * N, CD, D, xn, D, wc1, D,
+                                                 gelu_bias(bc1, 0, c, CD, 0)));
   return 0;
 }
 
@@ -73,6 +76,8 @@ inline int mixer_forward(cudaStream_t s, const void* x, const void* ln1w, const 
   const int e = mixer_forward_hidden(s, x, ln1w, ln1b, wt1, bt1, wt2, bt2, ln2w, ln2b, wc1, bc1,
                                      xn, t, wt1p, h, c, B, N, D, TD, CD);
   if (e) return e;
+  // the cooperative schedule: the handoff one measured slower on this
+  // product (its epilogue is short beside a K of CD; see gemm_sm90.cuh)
   JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,
                           bf16gemm::residual_bias(bc2, 0, h, out, D, 0)));
   return 0;

@@ -3,8 +3,11 @@
 Kernel 1 (``mixer_block``) and the training forward (``mixer_block_bwd.fwd_with_h``)
 run both channel products of the block on ``csrc/gemm_sm90.cuh``: TMA loads
 into a 128-byte-swizzled shared-memory ring, ``wgmma`` from warp-specialized
-warpgroups (its header says what bounds it on an H100 and what the design
-does about that). The channel weight backward (``chan_wgt_bwd``) runs its
+warpgroups; the GELU product on its handoff schedule (one warpgroup's K
+loops back to back, each tile's sums handed through shared memory to
+epilogue warps that run under the next tile's ``wgmma``), the residual one
+on its cooperative schedule (its header says what bounds each on an H100
+and what the design does about that). The channel weight backward (``chan_wgt_bwd``) runs its
 four products on the core's bf16 modes (MN-major operands, row slabs with
 one f32 partial each), the channel data backward its two recompute
 products, the bf16 gMLP block (``gmlp_block``) its three (the token product
@@ -61,11 +64,14 @@ the scales in the kernel's order).
   replaced; int8 always the wgmma core, which loads every operand the
   mma.sync core took), ``"sm90"`` (the wgmma core, or raise) or
   ``"legacy"`` (the core it replaced: WMMA for bf16, mma.sync for int8;
-  ``Core::Legacy`` in C); anything else raises.
+  ``Core::Legacy`` in C); ``gemm_tn`` also on ``"handoff"`` (the wgmma
+  core on the handoff schedule, kernel 1's GELU product's, or raise);
+  anything else raises.
 - ``LAUNCHES``: how many times the wrappers launched a kernel;
   ``routes()``: the bf16 products on each core (a dual launch is two),
-  ``s8_routes()`` the int8 ones; ``config()``: the core's tile, ring stages
-  and shared memory, and the dual mode's.
+  ``s8_routes()`` the int8 ones; ``mode_launches()``: the wgmma core's
+  launches by mode; ``config()``: the core's tile, ring stages and shared
+  memory, the dual mode's and the handoff schedule's.
 """
 
 from __future__ import annotations
@@ -85,9 +91,14 @@ _COUNT_LOCK = threading.Lock()
 _LIB = Library("gemm_sm90", ["gemm_sm90.cu"],
                {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 12), "gemm_s8_f32": (5, 10),
                 "gemm_bf16_dual_f32": (5, 11), "gemm_bf16_group_f32": (3, 6)},
-               error="gemm_error_string", queries={"gemm_sm90_config": 1},
+               error="gemm_error_string",
+               queries={"gemm_sm90_config": 1, "gemm_mode_launches": 1},
                routes="gemm_tn_products")
 CORES = {"auto": 0, "sm90": 1, "legacy": 2}
+# gemm_tn's cores: also the wgmma core on the handoff schedule, which
+# kernel 1's channel products run (the others run the cooperative one)
+TN_CORES = {**CORES, "handoff": 3}
+MODES = {"plain": 0, "chunked": 1, "dual": 2, "group": 3, "handoff": 4}
 _ACTS = {"gelu_tanh": gelu_tanh, "gelu_erf": gelu_erf}
 
 
@@ -108,12 +119,22 @@ def s8_routes():
     return _LIB.routes(S8_ROUTES)
 
 
+def mode_launches():
+    """{mode: n}: the wgmma core's launches by these entries so far, by mode
+    (MODES); zeros if the library is not loaded."""
+    if not _LIB.loaded:
+        return dict.fromkeys(MODES, 0)
+    return {k: _LIB.query("gemm_mode_launches", v) for k, v in MODES.items()}
+
+
 def config():
     """The wgmma core's block tile, K step, ring stages and dynamic shared
     memory in bytes, then the dual mode's tile width (K-major B), stages and
-    shared memory, as compiled."""
+    shared memory, then the handoff schedule's tile, stages, epilogue warps
+    and shared memory, as compiled."""
     keys = ("tile_m", "tile_n", "tile_k", "stages", "smem_bytes", "dual_tile_n", "dual_stages",
-            "dual_smem_bytes")
+            "dual_smem_bytes", "handoff_tile_m", "handoff_tile_n", "handoff_stages",
+            "handoff_epilogue_warps", "handoff_smem_bytes")
     return {k: _LIB.query("gemm_sm90_config", i) for i, k in enumerate(keys)}
 
 
@@ -156,11 +177,12 @@ def gemm_tn_ref(a, b, bias, *, act=None, residual=None):
 
 def gemm_tn(a, b, bias, *, act=None, residual=None, core="auto"):
     """One channel product. CPU: the plain twin. CUDA: the kernel (bf16,
-    contiguous, ``act`` "gelu_tanh" or a residual) on ``core``, launched on
-    the current stream; it raises on anything it does not take and never
-    falls back to the twin."""
+    contiguous, ``act`` "gelu_tanh" or a residual) on ``core`` (one of
+    ``TN_CORES``: "handoff" is the wgmma core on the handoff schedule,
+    the others run the cooperative one), launched on the current stream; it
+    raises on anything it does not take and never falls back to the twin."""
     M, N, K = _args(a, b, bias, act, residual)
-    _check_core(core)
+    _check_core(core, TN_CORES)
     if a.device.type == "cpu":
         return gemm_tn_ref(a, b, bias, act=act, residual=residual)
     if a.device.type != "cuda":
@@ -168,10 +190,16 @@ def gemm_tn(a, b, bias, *, act=None, residual=None, core="auto"):
     if act not in (None, "gelu_tanh"):
         raise ValueError(f"the kernel's activation is gelu_tanh, got {act!r}")
     require_bf16_contiguous((a, b, bias) + (() if residual is None else (residual,)))
+    return _launch_tn(a, b, bias, residual, core)
+
+
+def _launch_tn(a, b, bias, residual, core):
+    """gemm_tn's launch: the output (M, N), bf16, on a's device."""
+    (M, K), N = a.shape, b.shape[0]
     out = torch.empty((M, N), dtype=a.dtype, device=a.device)
     r = out if residual is None else residual  # read only with a residual
     _LIB.launch("gemm_tn_bf16", a.device, (a, b, bias, r, out),
-                (M, N, K, 0 if residual is None else 1, CORES[core]))
+                (M, N, K, 0 if residual is None else 1, TN_CORES[core]))
     _count()
     return out
 
@@ -182,9 +210,9 @@ def _count():
         LAUNCHES += 1
 
 
-def _check_core(core):
-    if core not in CORES:
-        raise ValueError(f"core must be one of {sorted(CORES)}, got {core!r}")
+def _check_core(core, cores=CORES):
+    if core not in cores:
+        raise ValueError(f"core must be one of {sorted(cores)}, got {core!r}")
 
 
 def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):

@@ -22,7 +22,9 @@ wc1 (CD, D), wc2 (D, CD).
 - ``LAUNCHES``: how many times the wrapper launched the kernel; ``routes()``:
   its products on each GEMM core, four a launch (the two token products and
   the two channel products; each on the wgmma core where TMA can load its
-  operands, else on the WMMA core).
+  operands, else on the WMMA core); ``mode_launches()``: the wgmma core's
+  launches by mode (the token products on the plain mode, the channel
+  products on the handoff schedule).
 - ``forward_scratch``: the buffers the forward's launches write besides
   their outputs, among them Wt1 copied into rows of round_up(N, 8).
 
@@ -76,7 +78,12 @@ _COUNT_LOCK = threading.Lock()
 _LIB = Library("mixer_block", ["mixer_block.cu"],
                {"mixer_block_bf16": (19, 5), "mixer_block_bf16_tp": (18, 5),
                 "mixer_block_tp_finish": (4, 2)},
-               error="mixer_error_string", routes="mixer_gemm_products")
+               error="mixer_error_string", queries={"mixer_mode_launches": 1},
+               routes="mixer_gemm_products")
+# the wgmma core's launch modes this library runs: the token products on the
+# plain mode, the GELU channel product (and the split entry's f32 partial) on
+# the handoff schedule, the residual channel product on the plain mode
+MODES = {"plain": 0, "handoff": 4}
 
 
 def layer_norm_f32(x, w, b, eps=1e-5):
@@ -160,6 +167,16 @@ def routes():
     D % 8 == 0 and TD % 8 == 0) and the two channel products (where D % 8
     == 0, and where CD % 8 == 0)."""
     return _LIB.routes()
+
+
+def mode_launches():
+    """{mode: n}: the wgmma core's launches so far by mode ("plain": the
+    token products and the residual channel product, "handoff": the GELU
+    channel product and the split entry's partial on the handoff
+    schedule); zeros if the library is not loaded."""
+    if not _LIB.loaded:
+        return dict.fromkeys(MODES, 0)
+    return {k: _LIB.query("mixer_mode_launches", v) for k, v in MODES.items()}
 
 
 def require_bf16_contiguous(tensors):

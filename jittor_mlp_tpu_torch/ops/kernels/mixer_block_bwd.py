@@ -73,7 +73,9 @@ _LIB = Library(
                "mixer_chan_wgt_bwd_workspace": 5, "mixer_token_bwd_images_per_group": 5,
                "mixer_chan_wgt_bwd_images_per_group": 5},
     queries={"mixer_bwd_mode_launches": 1}, routes="mixer_bwd_gemm_products")
-MODES = {"plain": 0, "dual": 2, "group": 3}  # the wgmma core's launch modes this library runs
+# the wgmma core's launch modes this library runs (fwd_with_h's GELU channel
+# product on the handoff schedule)
+MODES = {"plain": 0, "dual": 2, "group": 3, "handoff": 4}
 
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _TANH_C = math.sqrt(2.0 / math.pi)
@@ -223,8 +225,9 @@ def routes():
 
 def mode_launches():
     """{mode: n}: the wgmma core's launches so far by mode ("plain": one
-    product, "dual": the dual mode, "group": the Group mode); zeros if the
-    library is not loaded."""
+    product, "dual": the dual mode, "group": the Group mode, "handoff": one
+    product on the handoff schedule); zeros if the library is not
+    loaded."""
     if not _LIB.loaded:
         return dict.fromkeys(MODES, 0)
     return {k: _LIB.query("mixer_bwd_mode_launches", v) for k, v in MODES.items()}

@@ -145,8 +145,8 @@ MUTANTS = {
     # the tensor-parallel split of the Mixer block (phase 14a)
     "M32 the split entry's f32 partial is stored without its last 64 columns": (
         "fused_mixer_block_tp", "csrc/mixer_block.cu",
-        "JMT_CHECK(sm90::gemm_tn(s, B * N, D, CD, c, CD, wc2, CD,",
-        "JMT_CHECK(sm90::gemm_tn(s, B * N, D - 64, CD, c, CD, wc2, CD,"),
+        "s, B * N, D, CD, c, CD, wc2, CD, sm90::StoreEntries",
+        "s, B * N, D - 64, CD, c, CD, wc2, CD, sm90::StoreEntries"),
     "M33 the finishing pass adds the bias twice": (
         "mixer_block_tp_finish", "csrc/mixer_block.cu",
         "v[e] = at8(hv, e) + (sv[e] + at8(bv, e));",
@@ -172,6 +172,26 @@ MUTANTS = {
     "M38 the wide kernel's token products read group g's xn at entry stride N·D, not N·bt·D": (
         "wide_block", "csrc/lab_wide.cu",
         "wt1p, xg, W, nw,", "wt1p, xg, W, (long long)N * D,"),
+    # the core's handoff schedule (gemm_handoff_kernel), which kernel 1's
+    # GELU channel product runs: the MMA warpgroup's stores of a tile's
+    # sums, its stages and its second m64 half, the epilogue warps' items
+    "M39 the handoff schedule stores each tile's second m64 half of sums over its first": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "sums + (64 * h + 16 * warp + r + 8 * i) * HO_LD",
+        "sums + (16 * warp + r + 8 * i) * HO_LD"),
+    "M40 the handoff epilogue hands each lane its item's first 8-column run": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "col = item % RUNS * 32 + 8 * q;", "col = item % RUNS * 32;"),
+    "M41 the handoff MMA warpgroup multiplies the next ring stage's operands": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "smem_u32(smem + s * G::STAGE_BYTES), b = a + G::A_BYTES;",
+        "smem_u32(smem + (s + 1) % NST * G::STAGE_BYTES), b = a + G::A_BYTES;"),
+    "M42 the handoff tile's second m64 half multiplies the first half's rows of A": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "desc_sw128(a + h * 64 * K_BYTES + 32 * k, MN_LBO)", "desc_sw128(a + 32 * k, MN_LBO)"),
+    "M43 the producer warpgroup's epilogue warps take the first warpgroup's items": (
+        "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
+        "epilogue(4 * HO_EPI_WGS + warp - 1);", "epilogue(warp - 1);"),
 }
 TP_KERNELS = {"fused_mixer_block_tp", "mixer_block_tp_finish"}
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}

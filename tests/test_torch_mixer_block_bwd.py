@@ -242,5 +242,5 @@ def test_routes_and_mode_launches_read_without_loading_the_library():
     if tbwd._LIB.loaded:
         pytest.fail("the CPU tests must not load the kernel library")
     assert tbwd.routes() == {"sm90": 0, "wmma": 0}
-    assert tbwd.mode_launches() == {"plain": 0, "dual": 0, "group": 0}
+    assert tbwd.mode_launches() == {"plain": 0, "dual": 0, "group": 0, "handoff": 0}
     assert not tbwd._LIB.loaded
