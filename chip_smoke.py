@@ -381,6 +381,7 @@ import contextlib
 import copy
 import functools
 import json
+import math
 import subprocess
 import sys
 import threading
@@ -654,8 +655,11 @@ GEMM_REPLACES = PALLAS + "mixer_block.py:157 (the channel half of fused_mixer_bl
 # tail (K = 136 and 200, a part of a 64-wide K step) at 32 × 11 = 352 tiles
 # (blocks of 2 and 3 tiles: the sums' buffer turns in both parities), 19 ×
 # 11 = 209 (an odd count, blocks of 1 and 2) and 8 × 13 = 104 (fewer tiles
-# than blocks); GEMM_SHAPES' 208, 52, 16, 4 and 1 tiles.
-HANDOFF_SHAPES = [(4000, 2000, 136), (2400, 2100, 136), (1000, 2400, 200)]
+# than blocks); GEMM_SHAPES' 208, 52, 16, 4 and 1 tiles; and the bf16 gMLP
+# and ResMLP blocks' GELU products at B = 8 (K = 256 and 384: four and six
+# K steps).
+HANDOFF_SHAPES = [(4000, 2000, 136), (2400, 2100, 136), (1000, 2400, 200), (1568, 3072, 256),
+                  (1568, 1536, 384)]
 # Which schedule each K-major channel product of csrc/ runs: its gemm_tn
 # call sites, file → their schedules in source order ("handoff":
 # gemm_tn<sm90::Sched::Handoff>, "coop": gemm_tn without one). Kernel 1's
@@ -668,7 +672,24 @@ HANDOFF_SHAPES = [(4000, 2000, 136), (2400, 2100, 136), (1000, 2400, 200)]
 TN_SCHEDULES = {"mixer_forward.cuh": ("handoff", "coop"), "mixer_block.cu": ("handoff",),
                 "lab_ablate.cu": ("handoff", "coop"), "lab_tokmajor.cu": ("handoff", "coop"),
                 "lab_wide.cu": ("handoff", "coop"), "mixer_block_bwd.cu": ("coop",),
-                "resmlp_block.cu": ("coop", "coop"), "gmlp_block.cu": ("coop", "coop")}
+                "resmlp_block.cu": ("handoff", "coop"), "gmlp_block.cu": ("handoff", "coop")}
+# The same for each gemm_bf16 call (a product whose operands may be batch
+# entries: "handoff": gemm_bf16<false, TB, sm90::Sched::Handoff>, the
+# batched handoff mode; "coop": gemm_bf16 without a schedule). The bf16
+# gMLP and ResMLP blocks' token products (an entry an image, the weight a
+# shared K-major A, M = 196 tokens cut 128 + 68) take the handoff schedule,
+# their GELU products too (TN_SCHEDULES), their last product keeps the
+# cooperative one; kernel 1's token pair and the Mixer backwards' products
+# keep it.
+BF16_SCHEDULES = {"mixer_forward.cuh": ("coop", "coop"), "gmlp_block.cu": ("handoff",),
+                  "resmlp_block.cu": ("handoff",), "mixer_block_bwd.cu": ("coop",) * 5}
+# the wgmma core's launches by mode a launch of the bf16 gMLP and ResMLP
+# blocks: each product's schedule as the two tables give it
+BLOCK_MODES = {lib: {"plain": TN_SCHEDULES[src].count("coop") + BF16_SCHEDULES[src].count("coop"),
+                     "handoff": TN_SCHEDULES[src].count("handoff")
+                     + BF16_SCHEDULES[src].count("handoff")}
+               for lib, src in (("gmlp_block", "gmlp_block.cu"),
+                                ("resmlp_block", "resmlp_block.cu"))}
 # handoff launches a launch of kernel 1 (and of the forward-with-h): its
 # GELU product (the rest of its products run the plain mode), and of the
 # split entry: the GELU product and the f32 partial
@@ -1186,6 +1207,179 @@ def phase_core(mod):
     return worst
 
 
+# The batched handoff mode alone (gemm_bf16 on core="handoff"), as
+# (entries, M, N, K, A's row length, b_mn), B an entry an image: the bf16
+# gMLP and ResMLP blocks' token products at B = 8 and b256 (M = 196 tokens
+# cut 128 + 68; N = 1536 and 384: eight and two 192-wide slabs), then
+# corners: M = 128 (one row tile), 129 (a one-row tail), 64 (half a tile,
+# the second m64 half all zero fill), N not a multiple of 192 (200, 72,
+# 400), K tails in a part of a 64-wide K step, one entry (2-D maps only),
+# and a K-major batched B. Each against the cooperative mode's output bit
+# for bit, the last entry's too, and within TOL of its twin.
+HANDOFF_BATCHED = [(8, 196, 1536, 196, 200, True, "gMLP"), (8, 196, 384, 196, 200, True, "ResMLP"),
+                   (256, 196, 1536, 196, 200, True, "gMLP"),
+                   (256, 196, 384, 196, 200, True, "ResMLP"),
+                   (3, 128, 200, 136, 136, True, None), (5, 129, 72, 40, 48, True, None),
+                   (2, 64, 400, 64, 72, True, None), (1, 196, 200, 196, 200, True, None),
+                   (4, 129, 200, 136, 136, False, None)]
+HANDOFF_ROWS = {"gMLP": "gemm_bf16_gmlp_sm90", "ResMLP": "gemm_bf16_resmlp_sm90"}
+
+
+def handoff_inputs(nz, M, N, K, lda, b_mn, seed):
+    """bf16 operands of a batched product on the card, O(1) sums: a (M, K),
+    a shared view of rows lda long (the columns past K random: the kernel
+    must not read them); b (nz, K, N) with b_mn, else (nz, N, K), scaled by
+    1/sqrt(K)."""
+    rn, _ = _draw(seed)
+    a = rn(M, lda)[:, :K]
+    b = rn(nz, K, N, scale=K ** -0.5) if b_mn else rn(nz, N, K, scale=K ** -0.5)
+    return a, b
+
+
+def phase_handoff(mod):
+    """Phase 2 for the batched handoff mode: gemm_bf16 on core="handoff" at
+    HANDOFF_BATCHED, twice (bit-equal, one launch and one handoff-mode
+    launch each, on the wgmma core), bit-equal to the cooperative mode's
+    output (core="sm90") and so its last entry, and within TOL of the twin.
+    Returns {row: the largest max|Δ|} of the gMLP and ResMLP products."""
+    worst = dict.fromkeys(HANDOFF_ROWS.values(), 0.0)
+    for nz, M, N, K, lda, b_mn, block in HANDOFF_BATCHED:
+        a, b = handoff_inputs(nz, M, N, K, lda, b_mn, seed=nz + M + N + K)
+        tag = (f"gemm_bf16 {nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn} "
+               f"core=handoff")
+        before, routes0, modes0 = mod.LAUNCHES, mod.routes(), mod.mode_launches()
+        got = mod.gemm_bf16(a, b, b_mn=b_mn, core="handoff")
+        torch.cuda.synchronize()
+        again = mod.gemm_bf16(a, b, b_mn=b_mn, core="handoff")
+        torch.cuda.synchronize()
+        routes1, modes1 = mod.routes(), mod.mode_launches()
+        moved = {k: routes1[k] - routes0[k] for k in routes1}
+        check(mod.LAUNCHES == before + 2, f"{tag}: LAUNCHES did not rise by 1 a call")
+        check(moved == {"sm90": 2, "wmma": 0}, f"{tag}: routes {moved}")
+        check(modes1["handoff"] - modes0["handoff"] == 2, f"{tag}: not two handoff launches")
+        check(torch.equal(got, again), f"{tag}: two calls on the same inputs differ")
+        coop = mod.gemm_bf16(a, b, b_mn=b_mn, core="sm90")
+        same, last = torch.equal(got, coop), torch.equal(got[-1], coop[-1])
+        want = mod.gemm_bf16_ref(a, b, b_mn=b_mn)
+        check(got.shape == want.shape == (nz, M, N), f"{tag}: {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+        err = (got - want).abs().max().item()
+        rel = err / max(1.0, want.abs().max().item())
+        diff = "" if same else f" (max|d| {(got - coop).abs().max().item():.6g})"
+        print(f"[2] {tag} vs twin: max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL}); two calls "
+              f"bit-equal; {'bit-equal' if same else 'NOT bit-equal'} to the cooperative mode"
+              f"{diff}, its last entry {'bit-equal' if last else 'NOT bit-equal'}", flush=True)
+        check(same, f"{tag}: the handoff schedule's output differs from the cooperative one")
+        check(rel <= TOL, f"{tag} disagrees with its twin: {rel}")
+        if block:
+            worst[HANDOFF_ROWS[block]] = max(worst[HANDOFF_ROWS[block]], err)
+        del a, b, got, again, coop, want
+        torch.cuda.empty_cache()
+    a, b = handoff_inputs(2, 64, 72, 40, 40, True, seed=0)
+    try:
+        mod.gemm_bf16(a.t().contiguous(), b, a_mn=True, b_mn=True, core="handoff")
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "gemm_bf16 core=handoff with an MN-major a did not raise")
+    print("[2] gemm_bf16 core=handoff with an MN-major a: refused (the schedule reads a K-major "
+          "A)", flush=True)
+    return worst
+
+
+# The shared GELU (csrc/common.cuh's gelu_tanh, x·σ(2u) on the SFU) against
+# the tanh form in float64: its header's bounds, relative where x >= -10.0
+# and absolute below, where the kernel gives ±0.
+GELU_REL_BOUND = 1.8e-5
+GELU_ABS_BOUND = 1.2e-37
+GELU_GRID = 1 << 21  # f32 grid points in [-20, 20], beside every finite bf16 there
+
+
+def gelu_f64(x):
+    """The tanh-form GELU, 0.5·x·(1 + tanh u), in float64, through the
+    identity 1 + tanh u = 2 / (1 + e^(-2u)): 1 + tanh u cancels in float64
+    below x ≈ −6."""
+    x = x.double()
+    u = 0.7978845608028654 * (x + 0.044715 * x * x * x)
+    return x / (1.0 + torch.exp(-2.0 * u))
+
+
+def _gelu_s8(mod, x, as_bias):
+    """gelu_tanh(x) in f32 through gemm_s8's GELU epilogue with exact sums:
+    x as the bias over zero codes (v = 0), or as the row scales with one
+    code of 1 in each row of a and b, column scales of 1 and a bias of -0
+    (v = x, and v + (-0) = x for every x, -0 too)."""
+    M, N = (1, x.numel()) if as_bias else (x.numel(), 8)
+    a = torch.zeros((M, 32), dtype=torch.int8, device="cuda")
+    b = torch.zeros((N, 32), dtype=torch.int8, device="cuda")
+    ones = torch.ones(max(M, N), device="cuda")
+    if as_bias:
+        return mod.gemm_s8(a, b, ones[:M], ones[:N], gelu_bias=x.bfloat16())[0]
+    a[:, 0] = 1
+    b[:, 0] = 1
+    bias = torch.full((N,), -0.0, dtype=torch.bfloat16, device="cuda")
+    return mod.gemm_s8(a, b, x.float().contiguous(), ones[:N], gelu_bias=bias)[:, 0]
+
+
+def phase_gelu(mod):
+    """Phase 2 for the shared GELU on the card: every finite bf16 in
+    [-20, 20] (as the bias of gemm_s8's GELU epilogue over zero codes), an
+    f32 grid over [-20, 20] with both tails in geometric steps (as exact row
+    scales, v = x), and the special values, against gelu_f64. Fails above
+    the bounds of csrc/common.cuh; a twin case holds the epilogue against
+    gemm_s8's twin within TOL."""
+    codes = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    xb = codes.view(torch.bfloat16).float()
+    xb = xb[torch.isfinite(xb) & (xb.abs() <= 20)].cuda()
+    tails = torch.logspace(-30, math.log10(20), 1 << 18, dtype=torch.float64)
+    grid = torch.cat([torch.linspace(-20, 20, GELU_GRID, dtype=torch.float64), tails, -tails,
+                      torch.linspace(-10.01, -9.99, 4097, dtype=torch.float64)]).float().cuda()
+    worst_rel, worst_abs = 0.0, 0.0
+    for what, x, as_bias in (("every finite bf16 in [-20, 20]", xb, True),
+                             (f"an f32 grid of {grid.numel()} points in [-20, 20]", grid, False)):
+        got = _gelu_s8(mod, x, as_bias).double()
+        ref = gelu_f64(x)
+        check(bool(torch.isfinite(got).all()), f"GELU over {what}: non-finite output")
+        rel_zone = x >= -10.0
+        err = (got - ref).abs()
+        zero = rel_zone & (ref == 0)
+        check(bool((got[zero] == 0).all()), f"GELU over {what}: nonzero at x = 0")
+        nz = rel_zone & (ref != 0)
+        rel = (err[nz] / ref[nz].abs()).max().item()
+        ab = err[~rel_zone].max().item() if (~rel_zone).any() else 0.0
+        at = x[nz][(err[nz] / ref[nz].abs()).argmax()].item()
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, ab)
+        print(f"[2] GELU (x·σ(2u) on the SFU) over {what} ({x.numel()} values) vs the float64 "
+              f"tanh form: max relative deviation {rel:.6g} at x = {at:.6g} where x >= -10 "
+              f"(bound {GELU_REL_BOUND}), max |d| {ab:.6g} below (bound {GELU_ABS_BOUND})",
+              flush=True)
+        check(rel <= GELU_REL_BOUND, f"GELU over {what}: relative deviation {rel} above the bound")
+        check(ab <= GELU_ABS_BOUND, f"GELU over {what}: |d| {ab} below x = -10 above the bound")
+        del got, ref, err
+    inf, nan = float("inf"), float("nan")
+    special = torch.tensor([inf, -inf, nan, 0.0, -0.0, 1e20, -1e20, 3e38, -3e38], device="cuda")
+    got = _gelu_s8(mod, special, False).tolist()
+    # the tanh form's: +inf, 0.5·(-inf)·0, nan, ±0, x (x³ overflows, tanh u = 1),
+    # -0 (tanh u = -1)
+    want = [inf, nan, nan, 0.0, -0.0, special[5].item(), -0.0, special[7].item(), -0.0]
+    ok = all(math.isnan(g) if math.isnan(w) else (g == w and math.copysign(1, g) ==
+                                                  math.copysign(1, w))
+             for g, w in zip(got, want))
+    print(f"[2] GELU of +inf, -inf, nan, 0, -0, 1e20, -1e20, 3e38, -3e38: {got} (the tanh "
+          f"form's: {want})", flush=True)
+    check(ok, f"GELU special values {got}, want {want}")
+    rn, _ = _draw(3)
+    a, b, rs, cs = s8_core_inputs(1, 97, 200, 64, False, False, None, seed=3)
+    bias = rn(200, scale=0.5)
+    got = mod.gemm_s8(a, b, rs, cs, gelu_bias=bias)
+    want = mod.gemm_s8(a.cpu(), b.cpu(), rs.cpu(), cs.cpu(), gelu_bias=bias.cpu())  # the twin
+    rel = (got.cpu() - want).abs().max().item() / max(1.0, want.abs().max().item())
+    print(f"[2] gemm_s8 (M, N, K) (97, 200, 64) with its GELU epilogue vs twin: "
+          f"max|d|/max(1,max|ref|) {rel:.6g} (limit {TOL})", flush=True)
+    check(rel <= TOL, f"gemm_s8's GELU epilogue disagrees with its twin: {rel}")
+    return worst_rel, worst_abs
+
+
 def phase_kernels(table):
     """Each kernel vs its twin at its shapes, every output; two calls agree
     bit for bit. The weight-gradient kernels must have summed several images
@@ -1460,10 +1654,12 @@ def phase_logits(jt, mods):
     res_f32 = jt.ResMLPForImageClassification(**RESMLP_S24).load_torch_state_dict(sd).eval()
     res = res.to_bf16().eval()
     with torch.inference_mode():
-        r0 = rb.routes()
+        r0, rm0 = rb.routes(), rb.mode_launches()
         rk = forward_counted(res, x.bfloat16(), rb, RES_DEPTH)
         check_routes("[3] ResMLP-S24 bf16 kernel-path forward", r0, rb.routes(),
                      BLOCK_PRODUCTS["resmlp_block"][1] * RES_DEPTH)
+        check_modes("[3] ResMLP-S24 bf16 kernel-path forward", rm0, rb.mode_launches(),
+                    {k: v * RES_DEPTH for k, v in BLOCK_MODES["resmlp_block"].items()})
         rq0 = rbq.routes()
         with config.int8_mode():
             rq = forward_counted(res, x.bfloat16(), rbq, RES_DEPTH)
@@ -1488,10 +1684,12 @@ def phase_logits(jt, mods):
             blk.channel_proj2.weight.zero_()
             blk.channel_proj2.bias.zero_()
     with torch.inference_mode():
-        g0 = gb.routes()
+        g0, gm0 = gb.routes(), gb.mode_launches()
         gk = forward_counted(gmlp, x.bfloat16(), gb, GMLP_DEPTH)
         check_routes("[3] gMLP-S bf16 kernel-path forward", g0, gb.routes(),
                      BLOCK_PRODUCTS["gmlp_block"][1] * GMLP_DEPTH)
+        check_modes("[3] gMLP-S bf16 kernel-path forward", gm0, gb.mode_launches(),
+                    {k: v * GMLP_DEPTH for k, v in BLOCK_MODES["gmlp_block"].items()})
         s8_0 = gbq.routes()
         with config.int8_mode():
             gq = forward_counted(gmlp, x.bfloat16(), gbq, GMLP_DEPTH)
@@ -1666,6 +1864,7 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
              "fused_gmlp_block", "fused_gmlp_block_int8")):
         reset_counts(mods)
         routes0 = {lib: mods[lib].routes() for lib in BLOCK_PRODUCTS}
+        modes0 = mods[bf_mod].mode_launches()
         p8 = jt.Predictor(model, batch_size=32, compute="int8").warmup()
         p16 = jt.Predictor(model, batch_size=32).warmup()
         check(p8.dtype == "int8" and p16.dtype == "bf16", f"{tag}: dtypes {p8.dtype}, {p16.dtype}")
@@ -1677,6 +1876,9 @@ def phase_serving(jt, mods, mixer, res, gmlp, as_mlp):
                   f"{json.dumps(p.latency_stats())}", flush=True)
         launches[q_name] = check_launches(f"{tag} int8", mods[q_mod], depth, p8)
         n16 = check_launches(f"{tag} bf16", mods[bf_mod], depth, p16)
+        want_modes = fwd_modes(n16) if bf_mod == "mixer_block" else {
+            k: v * n16 for k, v in BLOCK_MODES[bf_mod].items()}
+        check_modes(f"{tag} bf16", modes0, mods[bf_mod].mode_launches(), want_modes)
         # every block library's GEMM routes: its products on the wgmma cores
         # where this pair ran its kernel, none elsewhere
         for lib, (route, per) in BLOCK_PRODUCTS.items():
@@ -2110,14 +2312,18 @@ def _s8_timing(mod, name, cases, what):
              "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
 
 
-def _bf16_timing(mod, name, cases, what):
-    """Phase 5 for bf16 products at b256 (cases as (entries, M, N, K, a,
-    b, keywords) with their operands) on the wgmma core, the WMMA core and
-    torch.matmul on the same operands (the product alone, without the
-    epilogue: the yardstick), in turns; then each twin. Returns ((ms, twin
-    ms, bound ms, bound_by), library ms), each summed over the products."""
-    total = dict.fromkeys(("sm90", "old", "lib", "twin", "bound", "ops_ms", "bytes_ms"), 0.0)
-    for tag, a, b, kw in cases:
+def _bf16_timing(mod, name, cases, what, scheds=None):
+    """Phase 5 for bf16 products at b256 (cases as (tag, a, b, keywords)
+    with their operands) on the wgmma core, the WMMA core and torch.matmul
+    on the same operands (the product alone, without the epilogue: the
+    yardstick), in turns; with ``scheds`` (the schedule each case's block
+    runs, "sm90" or "handoff"), also on the handoff schedule, in the same
+    turns; then each twin. Returns ((ms, twin ms, bound ms, bound_by),
+    library ms), each summed over the products, ms on the block's
+    schedules."""
+    total = dict.fromkeys(("sm90", "handoff", "old", "lib", "block", "twin", "bound", "ops_ms",
+                           "bytes_ms"), 0.0)
+    for i, (tag, a, b, kw) in enumerate(cases):
         out = mod.gemm_bf16(a, b, **kw)
         nz, M, N = out.shape
         K = a.shape[-2] if kw.get("a_mn") else a.shape[-1]
@@ -2125,31 +2331,68 @@ def _bf16_timing(mod, name, cases, what):
         nbytes = sum(t.numel() * t.element_size() for t in (a, b, out))
         at = a.transpose(-1, -2) if kw.get("a_mn") else a
         bt = b if kw.get("b_mn") else b.transpose(-1, -2)
-        ms, runs = _timed_turns({"sm90": lambda: mod.gemm_bf16(a, b, **kw),
-                                 "old": lambda: mod.gemm_bf16(a, b, core="legacy", **kw),
-                                 "lib": lambda: torch.matmul(at, bt)}, 20)
+        fns = {"sm90": lambda: mod.gemm_bf16(a, b, **kw),
+               "handoff": lambda: mod.gemm_bf16(a, b, core="handoff", **kw),
+               "old": lambda: mod.gemm_bf16(a, b, core="legacy", **kw),
+               "lib": lambda: torch.matmul(at, bt)}
+        if scheds is None:
+            del fns["handoff"]
+        ms, runs = _timed_turns(fns, 20)
         twin = cuda_ms(lambda: mod.gemm_bf16_ref(a, b, **kw), 3)
         t_ops, t_bytes = flop / PEAK["bf16"], nbytes / HBM_BYTES_S
         for k in ms:
             total[k] += ms[k]
+        total["block"] += ms[scheds[i] if scheds else "sm90"]
         total["twin"] += twin
         total["bound"] += max(t_ops, t_bytes) * 1e3
         total["ops_ms"] += t_ops * 1e3
         total["bytes_ms"] += t_bytes * 1e3
+        handoff = "" if scheds is None else (
+            f"handoff schedule {ms['handoff']:.4f} ms ({flop / ms['handoff'] / 1e9:.1f}; the "
+            f"block runs the {scheds[i]} one), ")
         print(f"[5] gemm_bf16 b256 {tag}: wgmma core {ms['sm90']:.4f} ms "
               f"({flop / ms['sm90'] / 1e9:.1f} TFLOP/s, "
               f"{100 * flop / ms['sm90'] / 1e9 * 1e12 / PEAK['bf16']:.1f}% of the bf16 peak), "
-              f"WMMA core {ms['old']:.4f} ms ({flop / ms['old'] / 1e9:.1f}), torch.matmul "
-              f"{ms['lib']:.4f} ms ({flop / ms['lib'] / 1e9:.1f}); twin {twin:.4f} ms; bound "
-              f"{max(t_ops, t_bytes) * 1e3:.4f} ms (runs {json.dumps(runs)})  [{name}]",
-              flush=True)
+              f"{handoff}WMMA core {ms['old']:.4f} ms ({flop / ms['old'] / 1e9:.1f}), "
+              f"torch.matmul {ms['lib']:.4f} ms ({flop / ms['lib'] / 1e9:.1f}); twin "
+              f"{twin:.4f} ms; bound {max(t_ops, t_bytes) * 1e3:.4f} ms (runs "
+              f"{json.dumps(runs)})  [{name}]", flush=True)
         del out, at, bt
         torch.cuda.empty_cache()
-    print(f"[5] gemm_bf16 b256, {what}: wgmma core {total['sm90']:.4f} ms, WMMA core "
-          f"{total['old']:.4f} ms, torch.matmul {total['lib']:.4f} ms, bound "
-          f"{total['bound']:.4f} ms  [{name}]", flush=True)
-    return ((total["sm90"], total["twin"], total["bound"],
+    handoff = "" if scheds is None else (
+        f"(cooperative {total['sm90']:.4f} ms, handoff {total['handoff']:.4f} ms) ")
+    print(f"[5] gemm_bf16 b256, {what}: wgmma core on the block's schedules {total['block']:.4f} "
+          f"ms {handoff}, WMMA core {total['old']:.4f} ms, torch.matmul {total['lib']:.4f} ms, "
+          f"bound {total['bound']:.4f} ms  [{name}]", flush=True)
+    return ((total["block"], total["twin"], total["bound"],
              "operations" if total["ops_ms"] >= total["bytes_ms"] else "bytes"), total["lib"])
+
+
+# The bf16 gMLP-S and ResMLP-S24 blocks' channel products at b256 with
+# their epilogues (gemm_tn's GELU; its residual add for GEMM2 and FF2, whose
+# epilogues are ResidualBias and ScaledResid), as (tag, (M, N, K),
+# residual): what decides each call site's schedule (TN_SCHEDULES).
+BLOCK_TN_TIMED = [("gMLP-S GEMM1 + GELU", (256 * 196, 3072, 256), False),
+                  ("gMLP-S GEMM2 + residual", (256 * 196, 256, 1536), True),
+                  ("ResMLP-S24 FF1 + GELU", (256 * 196, 1536, 384), False),
+                  ("ResMLP-S24 FF2 + residual", (256 * 196, 384, 1536), True)]
+
+
+def block_schedule_timing(mod, name):
+    """Phase 5: BLOCK_TN_TIMED on the cooperative and handoff schedules and
+    cuBLAS's product alone (torch.matmul, no epilogue), in turns."""
+    for tag, (M, N, K), residual in BLOCK_TN_TIMED:
+        a, b, bias, kw = gemm_inputs(M, N, K, residual, seed=7)
+        ms, runs = _timed_turns({
+            "cooperative": lambda: mod.gemm_tn(a, b, bias, core="sm90", **kw),
+            "handoff": lambda: mod.gemm_tn(a, b, bias, core="handoff", **kw),
+            "cuBLAS": lambda: torch.matmul(a, b.t())}, 20)
+        flop = 2 * M * N * K
+        print(f"[5] {tag} b256 {(M, N, K)}: " + "; ".join(
+            f"{k} {v:.4f} ms ({flop / v / 1e9:.1f} TFLOP/s)" for k, v in ms.items())
+            + f" (runs {json.dumps(runs)})  [{name}]", flush=True)
+        del a, b, bias, kw
+        torch.cuda.empty_cache()
 
 
 def mode_timing(mod, bwd, name):
@@ -2280,8 +2523,9 @@ def core_timing(mod, name):
         a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=7)
         gmlp.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
                      {"b_mn": b_mn}))
-    rows["gemm_bf16_gmlp_sm90"] = _bf16_timing(mod, name, gmlp,
-                                               "gMLP-S's three bf16 products")
+    # GEMM1 and the token product on the handoff schedule, GEMM2 cooperative
+    rows["gemm_bf16_gmlp_sm90"] = _bf16_timing(mod, name, gmlp, "gMLP-S's three bf16 products",
+                                               ("handoff", "handoff", "sm90"))
     del gmlp
     rows["gemm_s8_resmlp_sm90"] = _s8_timing(mod, name, RES_S8_TIMED,
                                              "ResMLP-S24's three int8 products")
@@ -2290,8 +2534,10 @@ def core_timing(mod, name):
         a, b = gmlp_core_inputs(nz, M, N, K, lda, b_mn, seed=7)
         res.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
                     {"b_mn": b_mn}))
+    # the token product and FF1 on the handoff schedule, FF2 cooperative
     rows["gemm_bf16_resmlp_sm90"] = _bf16_timing(mod, name, res,
-                                                 "ResMLP-S24's three bf16 products")
+                                                 "ResMLP-S24's three bf16 products",
+                                                 ("handoff", "handoff", "sm90"))
     del res
     tok = []
     for nz, M, N, K, lda, b_mn in MIXER_TOKEN_TIMED:
@@ -2299,7 +2545,8 @@ def core_timing(mod, name):
         tok.append((f"{nz} x (M, N, K) {(M, N, K)} A rows of {lda} b_mn={b_mn}", a, b,
                     {"b_mn": b_mn}))
     rows["gemm_bf16_mixer_token_sm90"] = _bf16_timing(mod, name, tok,
-                                                      "Mixer-B/16's two token products")
+                                                      "Mixer-B/16's two token products",
+                                                      ("sm90", "sm90"))
     del tok
     B, TD, D, N = MIXER_TOKEN_TIMED[0][:4]  # Wt1·xn_b: (M, N, K) = (TD, D, N)
     flow = 2 * (3 * B * N * D + 2 * B * TD * D)  # xn, x read; h written; t written and read
@@ -5001,6 +5248,35 @@ def harness_s2(jt, serving, name):
     return rec
 
 
+def harness_serving_rows(mods, path, name):
+    """15a': compare's serving numerics (b64, no throughput, no parity) on
+    ResMLP-S24 and gMLP-S: their bf16 top-1 agreement with f32 must stay at
+    or above 0.90, the rule under which tuned.SERVE serves them in bf16
+    (their GELU epilogues evaluate the tanh form as x·σ(2u) since the
+    shared GELU moved onto the special-function unit)."""
+    from jittor_mlp_tpu_torch import tuned
+    from jittor_mlp_tpu_torch.tools import compare
+
+    for key, lib, depth in (("res_mlp", "resmlp_block", RES_DEPTH),
+                            ("g_mlp", "gmlp_block", GMLP_DEPTH)):
+        reset_counts(mods)
+        rc, rec = harness_record(compare, ["--model", key, "--serving-numerics",
+                                           "--skip-throughput", "--skip-parity"], path)
+        n = mods[lib].LAUNCHES
+        print(f"[15a'] compare --model {key} --serving-numerics: rc {rc}; bf16 vs f32 max "
+              f"{rec['bf16_max_rel']:.4g} of max|logit|, top-1 {rec['bf16_argmax_agree']:.4f} "
+              f"(the rule's bf16 threshold 0.90; tuned.SERVE {tuned.SERVE[key]['dtype']}); "
+              f"int8 vs f32 {rec['int8_max_rel']:.4g}, top-1 {rec['int8_argmax_agree']:.4f}; "
+              f"{n} {lib} launches (want {depth})  [{name}]", flush=True)
+        check(rc == 0 and rec["bf16_argmax_agree"] >= 0.90
+              and tuned.SERVE[key]["dtype"] == "bf16",
+              f"[15a'] {key}: bf16 top-1 {rec['bf16_argmax_agree']} under 0.90, or SERVE "
+              f"{tuned.SERVE[key]}")
+        check(rec["bf16_max_rel"] <= 5e-2, f"[15a'] {key}: bf16 max {rec['bf16_max_rel']}")
+        check(n == depth, f"[15a'] {key}: {n} {lib} launches, want {depth}")
+        torch.cuda.empty_cache()
+
+
 def harness_generator(serving, train, tmp):
     """15c: gen_tuned on 15a's and 15b's records writes a module that
     imports, whose rows are the rule's choices on those records."""
@@ -5056,6 +5332,7 @@ def phase_harness(jt, mods, name):
         serving, train = f"{tmp}/serving.jsonl", f"{tmp}/train.jsonl"
         counted = harness_mixer(mods, serving, train, name)
         torch.cuda.empty_cache()
+        harness_serving_rows(mods, f"{tmp}/rows.jsonl", name)
         harness_s2(jt, serving, name)
         torch.cuda.empty_cache()
         harness_generator(serving, train, tmp)
@@ -5100,6 +5377,9 @@ def main():
     errs.update(phase_lab(mods["kernel_lab"]))
     errs.update(phase_gemm(mods["gemm_sm90"]))
     errs.update(phase_core(mods["gemm_sm90"]))
+    for row, err in phase_handoff(mods["gemm_sm90"]).items():
+        errs[row] = max(errs[row], err)
+    phase_gelu(mods["gemm_sm90"])
     errs.update(phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"]))
     mixer, res, gmlp, as_mlp = phase_logits(jt, mods)
     launches = phase_serving(jt, mods, mixer, res, gmlp, as_mlp)
@@ -5113,6 +5393,7 @@ def main():
         timings[row], library[row] = timing, lib_ms
     for row, (timing, lib_ms) in core_timing(mods["gemm_sm90"], name).items():
         timings[row], library[row] = timing, lib_ms
+    block_schedule_timing(mods["gemm_sm90"], name)
     for row, (timing, lib_ms) in mode_timing(mods["gemm_sm90"], mods["mixer_block_bwd"],
                                              name).items():
         timings[row], library[row] = timing, lib_ms

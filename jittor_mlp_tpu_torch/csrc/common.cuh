@@ -10,9 +10,42 @@ namespace jmt {
 
 typedef __nv_bfloat16 bf16;
 
-// The Hendrycks tanh form of GELU, in f32 (the bf16 paths' activation).
+// The Hendrycks tanh form of GELU, in f32 (the bf16 paths' activation),
+//   0.5·x·(1 + tanh u),  u = √(2/π)·(x + 0.044715·x³),
+// evaluated as the identity x·σ(2u) = x / (1 + 2^a), a = −2·log2(e)·u, on
+// the special-function unit: one ex2.approx and one rcp.approx (MUFU.EX2,
+// MUFU.RCP) and four FMA-pipe operations, where libm's tanhf is about 45
+// branchy instructions a value. The TPU kernels this ports take their tanh
+// from the VPU's hardware tanh (jittor_mlp_tpu/ops/pallas/mixer_block.py:
+// 47-57); a libm tanh in a product's epilogue bounds the epilogue instead
+// (the Mixer GELU channel product: 0.458 ms against 0.343 without the call,
+// on an H100 80GB HBM3 at 700 W). Not tanh.approx.f32: its relative error
+// of about 2^-11 on tanh u cancels in 1 + tanh u as x goes negative (about
+// 20% of the GELU near x = −3); the sigmoid form has no cancellation
+// (libm's form cancels too: 1 + tanhf(u) keeps tanhf's absolute error near
+// −1, relative 1.3e-5 at x = −3 and 30% at x = −5).
+//
+// Error against the tanh form evaluated in float64 (through the same
+// identity, since 1 + tanh u cancels in float64 too below x ≈ −6), with
+// ε = 2^-24 (f32 rounding): a = x·fma(x², C3, C1) carries ≤ 3.33ε of
+// relative error (x², the fma, the product, and the f32 constants' 0.33ε
+// and 0.09ε), which 2^a turns into ln2·3.33ε·|a| of relative error;
+// ex2.approx adds ≤ 2 ulp (2^-22), 1 + 2^a ε, rcp.approx 1 ulp (2^-23),
+// the last product ε. So the relative error is at most
+//   (3.33·ln2·|a| + 2)·2^-24 + 3·2^-23 ≤ 1.8e-5
+// wherever 1 + 2^a < 2^126 (x > −10.0; 1.9e-6 for x > −3, |a| < 10);
+// below x = −10.0 the .ftz reciprocal (or 2^a's overflow) gives ±0, and the
+// GELU there is below 1.2e-37 in magnitude. Special values follow the tanh
+// form: +∞ → +∞, −∞ → NaN (0.5·(−∞)·0), NaN → NaN, ±0 → ±0, and a finite x
+// whose x³ overflows gives x (x > 0) or −0.
+constexpr float GELU_C1 = -2.302208198144325f;    // −2·log2(e)·√(2/π)
+constexpr float GELU_C3 = -0.1029432395800235f;   // GELU_C1 · 0.044715
 __device__ __forceinline__ float gelu_tanh(float x) {
-  return 0.5f * x * (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  const float a = x * fmaf(x * x, GELU_C3, GELU_C1);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(a));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.0f + e));
+  return x * r;
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

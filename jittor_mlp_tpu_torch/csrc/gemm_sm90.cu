@@ -14,12 +14,17 @@
 //   (mixer_block_bwd.py:397 _chan_wgt_bwd): MN-major A and/or B, and K cut
 //   into row slabs, one f32 partial each (StoreF32's output); or entries
 //   batched or shared (the bf16 gMLP block's token product,
-//   gmlp_block.py:57: Wsp shared, vn an N-major entry an image).
+//   gmlp_block.py:57: Wsp shared, vn an N-major entry an image), also on
+//   the handoff schedule (core 3), which the gMLP and ResMLP token
+//   products run.
 // - gemm_s8_f32: the W8A8 products of gmlp_block_int8.py:61 and
 //   mixer_block_int8.py:121: int8 A and B, per-row and per-column scales,
 //   entries batched or shared, the f32 dequantized product; with a chunk,
 //   the chunked mode (the Mixer's second channel product): per-(row, chunk)
 //   row scales, the chunks' dequantized sums added in order.
+// - gemm_s8_gelu_f32: the same product through the s8 core's GELU epilogue
+//   (BiasGeluF32), f32 out: with exact sums, the shared GELU
+//   (common.cuh's gelu_tanh) alone, which chip_smoke.py sweeps.
 // - gemm_bf16_dual_f32: the dual mode of the Mixer token and channel data
 //   backwards (mixer_block_bwd.py:220 _token_bwd's recompute and Wt2ᵀ·dh,
 //   :306 _chan_data_bwd's hn·Wc1ᵀ and g·Wc2): two products of one tile,
@@ -90,15 +95,19 @@ extern "C" int gemm_tn_bf16(const void* a, const void* b, const void* bias, cons
 // rows. Entries (slab ≥ K): nz = nb, entry z = op(A_z)·op(B_z), an operand
 // batched (a_batched, b_batched: nb matrices one after another) or shared.
 // a: bf16 (M, K), or (K, M) with a_mn, rows lda elements apart; b: bf16
-// (N, K), or (K, N) with b_mn, rows ldb apart. core as gemm_tn_bf16's.
+// (N, K), or (K, N) with b_mn, rows ldb apart. core as gemm_tn_bf16's: 3
+// runs the handoff schedule (the bf16 gMLP and ResMLP blocks' token
+// products), which takes a K-major A.
 extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int nb, int M, int N,
                              int K, int lda, int ldb, int slab, int a_mn, int b_mn,
                              int a_batched, int b_batched, int core, void* stream_ptr) {
   cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
-  if (!valid_core(core) || slab <= 0 || nb <= 0 || (slab < K && !(a_mn && b_mn)) ||
-      (slab < K && nb > 1) || lda < (a_mn ? M : K) || ldb < (b_mn ? N : K))
+  const bool handoff = core == 3;
+  if (!(valid_core(core) || (handoff && !a_mn)) || slab <= 0 || nb <= 0 ||
+      (slab < K && !(a_mn && b_mn)) || (slab < K && nb > 1) || lda < (a_mn ? M : K) ||
+      ldb < (b_mn ? N : K))
     return static_cast<int>(cudaErrorInvalidValue);
-  const sm90::Core which = static_cast<sm90::Core>(core);
+  const sm90::Core which = handoff ? sm90::Core::Sm90 : static_cast<sm90::Core>(core);
   const bool slabs = slab < K;
   const int nz = slabs ? (K + slab - 1) / slab : nb, kz = slabs ? slab : K;
   const int last = K - (slabs ? nz - 1 : 0) * kz;
@@ -112,8 +121,14 @@ extern "C" int gemm_bf16_f32(const void* a, const void* b, void* out, int nb, in
     e = sm90::gemm_bf16<true, true>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
   else if (a_mn)
     e = sm90::gemm_bf16<true, false>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  else if (b_mn && handoff)
+    e = sm90::gemm_bf16<false, true, sm90::Sched::Handoff>(s, nz, M, N, kz, last, a, lda, sA, b,
+                                                           ldb, sB, epi, which);
   else if (b_mn)
     e = sm90::gemm_bf16<false, true>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
+  else if (handoff)
+    e = sm90::gemm_bf16<false, false, sm90::Sched::Handoff>(s, nz, M, N, kz, last, a, lda, sA, b,
+                                                            ldb, sB, epi, which);
   else
     e = sm90::gemm_bf16<false, false>(s, nz, M, N, kz, last, a, lda, sA, b, ldb, sB, epi, which);
   return static_cast<int>(e);
@@ -142,6 +157,23 @@ extern "C" int gemm_s8_f32(const void* a, const void* b, const void* rs, const v
     return static_cast<int>(
         sm90::gemm_s8_chunked(s, nz, M, N, K, chunk, a, K, sA, b, K, sB, sc, epi, which));
   return static_cast<int>(sm90::gemm_s8(s, nz, M, N, K, a, K, sA, b, K, sB, sc, epi, which));
+}
+
+// out (M, N) f32 = gelu_tanh(v + bias[n]), v = (f32(A · Bᵀ) · rs[m]) · cs[n]:
+// the s8 core's GELU epilogue (s8gemm::BiasGeluF32, which the W8A8 blocks'
+// first products run) on a int8 (M, K), b int8 (N, K), rs f32 (M), cs f32
+// (N), bias bf16 (N), contiguous, K a multiple of 32. With one nonzero
+// code in a row of a and one in b (or none), v is exact: the GELU's f32
+// output alone, for checking it. core as gemm_s8_f32's.
+extern "C" int gemm_s8_gelu_f32(const void* a, const void* b, const void* rs, const void* cs,
+                                const void* bias, void* out, int M, int N, int K, int core,
+                                void* stream_ptr) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (!valid_core(core)) return static_cast<int>(cudaErrorInvalidValue);
+  const s8gemm::Scales sc{static_cast<const float*>(rs), 0, 1, static_cast<const float*>(cs), 0};
+  const s8gemm::BiasGeluF32 epi{static_cast<const bf16*>(bias), 0, static_cast<float*>(out), N, 0};
+  return static_cast<int>(sm90::gemm_s8(s, 1, M, N, K, a, K, 0, b, K, 0, sc, epi,
+                                        static_cast<sm90::Core>(core)));
 }
 
 // out (2, nz, M, N) f32: out[0] = op(A1_z)·op(B1_z), out[1] = op(A2_z)·op(B2_z)

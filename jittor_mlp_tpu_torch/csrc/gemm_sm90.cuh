@@ -85,9 +85,11 @@
 // (gmlp_block_int8.cu); the four int8 products of mixer_block_int8.py:121
 // fused_mixer_block_int8, the second channel product in the chunked mode
 // (mixer_block_int8.cu); the three bf16 products of gmlp_block.py:57
-// fused_gmlp_block, the token product with an MN-major B (gmlp_block.cu);
-// the three bf16 products of resmlp_block.py:54 fused_resmlp_block, the
-// token product with an MN-major B (resmlp_block.cu), and the three int8
+// fused_gmlp_block, the token product with an MN-major B, it and the GELU
+// product on the handoff schedule (gmlp_block.cu); the three bf16 products
+// of resmlp_block.py:54 fused_resmlp_block, the token product with an
+// MN-major B, it and FF1 on the handoff schedule (resmlp_block.cu), and the
+// three int8
 // products of resmlp_block_int8.py:69 fused_resmlp_block_int8, the second
 // in the chunked mode where F is chunked (resmlp_block_int8.cu); the five
 // products of mixer_block_bwd.py:220 _token_bwd (a dual product an image,
@@ -143,16 +145,17 @@
 //   its entry's K in a fixed order, whatever the grid: two calls agree bit
 //   for bit.
 //
-// The handoff schedule (gemm_tn<Sched::Handoff>, gemm_handoff_kernel; bf16,
-// one product, K-major operands): kernel 1's GELU channel product
-// (mixer_forward.cuh: through it the forward-with-h's and the split entry's),
-// the split entry's f32 partial and the kernel lab's GELU channel products
-// run it; every other product runs the cooperative one (gemm_kernel), kernel
-// 1's residual product among them. What bounds the Mixer-B/16 GELU product
-// at b256, (50176, 3072, 768): its K loop alone takes ≈ 0.32-0.34 ms on
-// either schedule, but the functor's tanh GELU, a branchy libm tanhf a value
-// (about 45 instructions, issue-bound over 154 M values), and its 308 MB of
-// bf16 stores add ≈ 0.24 ms after the cooperative schedule's K loops. What
+// The handoff schedule (gemm_tn<Sched::Handoff> and gemm_bf16<false, TB,
+// Sched::Handoff>, gemm_handoff_kernel; bf16, a K-major A): kernel 1's GELU
+// channel product (mixer_forward.cuh: through it the forward-with-h's and
+// the split entry's), the split entry's f32 partial, the kernel lab's GELU
+// channel products, and the bf16 gMLP and ResMLP blocks' GELU products and
+// token products run it; every other product runs the cooperative one
+// (gemm_kernel), kernel 1's residual product and token pair, gMLP's GEMM2
+// and ResMLP's FF2 among them. What bounds the Mixer-B/16 GELU product at
+// b256, (50176, 3072, 768): its K loop alone takes ≈ 0.32-0.34 ms on either
+// schedule, but its epilogue, the tanh GELU of 154 M values and their 308 MB
+// of bf16 stores, adds to it after the cooperative schedule's K loops. What
 // the design does about it: one MMA warpgroup holds a 128×192 tile (192 f32
 // sums a thread after setmaxnreg: 232 registers) and runs its K loops back
 // to back over a 3-stage ring of 40 KB; after each tile it writes the sums
@@ -161,22 +164,51 @@
 // registers, and the producer warpgroup's warps 1-3 at 72) hand them to the
 // functor while the next tile's wgmmas run. Eleven warps, because the
 // epilogue is bound by its instruction issue and its latency chains per warp
-// (a tanh's branches, then the functor's store before the next call's bias
-// loads): a ping-pong schedule (two consumer warpgroups, each on a 128×128
-// or 128×192 tile of its own, taking turns at the tensor cores) left each
-// tile's epilogue to one warpgroup of four warps and ran the GELU product
-// at 0.68 and 1.06 ms, slower than the cooperative schedule; a wgmma of 96
-// sums needs 122 registers a thread at launch, so no more than 512 threads
-// fit. Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 5, in
-// turns): the GELU product 0.4637 ms on the handoff schedule against 0.5716
-// on the cooperative one (cuBLAS's product alone, without the epilogue,
-// 0.3339); the residual product (50176, 768, 3072), whose epilogue is short
-// beside its K of 3072, 0.3739 against 0.3529, so kernel 1 keeps the
-// cooperative schedule there; the split entry's f32 partial (50176, 768,
-// 1536) at P = 2 0.2018 against 0.2319 (phase 14a). Each output element is
-// the same f32 sum over the same k16 slices in the same order as the
-// cooperative schedule's, through the same functor: the two schedules agree
-// bit for bit.
+// (the GELU's two special-function ops, then the functor's store before the
+// next call's loads): a ping-pong schedule (two consumer warpgroups, each on
+// a 128×128 or 128×192 tile of its own, taking turns at the tensor cores)
+// left each tile's epilogue to one warpgroup of four warps and ran the GELU
+// product at 0.68 and 1.06 ms (with libm's tanh), slower than the
+// cooperative schedule; a wgmma of 96 sums needs 122 registers a thread at
+// launch, so no more than 512 threads fit.
+//
+// Its batched mode: C[z] = epi(z, A[z] · op(B[z])), the entries' maps as
+// the plain mode's (operand_maps: a 3-D map for every entry but the last,
+// so that an entry's K tail reads zeros, a 2-D one for the last and for a
+// shared operand), B K-major or MN-major (TB: three 64-value boxes a K
+// step, as Tile<W, 1, true> lays them out), each tile's entry handed to
+// the functor. The gMLP and ResMLP token products run it, an entry an
+// image (the weight a shared A in rows of round_up(N, 8), the activations
+// an N-major B): M = 196 tokens cut as 128 + 68 rows, where the
+// cooperative tile cut them 192 + 4 and ran almost a whole empty row tile.
+// Where B is batched the walk takes an entry's row tiles of each column
+// slab back to back (handoff_pos), so that B's slab, read from device
+// memory by one, serves the other from the L2.
+//
+// Measured on an H100 80GB HBM3 at 700 W with the SFU GELU, in turns
+// (tools/gemm_schedules.py --blocks; ms, two runs): the Mixer GELU product
+// 0.409 on the handoff schedule against 0.475-0.487 cooperative; gMLP-S's
+// GEMM1 + GELU (50176, 3072, 256) 0.282-0.292 against 0.306-0.316,
+// ResMLP-S24's FF1 + GELU (50176, 1536, 384) 0.157-0.158 against
+// 0.172-0.175; the residual products keep the cooperative schedule (gMLP-S
+// GEMM2 0.134-0.136 against 0.139, ResMLP-S24 FF2 0.113-0.114 against
+// 0.121-0.123, kernel 1's 0.348-0.390 against 0.397-0.418). At the block
+// (tools/handoff_variants.py), the token products on the cooperative
+// schedule instead: gMLP-S 0.904 against 0.902, ResMLP-S24 0.470 against
+// 0.447; the GELU products: 0.926-0.931 against 0.902, 0.464 against 0.447.
+// With K of 196 to 384 (four to six K steps a tile) the MMA warpgroup waits
+// for the epilogue warps (a clock64 count a block, the same tool): 47% of
+// its time in gMLP-S's GEMM1, 61% in either token product, 31% in
+// ResMLP-S24's FF1; the Mixer GELU product's waits for its loads, 38%. What
+// the epilogue's time goes to (GEMM1 on the handoff schedule, ms): 0.282 as
+// built, 0.147 without the functor call, 0.220 with the identity for the
+// GELU, 0.231 without the bias loads, 0.264 without the stores, 0.345 with
+// libm's tanhf. Tried and not kept, each no faster within the runs' spread:
+// a run's bias in one 16-byte load (0.281), the reciprocal by Newton steps
+// (0.288), the sums' 16-byte chunks swizzled (rows of HO_BN floats, both
+// sides conflict-free: 0.286). Each output element is the same f32 sum
+// over the same k16 slices in the same order as the cooperative schedule's,
+// through the same functor: the two schedules agree bit for bit.
 //
 // Routes, both hand-written and both counted (products(route), a dual
 // launch two; wgmma launches also per mode, mode_launches): bf16 takes the
@@ -220,10 +252,11 @@ constexpr int BN_DUAL = 96;                       // the dual mode's tile width 
 constexpr int BN_DUAL_MN = 64;                    // ... with an MN-major B: one swizzle atom
 constexpr int DUAL_STAGES = 3;                    // the dual mode's ring
 
-// The handoff schedule (gemm_tn<Sched::Handoff>): one MMA warpgroup runs its
-// tiles' K loops back to back on HO_BM × HO_BN tiles; after each, it writes
-// the tile's f32 sums to shared memory, and HO_EPI_WARPS epilogue warps hand
-// them to the functor under the next tile's wgmmas.
+// The handoff schedule (gemm_tn<Sched::Handoff>, gemm_bf16<false, TB,
+// Sched::Handoff>): one MMA warpgroup runs its tiles' K loops back to back on
+// HO_BM × HO_BN tiles; after each, it writes the tile's f32 sums to shared
+// memory, and HO_EPI_WARPS epilogue warps hand them to the functor under the
+// next tile's wgmmas.
 constexpr int HO_BM = 128, HO_BN = 192;           // the tile: two m64n192 wgmmas
 constexpr int HO_STAGES = 3;
 constexpr int HO_EPI_WGS = 2;                     // epilogue warpgroups
@@ -287,9 +320,10 @@ struct HandoffTile {
 enum class Mode { Plain = 0, Chunked = 1, Dual = 2, Group = 3, Handoff = 4 };
 constexpr int MODES = 5;
 
-// A K-major bf16 product's schedule (gemm_tn's template argument): the
-// cooperative one (gemm_kernel: three consumer warpgroups on the rows of
-// one 192×192 tile, then all three in its epilogue) or the handoff one.
+// A bf16 product's schedule (gemm_tn's and gemm_bf16's template argument):
+// the cooperative one (gemm_kernel: three consumer warpgroups on the rows of
+// one 192×192 tile, then all three in its epilogue) or, with a K-major A,
+// the handoff one.
 enum class Sched { Coop, Handoff };
 
 // The block tile's width of a mode.
@@ -901,21 +935,41 @@ gemm_kernel(const __grid_constant__ CUtensorMap m0, const __grid_constant__ CUte
   }
 }
 
-// The handoff schedule of one K-major bf16 product, C = epi(0, A · Bᵀ), on
-// the 2-D maps ma (A, boxes of HO_BM rows) and mb (B, HO_BN rows). Warp 0
-// of warpgroup 0 produces as gemm_kernel's does; warpgroup 1 runs the K loop
-// of each of the block's tiles in turn (tile blockIdx.x + t·gridDim.x), then
-// waits on sums_empty for the sums' buffer, writes the tile's f32 sums there
-// and arrives on sums_full, and goes on to the next tile's K loop. The
-// epilogue warps (warpgroups 2 and 3, and warps 1-3 of warpgroup 0) wait on
-// sums_full, hand each row's 8-column runs to the functor and arrive on
-// sums_empty: a tile's epilogue runs under the next tile's wgmmas. Each
-// output element is the sum over the same k16 slices, in the same order, as
-// gemm_kernel's, handed to the functor the same way.
-template <class Epi>
+// Output tile `tile` of the handoff schedule's walk over nz entries of
+// tiles HO_BM rows high and HO_BN columns wide: entry, then rows, then
+// columns (a row slab of A serves the columns of a shared B in turn), or
+// with rows_inner entry, then columns, then rows: the row tiles of one
+// (entry, column slab) back to back, so that a batched B's slab serves them
+// from the L2 and is read from device memory once.
+__device__ __forceinline__ TilePos handoff_pos(int tile, int tiles_m, int tiles_n,
+                                               bool rows_inner) {
+  if (!rows_inner) return tile_pos<HO_BN, HO_BM>(tile, tiles_m, tiles_n);
+  const int per = tiles_m * tiles_n, r = tile % per;
+  return {tile / per, r % tiles_m * HO_BM, r / tiles_m * HO_BN};
+}
+
+// The handoff schedule of a bf16 product with a K-major A, C[z] = epi(z,
+// A[z] · op(B[z])), on the maps m0, m1 (A's full and last, boxes of HO_BM
+// rows) and m2, m3 (B's: HO_BN rows, or with TB three boxes of 64 values),
+// operand_maps' pair for each: every entry but the last through the 3-D
+// map, the last (K_last deep) through the 2-D one; a shared operand through
+// its 2-D map. Warp 0 of warpgroup 0 produces as gemm_kernel's does;
+// warpgroup 1 runs the K loop of each of the block's tiles in turn (tile
+// blockIdx.x + t·gridDim.x of handoff_pos's walk, the row tiles inner
+// where B is batched), then waits on sums_empty for the sums' buffer, writes
+// the tile's f32 sums there and arrives on sums_full, and goes on to the
+// next tile's K loop. The epilogue warps (warpgroups 2 and 3, and warps 1-3
+// of warpgroup 0) wait on sums_full, hand each row's 8-column runs to the
+// functor with the tile's entry and arrive on sums_empty: a tile's epilogue
+// runs under the next tile's wgmmas. Each output element is the sum over
+// the same k16 slices, in the same order, as gemm_kernel's, handed to the
+// functor the same way.
+template <bool TB, class Epi>
 __global__ void __launch_bounds__(HO_THREADS, 1)
-gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
-                    int M, int N, int K, Epi epi) {
+gemm_handoff_kernel(const __grid_constant__ CUtensorMap m0, const __grid_constant__ CUtensorMap m1,
+                    const __grid_constant__ CUtensorMap m2, const __grid_constant__ CUtensorMap m3,
+                    int nz, int a_batched, int b_batched, int M, int N, int K, int K_last,
+                    Epi epi) {
   typedef HandoffTile G;
   constexpr int NST = HO_STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -928,8 +982,8 @@ gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constan
   uint64_t* sums_empty = sums_full + 1;  // the epilogue warps read them
 
   const int tiles_m = (M + HO_BM - 1) / HO_BM, tiles_n = (N + HO_BN - 1) / HO_BN;
-  const int tiles = tiles_m * tiles_n;
-  const int ktiles = k_steps<bf16>(0, 1, K, K);
+  const int tiles = nz * tiles_m * tiles_n;
+  const bool rows_inner = b_batched;
   const int wg = threadIdx.x / 128;
   const int warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
   const int r = lane / 4, q = lane % 4;
@@ -950,14 +1004,16 @@ gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constan
   auto epilogue = [&](int e) {
     constexpr int RUNS = HO_BN / 32, ITEMS = HO_BM / 8 * RUNS;
     for (int tile = blockIdx.x, t = 0; tile < tiles; tile += gridDim.x, ++t) {
-      const TilePos p = tile_pos<HO_BN, HO_BM>(tile, tiles_m, tiles_n);
+      const TilePos p = handoff_pos(tile, tiles_m, tiles_n, rows_inner);
       mbar_wait(sums_full, t & 1);
       for (int item = e; item < ITEMS; item += HO_EPI_WARPS) {
         const int row = item / RUNS * 8 + r, col = item % RUNS * 32 + 8 * q;
-        float v[8];
-        load8(sums + row * HO_LD + col, v);
         const int gm = p.m0 + row, gn = p.n0 + col;
-        if (gm < M && gn < N) epi(0, gm, gn, v, min(8, N - gn));
+        if (gm < M && gn < N) {
+          float v[8];
+          load8(sums + row * HO_LD + col, v);
+          epi(p.z, gm, gn, v, min(8, N - gn));
+        }
       }
       __syncwarp();
       if (lane == 0) mbar_arrive(sums_empty);
@@ -970,14 +1026,18 @@ gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constan
     if (threadIdx.x == 0) {
       int it = 0;  // K steps loaded so far, over all tiles: stage it % NST
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const TilePos p = tile_pos<HO_BN, HO_BM>(tile, tiles_m, tiles_n);
+        const TilePos p = handoff_pos(tile, tiles_m, tiles_n, rows_inner);
+        const int ktiles = k_steps<bf16>(p.z, nz, K, K_last);
+        const bool last = p.z == nz - 1;  // the last entry: its operands' 2-D maps
         for (int kt = 0; kt < ktiles; ++kt, ++it) {
           const int s = it % NST;
           mbar_wait(&empty[s], ((it / NST) & 1) ^ 1);  // round 0 passes at once
           mbar_expect_tx(&full[s], G::STAGE_BYTES);
           unsigned char* st = smem + s * G::STAGE_BYTES;
-          tma_load(st, &ma, kt * BK, p.m0, 0, true, &full[s]);
-          tma_load(st + G::A_BYTES, &mb, kt * BK, p.n0, 0, true, &full[s]);
+          load_operand<false, HO_BM>(st, &m0, &m1, !a_batched || last, p.z, p.m0, kt * BK,
+                                     &full[s]);
+          load_operand<TB, HO_BN>(st + G::A_BYTES, &m2, &m3, !b_batched || last, p.z, p.n0,
+                                  kt * BK, &full[s]);
         }
       }
     }
@@ -986,6 +1046,8 @@ gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constan
     float acc[2][HO_BN / 2];  // the tile's two m64 halves
     int it = 0;
     for (int tile = blockIdx.x, t = 0; tile < tiles; tile += gridDim.x, ++t) {
+      const int ktiles = k_steps<bf16>(handoff_pos(tile, tiles_m, tiles_n, rows_inner).z, nz, K,
+                                       K_last);
 #pragma unroll
       for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -999,11 +1061,12 @@ gemm_handoff_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constan
         wgmma_fence();
 #pragma unroll
         for (int k = 0; k < BK / 16; ++k) {
-          const uint64_t db = desc_sw128(b + 32 * k, MN_LBO);
+          // K-major B: +32 bytes a k16 slice; MN-major: +16 rows of 128 bytes
+          const uint64_t db = desc_sw128(TB ? b + k * 16 * K_BYTES : b + 32 * k, MN_LBO);
 #pragma unroll
           for (int h = 0; h < 2; ++h)  // half h: A's rows 64h .. 64h+63, 8 KB into the stage
-            wgmma_192<false, false>(acc[h], desc_sw128(a + h * 64 * K_BYTES + 32 * k, MN_LBO),
-                                    db);
+            wgmma_192<false, TB>(acc[h], desc_sw128(a + h * 64 * K_BYTES + 32 * k, MN_LBO),
+                                 db);
         }
         wgmma_commit();
         fence_acc(acc[0]);
@@ -1187,20 +1250,25 @@ cudaError_t launch_sm90(cudaStream_t stream, int nz, int M, int N, int K, int K_
   return e;
 }
 
-// One K-major bf16 product, C = epi(0, A · Bᵀ), on the handoff schedule:
-// persistent blocks, one per SM (at most one per tile); cudaErrorInvalidValue
+// A bf16 product with a K-major A, C[z] = epi(z, A[z] · op(B[z])) (TB: B
+// MN-major) for z < nz, on the handoff schedule: persistent blocks, one per
+// SM (at most one per tile); the operands' entries as launch_sm90 takes
+// them (batched or shared, the last entry K_last deep); cudaErrorInvalidValue
 // where TMA's rules do not hold or the shapes are not a product's. Counted
 // as a wgmma-core product and a Handoff launch.
-template <class Epi>
-cudaError_t launch_handoff(cudaStream_t stream, int M, int N, int K, const Operand& a,
-                           const Operand& b, const Epi& epi) {
-  if (M <= 0 || N <= 0 || K <= 0 || !tma_ok<bf16>(a) || !tma_ok<bf16>(b))
+template <bool TB, class Epi>
+cudaError_t launch_handoff(cudaStream_t stream, int nz, int M, int N, int K, int K_last,
+                           const Operand& a, const Operand& b, const Epi& epi) {
+  if (nz <= 0 || M <= 0 || N <= 0 || K <= 0 || K_last <= 0 || K_last > K || !tma_ok<bf16>(a) ||
+      !tma_ok<bf16>(b))
     return cudaErrorInvalidValue;
-  CUtensorMap ma, mb, unused;  // one entry: the 2-D maps
-  if (!operand_maps<bf16, false>(&unused, &ma, a, M, HO_BM, 1, K, K) ||
-      !operand_maps<bf16, false>(&unused, &mb, b, N, HO_BN, 1, K, K))
+  if ((a.zstride == 0 || b.zstride == 0) && K_last != K)  // a shared matrix has one K
     return cudaErrorInvalidValue;
-  const auto kernel = gemm_handoff_kernel<Epi>;
+  CUtensorMap maps[4];
+  if (!operand_maps<bf16, false>(&maps[0], &maps[1], a, M, HO_BM, nz, K, K_last) ||
+      !operand_maps<bf16, TB>(&maps[2], &maps[3], b, N, HO_BN, nz, K, K_last))
+    return cudaErrorInvalidValue;
+  const auto kernel = gemm_handoff_kernel<TB, Epi>;
   // setmaxnreg moves registers between warpgroups within the block's own
   // allocation: refuse to launch (rather than hang) if ptxas gave it less.
   cudaFuncAttributes attr;
@@ -1213,9 +1281,12 @@ cudaError_t launch_handoff(cudaStream_t stream, int M, int N, int K, const Opera
   int dev = 0, sms = 0;
   SM90_TRY(cudaGetDevice(&dev));
   SM90_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  const long long tiles = (long long)((M + HO_BM - 1) / HO_BM) * ((N + HO_BN - 1) / HO_BN);
+  const long long tiles =
+      (long long)nz * ((M + HO_BM - 1) / HO_BM) * ((N + HO_BN - 1) / HO_BN);
   const int grid = (int)(tiles < sms ? tiles : sms);
-  kernel<<<grid, HO_THREADS, smem, stream>>>(ma, mb, M, N, K, epi);
+  kernel<<<grid, HO_THREADS, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], nz,
+                                             a.zstride != 0, b.zstride != 0, M, N, K, K_last,
+                                             epi);
   const cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess) {
     ++g_modes[static_cast<int>(Mode::Handoff)];
@@ -1344,16 +1415,22 @@ cudaError_t gemm_bf16_grouped(cudaStream_t stream, int images, int per, int M, i
 
 // bf16: C[z] = epi(z, op(A[z])·op(B[z])) for z < nz (see the header; A
 // entries sA elements apart, B entries sB apart), on the wgmma core where
-// TMA's rules hold (Core::Auto), else on the WMMA core with the same entries
-// (gemm_bf16.cuh: A_T is an MN-major A, B_T a K-major B; several entries
-// are gemm_sum's images, one a block).
-template <bool TA, bool TB, class Epi>
+// TMA's rules hold (Core::Auto), on schedule S (the handoff one takes a
+// K-major A), else on the WMMA core with the same entries (gemm_bf16.cuh:
+// A_T is an MN-major A, B_T a K-major B; several entries are gemm_sum's
+// images, one a block).
+template <bool TA, bool TB, Sched S = Sched::Coop, class Epi>
 cudaError_t gemm_bf16(cudaStream_t stream, int nz, int M, int N, int K, int K_last,
                       const void* A, int lda, long long sA, const void* B, int ldb,
                       long long sB, const Epi& epi, Core core = Core::Auto) {
+  static_assert(S == Sched::Coop || !TA, "the handoff schedule reads a K-major A");
   const Operand a{A, lda, sA}, b{B, ldb, sB};
-  if (core == Core::Sm90 || (core == Core::Auto && tma_ok<bf16>(a) && tma_ok<bf16>(b)))
-    return launch_sm90<bf16, TA, TB>(stream, nz, M, N, K, K_last, a, b, epi);
+  if (core == Core::Sm90 || (core == Core::Auto && tma_ok<bf16>(a) && tma_ok<bf16>(b))) {
+    if constexpr (S == Sched::Handoff)
+      return launch_handoff<TB>(stream, nz, M, N, K, K_last, a, b, epi);
+    else
+      return launch_sm90<bf16, TA, TB>(stream, nz, M, N, K, K_last, a, b, epi);
+  }
   const cudaError_t e =
       nz == 1 ? bf16gemm::gemm_ex<TA, !TB>(stream, 1, M, N, K_last, A, lda, 0, B, ldb, 0, epi)
               : bf16gemm::gemm_sum<TA, !TB>(stream, (long long)(nz - 1) * K + K_last, K, 1, M,
@@ -1363,18 +1440,13 @@ cudaError_t gemm_bf16(cudaStream_t stream, int nz, int M, int N, int K, int K_la
 }
 
 // C = epi(A · Bᵀ), A (M×K) and B (N×K) row-major bf16: one product, K-major
-// operands (the Mixer channel products), on schedule S where the wgmma core
-// runs it (Core::Auto where TMA's rules hold, or Core::Sm90), else on the
-// WMMA core (gemm_bf16's routes).
+// operands (the Mixer, gMLP and ResMLP channel products), gemm_bf16's one
+// entry on schedule S where the wgmma core runs it (Core::Auto where TMA's
+// rules hold, or Core::Sm90), else on the WMMA core.
 template <Sched S = Sched::Coop, class Epi>
 cudaError_t gemm_tn(cudaStream_t stream, int M, int N, int K, const void* A, int lda, const void* B,
                     int ldb, const Epi& epi, Core core = Core::Auto) {
-  if constexpr (S == Sched::Handoff) {
-    const Operand a{A, lda, 0}, b{B, ldb, 0};
-    if (core == Core::Sm90 || (core == Core::Auto && tma_ok<bf16>(a) && tma_ok<bf16>(b)))
-      return launch_handoff(stream, M, N, K, a, b, epi);
-  }
-  return gemm_bf16<false, false>(stream, 1, M, N, K, K, A, lda, 0, B, ldb, 0, epi, core);
+  return gemm_bf16<false, false, S>(stream, 1, M, N, K, K, A, lda, 0, B, ldb, 0, epi, core);
 }
 
 // The s8 core's epilogue: v = (f32(acc) · rs[m]) · cs[n], gemm_s8.cuh's

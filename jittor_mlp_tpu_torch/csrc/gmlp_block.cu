@@ -27,23 +27,31 @@
 //   way), x read twice (LN1, the residual), xn written and read and out
 //   written (26 MB each): 1.36 GB, 0.406 ms at 3.35 TB/s, 2.7× the
 //   operation bound.
-// - The three products run on the wgmma core (TMA loads into a four-stage
-//   ring, wgmma.m64n192k16 from three consumer warpgroups, persistent
-//   blocks), where the WMMA core (gemm_bf16.cuh) ran them before. GEMM1
-//   (K = D = 256, four K steps of 64) is bound by its epilogue: the tanh
-//   GELU of B·N·2F values and their bf16 stores run after its wgmmas, not
-//   beside them. GEMM2's N = D = 256 is ragged against the 192-wide tile
-//   (TMA zero fill, the epilogue skips the columns).
+// - The three products run on the wgmma core (TMA loads, wgmma from
+//   warp-specialized warpgroups, persistent blocks), where the WMMA core
+//   (gemm_bf16.cuh) ran them before. GEMM1 (K = D = 256, four K steps of
+//   64) is bound by its epilogue, the tanh GELU of B·N·2F values and their
+//   308 MB of bf16 stores at b256: it runs on the core's handoff schedule,
+//   which hands each 128×192 tile's sums to eleven epilogue warps under the
+//   next tile's wgmmas, and the GELU is common.cuh's x·σ(2u) on the
+//   special-function unit (two ops a value, where libm's tanhf took about
+//   45). GEMM2, whose residual epilogue is short, keeps the cooperative
+//   schedule (0.134 ms against 0.139 on the handoff one at b256); its
+//   N = D = 256 is ragged against the 192-wide tile (TMA zero fill, the
+//   epilogue skips the columns).
 // - The token product is per image through the core's batch axis, M = K =
 //   N = 196, with Wsp as the shared A operand and vn as an N-major B (K × F
-//   row-major per image, wgmma's transpose bit: the core's TB mode, a 3-D
-//   tensor map for every image but the last so that no image reads the
-//   next one's rows). Wsp's 392-byte rows break TMA's 16-byte stride rule,
-//   so each call first copies Wsp into rows of Np = round_up(N, 8) elements
-//   (400 bytes), zero in the padding (the JAX wrapper pads its K axis to
-//   128 the same way); K stays N, and TMA zero-fills the K tail. M = 196
-//   tokens is cut as 192 + 4 rows, so the second row tile is mostly zero
-//   fill.
+//   row-major per image, wgmma's transpose bit: the TB mode, a 3-D tensor
+//   map for every image but the last so that no image reads the next one's
+//   rows). Wsp's 392-byte rows break TMA's 16-byte stride rule, so each call
+//   first copies Wsp into rows of Np = round_up(N, 8) elements (400 bytes),
+//   zero in the padding (the JAX wrapper pads its K axis to 128 the same
+//   way); K stays N, and TMA zero-fills the K tail. It runs on the handoff
+//   schedule's batched mode: 128-row tiles cut the 196 tokens as 128 + 68
+//   (the cooperative 192-row tile cut them 192 + 4, almost a whole tile of
+//   zero fill), an image's two row tiles of each column slab back to back
+//   so that vn is read from device memory once, and the gate under the
+//   next tile's wgmmas.
 // - Where TMA's rules fail (D or F not a multiple of 8: rows that are not
 //   16-byte multiples apart) a product takes the WMMA core on the same
 //   arguments, a route counted by gmlp_gemm_products as the wgmma one is.
@@ -51,12 +59,15 @@
 //   dimension 2F, adds bs per token, rounds v2 to bf16 and writes g, so v2
 //   never reaches device memory.
 // - Where the time goes (H100 80GB HBM3, 700 W, b256, profile_blocks): a
-//   block takes 1.05 ms (1.48 with its products on WMMA): GEMM1 with GELU
-//   0.40 ms, the token product with the gate 0.33, GEMM2 0.13, the two
-//   LayerNorms 0.15. With a plain f32 store the three products take 0.70
-//   ms (chip_smoke.py phase 5; GEMM1 0.33, 236 TFLOP/s, against the
-//   library's 0.15 for the product alone): the epilogues and the ragged
-//   token tile, not the wgmmas, are what is left.
+//   block takes about 0.90 ms (1.05 before its GELU and token products took
+//   the handoff schedule and the SFU GELU; 1.48 with its products on WMMA):
+//   the token product with the gate 0.32, GEMM1 with GELU 0.28, the two
+//   LayerNorms 0.15, GEMM2 0.13. The token product and GEMM1 are bound by
+//   their epilogues (their MMA warpgroup waits for the epilogue warps 61%
+//   and 47% of its time, tools/handoff_variants.py): above all u, read from
+//   device memory by the gate a run at a time (0.18 ms of the block), and
+//   the GELU's bias loads and stores; the token product moves its 462 MB
+//   of vn, u and g at about 1.4 TB/s.
 // - No atomics: two calls on the same inputs agree bit for bit.
 
 #include "gemm_sm90.cuh"
@@ -151,16 +162,19 @@ extern "C" int gmlp_block_bf16(const void* x, const void* ln1w, const void* ln1b
   JMT_CHECK(cudaMemcpy2DAsync(w.wsp, sizeof(bf16) * Np, wsp, sizeof(bf16) * N,
                               sizeof(bf16) * N, N, cudaMemcpyDeviceToDevice, s));
   JMT_CHECK(layer_norm(s, x, D, ln1w, ln1b, w.xn, M, D));
-  // channel expand over all B·N rows: y = gelu(xn · W1ᵀ + b1), (B·N, 2F)
-  JMT_CHECK(sm90::gemm_tn(s, M, F2, D, w.xn, D, w1, D, gelu_bias(b1, 0, w.y, F2, 0)));
+  // channel expand over all B·N rows: y = gelu(xn · W1ᵀ + b1), (B·N, 2F),
+  // its GELU epilogue under the next tile's wgmmas
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, M, F2, D, w.xn, D, w1, D,
+                                                 gelu_bias(b1, 0, w.y, F2, 0)));
   // the SGU: vn = LN2(v), v the second half of each row of y
   JMT_CHECK(layer_norm(s, w.y + F, F2, sgu_w, sgu_b, w.vn, M, F));
   // token product per image, gated: g = u · bf16(Wsp · vn + bs); Wsp shared,
-  // vn (K = N tokens × F per image) N-major
+  // vn (K = N tokens × F per image) N-major; the gate under the next tile's
+  // wgmmas, an image's two row tiles of each column slab back to back
   const Gate gate{w.y, F2, static_cast<const bf16*>(bs), w.g, F, N,
                   vec_ok(w.y, F2, 0) && vec_ok(w.g, F, 0)};
-  JMT_CHECK((sm90::gemm_bf16<false, true>(s, B, N, F, N, N, w.wsp, Np, 0, w.vn, F,
-                                          (long long)N * F, gate)));
+  JMT_CHECK((sm90::gemm_bf16<false, true, sm90::Sched::Handoff>(s, B, N, F, N, N, w.wsp, Np, 0,
+                                                                w.vn, F, (long long)N * F, gate)));
   // channel project back with the residual: out = x + (g · W2ᵀ + b2)
   JMT_CHECK(sm90::gemm_tn(s, M, D, F, w.g, F, w2, F, residual_bias(b2, 0, x, out, D, 0)));
   return 0;
@@ -170,6 +184,10 @@ extern "C" int gmlp_block_bf16(const void* x, const void* ln1w, const void* ln1b
 // (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
 // route.
 extern "C" long long gmlp_gemm_products(int route) { return sm90::products(route); }
+
+// The wgmma core's launches by this library so far in mode `mode` (0 plain:
+// GEMM2; 4 handoff: GEMM1 and the token product); -1 for another mode.
+extern "C" long long gmlp_mode_launches(int mode) { return sm90::mode_launches(mode); }
 
 extern "C" const char* gmlp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -24,32 +24,41 @@
 //   epilogue), h2 in f32 written and read (the last residual; 77 MB each
 //   way), h2b written and read (FF1), c written and read (154 MB each way),
 //   out written: 0.735 GB, 0.219 ms at 3.35 TB/s, 1.7× the operation bound.
-// - The three products run on the wgmma core (TMA loads into a four-stage
-//   ring, wgmma.m64n192k16 from three consumer warpgroups, persistent
-//   blocks), where the WMMA core (gemm_bf16.cuh) ran them before. FF2's
-//   N = D = 384 is two whole 192-wide tiles.
+// - The three products run on the wgmma core (TMA loads, wgmma from
+//   warp-specialized warpgroups, persistent blocks), where the WMMA core
+//   (gemm_bf16.cuh) ran them before. FF1 (K = D = 384, six K steps) is bound
+//   by its epilogue, the tanh GELU and the bf16 stores of B·N·F values: it
+//   runs on the core's handoff schedule (each 128×192 tile's sums handed to
+//   eleven epilogue warps under the next tile's wgmmas), the GELU
+//   common.cuh's x·σ(2u) on the special-function unit. FF2, whose epilogue
+//   is short, keeps the cooperative schedule (0.114 ms against 0.122 on the
+//   handoff one at b256); its N = D = 384 is two whole 192-wide tiles.
 // - The token product is per image through the core's batch axis, M = K =
 //   N = 196, with Wt as the shared A operand and h as an N-major B (K × D
-//   row-major per image, wgmma's transpose bit: the core's TB mode, a 3-D
-//   tensor map for every image but the last). Wt's 392-byte rows break
-//   TMA's 16-byte stride rule, so each call first copies Wt into rows of
-//   Np = round_up(N, 8) elements (400 bytes), zero in the padding; K stays
-//   N, and TMA zero-fills the K tail. M = 196 tokens is cut as 192 + 4 rows.
+//   row-major per image, wgmma's transpose bit: the TB mode, a 3-D tensor
+//   map for every image but the last). Wt's 392-byte rows break TMA's
+//   16-byte stride rule, so each call first copies Wt into rows of Np =
+//   round_up(N, 8) elements (400 bytes), zero in the padding; K stays N, and
+//   TMA zero-fills the K tail. It runs on the handoff schedule's batched
+//   mode: 128-row tiles cut the 196 tokens as 128 + 68 (the cooperative
+//   tile cut them 192 + 4), an image's two row tiles of each column slab
+//   back to back, and the affine epilogue under the next tile's wgmmas.
 // - Where TMA's rules fail (D not a multiple of 8 for the token product and
 //   FF1, F for FF2: rows that are not 16-byte multiples apart) a product
 //   takes the WMMA core on the same arguments, a route counted by
 //   resmlp_gemm_products as the wgmma one is.
-// - The epilogues run after the wgmmas, not beside them: each takes eight
-//   columns (cnt 8) with 16-byte accesses of h, h2, h2b and out and every
-//   load issued before any is used, the same arithmetic as its element
-//   loop. With a load, compute and store per element the token product
-//   took 0.42 ms a block; the affine pass is eight columns a thread too.
-// - Where the time goes (H100 80GB HBM3, 700.00 W, b256): a block takes
-//   0.57 ms (chip_smoke.py phase 5; 1.45 with its products on WMMA); by
-//   profile_blocks FF1 with GELU 0.23, the token product with its affine
-//   epilogue 0.14, FF2 with the residual 0.13, the affine 0.025. With a
-//   plain f32 store the three products take 0.40 ms (chip_smoke.py phase
-//   5; WMMA 0.89, torch.matmul 0.27 without an epilogue).
+// - The epilogues take eight columns (cnt 8) with 16-byte accesses of h,
+//   h2, h2b and out and every load issued before any is used, the same
+//   arithmetic as their element loop. With a load, compute and store per
+//   element the token product took 0.42 ms a block; the affine pass is
+//   eight columns a thread too.
+// - Where the time goes (H100 80GB HBM3, 700 W, b256, profile_blocks): a
+//   block takes about 0.44 ms (0.56 before its FF1 and token product took
+//   the handoff schedule and the SFU GELU; 1.45 with its products on WMMA):
+//   FF1 with GELU 0.16, FF2 with the residual 0.13, the token product with
+//   its affine epilogue 0.11, the affine 0.025. FF1 and the token product
+//   are bound by their epilogues (their MMA warpgroup waits for the
+//   epilogue warps 31% and 61% of its time, tools/handoff_variants.py).
 // - No atomics: two calls on the same inputs agree bit for bit.
 
 #include <algorithm>
@@ -211,12 +220,15 @@ extern "C" int resmlp_block_bf16(const void* x, const void* a1, const void* b1, 
   affine_kernel<<<static_cast<unsigned>(std::min<long long>((items + 255) / 256, 8192)), 256, 0,
                   s>>>(bf(x), bf(a1), bf(b1), w.h, md, D, vec);
   JMT_CHECK(cudaGetLastError());
-  // token mix per image: Wt shared, h (K = N tokens × D per image) N-major
-  JMT_CHECK((sm90::gemm_bf16<false, true>(
+  // token mix per image: Wt shared, h (K = N tokens × D per image) N-major;
+  // the affine epilogue under the next tile's wgmmas, an image's two row
+  // tiles of each column slab back to back
+  JMT_CHECK((sm90::gemm_bf16<false, true, sm90::Sched::Handoff>(
       s, B, N, D, N, N, w.wt, Np, 0, w.h, D, nd,
       TokenAffine{w.h, bf(bt), bf(g1), bf(a2), bf(b2), w.h2, w.h2b, D, nd})));
-  // channel FF over all B·N rows
-  JMT_CHECK(sm90::gemm_tn(s, M, F, D, w.h2b, D, w1, D, gelu_bias(c1, 0, w.c, F, 0)));
+  // channel FF over all B·N rows, the GELU under the next tile's wgmmas
+  JMT_CHECK(sm90::gemm_tn<sm90::Sched::Handoff>(s, M, F, D, w.h2b, D, w1, D,
+                                                 gelu_bias(c1, 0, w.c, F, 0)));
   JMT_CHECK(sm90::gemm_tn(s, M, D, F, w.c, F, w2, F,
                           ScaledResid{w.h2, bf(g2), bf(c2), static_cast<bf16*>(out), D}));
   return 0;
@@ -226,6 +238,10 @@ extern "C" int resmlp_block_bf16(const void* x, const void* a1, const void* b1, 
 // (the WMMA core), since it was loaded (gemm_sm90.cuh); -1 for another
 // route.
 extern "C" long long resmlp_gemm_products(int route) { return sm90::products(route); }
+
+// The wgmma core's launches by this library so far in mode `mode` (0 plain:
+// FF2; 4 handoff: the token product and FF1); -1 for another mode.
+extern "C" long long resmlp_mode_launches(int mode) { return sm90::mode_launches(mode); }
 
 extern "C" const char* resmlp_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -10,8 +10,10 @@ on its cooperative schedule (its header says what bounds each on an H100
 and what the design does about that). The channel weight backward (``chan_wgt_bwd``) runs its
 four products on the core's bf16 modes (MN-major operands, row slabs with
 one f32 partial each), the channel data backward its two recompute
-products, the bf16 gMLP block (``gmlp_block``) its three (the token product
-with a shared A and an N-major B an entry an image), the W8A8 gMLP block
+products, the bf16 gMLP and ResMLP blocks (``gmlp_block``,
+``resmlp_block``) their three each (the GELU product and the token
+product, a shared A and an N-major B an entry an image, on the handoff
+schedule; the last product on the cooperative one), the W8A8 gMLP block
 (``gmlp_block_int8``) its three products on the core's int8 form, and the
 W8A8 Mixer block (``mixer_block_int8``) its four, the second in the int8
 form's chunked mode. This module launches one product on its own
@@ -42,12 +44,15 @@ instrument, like ``tools/kernel_lab.py``.
 - ``gemm_bf16_group(a, b, per)``: the Group mode (the token backward's
   weight gradients): a (images, M, K), b (images, N, K); one f32 partial
   a group of ``per`` images, (groups, M, N).
-- ``gemm_s8(a, b, rs, cs, chunk=)``: int8 a (M, K) and b (N, K), each
-  shared or one a batch entry (a leading dimension), f32 row scales rs and
-  column scales cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the W8A8
-  dequantization; with ``chunk``, the chunked mode: K in pieces of
+- ``gemm_s8(a, b, rs, cs, chunk=, gelu_bias=)``: int8 a (M, K) and b (N,
+  K), each shared or one a batch entry (a leading dimension), f32 row
+  scales rs and column scales cs; ``(f32(a · bᵀ) · rs) · cs`` in f32, the
+  W8A8 dequantization; with ``chunk``, the chunked mode: K in pieces of
   ``chunk`` codes, rs (M, K // chunk) one scale a (row, piece), the
-  pieces' dequantized products added in piece order.
+  pieces' dequantized products added in piece order; with ``gelu_bias``
+  (N,) bf16 (2-D operands, no chunk), ``gelu_tanh(v + gelu_bias)`` in f32
+  through the s8 core's GELU epilogue, which the W8A8 blocks' first
+  products run: with exact sums, the kernels' shared GELU alone.
 
 Each has its plain twin: ``gemm_tn_ref`` (the f32 product of the operands,
 then the epilogue's arithmetic and one rounding to the operands' dtype; it
@@ -56,7 +61,9 @@ kernel does not), and from ``ops/products.py``, which the block twins
 share, ``gemm_bf16_ref`` with ``sum_slabs_ref`` (the partials added in slab
 order, as the backward adds them), ``gemm_bf16_dual_ref``,
 ``gemm_bf16_group_ref`` and ``gemm_s8_ref`` (the exact integer product, then
-the scales in the kernel's order).
+the scales in the kernel's order; with ``gelu_bias``, then the tanh-form
+GELU, which the kernel evaluates as x·σ(2u) within the bound its header,
+``csrc/common.cuh``, states).
 
 - A CPU tensor goes to the twin; a contiguous CUDA tensor of the kernel's
   dtype launches the kernel on the current stream, on ``core`` ``"auto"``
@@ -64,9 +71,10 @@ the scales in the kernel's order).
   replaced; int8 always the wgmma core, which loads every operand the
   mma.sync core took), ``"sm90"`` (the wgmma core, or raise) or
   ``"legacy"`` (the core it replaced: WMMA for bf16, mma.sync for int8;
-  ``Core::Legacy`` in C); ``gemm_tn`` also on ``"handoff"`` (the wgmma
-  core on the handoff schedule, kernel 1's GELU product's, or raise);
-  anything else raises.
+  ``Core::Legacy`` in C); ``gemm_tn`` and ``gemm_bf16`` (a K-major a) also
+  on ``"handoff"`` (the wgmma core on the handoff schedule, which kernel
+  1's GELU product and the gMLP and ResMLP blocks' GELU and token products
+  run, or raise); anything else raises.
 - ``LAUNCHES``: how many times the wrappers launched a kernel;
   ``routes()``: the bf16 products on each core (a dual launch is two),
   ``s8_routes()`` the int8 ones; ``mode_launches()``: the wgmma core's
@@ -90,13 +98,15 @@ LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gemm_sm90", ["gemm_sm90.cu"],
                {"gemm_tn_bf16": (5, 5), "gemm_bf16_f32": (3, 12), "gemm_s8_f32": (5, 10),
-                "gemm_bf16_dual_f32": (5, 11), "gemm_bf16_group_f32": (3, 6)},
+                "gemm_s8_gelu_f32": (6, 4), "gemm_bf16_dual_f32": (5, 11),
+                "gemm_bf16_group_f32": (3, 6)},
                error="gemm_error_string",
                queries={"gemm_sm90_config": 1, "gemm_mode_launches": 1},
                routes="gemm_tn_products")
 CORES = {"auto": 0, "sm90": 1, "legacy": 2}
-# gemm_tn's cores: also the wgmma core on the handoff schedule, which
-# kernel 1's channel products run (the others run the cooperative one)
+# gemm_tn's and gemm_bf16's cores: also the wgmma core on the handoff
+# schedule, which kernel 1's GELU product and the gMLP and ResMLP blocks'
+# GELU and token products run (the others run the cooperative one)
 TN_CORES = {**CORES, "handoff": 3}
 MODES = {"plain": 0, "chunked": 1, "dual": 2, "group": 3, "handoff": 4}
 _ACTS = {"gelu_tanh": gelu_tanh, "gelu_erf": gelu_erf}
@@ -222,7 +232,9 @@ def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):
     the current stream; it raises on anything it does not take and never
     falls back to the twin."""
     nb, M, N, K = bf16_dims(a, b, a_mn, b_mn, slab)
-    _check_core(core)
+    _check_core(core, TN_CORES)
+    if core == "handoff" and a_mn:
+        raise ValueError("the handoff schedule reads a K-major a")
     if a.device.type == "cpu":
         return gemm_bf16_ref(a, b, a_mn=a_mn, b_mn=b_mn, slab=slab)
     if a.device.type != "cuda":
@@ -232,7 +244,7 @@ def gemm_bf16(a, b, *, a_mn=False, b_mn=False, slab=None, core="auto"):
     out = torch.empty((max(parts, nb), M, N), dtype=torch.float32, device=a.device)
     _LIB.launch("gemm_bf16_f32", a.device, (a, b, out),
                 (nb, M, N, K, a.stride(-2), b.stride(-2), step, int(a_mn), int(b_mn),
-                 int(a.dim() == 3), int(b.dim() == 3), CORES[core]))
+                 int(a.dim() == 3), int(b.dim() == 3), TN_CORES[core]))
     _count()
     return out
 
@@ -326,16 +338,23 @@ def _s8_args(a, b, rs, cs, chunk):
     return nz, M, N, K, tuple(batched)
 
 
-def gemm_s8(a, b, rs, cs, *, chunk=None, core="auto"):
+def gemm_s8(a, b, rs, cs, *, chunk=None, gelu_bias=None, core="auto"):
     """The core's int8 form: (M, N) f32, or (Z, M, N) where an operand has a
-    batch dimension; with ``chunk``, its chunked mode. CPU: the plain twin.
-    CUDA: the kernel (int8 operands with K a multiple of 32, f32 scales,
-    contiguous) on ``core``, launched on the current stream; it raises on
-    anything it does not take and never falls back to the twin."""
+    batch dimension; with ``chunk``, its chunked mode; with ``gelu_bias``,
+    its GELU epilogue. CPU: the plain twin. CUDA: the kernel (int8 operands
+    with K a multiple of 32, f32 scales, a bf16 bias, contiguous) on
+    ``core``, launched on the current stream; it raises on anything it does
+    not take and never falls back to the twin."""
     nz, M, N, K, batched = _s8_args(a, b, rs, cs, chunk)
     _check_core(core)
+    if gelu_bias is not None and (any(batched) or chunk is not None or
+                                  tuple(gelu_bias.shape) != (N,) or
+                                  gelu_bias.device != a.device):
+        raise ValueError(f"gelu_bias takes 2-D operands, no chunk, and a bias of ({N},) on "
+                         f"{a.device}; got {tuple(gelu_bias.shape)} on {gelu_bias.device}")
     if a.device.type == "cpu":
-        return gemm_s8_ref(a, b, rs, cs, chunk=chunk)
+        out = gemm_s8_ref(a, b, rs, cs, chunk=chunk)
+        return out if gelu_bias is None else gelu_tanh(out + gelu_bias.float())
     if a.device.type != "cuda":
         raise ValueError(f"no GEMM kernel for device {a.device}")
     for t, dt in ((a, torch.int8), (b, torch.int8), (rs, torch.float32), (cs, torch.float32)):
@@ -344,6 +363,14 @@ def gemm_s8(a, b, rs, cs, *, chunk=None, core="auto"):
                             f"got {t.dtype}")
     if K % 32:
         raise ValueError(f"K must be a multiple of 32 (zero-padded codes), got {K}")
+    if gelu_bias is not None:
+        if gelu_bias.dtype != torch.bfloat16 or not gelu_bias.is_contiguous():
+            raise TypeError(f"gelu_bias must be contiguous bf16, got {gelu_bias.dtype}")
+        out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+        _LIB.launch("gemm_s8_gelu_f32", a.device, (a, b, rs, cs, gelu_bias, out),
+                    (M, N, K, CORES[core]))
+        _count()
+        return out
     out = torch.empty((nz, M, N), dtype=torch.float32, device=a.device)
     _LIB.launch("gemm_s8_f32", a.device, (a, b, rs, cs, out),
                 (nz, M, N, K, chunk or 0, *batched, CORES[core]))

@@ -11,8 +11,10 @@ an H100 and what the design does about that). For x (B, N, D):
     g   = dt(u·v2)                                in f32, rounded
     out = dt(x + (g·W2ᵀ + b2))
 
-with dt the input dtype, act the tanh-form GELU for bf16 and the exact one
-for float32, and the weights in their torch layouts: w1 (2F, D)
+with dt the input dtype, act the tanh-form GELU for bf16 (the kernel
+evaluates it as x·σ(2u) on the special-function unit, within the bound
+``csrc/common.cuh`` states; the twins keep ``torch.tanh``) and the exact
+one for float32, and the weights in their torch layouts: w1 (2F, D)
 [channel_proj1], wsp (N, N) [sgu.spatial_proj, the Conv1d squeezed],
 w2 (D, F) [channel_proj2].
 
@@ -25,6 +27,8 @@ w2 (D, F) [channel_proj2].
   (``_op.register``; ``OP``): a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``mode_launches()``: the ``wgmma`` core's launches by mode (two on the
+  handoff schedule a launch, GEMM1 and the token product; one plain, GEMM2);
   ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
   the WMMA core (``wmma``), three a launch: the ``wgmma`` core where TMA
   can load the operands (D and F multiples of 8), else WMMA.
@@ -51,7 +55,10 @@ LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("gmlp_block", ["gmlp_block.cu"], {"gmlp_block_bf16": (13, 4)},
                error="gmlp_error_string", workspace={"gmlp_block_bf16_workspace": 4},
-               routes="gmlp_gemm_products")
+               queries={"gmlp_mode_launches": 1}, routes="gmlp_gemm_products")
+# the wgmma core's launch modes this library runs: GEMM1 and the token product on the
+# handoff schedule, GEMM2 on the plain mode
+MODES = {"plain": 0, "handoff": 4}
 
 
 def block_dims(x, weights):
@@ -105,6 +112,14 @@ def gmlp_block_plain(x, ln1w, ln1b, w1, b1, sgu_w, sgu_b, wsp, bs, w2, b2):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def mode_launches():
+    """{mode: n}: the wgmma core's launches so far by mode ("plain": GEMM2,
+    "handoff": GEMM1 and the token product); zeros if the library is not loaded."""
+    if not _LIB.loaded:
+        return dict.fromkeys(MODES, 0)
+    return {k: _LIB.query("gmlp_mode_launches", v) for k, v in MODES.items()}
 
 
 def routes():

@@ -9,8 +9,10 @@ it on an H100 and what the design does about that). For x (B, N, D):
     c   = dt(act(dt(h2)·W1ᵀ + c1))
     out = dt(h2 + γ2·(c·W2ᵀ + c2))                   h2 in f32
 
-with dt the input dtype, act the tanh-form GELU for bf16 and the exact one
-for float32, and the weights in their torch layouts: wt (N, N) (the token
+with dt the input dtype, act the tanh-form GELU for bf16 (the kernel
+evaluates it as x·σ(2u) on the special-function unit, within the bound
+``csrc/common.cuh`` states; the twins keep ``torch.tanh``) and the exact
+one for float32, and the weights in their torch layouts: wt (N, N) (the token
 mix's Conv1d squeezed), w1 (F, D), w2 (D, F); affines and gammas (D,).
 This follows the TPU *kernel*, which keeps h2 in f32 for the last residual;
 the reference's plain block rounds it first.
@@ -24,6 +26,8 @@ the reference's plain block rounds it first.
   (``_op.register``; ``OP``): a CPU tensor goes to the twin; a CUDA bf16
   contiguous tensor launches the kernel; anything else raises.
 - ``LAUNCHES``: how many times the wrapper launched the kernel;
+  ``mode_launches()``: the ``wgmma`` core's launches by mode (two on the
+  handoff schedule a launch, the token product and FF1; one plain, FF2);
   ``routes()``: its products on the bf16 ``wgmma`` core (``sm90``) and on
   the WMMA core (``wmma``), three a launch: the ``wgmma`` core where TMA
   can load the operands (the token product and FF1 need D, FF2 needs F, a
@@ -51,7 +55,10 @@ LAUNCHES = 0
 _COUNT_LOCK = threading.Lock()
 _LIB = Library("resmlp_block", ["resmlp_block.cu"], {"resmlp_block_bf16": (15, 4)},
                error="resmlp_error_string", workspace={"resmlp_block_bf16_workspace": 4},
-               routes="resmlp_gemm_products")
+               queries={"resmlp_mode_launches": 1}, routes="resmlp_gemm_products")
+# the wgmma core's launch modes this library runs: the token product and FF1 on the
+# handoff schedule, FF2 on the plain mode
+MODES = {"plain": 0, "handoff": 4}
 
 
 def block_dims(x, weights):
@@ -104,6 +111,14 @@ def resmlp_block_plain(x, a1, b1, g1, wt, bt, a2, b2, g2, w1, c1, w2, c2):
 def build():
     """Compile (if needed) and load the kernel library."""
     _LIB.load()
+
+
+def mode_launches():
+    """{mode: n}: the wgmma core's launches so far by mode ("plain": FF2,
+    "handoff": the token product and FF1); zeros if the library is not loaded."""
+    if not _LIB.loaded:
+        return dict.fromkeys(MODES, 0)
+    return {k: _LIB.query("resmlp_mode_launches", v) for k, v in MODES.items()}
 
 
 def routes():

@@ -3,7 +3,7 @@ for the Mixer training kernels, its gradient bands (6b), for the axial
 shift its AS-MLP-T gradient bands (6g), for the Mixer block's tensor-parallel
 split entry and finishing pass its split-block check (14a), against
 deliberately broken copies of the kernels (the kernel lab's and the GEMM
-core's modes among them).
+core's modes among them, and the shared GELU, which phase 2 sweeps).
 
     python -m jittor_mlp_tpu_torch.tools.mutation_check [--only M10,M11]
 
@@ -110,11 +110,13 @@ MUTANTS = {
         "const int kend = kt * STEP + (k + 1) * KI;", "const int kend = (kt + 1) * STEP;"),
     "M22 the bf16 gMLP token product's TB bit is dropped: vn is read as a K-major B": (
         "fused_gmlp_block", "csrc/gmlp_block.cu",
-        "sm90::gemm_bf16<false, true>(s, B, N, F,", "sm90::gemm_bf16<false, false>(s, B, N, F,"),
+        "sm90::gemm_bf16<false, true, sm90::Sched::Handoff>(s, B, N, F,",
+        "sm90::gemm_bf16<false, false, sm90::Sched::Handoff>(s, B, N, F,"),
     # the ResMLP blocks on the cores
     "M23 the bf16 ResMLP token product's TB bit is dropped: h is read as a K-major B": (
         "fused_resmlp_block", "csrc/resmlp_block.cu",
-        "(sm90::gemm_bf16<false, true>(", "(sm90::gemm_bf16<false, false>("),
+        "(sm90::gemm_bf16<false, true, sm90::Sched::Handoff>(",
+        "(sm90::gemm_bf16<false, false, sm90::Sched::Handoff>("),
     "M24 the W8A8 ResMLP output's row8 reads h2 of the first of its 8 columns": (
         "fused_resmlp_block_int8", "csrc/resmlp_block_int8.cu",
         "__fadd_rn(r[e], __fmul_rn(at8(g2v, e),", "__fadd_rn(r[0], __fmul_rn(at8(g2v, e),"),
@@ -192,6 +194,30 @@ MUTANTS = {
     "M43 the producer warpgroup's epilogue warps take the first warpgroup's items": (
         "gemm_tn,fused_mixer_block", "csrc/gemm_sm90.cuh",
         "epilogue(4 * HO_EPI_WGS + warp - 1);", "epilogue(warp - 1);"),
+    # the handoff schedule's batched mode (an entry an image, an N-major B),
+    # which the bf16 gMLP and ResMLP blocks' token products run
+    "M44 the batched handoff mode loads entry 0 through the last entry's map, the last through "
+    "the others'": (
+        "gemm_core,fused_gmlp_block,fused_resmlp_block", "csrc/gemm_sm90.cuh",
+        "const bool last = p.z == nz - 1;", "const bool last = p.z == 0;"),
+    "M45 the handoff walk cuts M into whole 128-row tiles: the 68-row tail of 196 is dropped": (
+        "gemm_core,fused_gmlp_block,fused_resmlp_block", "csrc/gemm_sm90.cuh",
+        "const int tiles_m = (M + HO_BM - 1) / HO_BM,", "const int tiles_m = M / HO_BM,"),
+    "M46 the handoff epilogue hands every tile's sums to entry 0": (
+        "gemm_core,fused_gmlp_block,fused_resmlp_block", "csrc/gemm_sm90.cuh",
+        "epi(p.z, gm, gn, v, min(8, N - gn));", "epi(0, gm, gn, v, min(8, N - gn));"),
+    "M47 the gMLP token product reads its images' vn (N - 1)·F apart, not N·F": (
+        "fused_gmlp_block", "csrc/gmlp_block.cu",
+        "w.vn, F, (long long)N * F, gate", "w.vn, F, (long long)(N - 1) * F, gate"),
+    # the shared GELU (x·σ(2u) on the SFU), which every bf16 and W8A8 forward
+    # GELU epilogue and the Mixer backward's recomputes call
+    "M48 the GELU's cubic constant is 0.04, not 0.044715": (
+        "gelu,fused_gmlp_block", "csrc/common.cuh",
+        "GELU_C3 = -0.1029432395800235f", "GELU_C3 = -0.0920883279257730f"),
+    "M49 the GELU takes σ(-2u): the sign of 2u is flipped": (
+        "gelu,fused_gmlp_block", "csrc/common.cuh",
+        "const float a = x * fmaf(x * x, GELU_C3, GELU_C1);",
+        "const float a = -x * fmaf(x * x, GELU_C3, GELU_C1);"),
 }
 TP_KERNELS = {"fused_mixer_block_tp", "mixer_block_tp_finish"}
 TRAIN_KERNELS = {"fwd_with_h", "token_bwd", "chan_data_bwd", "chan_wgt_bwd"}
@@ -212,7 +238,10 @@ if "gemm_tn" in names:
     cs.phase_gemm(mods["gemm_sm90"])
 if "gemm_core" in names:
     cs.phase_core(mods["gemm_sm90"])
+    cs.phase_handoff(mods["gemm_sm90"])
     cs.phase_modes(mods["gemm_sm90"], mods["mixer_block_bwd"])
+if "gelu" in names:
+    cs.phase_gelu(mods["gemm_sm90"])
 if "axial_shift" in names:
     cs.phase_shift(mods["axial_shift"])
 if {"fused_mixer_block_tp", "mixer_block_tp_finish"} & set(names):
@@ -227,6 +256,7 @@ if "shift_bands" in sys.argv[2].split(","):
 # the kernel modules (ops/kernels) that phase 2 and the bands of each kernel
 # name run, beyond the name's own module in chip_smoke's kernel table
 MODULES = {"gemm_tn": ("gemm_sm90",), "gemm_core": ("gemm_sm90", "mixer_block_bwd"),
+           "gelu": ("gemm_sm90",),
            "axial_shift": ("axial_shift",), "bands": ("mixer_block", "mixer_block_bwd"),
            "shift_bands": ("axial_shift",),
            **{k: ("mixer_block",) for k in TP_KERNELS}}
