@@ -18,6 +18,10 @@ block-kernel gate picks its training kernels (``config.pallas_bwd``,
 JAX ``split_params`` aux leaves) are cast for the forward and not
 trained.
 
+Under a profiler the step records three spans (``utils.spans``): the loss
+(casts, forward and loss), ``backward()`` and ``optimizer.step()``; the
+mesh step's gradient reduction and BatchNorm update lie outside them.
+
 BatchNorm running statistics update every step with torch's train-mode
 EMA, as in the JAX step: the forward (and only the forward: a checkpointed
 block's recompute in the backward adds nothing) reports each site's batch
@@ -67,6 +71,7 @@ from torch import nn
 
 from .. import config
 from ..core import nnf, train_utils
+from ..utils import spans
 from . import _comm, tensor
 from .mesh import axis_group, axis_index, axis_size, check_device, mesh_device
 from .multihost import process_batch_offset, process_batch_size
@@ -191,10 +196,12 @@ def make_train_step(model, optimizer, compute_dtype=None, bn_momentum=0.1, mesh=
 
 def _dense_step(model, optimizer, batch, compute_dtype, generator, bn_momentum):
     optimizer.zero_grad(set_to_none=True)
-    with nnf.bn_stats() as stats:  # the forward's statistics only
+    with spans.span(spans.FORWARD), nnf.bn_stats() as stats:  # the forward's statistics only
         loss, _, sites = _loss_and_sites(model, batch, compute_dtype, generator)
-    loss.backward()
-    optimizer.step()
+    with spans.span(spans.BACKWARD):
+        loss.backward()
+    with spans.span(spans.OPTIMIZER):
+        optimizer.step()
     if bn_momentum is not None and stats:
         train_utils.apply_bn_updates(sites, stats, bn_momentum)
     return loss.detach()
@@ -226,11 +233,14 @@ def _mesh_step(model, optimizer, batch, compute_dtype, generator, bn_momentum, m
     global statistics. Returns the global mean loss."""
     check_mesh_step(model, mesh, bn_momentum)
     optimizer.zero_grad(set_to_none=True)
-    with nnf.bn_stats() as stats, data_parallel(mesh, batch["image"].shape[0]):
+    with spans.span(spans.FORWARD), nnf.bn_stats() as stats, \
+            data_parallel(mesh, batch["image"].shape[0]):
         value, _, sites = _loss_and_sites(model, batch, compute_dtype, generator)
-    (value / axis_size(mesh, "model")).backward()
-    reduce_gradients(model, mesh)
-    optimizer.step()
+    with spans.span(spans.BACKWARD):
+        (value / axis_size(mesh, "model")).backward()
+    reduce_gradients(model, mesh)  # outside the spans, which time what the dense step's do
+    with spans.span(spans.OPTIMIZER):
+        optimizer.step()
     if bn_momentum is not None and stats:
         train_utils.apply_bn_updates(sites, stats, bn_momentum)
     return global_mean(value.detach(), mesh)

@@ -29,6 +29,29 @@ import torch
 
 from . import config
 from .data.preprocess import IMAGENET_MEAN, IMAGENET_STD, resize_bilinear
+from .utils import spans
+
+
+class _Ring:
+    """The last ``size`` samples of one quantity, in seconds, and how many
+    were added. Not locked: its owner's lock guards it."""
+
+    def __init__(self, size=1024):
+        self._v = np.zeros(size, np.float64)
+        self.count = 0
+
+    def add(self, seconds):
+        self._v[self.count % self._v.size] = seconds
+        self.count += 1
+
+    def sorted_ms(self):
+        """The samples held, sorted, in ms."""
+        return np.sort(self._v[:min(self.count, self._v.size)]) * 1000.0
+
+
+def _quantile(w, p):
+    """The ``p`` quantile of the sorted, non-empty samples ``w``."""
+    return float(w[min(int(p * len(w)), len(w) - 1)])
 
 
 class Predictor:
@@ -83,8 +106,7 @@ class Predictor:
         self._preprocess = preprocess
         # per-request wall-clock ring buffer (seconds). Locked: predict may
         # run concurrently from MicroBatcher's executor pool.
-        self._lat = np.zeros(1024, np.float64)
-        self._lat_n = 0
+        self._lat = _Ring()
         self._lat_lock = threading.Lock()
 
     @torch.inference_mode()
@@ -134,14 +156,15 @@ class Predictor:
                            images.dtype)
             images = np.concatenate([images, pad])
         t0 = time.perf_counter()
-        idx, probs = self._fwd(torch.from_numpy(images).to(self.device))
+        with spans.span(spans.UPLOAD):
+            x = torch.from_numpy(images).to(self.device)
+        idx, probs = self._fwd(x)
         out = idx.cpu().numpy()[:n], probs.cpu().numpy()[:n]
         # the copies to the host wait for the device, so the stopwatch
         # covers upload + forward + top-k download: the request time
         dt = time.perf_counter() - t0
         with self._lat_lock:
-            self._lat[self._lat_n % self._lat.size] = dt
-            self._lat_n += 1
+            self._lat.add(dt)
         return out
 
     def latency_stats(self):
@@ -149,17 +172,15 @@ class Predictor:
         last 1024 ``predict`` calls, warmup included until it rotates out).
         Returns {} before any request; times in ms."""
         with self._lat_lock:
-            n = min(self._lat_n, self._lat.size)
-            if n == 0:
-                return {}
-            w = np.sort(self._lat[:n]) * 1000.0
-        q = lambda p: float(w[min(int(p * n), n - 1)])
+            count, w = self._lat.count, self._lat.sorted_ms()
+        if count == 0:
+            return {}
         return {
-            "count": self._lat_n,
+            "count": count,
             "mean_ms": float(w.mean()),
-            "p50_ms": q(0.50),
-            "p95_ms": q(0.95),
-            "p99_ms": q(0.99),
+            "p50_ms": _quantile(w, 0.50),
+            "p95_ms": _quantile(w, 0.95),
+            "p99_ms": _quantile(w, 0.99),
             "max_ms": float(w[-1]),
         }
 
@@ -189,7 +210,8 @@ class MicroBatcher:
 
     ``in_flight`` runs dispatched batches through a small executor pool, so
     host-side packing and transfers of one batch overlap the device work of
-    another.
+    another. A batch handed over while every worker is busy waits in the
+    executor's queue: ``stats()``'s ``exec_wait_ms`` shows that wait.
     """
 
     def __init__(self, predictor, max_delay_ms=2.0, in_flight=4):
@@ -206,6 +228,8 @@ class MicroBatcher:
         self._fills = np.zeros(predictor.batch_size + 1, np.int64)
         self._batches = 0
         self._requests = 0
+        self._queue_wait = _Ring()  # a request's: submit to dispatch
+        self._exec_wait = _Ring()  # a batch's: hand-off to a worker's start
         self._stats_lock = threading.Lock()
         self._pool = ThreadPoolExecutor(
             max_workers=max(1, in_flight), thread_name_prefix="microbatch"
@@ -260,9 +284,14 @@ class MicroBatcher:
                     self._cv.wait(remaining)
                 batch = self._queue[:cap]
                 del self._queue[:cap]
-            self._pool.submit(self._execute, batch)
+            taken = time.perf_counter()
+            with self._stats_lock:
+                for p in batch:
+                    self._queue_wait.add(taken - p.t0)
+            self._pool.submit(self._execute, batch, taken)
 
-    def _execute(self, batch):
+    def _execute(self, batch, handed):
+        waited = time.perf_counter() - handed
         try:
             labels, probs = self.predictor.predict(
                 np.stack([p.image for p in batch])
@@ -276,25 +305,38 @@ class MicroBatcher:
             self._batches += 1
             self._requests += len(batch)
             self._fills[len(batch)] += 1
+            self._exec_wait.add(waited)
         for p in batch:
             p.event.set()
 
     def stats(self):
         """Batching effectiveness: dispatched batches, mean fill (of
-        batch_size), and the occupancy histogram {fill: count}."""
+        batch_size), the occupancy histogram {fill: count} and
+        ``padded_rows``, the rows of padding the batches carried; and where
+        requests wait, each {"p50", "p99"} in ms over the recent window (up
+        to the last 1024 samples; {} before the first): ``queue_wait_ms``, a
+        request's from ``submit`` until the dispatcher takes it, and
+        ``exec_wait_ms``, a batch's from its hand-off to the executor until
+        a worker starts it."""
         with self._stats_lock:
             requests, b = self._requests, self._batches
             fills = self._fills.copy()
+            waits = {"queue_wait_ms": self._queue_wait.sorted_ms(),
+                     "exec_wait_ms": self._exec_wait.sorted_ms()}
+        cap = self.predictor.batch_size
         return {
             "requests": int(requests),
             "batches": int(b),
-            "batch_size": int(self.predictor.batch_size),
+            "batch_size": int(cap),
             "mean_fill": float(requests / b) if b else 0.0,
             "fill_hist": {
                 str(i): int(c)
                 for i, c in enumerate(fills)
                 if i > 0 and c
             },
+            "padded_rows": int(b * cap - requests),
+            **{k: {"p50": _quantile(w, 0.50), "p99": _quantile(w, 0.99)} if len(w) else {}
+               for k, w in waits.items()},
         }
 
     def close(self):

@@ -1,6 +1,7 @@
 """The port's Predictor and MicroBatcher against jittor_mlp_tpu's, on the CPU."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -121,6 +122,59 @@ def test_microbatcher_bit_identical_to_predict():
     assert stats["requests"] == 8 and stats["batches"] >= 2
     with pytest.raises(RuntimeError):
         mb.submit(imgs[0])
+
+
+def _submit_all(mb, images):
+    """Submit each image from a thread of its own; every thread finishes."""
+    threads = [threading.Thread(target=mb.submit, args=(im,)) for im in images]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+
+
+def test_microbatcher_wait_counters_count_and_order():
+    _, tp = _predictors(batch_size=4)
+    with jt.MicroBatcher(tp, max_delay_ms=20.0) as mb:
+        empty = mb.stats()
+        mb.submit(_images(1)[0])  # alone: dispatched at its deadline
+        alone = mb.stats()
+        _submit_all(mb, _images(6, seed=2))
+        s = mb.stats()
+        queued, execs = mb._queue_wait.count, mb._exec_wait.count
+    assert empty["queue_wait_ms"] == empty["exec_wait_ms"] == {} and empty["padded_rows"] == 0
+    assert alone["queue_wait_ms"]["p50"] >= 20.0 and alone["padded_rows"] == 3
+    assert s["requests"] == queued == 7 and s["batches"] == execs
+    assert s["padded_rows"] == s["batches"] * 4 - 7 == sum(
+        (4 - int(fill)) * c for fill, c in s["fill_hist"].items())
+    for k in ("queue_wait_ms", "exec_wait_ms"):
+        assert set(s[k]) == {"p50", "p99"} and 0.0 <= s[k]["p50"] <= s[k]["p99"]
+    assert {"requests", "batches", "batch_size", "mean_fill", "fill_hist"} <= set(s)
+
+
+class _SlowPredictor:
+    """A predictor whose every call holds its worker for ``seconds``."""
+
+    batch_size, seconds = 2, 0.1
+
+    def predict(self, images):
+        time.sleep(self.seconds)
+        n = len(images)
+        return np.zeros((n, 3), np.int64), np.ones((n, 3), np.float32)
+
+
+def test_exec_wait_grows_behind_a_busy_worker():
+    """Eight requests make at least four batches of two. One worker runs
+    them one after the other, so the last waits behind at least two slow
+    calls; eight workers start each at once."""
+    waits = {}
+    for in_flight in (1, 8):
+        with jt.MicroBatcher(_SlowPredictor(), max_delay_ms=20.0, in_flight=in_flight) as mb:
+            _submit_all(mb, np.zeros((8, 4, 4, 3), np.uint8))
+            waits[in_flight] = mb.stats()["exec_wait_ms"]["p99"]
+    assert waits[1] >= 1000 * _SlowPredictor.seconds
+    assert waits[8] < waits[1]
 
 
 # a Mixer whose blocks run the W8A8 kernel's twin on the CPU (bf16, eval)
